@@ -1,0 +1,328 @@
+"""WCSPH fluid ops in cell-block layout (counterpart of
+sphinxsys_tpu/physics/fluid_blocks.py).
+
+A block state is a dict of (C+1, cap, ...) tensors with the reference
+variable names plus "SlotMask" ((C+1, cap) bool); row C is the all-padding
+sentinel.  Two families:
+
+* the `*_b` forms: every pair sweep a loop over the 3^dim windows of dense
+  (C, cap_i, cap_j) tensor ops with explicit slot masks — the float64 CPU
+  oracle held against the JAX package's `*_b` forms.  They sweep only the
+  occupied rows (`occupied_rows`): later rows hold padding, which adds
+  exactly zero;
+* the `*_p2` forms: the same updates with the pair sums taken by
+  ops/block_sweeps.py (the CUDA kernels on the card, their plain versions
+  on the CPU).
+
+Reference: fluid_integration.hpp (dual-criteria WCSPH, SURVEY.md §3.2).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sphinxsys_tpu_torch.neighbors.cell_blocks import occupied_rows, window_offsets
+from sphinxsys_tpu_torch.ops import block_sweeps as sweeps
+
+TINY = 1.0e-15
+
+
+def _center_index(dim: int) -> int:
+    return window_offsets(dim).index((0,) * dim)
+
+
+def _pair_geom(pos_i, mask_i, pos_j, mask_j, w, dim, exclude_self):
+    """(C, capi, capj) pair geometry (r, e, mask) given gathered j data."""
+    c = pos_j.shape[0]
+    disp = pos_i[:c, :, None, :] - pos_j[:, None, :, :]
+    r2 = torch.sum(disp * disp, dim=-1)
+    r = torch.sqrt(r2 + TINY)
+    e = disp / (r[..., None] + TINY)
+    mask = mask_i[:c, :, None] & mask_j[:, None, :]
+    if exclude_self and w == _center_index(dim):
+        capi = pos_i.shape[1]
+        eye = torch.eye(capi, dtype=torch.bool, device=pos_i.device)
+        mask = mask & ~eye[None, :, :]
+    return r, e, mask
+
+
+def _pair_vec_sum(a, v):
+    """sum_j a_ij v_ij: (C, capi, capj) x (C, capi, capj, dim) -> (C, capi, dim)."""
+    return torch.einsum("cij,cijk->cik", a, v)
+
+
+def _zero_pad(x, c):
+    """Rows [:n] -> rows [:c], the rest zero."""
+    return torch.cat([x, x.new_zeros((c - x.shape[0],) + tuple(x.shape[1:]))])
+
+
+def _masked_max(x, mask):
+    return torch.max(torch.where(mask, x, torch.zeros_like(x)))
+
+
+def _pad_rows(x, like, c):
+    """Concatenate computed rows [:c] with `like`'s sentinel rows."""
+    return torch.cat([x, like[c:]], dim=0)
+
+
+# ---------------------------------------------------------------------------
+# time steps
+# ---------------------------------------------------------------------------
+
+def acoustic_time_step_b(fb, eos, h_min: float, cfl: float = 0.6):
+    c = eos.sound_speed(fb["Pressure"], fb["Density"])
+    speed = torch.linalg.vector_norm(fb["Velocity"], dim=-1)
+    reduced = _masked_max(c + speed, fb["SlotMask"])
+    return cfl * h_min / (reduced + TINY)
+
+
+def advection_time_step_b(fb, h_min: float, speed_ref: float, cfl: float = 0.25):
+    accel_scale = 4.0 * h_min * torch.linalg.vector_norm(
+        fb["Force"] + fb["ForcePrior"], dim=-1) / torch.clamp(fb["Mass"], min=TINY)
+    v2 = torch.sum(fb["Velocity"] ** 2, dim=-1)
+    reduced = _masked_max(torch.maximum(v2, accel_scale), fb["SlotMask"])
+    return cfl * h_min / (torch.clamp(torch.sqrt(reduced), min=speed_ref) + TINY)
+
+
+# ---------------------------------------------------------------------------
+# density summation
+# ---------------------------------------------------------------------------
+
+def _density_update(fb, rho_sum, c, rho0, free_surface):
+    out = dict(fb)
+    pad = fb["Density"]
+    if free_surface:
+        out["Density"] = _pad_rows(torch.clamp(rho_sum, min=rho0), pad, c)
+    else:
+        out["Density"] = _pad_rows(rho_sum, pad, c)
+        out["VolumetricMeasure"] = torch.where(
+            fb["SlotMask"], fb["Mass"] / torch.clamp(out["Density"], min=TINY),
+            fb["VolumetricMeasure"])
+    out["DensitySummation"] = _pad_rows(rho_sum, pad, c)
+    return out
+
+
+def density_summation_b(fb, nbr_inner, kernel, dim: int, rho0: float,
+                        sigma0: float, wall_b=None, nbr_wall=None,
+                        free_surface: bool = True):
+    """rho = (w0 + sum_j W_ij) rho0/sigma0 + sum_k W_ik V_k rho0^2/(sigma0 m_i)
+    (wall contact through V = m/rho0)."""
+    pos, mask = fb["Position"], fb["SlotMask"]
+    c, n = nbr_inner.shape[0], occupied_rows(nbr_inner)
+    sigma = torch.full((c, pos.shape[1]), kernel.w0(dim), dtype=pos.dtype,
+                       device=pos.device)
+    for w in range(len(window_offsets(dim))):
+        j = nbr_inner[:n, w].long()
+        r, _, m = _pair_geom(pos, mask, pos[j], mask[j], w, dim, True)
+        sigma[:n] = sigma[:n] + torch.sum(kernel.W(r, dim) * m.to(r.dtype), dim=2)
+    rho_sum = sigma * rho0 / sigma0
+
+    if wall_b is not None:
+        wsum = torch.zeros_like(rho_sum)
+        for w in range(len(window_offsets(dim))):
+            j = nbr_wall[:n, w].long()
+            r, _, m = _pair_geom(pos, mask, wall_b["Position"][j],
+                                 wall_b["SlotMask"][j], w, dim, False)
+            W = kernel.W(r, dim) * m.to(r.dtype)
+            wsum[:n] = wsum[:n] + torch.sum(
+                W * wall_b["VolumetricMeasure"][j][:, None, :], dim=2)
+        rho_sum = rho_sum + wsum * rho0 * rho0 / sigma0 / torch.clamp(
+            fb["Mass"][:c], min=TINY)
+    return _density_update(fb, rho_sum, c, rho0, free_surface)
+
+
+def density_summation_p2(fb, nbr_inner, wall_b, nbr_wall, kernel, rho0: float,
+                         sigma0: float, dim: int, free_surface: bool = True,
+                         box=None):
+    """density_summation_b through the B1 sweep.  The sweep's fluid sum
+    counts the self pair as W(0) = w0, and its wall sum uses V_k = m_k/rho0_k.
+
+    NOTE: the fluid sum is a number density (sum W, as in the reference's
+    DensitySummation<Inner> and density_summation_b), which presumes
+    equal-mass fluid particles (the dambreak); for any masses this form
+    and density_summation_b compute the same algebra."""
+    c = nbr_inner.shape[0]
+    s = sweeps.density_sweep(
+        fb["Position"], fb["SlotMask"], nbr_inner,
+        *_wall_args(wall_b, nbr_wall, "Position", "VolumetricMeasure"),
+        inv_h=1.0 / kernel.h, factor_w=kernel._factor_w(dim), box=box)
+    rho_sum = s[..., 0] * rho0 / sigma0 + s[..., 1] * rho0 * rho0 / (
+        sigma0 * torch.clamp(fb["Mass"][:c], min=TINY))
+    return _density_update(fb, rho_sum, c, rho0, free_surface)
+
+
+def _wall_args(wall_b, nbr_wall, *keys):
+    if wall_b is None:
+        return (None,) * len(keys) + (None,)
+    return tuple(wall_b[k] for k in keys) + (nbr_wall,)
+
+
+# ---------------------------------------------------------------------------
+# acoustic half-steps
+# ---------------------------------------------------------------------------
+
+def _half_step_fields(fb, eos, dt):
+    mask = fb["SlotMask"]
+    rho = torch.where(mask, fb["Density"] + fb["DensityChangeRate"] * (0.5 * dt),
+                      fb["Density"])
+    p = eos.pressure(rho)
+    pos = fb["Position"] + torch.where(mask[..., None], fb["Velocity"] * (0.5 * dt),
+                                       torch.zeros_like(fb["Velocity"]))
+    return rho, p, pos
+
+
+def _first_half_update(fb, force, rd, rho, p, pos, dt, c):
+    out = dict(fb)
+    mask = fb["SlotMask"]
+    vol = fb["VolumetricMeasure"]
+    force_total = fb["Force"] + torch.cat(
+        [force * vol[:c][..., None], torch.zeros_like(fb["Force"][c:])], dim=0)
+    drho_dt = torch.cat([rd * rho[:c], fb["DensityChangeRate"][c:]], dim=0)
+    acc = (fb["ForcePrior"] + force_total) / torch.clamp(
+        fb["Mass"], min=TINY)[..., None]
+    vel = fb["Velocity"] + torch.where(mask[..., None], acc * dt,
+                                       torch.zeros_like(acc))
+    out.update({"Density": rho, "Pressure": p, "Position": pos,
+                "Force": force_total, "DensityChangeRate": drho_dt,
+                "Velocity": vel})
+    return out
+
+
+def _second_half_update(fb, force, dcr, pos, dt, c):
+    out = dict(fb)
+    mask = fb["SlotMask"]
+    rho = fb["Density"]
+    drho_dt = fb["DensityChangeRate"] + torch.cat(
+        [dcr * rho[:c], torch.zeros_like(rho[c:])], dim=0)
+    force_full = torch.cat([force, torch.zeros_like(fb["Velocity"][c:])], dim=0)
+    rho_new = torch.where(mask, rho + drho_dt * (0.5 * dt), rho)
+    out.update({"Position": pos, "DensityChangeRate": drho_dt,
+                "Force": force_full, "Density": rho_new})
+    return out
+
+
+def acoustic_step_1st_half_b(fb, nbr_inner, kernel, dim: int, eos, riemann, dt,
+                             wall_b=None, nbr_wall=None):
+    mask = fb["SlotMask"]
+    rho, p, pos = _half_step_fields(fb, eos, dt)
+    vol = fb["VolumetricMeasure"]
+    c, n = nbr_inner.shape[0], occupied_rows(nbr_inner)
+    n_w = len(window_offsets(dim))
+
+    force = torch.zeros_like(fb["Velocity"][:n])
+    rho_diss = torch.zeros_like(p[:n])
+    p_i = p[:n, :, None]
+    for w in range(n_w):
+        j = nbr_inner[:n, w].long()
+        r, e, m = _pair_geom(pos, mask, pos[j], mask[j], w, dim, True)
+        dWV = kernel.dW(r, dim) * m.to(r.dtype) * vol[j][:, None, :]
+        p_j = p[j][:, None, :]
+        force = force - _pair_vec_sum((p_i + p_j) * dWV, e)
+        rho_diss = rho_diss + torch.sum(
+            riemann.dissipative_u_jump(p_i - p_j) * dWV, dim=2)
+
+    if wall_b is not None:
+        acc_prior = fb["ForcePrior"] / torch.clamp(fb["Mass"], min=TINY)[..., None]
+        for w in range(n_w):
+            j = nbr_wall[:n, w].long()
+            r, e, m = _pair_geom(pos, mask, wall_b["Position"][j],
+                                 wall_b["SlotMask"][j], w, dim, False)
+            dWV = kernel.dW(r, dim) * m.to(r.dtype) \
+                * wall_b["VolumetricMeasure"][j][:, None, :]
+            wall_acc = wall_b["AverageAcceleration"][j][:, None, :, :]
+            face_acc = torch.sum((acc_prior[:n, :, None, :] - wall_acc) * (-e),
+                                 dim=-1)
+            p_in_wall = p_i + rho[:n, :, None] * r * torch.clamp(face_acc, min=0.0)
+            force = force - _pair_vec_sum((p_i + p_in_wall) * dWV, e)
+            rho_diss = rho_diss + torch.sum(
+                riemann.dissipative_u_jump(p_i - p_in_wall) * dWV, dim=2)
+    return _first_half_update(fb, _zero_pad(force, c), _zero_pad(rho_diss, c),
+                              rho, p, pos, dt, c)
+
+
+def acoustic_step_2nd_half_b(fb, nbr_inner, kernel, dim: int, riemann, dt,
+                             wall_b=None, nbr_wall=None):
+    mask = fb["SlotMask"]
+    pos = fb["Position"] + torch.where(mask[..., None], fb["Velocity"] * (0.5 * dt),
+                                       torch.zeros_like(fb["Velocity"]))
+    vel = fb["Velocity"]
+    vol = fb["VolumetricMeasure"]
+    c, n = nbr_inner.shape[0], occupied_rows(nbr_inner)
+    n_w = len(window_offsets(dim))
+
+    dcr = torch.zeros_like(fb["Density"][:n])
+    p_diss = torch.zeros_like(vel[:n])
+    v_i = vel[:n, :, None, :]
+    for w in range(n_w):
+        j = nbr_inner[:n, w].long()
+        r, e, m = _pair_geom(pos, mask, pos[j], mask[j], w, dim, True)
+        dWV = kernel.dW(r, dim) * m.to(r.dtype) * vol[j][:, None, :]
+        u_jump = torch.sum((v_i - vel[j][:, None, :, :]) * e, dim=-1)
+        dcr = dcr + torch.sum(u_jump * dWV, dim=2)
+        p_diss = p_diss + _pair_vec_sum(
+            riemann.dissipative_p_jump(u_jump) * dWV, e)
+    force = p_diss * vol[:n][..., None]
+
+    if wall_b is not None:
+        for w in range(n_w):
+            j = nbr_wall[:n, w].long()
+            r, e, m = _pair_geom(pos, mask, wall_b["Position"][j],
+                                 wall_b["SlotMask"][j], w, dim, False)
+            dWV = kernel.dW(r, dim) * m.to(r.dtype) \
+                * wall_b["VolumetricMeasure"][j][:, None, :]
+            vel_ave = wall_b["AverageVelocity"][j][:, None, :, :]
+            n_k = wall_b["NormalDirection"][j][:, None, :, :]
+            face_n = torch.sign(torch.sum(e * n_k, dim=-1))[..., None] * n_k
+            vel_in_wall = 2.0 * vel_ave - v_i
+            dcr = dcr + torch.sum(torch.sum((v_i - vel_in_wall) * e, dim=-1) * dWV,
+                                  dim=2)
+            u_jump_w = 2.0 * torch.sum((v_i - vel_ave) * face_n, dim=-1)
+            force = force + _pair_vec_sum(
+                riemann.dissipative_p_jump(u_jump_w) * dWV, face_n) \
+                * vol[:n][..., None]
+    return _second_half_update(fb, _zero_pad(force, c), _zero_pad(dcr, c), pos,
+                               dt, c)
+
+
+def acoustic_step_1st_half_p2(fb, nbr_inner, wall_b, nbr_wall, kernel, eos,
+                              riemann, dt, dim: int, wall_static: bool = False,
+                              box=None):
+    """acoustic_step_1st_half_b through the B2 sweep.  `wall_static` drops
+    the wall acceleration channel (identically zero for fixed walls)."""
+    rho, p, pos = _half_step_fields(fb, eos, dt)
+    c = nbr_inner.shape[0]
+    acc_prior = fb["ForcePrior"] / torch.clamp(fb["Mass"], min=TINY)[..., None]
+    wall = _wall_args(wall_b, nbr_wall, "Position", "VolumetricMeasure",
+                      "AverageAcceleration")
+    if wall_static and wall_b is not None:
+        wall = wall[:2] + (None,) + wall[3:]
+    inv_h = 1.0 / kernel.h
+    out = sweeps.ac1_sweep(
+        pos, p, rho, acc_prior, fb["VolumetricMeasure"], nbr_inner, *wall,
+        inv_h=inv_h, dw_scale=kernel._factor_w(dim) * inv_h * 0.625,
+        inv_rho0c0=riemann.inv_rho0c0_ave, box=box)
+    return _first_half_update(fb, out[..., :dim], out[..., dim], rho, p, pos,
+                              dt, c)
+
+
+def acoustic_step_2nd_half_p2(fb, nbr_inner, wall_b, nbr_wall, kernel, riemann,
+                              dt, dim: int, wall_static: bool = False, box=None):
+    """acoustic_step_2nd_half_b through the B3 sweep.  `wall_static` drops
+    the wall velocity channel."""
+    mask = fb["SlotMask"]
+    pos = fb["Position"] + torch.where(mask[..., None], fb["Velocity"] * (0.5 * dt),
+                                       torch.zeros_like(fb["Velocity"]))
+    vol = fb["VolumetricMeasure"]
+    c = nbr_inner.shape[0]
+    wall = _wall_args(wall_b, nbr_wall, "Position", "VolumetricMeasure",
+                      "AverageVelocity", "NormalDirection")
+    if wall_static and wall_b is not None:
+        wall = wall[:2] + (None,) + wall[3:]
+    inv_h = 1.0 / kernel.h
+    out = sweeps.ac2_sweep(
+        pos, fb["Velocity"], vol, nbr_inner, *wall, inv_h=inv_h,
+        dw_scale=kernel._factor_w(dim) * inv_h * 0.625,
+        rho0c0_geo=riemann.rho0c0_geo_ave,
+        lim_scale=riemann.limiter_coeff * riemann.inv_c0_ave, box=box)
+    force = out[..., 1:] * vol[:c][..., None]
+    return _second_half_update(fb, force, out[..., 0], pos, dt, c)
