@@ -81,14 +81,14 @@ def build_tank_case(dx: float, dim: int, tank, water, gravity, dtype, device):
     return case, fluid
 
 
-def build_case(dx: float = 0.025, dtype=PRODUCTION_DTYPE, device="cpu"):
+def build_case(dx: float = 0.025, dtype=PRODUCTION_DTYPE, device="cuda"):
     """The scene (no neighbour structures).  Returns (case, fluid state)."""
     return build_tank_case(dx, 2, (DL, DH), (LL, LH),
                            gd.Gravity(acceleration=(0.0, -GRAVITY_G)), dtype,
                            resolve_device(device))
 
 
-def build_block_case(dx: float = 0.025, dtype=PRODUCTION_DTYPE, device="cpu",
+def build_block_case(dx: float = 0.025, dtype=PRODUCTION_DTYPE, device="cuda",
                      cap: int = 12, c_max: int | None = None,
                      use_kernels: bool = True):
     """The scene on the cell-block engine.  Returns (BlockScene, fluid)."""

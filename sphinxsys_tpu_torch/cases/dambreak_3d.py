@@ -18,14 +18,14 @@ U_REF = 2.0 * math.sqrt(GRAVITY_G * LH)
 C_F = 10.0 * U_REF
 
 
-def build_case(dx: float = 0.05, dtype=PRODUCTION_DTYPE, device="cpu"):
+def build_case(dx: float = 0.05, dtype=PRODUCTION_DTYPE, device="cuda"):
     """The scene (no neighbour structures).  Returns (case, fluid state)."""
     return build_tank_case(dx, 3, (DL, DH, DW), (LL, LH, LW),
                            gd.Gravity(acceleration=(0.0, -GRAVITY_G, 0.0)),
                            dtype, resolve_device(device))
 
 
-def build_block_case(dx: float = 0.05, dtype=PRODUCTION_DTYPE, device="cpu",
+def build_block_case(dx: float = 0.05, dtype=PRODUCTION_DTYPE, device="cuda",
                      cap: int = 40, c_max: int | None = None,
                      use_kernels: bool = True):
     """The scene on the cell-block engine.  A 2.6dx cell holds up to 27

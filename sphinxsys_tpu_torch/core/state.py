@@ -1,7 +1,8 @@
 """Particle state (counterpart of sphinxsys_tpu/core/state.py): a body's
 state is a dict {reference variable name: tensor}; "NReal" (a Python int)
 counts the real rows (a state carried across from the JAX package may be
-padded past them)."""
+padded past them).  The helpers take the dtype and device from their
+caller: nothing here picks a device."""
 
 from __future__ import annotations
 
@@ -22,8 +23,8 @@ def valid_mask(state: State) -> torch.Tensor:
     return torch.arange(n, device=state["Position"].device) < state[N_REAL]
 
 
-def make_base_state(pos: np.ndarray, volume, rho0: float, dtype=torch.float32,
-                    device="cpu") -> State:
+def make_base_state(pos: np.ndarray, volume, rho0: float, dtype: torch.dtype,
+                    device) -> State:
     """Position, VolumetricMeasure, Density, Mass (+ NReal) of n particles."""
     pos = np.asarray(pos)
     n = pos.shape[0]
@@ -41,8 +42,8 @@ def make_base_state(pos: np.ndarray, volume, rho0: float, dtype=torch.float32,
     }
 
 
-def make_fluid_state(pos: np.ndarray, volume, rho0: float, dtype=torch.float32,
-                     device="cpu") -> State:
+def make_fluid_state(pos: np.ndarray, volume, rho0: float, dtype: torch.dtype,
+                     device) -> State:
     """Base + the WCSPH integration variables (fluid_integration.hpp:12-23)."""
     state = make_base_state(pos, volume, rho0, dtype, device)
     shape = state["Position"].shape
@@ -53,8 +54,8 @@ def make_fluid_state(pos: np.ndarray, volume, rho0: float, dtype=torch.float32,
     return state
 
 
-def make_solid_state(pos: np.ndarray, volume, rho0: float, dtype=torch.float32,
-                     device="cpu") -> State:
+def make_solid_state(pos: np.ndarray, volume, rho0: float, dtype: torch.dtype,
+                     device) -> State:
     """Base + normals and the averaged wall kinematics the fluid wall
     boundary reads (zero for static walls)."""
     state = make_base_state(pos, volume, rho0, dtype, device)

@@ -1,7 +1,9 @@
 """Device and dtype policy.
 
-* The device is always passed explicitly (`build_block_case(device=...)`,
-  `init_sim(..., device=...)`); nothing guesses it from globals.
+* The case entry points (`build_case`, `build_block_case`) run on the card
+  by default (`device="cuda"`); the CPU is asked for explicitly
+  (`device="cpu"`), as the tests do.  Below them the device comes from the
+  caller; nothing guesses it from globals.
 * Asking for CUDA where there is none raises — there is no silent CPU path.
 * float32 is the production dtype; float64 runs the CPU oracle that the
   parity tests hold against the JAX package.

@@ -4,15 +4,18 @@ sphinxsys_tpu/engine/block_fluid.py):
   * `BlockEngine` — the static configuration;
   * `slot_fluid` — (re-)slot flat particle fields into fresh cell blocks;
   * `build_wall_blocks` / `wall_windows` — a static wall-type contact body;
-  * `advection_prep` — density summation;
+  * `advection_prep` — density summation (+ viscous force + transport-
+    velocity correction, as configured);
   * `acoustic_first_half` / `acoustic_second_half` — the two half-step
     pressure/density relaxations.
 
-`use_kernels=True` takes the pair sums through ops/block_sweeps.py (the
-CUDA kernels on the card, their plain versions on the CPU); False runs the
-`*_b` block forms.  The JAX engine's TPU workarounds (tile_c, window and
-wall chunking, wall compaction, roll_y) have no counterpart: the kernels
-read neighbour blocks through the window maps directly.
+`use_kernels=True` (the default) takes the pair sums through
+ops/block_sweeps.py (the CUDA kernels on the card, their plain versions on
+the CPU); False runs the `*_b` block forms, the float64 oracle.  The
+grid's periodic axes give the sweeps their minimum-image box.  The JAX
+engine's TPU workarounds (tile_c, window and wall chunking, wall
+compaction, roll_y) have no counterpart: the kernels read neighbour blocks
+through the window maps directly.
 """
 
 from __future__ import annotations
@@ -63,17 +66,24 @@ class BlockEngine:
     h: float
     speed_ref: float
     dim: int = 2
+    mu: float = 0.0           # Newtonian viscosity (0: no viscous force)
+    tvc_coef: float = 0.0     # transport-velocity correction (0: off)
+    tvc_limiter: float | None = None
     free_surface: bool = True
     cap: int = 12
     c_max: int = 0            # occupied-cell capacity
     cap_ac_dt: bool = False   # cap the acoustic dt by the advection dt
     wall_static: bool = False  # fixed walls: the sweeps drop the wall
                                # velocity/acceleration channels
-    use_kernels: bool = False
+    use_kernels: bool = True
 
     @property
     def box(self):
         return self.grid.periodic_lengths
+
+    @property
+    def fluid_fields(self):
+        return FLUID_FIELDS + (("ViscousForcePrev",) if self.mu > 0.0 else ())
 
     @property
     def fills(self):
@@ -122,18 +132,40 @@ def wall_windows(eng: BlockEngine, bm_fluid, bm_wall, wall_dense_map):
 
 
 def advection_prep(eng: BlockEngine, fb, nbr_inner, wc: WallCtx):
-    """Density summation — the per-advection-step prep stage of the
+    """Density summation, then the viscous force and the transport-velocity
+    correction where configured — the per-advection-step prep stage of the
     dual-criteria loop."""
     if eng.use_kernels:
-        return fbops.density_summation_p2(
+        fb = fbops.density_summation_p2(
             fb, nbr_inner, wc.wall_b, wc.nbr_wall, eng.kernel, eng.rho0,
             eng.sigma0, eng.dim, free_surface=eng.free_surface, box=eng.box)
-    return fbops.density_summation_b(
+        if eng.mu > 0.0 or eng.tvc_coef > 0.0:
+            fb = fbops.visc_tvc_p2(
+                fb, nbr_inner, wc.wall_b, wc.nbr_wall, eng.kernel, eng.dim,
+                eng.mu, eng.h, tvc_coefficient=eng.tvc_coef,
+                tvc_limiter_slope=eng.tvc_limiter, wall_static=eng.wall_static,
+                box=eng.box)
+        return fb
+    fb = fbops.density_summation_b(
         fb, nbr_inner, eng.kernel, eng.dim, eng.rho0, eng.sigma0,
-        wall_b=wc.wall_b, nbr_wall=wc.nbr_wall, free_surface=eng.free_surface)
+        wall_b=wc.wall_b, nbr_wall=wc.nbr_wall, free_surface=eng.free_surface,
+        box=eng.box)
+    if eng.mu > 0.0:
+        fb = fbops.viscous_force_b(fb, nbr_inner, eng.kernel, eng.dim, eng.mu,
+                                   eng.h, wall_b=wc.wall_b,
+                                   nbr_wall=wc.nbr_wall, box=eng.box)
+    if eng.tvc_coef > 0.0:
+        fb = fbops.transport_velocity_correction_b(
+            fb, nbr_inner, eng.kernel, eng.dim, eng.h,
+            coefficient=eng.tvc_coef, limiter_slope=eng.tvc_limiter,
+            wall_b=wc.wall_b, nbr_wall=wc.nbr_wall, box=eng.box)
+    return fb
 
 
 def advection_dt(eng: BlockEngine, fb):
+    if eng.mu > 0.0:
+        return fbops.advection_viscous_time_step_b(fb, eng.h, eng.speed_ref,
+                                                   eng.rho0, eng.mu)
     return fbops.advection_time_step_b(fb, eng.h, eng.speed_ref)
 
 
@@ -152,7 +184,7 @@ def acoustic_first_half(eng: BlockEngine, fb, nbr_inner, wc: WallCtx, dt):
             eng.riemann1, dt, eng.dim, wall_static=eng.wall_static, box=eng.box)
     return fbops.acoustic_step_1st_half_b(
         fb, nbr_inner, eng.kernel, eng.dim, eng.eos, eng.riemann1, dt,
-        wall_b=wc.wall_b, nbr_wall=wc.nbr_wall)
+        wall_b=wc.wall_b, nbr_wall=wc.nbr_wall, box=eng.box)
 
 
 def acoustic_second_half(eng: BlockEngine, fb, nbr_inner, wc: WallCtx, dt):
@@ -163,7 +195,7 @@ def acoustic_second_half(eng: BlockEngine, fb, nbr_inner, wc: WallCtx, dt):
             dt, eng.dim, wall_static=eng.wall_static, box=eng.box)
     return fbops.acoustic_step_2nd_half_b(
         fb, nbr_inner, eng.kernel, eng.dim, eng.riemann2, dt,
-        wall_b=wc.wall_b, nbr_wall=wc.nbr_wall)
+        wall_b=wc.wall_b, nbr_wall=wc.nbr_wall, box=eng.box)
 
 
 def blocks_to_particles(eng: BlockEngine, fb, n: int) -> dict:
@@ -173,7 +205,7 @@ def blocks_to_particles(eng: BlockEngine, fb, n: int) -> dict:
     tgt = torch.where(mask, torch.clamp(ids, max=n - 1),
                       torch.full_like(ids, n))
     out = {}
-    for k in FLUID_FIELDS:
+    for k in eng.fluid_fields:
         flat = fb[k].reshape((-1,) + tuple(fb[k].shape[2:]))
         arr = torch.zeros((n + 1,) + tuple(flat.shape[1:]), dtype=flat.dtype,
                           device=flat.device)

@@ -1,8 +1,11 @@
 """The generic block-engine runner (counterpart of
-sphinxsys_tpu/engine/scene.py) for static-wall free-surface scenes.
+sphinxsys_tpu/engine/scene.py) for static-wall free-surface scenes
+(dambreak 2D/3D) and wall-less periodic scenes with viscosity and
+transport-velocity correction (Taylor–Green).
 
 The dual-criteria loop (SURVEY.md §3.2, reference Dambreak.cpp:166-220):
-an outer advection step (advection dt, density summation, re-slot) around
+an outer advection step (advection dt, density summation + the viscous
+force and transport-velocity correction where configured, re-slot) around
 an inner acoustic loop (two half-steps) that runs while the relaxed time
 is below the advection dt.  JAX runs both loops on the device as
 `lax.while_loop`s; here they are Python loops, each iteration's condition
@@ -21,6 +24,7 @@ import torch
 from sphinxsys_tpu_torch.device import resolve_device
 from sphinxsys_tpu_torch.engine import block_fluid as eng_mod
 from sphinxsys_tpu_torch.engine.block_fluid import BlockEngine, WallCtx
+from sphinxsys_tpu_torch.neighbors.cell_list import wrap_positions
 
 
 @dataclasses.dataclass
@@ -48,32 +52,42 @@ class BlockScene:
 
     @property
     def fields(self):
-        return eng_mod.FLUID_FIELDS + ("OriginalID",)
+        return self.eng.fluid_fields + ("OriginalID",)
 
 
 def standard_scene(base, *, rho0: float, speed_ref: float, device,
-                   dim: int = 2, wall=None, cap: int = 12,
+                   dim: int = 2, mu: float = 0.0, tvc_coef: float = 0.0,
+                   tvc_limiter: float | None = None, free_surface: bool = True,
+                   riemann2=None, wall=None, cap: int = 12,
                    c_max: int | None = None, c_max_multiple: int = 256,
-                   use_kernels: bool = False) -> BlockScene:
-    """Bind a free-surface case to the block engine.  `base` provides
-    adaptation, grid, eos, riemann and n_fluid; `wall` (a state dict) is
-    slotted once as a static contact body, so the sweeps run their
-    static-wall variants.  `c_max_multiple` rounds c_max as the JAX package
-    rounds it to its tile width (256 in 2D, 128 in 3D), so block shapes —
-    and the integer maps — agree with it; the wall's c_max rounds to 32."""
+                   use_kernels: bool = True,
+                   cap_ac_dt: bool = False) -> BlockScene:
+    """Bind a case to the block engine.  `base` provides adaptation, grid,
+    eos, riemann and n_fluid; `wall` (a state dict) is slotted once as a
+    static contact body, so the sweeps run their static-wall variants.
+    `mu` > 0 adds the viscous force, `tvc_coef` > 0 the transport-velocity
+    correction; `riemann2` (default: base.riemann) is the 2nd-half solver;
+    `cap_ac_dt` caps the acoustic dt by the advection dt.  `c_max_multiple`
+    rounds c_max as the JAX package rounds it to its tile width (256 in 2D,
+    128 in 3D), so block shapes — and the integer maps — agree with it;
+    the wall's c_max rounds to 32."""
     device = resolve_device(device)
     if c_max is None:
         # a free-surface flow occupies a fraction of the domain cells
         # (dambreak max ~n/6 through impact; /5 adds surge margin, guarded
-        # by the overflow flag)
-        c_max = max(base.n_fluid // 5, 512)
+        # by the overflow flag); a confined or periodic box occupies every
+        # cell
+        c_max = max(base.n_fluid // 5, 512) if free_surface \
+            else base.grid.ncells
     c_max = eng_mod.round_to(c_max, c_max_multiple)
     eng = BlockEngine(
         grid=base.grid, kernel=base.kernel, eos=base.eos, riemann1=base.riemann,
-        riemann2=base.riemann,
+        riemann2=base.riemann if riemann2 is None else riemann2,
         rho0=rho0, sigma0=base.adaptation.sigma0, h=base.adaptation.h,
-        speed_ref=speed_ref, dim=dim, cap=cap, c_max=c_max,
-        wall_static=wall is not None, use_kernels=use_kernels)
+        speed_ref=speed_ref, dim=dim, mu=mu, tvc_coef=tvc_coef,
+        tvc_limiter=tvc_limiter, free_surface=free_surface, cap=cap,
+        c_max=c_max, cap_ac_dt=cap_ac_dt, wall_static=wall is not None,
+        use_kernels=use_kernels)
 
     wall_b = bm_wall = dm_w = None
     if wall is not None:
@@ -87,8 +101,10 @@ def standard_scene(base, *, rho0: float, speed_ref: float, device,
 
 
 def _slot(scene: BlockScene, flat: dict, valid):
-    """Re-slot the fluid and rebuild the window maps."""
+    """Re-slot the fluid (wrapped into the box first on its periodic axes)
+    and rebuild the window maps."""
     eng = scene.eng
+    flat = dict(flat, Position=wrap_positions(flat["Position"], eng.grid))
     fb, bm_f = eng_mod.slot_fluid(eng, flat, valid, n_max=scene.n_fluid)
     nbr_wall = None
     if scene.wall_b is not None:
@@ -98,13 +114,18 @@ def _slot(scene: BlockScene, flat: dict, valid):
 
 
 def init_sim(scene: BlockScene, fluid: dict, device=None) -> BlockSim:
-    """Slot the initial fluid state.  `device` defaults to the device the
-    scene was built on; another one raises."""
+    """Slot the initial fluid state (a zero ViscousForcePrev is seeded
+    where the engine is viscous and the state has none).  `device` defaults
+    to the device the scene was built on; another one raises."""
     device = scene.device if device is None else resolve_device(device)
     if device != scene.device:
         raise ValueError(f"scene lives on {scene.device}, not {device}")
     n = fluid["Position"].shape[0]
-    flat = {k: fluid[k].to(device) for k in eng_mod.FLUID_FIELDS}
+    flat = {k: fluid[k].to(device) for k in scene.eng.fluid_fields
+            if k in fluid}
+    if "ViscousForcePrev" in scene.eng.fluid_fields \
+            and "ViscousForcePrev" not in flat:
+        flat["ViscousForcePrev"] = torch.zeros_like(flat["Velocity"])
     flat["OriginalID"] = torch.arange(n, dtype=torch.int32, device=device)
     valid = torch.arange(n, device=device) < int(fluid["NReal"])
     fb, bm_f, nbr_wall, ovf = _slot(scene, flat, valid)

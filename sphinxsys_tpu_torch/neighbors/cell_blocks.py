@@ -65,20 +65,26 @@ def neighbor_window_rows(occ_cells: torch.Tensor, grid: CellGrid,
                          dense_map: torch.Tensor, c_max_src: int) -> torch.Tensor:
     """(C,) occupied cell ids + (ncells+1,) dense cell->row map -> (C, 3^dim)
     window-neighbour block rows (sentinel c_max_src).  One lookup per
-    window; rows of sentinel cells are all-sentinel.  (The JAX package
-    builds the same integers from shifted window tables, a TPU gather
-    workaround.)  Periodic grids raise until the sweeps take a box."""
-    if grid.periodic is not None and any(grid.periodic):
-        raise NotImplementedError("periodic window wrap is not ported yet")
+    window; window coordinates wrap modulo the grid shape on periodic
+    axes.  Rows of sentinel cells are all-sentinel: the JAX package's
+    shifted-table paths (a TPU gather workaround) give the same integers
+    on occupied rows, and its per-window fallback, which every
+    doubly-periodic grid takes, unflattens the sentinel id into a real
+    cell there.  A periodic axis needs 3 cells or more: with fewer, the
+    -1 and +1 windows name the same cell and its pairs count twice."""
     ncells = grid.ncells
     dev = occ_cells.device
     gshape = torch.as_tensor(grid.shape, dtype=torch.int32, device=dev)
+    periodic = grid.periodic or (False,) * grid.dim
+    pmask = torch.as_tensor(periodic, device=dev)
     coords = _unflatten(occ_cells, grid)
     real = occ_cells < ncells
     sentinel = torch.full_like(occ_cells, c_max_src)
     out = []
     for off in window_offsets(grid.dim):
         nc = coords + torch.as_tensor(off, dtype=torch.int32, device=dev)
+        if any(periodic):
+            nc = torch.where(pmask, torch.remainder(nc, gshape), nc)
         inb = torch.all((nc >= 0) & (nc < gshape), dim=-1) & real
         target = torch.where(
             inb, grid.flatten_coords(torch.minimum(torch.clamp(nc, min=0),

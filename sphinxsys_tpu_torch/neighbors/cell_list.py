@@ -1,5 +1,6 @@
 """Background cell grid (counterpart of sphinxsys_tpu/neighbors/cell_list.py:
-`CellGrid`, `grid_from_bounds`, `cell_coords`, `cell_id`)."""
+`CellGrid`, `grid_from_bounds`, `cell_coords`, `cell_id`,
+`wrap_positions`)."""
 
 from __future__ import annotations
 
@@ -74,6 +75,19 @@ class CellGrid:
 
     def cell_id(self, pos: torch.Tensor) -> torch.Tensor:
         return self.flatten_coords(self.cell_coords(pos))
+
+
+def wrap_positions(pos: torch.Tensor, grid: CellGrid) -> torch.Tensor:
+    """Periodic bounding (domain_bounding.h bounding_): map positions back
+    into the primary domain on periodic axes.  `torch.remainder` takes the
+    sign of the divisor, as `jnp.mod` does."""
+    if grid.periodic is None or not any(grid.periodic):
+        return pos
+    lo = torch.as_tensor(grid.lower, dtype=pos.dtype, device=pos.device)
+    length = torch.as_tensor([s * n for s, n in zip(grid.spacing, grid.shape)],
+                             dtype=pos.dtype, device=pos.device)
+    pmask = torch.as_tensor(grid.periodic, device=pos.device)
+    return torch.where(pmask, lo + torch.remainder(pos - lo, length), pos)
 
 
 def grid_from_bounds(lower, upper, cutoff: float, buffer_cells: int = 1,

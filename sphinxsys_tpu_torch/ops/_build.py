@@ -28,13 +28,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_BOX = [ctypes.c_double] * 3   # periodic lengths (0: no wrap)
 ARGTYPES = {
     "density_sweep_launch": [_I, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I,
-                             _F, _F, _P, _P],
+                             _F, _F, *_BOX, _P, _P],
     "ac1_sweep_launch": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P,
-                         _P, _I, _I, _F, _F, _F, _P, _P],
+                         _P, _I, _I, _F, _F, _F, *_BOX, _P, _P],
     "ac2_sweep_launch": [_I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
-                         _I, _I, _F, _F, _F, _F, _P, _P],
+                         _I, _I, _F, _F, _F, _F, *_BOX, _P, _P],
+    "visc_tvc_sweep_launch": [_I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
+                              _I, _I, _F, _F, _F, *_BOX, _P, _P],
 }
 
 

@@ -1,4 +1,4 @@
-"""The three cell-block pair sweeps of the WCSPH hot path.
+"""The four cell-block pair sweeps of the WCSPH hot path.
 
 Each sweep has a hand-written CUDA kernel (csrc/block_sweeps.cu, built by
 ops/_build.py) and, beside it, a plain PyTorch version that computes the
@@ -6,14 +6,18 @@ same per-slot sums.  Dispatch: a CPU tensor runs the plain version; a CUDA
 float32 tensor launches the kernel (or raises); anything else raises.
 `LAUNCHES` counts kernel launches per sweep (plain runs do not count).
 
-  density_sweep <- sphinxsys_tpu/ops/pallas_block2.py:_dens_kernel
-  ac1_sweep     <- sphinxsys_tpu/ops/pallas_block2.py:_ac1_kernel
-  ac2_sweep     <- sphinxsys_tpu/ops/pallas_block2.py:_ac2_kernel
+  density_sweep  <- sphinxsys_tpu/ops/pallas_block2.py:_dens_kernel
+  ac1_sweep      <- sphinxsys_tpu/ops/pallas_block2.py:_ac1_kernel
+  ac2_sweep      <- sphinxsys_tpu/ops/pallas_block2.py:_ac2_kernel
+  visc_tvc_sweep <- sphinxsys_tpu/ops/pallas_block2.py:_visctvc_kernel
 
-What bounds them on the card: the dense cap x cap x 3^dim slot sweep is
-pair arithmetic (~20-40 flops per slot pair) on data that stays in L1/L2
-(a cell's j rows are read by all its cap threads), so the kernels are
-compute- and latency-bound, not HBM-bound.  The first design keeps one
+What bounds them on the card: counting each byte once and only the real
+pairs' flops, every sweep's least time is its bytes over the HBM rate
+(chip_smoke.py's bound).  The kernels run far above it because the dense
+cap x cap x 3^dim slot sweep evaluates ~9x (2D) to ~20x (3D) more slot
+pairs than real pairs, ~20-50 flops each, on data that stays in L1/L2 (a
+cell's j rows are read by all its cap threads): they are compute- and
+latency-bound, not HBM-bound.  The first design keeps one
 thread per (cell, i-slot) with register accumulators and skips sentinel
 windows (the TPU's per-tile wall-flag skip, per cell); staging neighbour
 rows in shared memory and a per-particle cell walk are later work.
@@ -24,7 +28,11 @@ C (fluid) / Cw (wall).  Padding slots are parked FAR_AWAY with volume 0 and
 mask 0, so they add exactly zero.  Outputs are (C, cap, k) per-slot sums;
 the callers in physics/fluid_blocks.py scale them.
 
-Periodic boxes are not supported yet (the dambreak box is 0).
+`box` gives the periodic lengths (None, or 0 on an axis, for no wrap):
+each pair displacement then takes the minimum image d - L rint(d / L),
+rounding half to even as jnp.round does.  The wrap folds FAR-parked
+padding back into range, so padding stays inert only through VOL = 0 and
+B1's mask channel.
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ import torch
 
 from sphinxsys_tpu_torch.neighbors.cell_blocks import occupied_rows
 
-LAUNCHES = {"density": 0, "ac1": 0, "ac2": 0}
+LAUNCHES = {"density": 0, "ac1": 0, "ac2": 0, "visc_tvc": 0}
 
 # cells per chunk of the plain versions: bounds their (cells, cap, cap, dim)
 # temporaries (3D at 1M particles would need tens of GB unchunked)
@@ -49,11 +57,8 @@ def reset_launch_counts() -> None:
 # dispatch helpers
 # ---------------------------------------------------------------------------
 
-def _use_kernel(ref: torch.Tensor, box) -> bool:
+def _use_kernel(ref: torch.Tensor) -> bool:
     """False: plain version (CPU).  True: CUDA kernel.  Raises otherwise."""
-    if box is not None and any(float(b) > 0.0 for b in box):
-        raise NotImplementedError("periodic boxes are not supported by the "
-                                  "block sweeps yet")
     if ref.device.type == "cpu":
         return False
     if ref.device.type != "cuda":
@@ -70,6 +75,15 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
+
+
+def _box3(box, dim):
+    """The kernels' (Lx, Ly, Lz) Python floats, 0 where an axis does not
+    wrap (the launchers form 1/L in double, as JAX forms it)."""
+    b = tuple(float(x) for x in box) if box is not None else (0.0,) * dim
+    if len(b) != dim or any(x < 0.0 for x in b):
+        raise ValueError(f"box {box} must give {dim} lengths >= 0")
+    return b + (0.0,) * (3 - dim)
 
 
 def _ptr(t):
@@ -92,6 +106,15 @@ def _wall_shapes(nbr, wall_pos, nbr_wall):
 # ---------------------------------------------------------------------------
 # plain PyTorch versions (exactly the kernels' sums)
 # ---------------------------------------------------------------------------
+
+def _wrap(disp, box):
+    """The kernels' minimum image: d - L round(d * (1/L)) per periodic axis."""
+    if box is None or not any(b > 0.0 for b in box):
+        return disp
+    cols = [disp[..., k] - L * torch.round(disp[..., k] * (1.0 / L))
+            if L > 0.0 else disp[..., k] for k, L in enumerate(box)]
+    return torch.stack(cols, dim=-1)
+
 
 def _dwv(disp, vol_j, inv_h, dw_scale):
     """Clamped-q Wendland C2 dW/dr * V_j, plus (inv_r, r); r2 + 1e-15."""
@@ -124,7 +147,7 @@ def _live(rows, sentinel):
 
 
 def density_sweep_plain(pos, mask, nbr, wall_pos, wall_vol, nbr_wall, *,
-                        inv_h: float, factor_w: float):
+                        inv_h: float, factor_w: float, box=None):
     c, cap = nbr.shape[0], pos.shape[1]
     maskf = mask.to(pos.dtype)
     out = pos.new_zeros((c, cap, 2))
@@ -135,7 +158,7 @@ def density_sweep_plain(pos, mask, nbr, wall_pos, wall_vol, nbr_wall, *,
             rows = nbr[c0:c1, w].long()
             if not _live(rows, c):
                 continue
-            W = _w(xi - pos[rows][:, None], inv_h, factor_w)
+            W = _w(_wrap(xi - pos[rows][:, None], box), inv_h, factor_w)
             sig = sig + torch.sum(W * maskf[rows][:, None, :], dim=-1)
         out[c0:c1, :, 0] = sig
         if nbr_wall is None:
@@ -146,7 +169,7 @@ def density_sweep_plain(pos, mask, nbr, wall_pos, wall_vol, nbr_wall, *,
             rows = nbr_wall[c0:c1, w].long()
             if not _live(rows, cw):
                 continue
-            W = _w(xi - wall_pos[rows][:, None], inv_h, factor_w)
+            W = _w(_wrap(xi - wall_pos[rows][:, None], box), inv_h, factor_w)
             sigw = sigw + torch.sum(W * wall_vol[rows][:, None, :], dim=-1)
         out[c0:c1, :, 1] = sigw
     return out
@@ -154,7 +177,7 @@ def density_sweep_plain(pos, mask, nbr, wall_pos, wall_vol, nbr_wall, *,
 
 def ac1_sweep_plain(pos, p, rho, acc, vol, nbr, wall_pos, wall_vol, wall_acc,
                     nbr_wall, *, inv_h: float, dw_scale: float,
-                    inv_rho0c0: float):
+                    inv_rho0c0: float, box=None):
     c, cap, dim = nbr.shape[0], pos.shape[1], pos.shape[2]
     out = pos.new_zeros((c, cap, dim + 1))
     for c0, c1 in _chunks(nbr):
@@ -166,7 +189,7 @@ def ac1_sweep_plain(pos, p, rho, acc, vol, nbr, wall_pos, wall_vol, wall_acc,
             rows = nbr[c0:c1, w].long()
             if not _live(rows, c):
                 continue
-            d = xi - pos[rows][:, None]
+            d = _wrap(xi - pos[rows][:, None], box)
             dwv, inv_r, _ = _dwv(d, vol[rows][:, None, :], inv_h, dw_scale)
             p_j = p[rows][:, None, :]
             psum = (p_i + p_j) * dwv * inv_r
@@ -183,7 +206,7 @@ def ac1_sweep_plain(pos, p, rho, acc, vol, nbr, wall_pos, wall_vol, wall_acc,
                 rows = nbr_wall[c0:c1, w].long()
                 if not _live(rows, cw):
                     continue
-                d = xi - wall_pos[rows][:, None]
+                d = _wrap(xi - wall_pos[rows][:, None], box)
                 dwv, inv_r, r = _dwv(d, wall_vol[rows][:, None, :], inv_h,
                                      dw_scale)
                 e = d * inv_r[..., None]
@@ -202,7 +225,7 @@ def ac1_sweep_plain(pos, p, rho, acc, vol, nbr, wall_pos, wall_vol, wall_acc,
 
 def ac2_sweep_plain(pos, vel, vol, nbr, wall_pos, wall_vol, wall_vel, wall_n,
                     nbr_wall, *, inv_h: float, dw_scale: float,
-                    rho0c0_geo: float, lim_scale: float):
+                    rho0c0_geo: float, lim_scale: float, box=None):
     c, cap, dim = nbr.shape[0], pos.shape[1], pos.shape[2]
     out = pos.new_zeros((c, cap, dim + 1))
     for c0, c1 in _chunks(nbr):
@@ -214,7 +237,7 @@ def ac2_sweep_plain(pos, vel, vol, nbr, wall_pos, wall_vol, wall_vel, wall_n,
             rows = nbr[c0:c1, w].long()
             if not _live(rows, c):
                 continue
-            d = xi - pos[rows][:, None]
+            d = _wrap(xi - pos[rows][:, None], box)
             dwv, inv_r, _ = _dwv(d, vol[rows][:, None, :], inv_h, dw_scale)
             e = d * inv_r[..., None]
             u = torch.sum((v_i - vel[rows][:, None]) * e, dim=-1)
@@ -230,7 +253,7 @@ def ac2_sweep_plain(pos, vel, vol, nbr, wall_pos, wall_vol, wall_vel, wall_n,
                 rows = nbr_wall[c0:c1, w].long()
                 if not _live(rows, cw):
                     continue
-                d = xi - wall_pos[rows][:, None]
+                d = _wrap(xi - wall_pos[rows][:, None], box)
                 dwv, inv_r, _ = _dwv(d, wall_vol[rows][:, None, :], inv_h,
                                      dw_scale)
                 e = d * inv_r[..., None]
@@ -250,6 +273,49 @@ def ac2_sweep_plain(pos, vel, vol, nbr, wall_pos, wall_vol, wall_vel, wall_n,
     return out
 
 
+def visc_tvc_sweep_plain(pos, vel, vol, nbr, wall_pos, wall_vol, wall_vel,
+                         nbr_wall, *, inv_h: float, dw_scale: float,
+                         eps_r: float, box=None):
+    c, cap, dim = nbr.shape[0], pos.shape[1], pos.shape[2]
+    out = pos.new_zeros((c, cap, 2 * dim))
+    for c0, c1 in _chunks(nbr):
+        xi = pos[c0:c1, :, None, :]
+        v_i = vel[c0:c1, :, None, :]
+        fv = pos.new_zeros((c1 - c0, cap, dim))
+        inc = pos.new_zeros((c1 - c0, cap, dim))
+        for w in range(nbr.shape[1]):
+            rows = nbr[c0:c1, w].long()
+            if not _live(rows, c):
+                continue
+            d = _wrap(xi - pos[rows][:, None], box)
+            dwv, inv_r, r = _dwv(d, vol[rows][:, None, :], inv_h, dw_scale)
+            scale = dwv / (r + eps_r)
+            fv = fv + torch.sum((v_i - vel[rows][:, None]) * scale[..., None],
+                                dim=2)
+            inc = inc - torch.sum((2.0 * dwv * inv_r)[..., None] * d, dim=2)
+        if nbr_wall is not None:
+            cw = wall_pos.shape[0] - 1
+            fvw = torch.zeros_like(fv)
+            incw = torch.zeros_like(inc)
+            for w in range(nbr_wall.shape[1]):
+                rows = nbr_wall[c0:c1, w].long()
+                if not _live(rows, cw):
+                    continue
+                d = _wrap(xi - wall_pos[rows][:, None], box)
+                dwv, inv_r, r = _dwv(d, wall_vol[rows][:, None, :], inv_h,
+                                     dw_scale)
+                scale = 2.0 * dwv / (r + eps_r)
+                dv = v_i if wall_vel is None else v_i - wall_vel[rows][:, None]
+                fvw = fvw + torch.sum(dv * scale[..., None], dim=2)
+                incw = incw - torch.sum((2.0 * dwv * inv_r)[..., None] * d,
+                                        dim=2)
+            fv = fv + fvw
+            inc = inc + incw
+        out[c0:c1, :, :dim] = fv
+        out[c0:c1, :, dim:] = inc
+    return out
+
+
 # ---------------------------------------------------------------------------
 # wrappers: plain version on CPU, kernel on CUDA
 # ---------------------------------------------------------------------------
@@ -258,9 +324,9 @@ def density_sweep(pos, mask, nbr, wall_pos=None, wall_vol=None, nbr_wall=None,
                   *, inv_h: float, factor_w: float, box=None):
     """B1.  Returns (C, cap, 2) = [sig, sigw]: the fluid sum of W * mask
     (self pair included, so W(0) is the seed) and the wall sum of W * V."""
-    if not _use_kernel(pos, box):
+    if not _use_kernel(pos):
         return density_sweep_plain(pos, mask, nbr, wall_pos, wall_vol, nbr_wall,
-                                   inv_h=inv_h, factor_w=factor_w)
+                                   inv_h=inv_h, factor_w=factor_w, box=box)
     from sphinxsys_tpu_torch.ops._build import library
 
     c, nw = nbr.shape
@@ -280,7 +346,8 @@ def density_sweep(pos, mask, nbr, wall_pos=None, wall_vol=None, nbr_wall=None,
     err = library().density_sweep_launch(
         dim, _ptr(pos), _ptr(maskf), _ptr(nbr), c, cap, _ptr(wall_pos),
         _ptr(wall_vol), _ptr(nbr_wall), cw, capw, float(inv_h),
-        float(factor_w), _ptr(out), torch.cuda.current_stream(dev).cuda_stream)
+        float(factor_w), *_box3(box, dim), _ptr(out),
+        torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "density_sweep")
     LAUNCHES["density"] += 1
     return out
@@ -291,10 +358,11 @@ def ac1_sweep(pos, p, rho, acc, vol, nbr, wall_pos=None, wall_vol=None,
               inv_rho0c0: float, box=None):
     """B2.  Returns (C, cap, dim+1) = [f (dim), rd].  `wall_acc` None means
     a static wall (its acceleration channel dropped)."""
-    if not _use_kernel(pos, box):
+    if not _use_kernel(pos):
         return ac1_sweep_plain(pos, p, rho, acc, vol, nbr, wall_pos, wall_vol,
                                wall_acc, nbr_wall, inv_h=inv_h,
-                               dw_scale=dw_scale, inv_rho0c0=inv_rho0c0)
+                               dw_scale=dw_scale, inv_rho0c0=inv_rho0c0,
+                               box=box)
     from sphinxsys_tpu_torch.ops._build import library
 
     c, nw = nbr.shape
@@ -319,8 +387,8 @@ def ac1_sweep(pos, p, rho, acc, vol, nbr, wall_pos=None, wall_vol=None,
         dim, int(wall_acc is not None), _ptr(pos), _ptr(p), _ptr(rho),
         _ptr(acc), _ptr(vol), _ptr(nbr), c, cap, _ptr(wall_pos),
         _ptr(wall_vol), _ptr(wall_acc), _ptr(nbr_wall), cw, capw,
-        float(inv_h), float(dw_scale), float(inv_rho0c0), _ptr(out),
-        torch.cuda.current_stream(dev).cuda_stream)
+        float(inv_h), float(dw_scale), float(inv_rho0c0), *_box3(box, dim),
+        _ptr(out), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "ac1_sweep")
     LAUNCHES["ac1"] += 1
     return out
@@ -331,11 +399,11 @@ def ac2_sweep(pos, vel, vol, nbr, wall_pos=None, wall_vol=None, wall_vel=None,
               rho0c0_geo: float, lim_scale: float, box=None):
     """B3.  Returns (C, cap, dim+1) = [dcr, f (dim)].  `wall_vel` None means
     a static wall (its velocity channel dropped)."""
-    if not _use_kernel(pos, box):
+    if not _use_kernel(pos):
         return ac2_sweep_plain(pos, vel, vol, nbr, wall_pos, wall_vol,
                                wall_vel, wall_n, nbr_wall, inv_h=inv_h,
                                dw_scale=dw_scale, rho0c0_geo=rho0c0_geo,
-                               lim_scale=lim_scale)
+                               lim_scale=lim_scale, box=box)
     from sphinxsys_tpu_torch.ops._build import library
 
     c, nw = nbr.shape
@@ -359,8 +427,47 @@ def ac2_sweep(pos, vel, vol, nbr, wall_pos=None, wall_vol=None, wall_vel=None,
         dim, int(wall_vel is not None), _ptr(pos), _ptr(vel), _ptr(vol),
         _ptr(nbr), c, cap, _ptr(wall_pos), _ptr(wall_vol), _ptr(wall_vel),
         _ptr(wall_n), _ptr(nbr_wall), cw, capw, float(inv_h), float(dw_scale),
-        float(rho0c0_geo), float(lim_scale), _ptr(out),
+        float(rho0c0_geo), float(lim_scale), *_box3(box, dim), _ptr(out),
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "ac2_sweep")
     LAUNCHES["ac2"] += 1
+    return out
+
+
+def visc_tvc_sweep(pos, vel, vol, nbr, wall_pos=None, wall_vol=None,
+                   wall_vel=None, nbr_wall=None, *, inv_h: float,
+                   dw_scale: float, eps_r: float, box=None):
+    """B4.  Returns (C, cap, 2 dim) = [fv (dim), I (dim)]:
+    fv = sum (v_i - v_j)/(r + eps_r) dW V_j (the wall term doubled, against
+    the wall velocity) and I = -sum 2 dW V_j e_ij.  `wall_vel` None means a
+    static wall (its velocity channel dropped)."""
+    if not _use_kernel(pos):
+        return visc_tvc_sweep_plain(pos, vel, vol, nbr, wall_pos, wall_vol,
+                                    wall_vel, nbr_wall, inv_h=inv_h,
+                                    dw_scale=dw_scale, eps_r=eps_r, box=box)
+    from sphinxsys_tpu_torch.ops._build import library
+
+    c, nw = nbr.shape
+    cap, dim = pos.shape[1], pos.shape[2]
+    dev, f32 = pos.device, torch.float32
+    _check("pos", pos, f32, (c + 1, cap, dim), dev)
+    _check("vel", vel, f32, (c + 1, cap, dim), dev)
+    _check("vol", vol, f32, (c + 1, cap), dev)
+    _check("nbr", nbr, torch.int32, (c, nw), dev)
+    cw = capw = 0
+    if nbr_wall is not None:
+        cw, capw = _wall_shapes(nbr, wall_pos, nbr_wall)
+        _check("wall_pos", wall_pos, f32, (cw + 1, capw, dim), dev)
+        _check("wall_vol", wall_vol, f32, (cw + 1, capw), dev)
+        if wall_vel is not None:
+            _check("wall_vel", wall_vel, f32, (cw + 1, capw, dim), dev)
+        _check("nbr_wall", nbr_wall, torch.int32, (c, nw), dev)
+    out = torch.empty((c, cap, 2 * dim), dtype=f32, device=dev)
+    err = library().visc_tvc_sweep_launch(
+        dim, int(wall_vel is not None), _ptr(pos), _ptr(vel), _ptr(vol),
+        _ptr(nbr), c, cap, _ptr(wall_pos), _ptr(wall_vol), _ptr(wall_vel),
+        _ptr(nbr_wall), cw, capw, float(inv_h), float(dw_scale), float(eps_r),
+        *_box3(box, dim), _ptr(out), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "visc_tvc_sweep")
+    LAUNCHES["visc_tvc"] += 1
     return out

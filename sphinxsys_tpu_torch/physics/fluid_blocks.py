@@ -14,7 +14,14 @@ sentinel.  Two families:
   ops/block_sweeps.py (the CUDA kernels on the card, their plain versions
   on the CPU).
 
-Reference: fluid_integration.hpp (dual-criteria WCSPH, SURVEY.md §3.2).
+Every form takes `box`, the periodic lengths (0 on an axis that does not
+wrap): pair displacements then take the minimum image.  Padding stays
+inert under the wrap through the explicit slot masks here and VOL = 0 /
+the mask channel in the sweeps (the wrap folds FAR-parked positions back
+into range).
+
+Reference: fluid_integration.hpp (dual-criteria WCSPH, SURVEY.md §3.2),
+viscous_dynamics.hpp, transport_velocity_correction.hpp.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import torch
 
 from sphinxsys_tpu_torch.neighbors.cell_blocks import occupied_rows, window_offsets
 from sphinxsys_tpu_torch.ops import block_sweeps as sweeps
+from sphinxsys_tpu_torch.physics.riemann import AcousticRiemannSolver
 
 TINY = 1.0e-15
 
@@ -31,10 +39,21 @@ def _center_index(dim: int) -> int:
     return window_offsets(dim).index((0,) * dim)
 
 
-def _pair_geom(pos_i, mask_i, pos_j, mask_j, w, dim, exclude_self):
+def _min_image(disp, box):
+    """Minimum-image displacement on the periodic axes (box length 0: the
+    axis does not wrap)."""
+    if box is None or not any(b > 0 for b in box):
+        return disp
+    length = torch.as_tensor(box, dtype=disp.dtype, device=disp.device)
+    safe = torch.where(length > 0, length, torch.ones_like(length))
+    return torch.where(length > 0, disp - length * torch.round(disp / safe),
+                       disp)
+
+
+def _pair_geom(pos_i, mask_i, pos_j, mask_j, w, dim, exclude_self, box=None):
     """(C, capi, capj) pair geometry (r, e, mask) given gathered j data."""
     c = pos_j.shape[0]
-    disp = pos_i[:c, :, None, :] - pos_j[:, None, :, :]
+    disp = _min_image(pos_i[:c, :, None, :] - pos_j[:, None, :, :], box)
     r2 = torch.sum(disp * disp, dim=-1)
     r = torch.sqrt(r2 + TINY)
     e = disp / (r[..., None] + TINY)
@@ -104,7 +123,7 @@ def _density_update(fb, rho_sum, c, rho0, free_surface):
 
 def density_summation_b(fb, nbr_inner, kernel, dim: int, rho0: float,
                         sigma0: float, wall_b=None, nbr_wall=None,
-                        free_surface: bool = True):
+                        free_surface: bool = True, box=None):
     """rho = (w0 + sum_j W_ij) rho0/sigma0 + sum_k W_ik V_k rho0^2/(sigma0 m_i)
     (wall contact through V = m/rho0)."""
     pos, mask = fb["Position"], fb["SlotMask"]
@@ -113,7 +132,7 @@ def density_summation_b(fb, nbr_inner, kernel, dim: int, rho0: float,
                        device=pos.device)
     for w in range(len(window_offsets(dim))):
         j = nbr_inner[:n, w].long()
-        r, _, m = _pair_geom(pos, mask, pos[j], mask[j], w, dim, True)
+        r, _, m = _pair_geom(pos, mask, pos[j], mask[j], w, dim, True, box)
         sigma[:n] = sigma[:n] + torch.sum(kernel.W(r, dim) * m.to(r.dtype), dim=2)
     rho_sum = sigma * rho0 / sigma0
 
@@ -122,7 +141,7 @@ def density_summation_b(fb, nbr_inner, kernel, dim: int, rho0: float,
         for w in range(len(window_offsets(dim))):
             j = nbr_wall[:n, w].long()
             r, _, m = _pair_geom(pos, mask, wall_b["Position"][j],
-                                 wall_b["SlotMask"][j], w, dim, False)
+                                 wall_b["SlotMask"][j], w, dim, False, box)
             W = kernel.W(r, dim) * m.to(r.dtype)
             wsum[:n] = wsum[:n] + torch.sum(
                 W * wall_b["VolumetricMeasure"][j][:, None, :], dim=2)
@@ -202,7 +221,7 @@ def _second_half_update(fb, force, dcr, pos, dt, c):
 
 
 def acoustic_step_1st_half_b(fb, nbr_inner, kernel, dim: int, eos, riemann, dt,
-                             wall_b=None, nbr_wall=None):
+                             wall_b=None, nbr_wall=None, box=None):
     mask = fb["SlotMask"]
     rho, p, pos = _half_step_fields(fb, eos, dt)
     vol = fb["VolumetricMeasure"]
@@ -214,7 +233,7 @@ def acoustic_step_1st_half_b(fb, nbr_inner, kernel, dim: int, eos, riemann, dt,
     p_i = p[:n, :, None]
     for w in range(n_w):
         j = nbr_inner[:n, w].long()
-        r, e, m = _pair_geom(pos, mask, pos[j], mask[j], w, dim, True)
+        r, e, m = _pair_geom(pos, mask, pos[j], mask[j], w, dim, True, box)
         dWV = kernel.dW(r, dim) * m.to(r.dtype) * vol[j][:, None, :]
         p_j = p[j][:, None, :]
         force = force - _pair_vec_sum((p_i + p_j) * dWV, e)
@@ -226,7 +245,7 @@ def acoustic_step_1st_half_b(fb, nbr_inner, kernel, dim: int, eos, riemann, dt,
         for w in range(n_w):
             j = nbr_wall[:n, w].long()
             r, e, m = _pair_geom(pos, mask, wall_b["Position"][j],
-                                 wall_b["SlotMask"][j], w, dim, False)
+                                 wall_b["SlotMask"][j], w, dim, False, box)
             dWV = kernel.dW(r, dim) * m.to(r.dtype) \
                 * wall_b["VolumetricMeasure"][j][:, None, :]
             wall_acc = wall_b["AverageAcceleration"][j][:, None, :, :]
@@ -241,7 +260,7 @@ def acoustic_step_1st_half_b(fb, nbr_inner, kernel, dim: int, eos, riemann, dt,
 
 
 def acoustic_step_2nd_half_b(fb, nbr_inner, kernel, dim: int, riemann, dt,
-                             wall_b=None, nbr_wall=None):
+                             wall_b=None, nbr_wall=None, box=None):
     mask = fb["SlotMask"]
     pos = fb["Position"] + torch.where(mask[..., None], fb["Velocity"] * (0.5 * dt),
                                        torch.zeros_like(fb["Velocity"]))
@@ -255,7 +274,7 @@ def acoustic_step_2nd_half_b(fb, nbr_inner, kernel, dim: int, riemann, dt,
     v_i = vel[:n, :, None, :]
     for w in range(n_w):
         j = nbr_inner[:n, w].long()
-        r, e, m = _pair_geom(pos, mask, pos[j], mask[j], w, dim, True)
+        r, e, m = _pair_geom(pos, mask, pos[j], mask[j], w, dim, True, box)
         dWV = kernel.dW(r, dim) * m.to(r.dtype) * vol[j][:, None, :]
         u_jump = torch.sum((v_i - vel[j][:, None, :, :]) * e, dim=-1)
         dcr = dcr + torch.sum(u_jump * dWV, dim=2)
@@ -267,7 +286,7 @@ def acoustic_step_2nd_half_b(fb, nbr_inner, kernel, dim: int, riemann, dt,
         for w in range(n_w):
             j = nbr_wall[:n, w].long()
             r, e, m = _pair_geom(pos, mask, wall_b["Position"][j],
-                                 wall_b["SlotMask"][j], w, dim, False)
+                                 wall_b["SlotMask"][j], w, dim, False, box)
             dWV = kernel.dW(r, dim) * m.to(r.dtype) \
                 * wall_b["VolumetricMeasure"][j][:, None, :]
             vel_ave = wall_b["AverageVelocity"][j][:, None, :, :]
@@ -305,10 +324,21 @@ def acoustic_step_1st_half_p2(fb, nbr_inner, wall_b, nbr_wall, kernel, eos,
                               dt, c)
 
 
+def ac2_dissipation(riemann):
+    """(rho0c0_geo, lim_scale) of the B3 sweep for a 2nd-half solver.  The
+    No solver passes rho0c0_geo = 0 and limiter 1, as JAX's Pallas path
+    dispatches it: it still carries a non-zero rho0c0_geo_ave, which would
+    add dissipation that its `*_b` form does not have."""
+    if isinstance(riemann, AcousticRiemannSolver):
+        return riemann.rho0c0_geo_ave, riemann.limiter_coeff * riemann.inv_c0_ave
+    return 0.0, 1.0 * riemann.inv_c0_ave
+
+
 def acoustic_step_2nd_half_p2(fb, nbr_inner, wall_b, nbr_wall, kernel, riemann,
                               dt, dim: int, wall_static: bool = False, box=None):
     """acoustic_step_2nd_half_b through the B3 sweep.  `wall_static` drops
     the wall velocity channel."""
+    geo, lim_scale = ac2_dissipation(riemann)
     mask = fb["SlotMask"]
     pos = fb["Position"] + torch.where(mask[..., None], fb["Velocity"] * (0.5 * dt),
                                        torch.zeros_like(fb["Velocity"]))
@@ -322,7 +352,139 @@ def acoustic_step_2nd_half_p2(fb, nbr_inner, wall_b, nbr_wall, kernel, riemann,
     out = sweeps.ac2_sweep(
         pos, fb["Velocity"], vol, nbr_inner, *wall, inv_h=inv_h,
         dw_scale=kernel._factor_w(dim) * inv_h * 0.625,
-        rho0c0_geo=riemann.rho0c0_geo_ave,
-        lim_scale=riemann.limiter_coeff * riemann.inv_c0_ave, box=box)
+        rho0c0_geo=geo, lim_scale=lim_scale, box=box)
     force = out[..., 1:] * vol[:c][..., None]
     return _second_half_update(fb, force, out[..., 0], pos, dt, c)
+
+
+# ---------------------------------------------------------------------------
+# viscous force + transport-velocity correction
+# ---------------------------------------------------------------------------
+
+def advection_viscous_time_step_b(fb, h_min: float, speed_ref: float,
+                                  rho0: float, mu: float, cfl: float = 0.25):
+    """AdvectionViscousTimeStep: the viscous diffusion speed mu/(rho0 h)
+    joins U_ref (fluid_time_step.cpp)."""
+    return advection_time_step_b(fb, h_min, max(mu / rho0 / h_min, speed_ref),
+                                 cfl)
+
+
+def _viscous_update(fb, force, c):
+    """ForcePrior += this step's viscous force - the previous step's."""
+    force_full = torch.cat([force, torch.zeros_like(fb["Velocity"][c:])], dim=0)
+    out = dict(fb)
+    prev = fb.get("ViscousForcePrev", torch.zeros_like(force_full))
+    out["ForcePrior"] = fb["ForcePrior"] + force_full - prev
+    out["ViscousForcePrev"] = force_full
+    return out
+
+
+def _tvc_update(fb, incon, c, h_ref, coefficient, limiter_slope):
+    """x_i += coef h^2 limiter(h^2 |I|^2) I_i on the real slots."""
+    h2 = h_ref * h_ref
+    if limiter_slope is not None:
+        sq = torch.sum(incon ** 2, dim=-1)
+        lim = torch.clamp(limiter_slope * h2 * sq, max=1.0)[..., None]
+    else:
+        lim = 1.0
+    shift = coefficient * h2 * lim * incon
+    pos = fb["Position"]
+    shift_full = torch.cat([shift, torch.zeros_like(pos[c:])], dim=0)
+    out = dict(fb)
+    out["Position"] = torch.where(fb["SlotMask"][..., None], pos + shift_full,
+                                  pos)
+    return out
+
+
+def viscous_force_b(fb, nbr_inner, kernel, dim: int, mu: float,
+                    smoothing_length: float, wall_b=None, nbr_wall=None,
+                    box=None):
+    """F_i = 2 mu V_i sum_j (v_i - v_j)/(r + 0.01 h) dW V_j, the wall jump
+    doubled against the averaged wall velocity (viscous_dynamics.hpp);
+    ForcePrior bookkeeping included."""
+    pos, vel, mask = fb["Position"], fb["Velocity"], fb["SlotMask"]
+    vol = fb["VolumetricMeasure"]
+    eps_r = 0.01 * smoothing_length
+    c, n = nbr_inner.shape[0], occupied_rows(nbr_inner)
+    v_i = vel[:n, :, None, :]
+    force = torch.zeros_like(vel[:n])
+    for w in range(len(window_offsets(dim))):
+        j = nbr_inner[:n, w].long()
+        r, _, m = _pair_geom(pos, mask, pos[j], mask[j], w, dim, True, box)
+        dWV = kernel.dW(r, dim) * m.to(r.dtype) * vol[j][:, None, :]
+        vderiv = (v_i - vel[j][:, None, :, :]) / (r + eps_r)[..., None]
+        force = force + torch.sum(vderiv * dWV[..., None], dim=2)
+
+    if wall_b is not None:
+        for w in range(len(window_offsets(dim))):
+            j = nbr_wall[:n, w].long()
+            r, _, m = _pair_geom(pos, mask, wall_b["Position"][j],
+                                 wall_b["SlotMask"][j], w, dim, False, box)
+            dWV = kernel.dW(r, dim) * m.to(r.dtype) \
+                * wall_b["VolumetricMeasure"][j][:, None, :]
+            vel_ave = wall_b["AverageVelocity"][j][:, None, :, :]
+            vderiv = 2.0 * (v_i - vel_ave) / (r + eps_r)[..., None]
+            force = force + torch.sum(vderiv * dWV[..., None], dim=2)
+    force = 2.0 * mu * _zero_pad(force, c) * vol[:c][..., None]
+    return _viscous_update(fb, force, c)
+
+
+def transport_velocity_correction_b(fb, nbr_inner, kernel, dim: int,
+                                    h_ref: float, coefficient: float = 0.2,
+                                    limiter_slope: float | None = None,
+                                    wall_b=None, nbr_wall=None, box=None):
+    """I_i = -sum_j 2 dW V_j e_ij (+ wall terms);
+    x_i += coef h^2 limiter(h^2 |I|^2) I_i
+    (transport_velocity_correction.hpp:37-67)."""
+    pos, mask = fb["Position"], fb["SlotMask"]
+    vol = fb["VolumetricMeasure"]
+    c, n = nbr_inner.shape[0], occupied_rows(nbr_inner)
+    incon = torch.zeros_like(pos[:n])
+    for w in range(len(window_offsets(dim))):
+        j = nbr_inner[:n, w].long()
+        r, e, m = _pair_geom(pos, mask, pos[j], mask[j], w, dim, True, box)
+        dWV = kernel.dW(r, dim) * m.to(r.dtype) * vol[j][:, None, :]
+        incon = incon - torch.sum((2.0 * dWV)[..., None] * e, dim=2)
+
+    if wall_b is not None:
+        for w in range(len(window_offsets(dim))):
+            j = nbr_wall[:n, w].long()
+            r, e, m = _pair_geom(pos, mask, wall_b["Position"][j],
+                                 wall_b["SlotMask"][j], w, dim, False, box)
+            dWV = kernel.dW(r, dim) * m.to(r.dtype) \
+                * wall_b["VolumetricMeasure"][j][:, None, :]
+            incon = incon - torch.sum((2.0 * dWV)[..., None] * e, dim=2)
+    return _tvc_update(fb, _zero_pad(incon, c), c, h_ref, coefficient,
+                       limiter_slope)
+
+
+def visc_tvc_p2(fb, nbr_inner, wall_b, nbr_wall, kernel, dim: int, mu: float,
+                smoothing_length: float, tvc_coefficient: float = 0.2,
+                tvc_limiter_slope: float | None = None,
+                wall_static: bool = False, box=None):
+    """viscous_force_b + transport_velocity_correction_b through the one B4
+    sweep: both read the same j data, so one window pass gives both sums
+    (the TVC shift is applied after, so the viscous sum sees the positions
+    before it, as in the two-pass form).  Each update applies where its
+    coefficient (`mu`, `tvc_coefficient`) is positive.  `wall_static` drops
+    the wall velocity channel."""
+    pos, vel = fb["Position"], fb["Velocity"]
+    vol = fb["VolumetricMeasure"]
+    c = nbr_inner.shape[0]
+    wall = _wall_args(wall_b, nbr_wall, "Position", "VolumetricMeasure",
+                      "AverageVelocity")
+    if wall_static and wall_b is not None:
+        wall = wall[:2] + (None,) + wall[3:]
+    inv_h = 1.0 / kernel.h
+    s = sweeps.visc_tvc_sweep(
+        pos, vel, vol, nbr_inner, *wall, inv_h=inv_h,
+        dw_scale=kernel._factor_w(dim) * inv_h * 0.625,
+        eps_r=0.01 * smoothing_length, box=box)
+    out = fb
+    if mu > 0.0:
+        out = _viscous_update(out, 2.0 * mu * s[..., :dim] * vol[:c][..., None],
+                              c)
+    if tvc_coefficient > 0.0:
+        out = _tvc_update(out, s[..., dim:], c, smoothing_length,
+                          tvc_coefficient, tvc_limiter_slope)
+    return out

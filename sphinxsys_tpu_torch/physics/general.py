@@ -1,5 +1,5 @@
 """General dynamics (counterpart of sphinxsys_tpu/physics/general.py):
-gravity, the mechanical-energy reduction and wall normals from a shape."""
+gravity, the energy and speed reductions and wall normals from a shape."""
 
 from __future__ import annotations
 
@@ -31,6 +31,18 @@ def gravity_force(state: State, gravity: Gravity) -> State:
                         device=state["Position"].device)
     out["ForcePrior"] = state["Mass"][:, None] * g[None, :]
     return out
+
+
+def total_kinetic_energy(state: State) -> torch.Tensor:
+    """Sum over real particles of 0.5 m v^2 (general_reduce.cpp:54-64)."""
+    ke = 0.5 * state["Mass"] * torch.sum(state["Velocity"] ** 2, dim=-1)
+    return torch.sum(torch.where(valid_mask(state), ke, torch.zeros_like(ke)))
+
+
+def maximum_speed(state: State) -> torch.Tensor:
+    """Largest |v| over real particles (ReduceDynamics<MaximumSpeed>)."""
+    v = torch.linalg.vector_norm(state["Velocity"], dim=-1)
+    return torch.max(torch.where(valid_mask(state), v, torch.zeros_like(v)))
 
 
 def total_mechanical_energy(state: State, gravity: Gravity) -> torch.Tensor:

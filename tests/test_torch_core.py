@@ -31,7 +31,7 @@ def scenes():
     for dim, (jdb, tdb) in CASES.items():
         for name, (jdt, tdt) in DTYPES.items():
             jcase, jfluid = jdb.build_case(dx=0.1, dtype=jdt)
-            tcase, tfluid = tdb.build_case(dx=0.1, dtype=tdt)
+            tcase, tfluid = tdb.build_case(dx=0.1, dtype=tdt, device="cpu")
             out[dim, name] = (jcase, jfluid, tcase, tfluid)
     return out
 
@@ -103,6 +103,25 @@ def test_adaptation_and_riemann_match_jax(scenes, dim):
                                np.asarray(jr.dissipative_p_jump(jnp.asarray(u))),
                                rtol=1e-14, atol=0)
     assert tcase.eos.p0 == jcase.eos.p0
+
+
+@pytest.mark.parametrize("entry", ["build_case", "build_block_case"])
+@pytest.mark.parametrize("case", ["dambreak_2d", "dambreak_3d",
+                                  "taylor_green_2d"])
+def test_entry_points_default_to_the_card(case, entry):
+    """The case entry points run on the card unless asked for the CPU:
+    with no device given they ask for "cuda", and raise where there is
+    none."""
+    import importlib
+    import inspect
+
+    fn = getattr(importlib.import_module(f"sphinxsys_tpu_torch.cases.{case}"),
+                 entry)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        fn(dx=0.1)
 
 
 def test_cuda_request_raises_without_card():

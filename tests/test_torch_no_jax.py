@@ -1,6 +1,6 @@
 """The PyTorch port must not depend on JAX: no module under
-sphinxsys_tpu_torch/ (and not chip_smoke.py) imports jax or the JAX
-package sphinxsys_tpu.  The machine with the card has no JAX at all."""
+sphinxsys_tpu_torch/ (and not chip_smoke.py) imports
+jax or the JAX package sphinxsys_tpu.  The machine with the card has no JAX at all."""
 
 import ast
 from pathlib import Path
@@ -32,7 +32,8 @@ def test_port_has_modules():
     for must in ("sphinxsys_tpu_torch/ops/block_sweeps.py",
                  "sphinxsys_tpu_torch/engine/scene.py",
                  "sphinxsys_tpu_torch/cases/dambreak_2d.py",
-                 "sphinxsys_tpu_torch/cases/dambreak_3d.py"):
+                 "sphinxsys_tpu_torch/cases/dambreak_3d.py",
+                 "sphinxsys_tpu_torch/cases/taylor_green_2d.py"):
         assert must in names
 
 

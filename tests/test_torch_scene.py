@@ -59,7 +59,7 @@ def test_2d_slice_f32_matches_pallas_interpret():
     jsim = jsc.make_run_chunk(jscene)(jsc.init_sim(jscene, jfluid),
                                       jnp.asarray(T_END, jnp.float32))
     tscene, tfluid = tdb2.build_block_case(dx=0.1, dtype=torch.float32,
-                                           use_kernels=True)
+                                           device="cpu")
     assert (tscene.eng.c_max, tscene.bm_wall.c_max) == (jscene.eng.c_max,
                                                         jscene.bm_wall.c_max)
     tsim, timer = solver.run_simulation(tsc.make_run_chunk(tscene),
@@ -74,7 +74,7 @@ def test_2d_slice_f64_matches_block_engine():
     jsim = jsc.make_run_chunk(jscene)(jsc.init_sim(jscene, jfluid),
                                       jnp.asarray(T_END, jnp.float64))
     tscene, tfluid = tdb2.build_block_case(dx=0.1, dtype=torch.float64,
-                                           use_kernels=False)
+                                           device="cpu", use_kernels=False)
     tsim = tsc.make_run_chunk(tscene)(tsc.init_sim(tscene, tfluid), T_END)
     _compare(jscene, jsim, tscene, tsim, atol=1e-10,
              keys=("Position", "Velocity", "Density", "Pressure"))
@@ -84,7 +84,7 @@ def test_3d_f64_step_matches_block_engine():
     jscene, jfluid = jdb3.build_block_case(dx=0.1, dtype=jnp.float64, cap=32)
     jsim = jsc.make_advection_step(jscene)(jsc.init_sim(jscene, jfluid))
     tscene, tfluid = tdb3.build_block_case(dx=0.1, dtype=torch.float64, cap=32,
-                                           use_kernels=False)
+                                           device="cpu", use_kernels=False)
     tsim = tsc.make_advection_step(tscene)(tsc.init_sim(tscene, tfluid))
     _compare(jscene, jsim, tscene, tsim, atol=1e-10,
              keys=("Position", "Velocity", "Density", "Pressure"))
@@ -98,7 +98,7 @@ def test_init_sim_slots_jax_state_identically(dim):
     jdb, tdb = {"2d": (jdb2, tdb2), "3d": (jdb3, tdb3)}[dim]
     jscene, jfluid = jdb.build_block_case(dx=0.1, dtype=jnp.float64)
     jsim = jsc.init_sim(jscene, jfluid)
-    tscene, _ = tdb.build_block_case(dx=0.1, dtype=torch.float64)
+    tscene, _ = tdb.build_block_case(dx=0.1, dtype=torch.float64, device="cpu")
     fluid = convert.state_from_numpy({k: np.asarray(v) for k, v in jfluid.items()})
     tsim = tsc.init_sim(tscene, fluid)
     for k, v in convert.to_numpy(tsim.fluid_b).items():
