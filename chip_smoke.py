@@ -10,12 +10,16 @@ cell-block engine — at full size:
   * 3D dambreak, dx=0.01: 1,000,000 fluid particles, cap 32, c_max 125,000;
   * Taylor–Green 2D, dx=0.001: 1,000,000 fluid particles on a 384 x 384
     doubly periodic grid, cap 12, c_max 147,456 (viscous force and
-    transport-velocity correction, no wall).
+    transport-velocity correction, no wall);
+  * 2d16: the 2D dambreak at dx=0.0025 with cap 16, its acoustic sub-steps
+    through the first-generation packed halves (B5a-d,
+    csrc/packed_sweeps.cu), as benchmarks/micro_sweep.py composed them.
 
 Phases:
 
   1. environment: torch / CUDA versions, the card's name and power limit;
-  2. build: nvcc compiles sphinxsys_tpu_torch/csrc/block_sweeps.cu;
+  2. build: nvcc compiles sphinxsys_tpu_torch/csrc/*.cu, one process per
+     source, all started together;
   3. kernels: each CUDA sweep of a path against its plain PyTorch version
      on the same CUDA inputs (the scene after one advection step; for
      Taylor–Green from the lattice with seeded noise), with times from
@@ -32,7 +36,14 @@ Phases:
      (dambreak: mechanical energy drifts < 1%; Taylor–Green: the kinetic
      energy falls); then the steady-state step time by part, and one
      advection step under torch.profiler (device busy and idle share;
-     Chrome traces to build/traces/).
+     Chrome traces to build/traces/);
+  6. 2d16: on the dambreak state after one advection step, B5a-d against
+     their plain versions (and with a moving wall and the Dissipative
+     solver's constants), timed and bounded; then one advection step's
+     acoustic sub-steps through the packed halves and through the *_p2
+     halves from the same state (equal sub-step counts, positions within
+     5e-5, every packed kernel launched), each route's sub-step time, and
+     one packed sub-step under torch.profiler.
 
 Its last two lines are a JSON object of per-kernel results and
 {"ok": true, "device": {...}}.  Any failed check exits non-zero before
@@ -58,6 +69,19 @@ KERNELS = {  # wrapper name -> (TPU kernel it replaces, launch-counter key)
     "visc_tvc_sweep": ("sphinxsys_tpu/ops/pallas_block2.py:373", "visc_tvc"),
 }
 SOURCE = "sphinxsys_tpu_torch/csrc/block_sweeps.cu"
+PACKED_KERNELS = {  # packed_sweeps wrapper -> (TPU kernel, launch-counter key)
+    "ac1_inner_sweep": ("sphinxsys_tpu/ops/pallas_sweep.py:77", "ac1_inner"),
+    "ac2_inner_sweep": ("sphinxsys_tpu/ops/pallas_sweep.py:98", "ac2_inner"),
+    "ac1_wall_sweep": ("sphinxsys_tpu/ops/pallas_sweep.py:239", "ac1_wall"),
+    "ac2_wall_sweep": ("sphinxsys_tpu/ops/pallas_sweep.py:267", "ac2_wall"),
+}
+PACKED_SOURCE = "sphinxsys_tpu_torch/csrc/packed_sweeps.cu"
+# float operations per real pair, counted from csrc/packed_sweeps.cu (add,
+# mul, compare, min/max, sqrt and division one each): the pair geometry and
+# masked dW/dr 20, then each kernel's own terms
+PACKED_PAIR_FLOPS = {"ac1_inner_sweep": 31, "ac2_inner_sweep": 38,
+                     "ac1_wall_sweep": 42, "ac2_wall_sweep": 49}
+PACKED_DX = 0.0025          # the 2D dambreak at its bench width, cap 16
 DEVICE = "cuda"
 DAMBREAK_KERNELS = ("density_sweep", "ac1_sweep", "ac2_sweep")
 CONFIGS = {  # the bench configs (bench.py:311-318), Taylor–Green at 1M
@@ -82,6 +106,10 @@ READS = {
 # published H100 SXM peaks (NVIDIA data sheet), at the 700 W limit
 PEAK_F32_FLOPS = 67e12      # float32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12
+# the CUDA kernels' names, for the profile's sweep share
+SWEEP_KERNEL_NAMES = ("density_kernel", "ac1_kernel", "ac2_kernel",
+                      "visc_tvc_kernel", "ac1_inner_kernel", "ac2_inner_kernel",
+                      "ac1_wall_kernel", "ac2_wall_kernel")
 
 
 class SmokeFailure(Exception):
@@ -99,13 +127,17 @@ def log(msg):
 
 def cuda_ms(torch, fn, reps):
     """Median device time of fn() over reps runs (CUDA events), after one
-    warm-up call."""
+    warm-up call.  Each run would start on an idle card, so a device sleep
+    (~0.5 ms) is queued before the first event: the host's work to enqueue
+    fn (the wrapper's checks, the launch) overlaps it, and the events
+    bracket device time only, not the host's enqueue latency."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)
         a.record()
         fn()
         b.record()
@@ -268,7 +300,15 @@ def bound(torch, name, args, out, scene, sim):
             inner + wall, flops, nbytes)
 
 
-def compare(torch, what, name, args, kw, real):
+def channels(torch, out):
+    """A sweep's output as one (C, cap, k) tensor: the packed sweeps return
+    (a, b) pairs of (C, cap) / (C, cap, 2) tensors."""
+    if torch.is_tensor(out):
+        return out
+    return torch.cat([a if a.dim() == 3 else a[..., None] for a in out], dim=-1)
+
+
+def compare(torch, what, name, args, kw, real, module=None):
     """One kernel against its plain version on the same inputs.
 
     Tolerance, per output channel over the real slots: the kernel's error
@@ -281,13 +321,14 @@ def compare(torch, what, name, args, kw, real):
     Returns (kernel output, max|k - p32|)."""
     from sphinxsys_tpu_torch.ops import block_sweeps as bs
 
-    wrapper, plain = getattr(bs, name), getattr(bs, name + "_plain")
-    got = wrapper(*args, **kw)
+    module = bs if module is None else module
+    wrapper, plain = getattr(module, name), getattr(module, name + "_plain")
+    got = channels(torch, wrapper(*args, **kw))
     torch.cuda.synchronize()
-    ref32 = plain(*args, **kw)
+    ref32 = channels(torch, plain(*args, **kw))
     args64 = [a.double() if torch.is_tensor(a) and a.is_floating_point()
               else a for a in args]
-    ref64 = plain(*args64, **kw)
+    ref64 = channels(torch, plain(*args64, **kw))
     max_abs = 0.0
     for ch in range(got.shape[-1]):
         k = got[..., ch][real].double()
@@ -500,8 +541,8 @@ def tg_decay_check(torch):
     check(rel < 0.08, f"tg decay: KE off the analytic decay by {rel:.4f}")
 
 
-def profile_step(torch, tag, scene, sim):
-    """One advection step under torch.profiler: device time by kernel, the
+def profile_step(torch, tag, step, what="advection step"):
+    """One step (`step()`) under torch.profiler: device time by kernel, the
     sweeps' share and the device idle share of the profiled step's wall
     time.  The profiler slows the host side, so the same step is also
     timed unprofiled (median of 3) and an idle-share estimate is printed
@@ -510,13 +551,10 @@ def profile_step(torch, tag, scene, sim):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from sphinxsys_tpu_torch.engine import scene as sc
-
-    step = sc.make_advection_step(scene)
-    plain_wall_us = wall_s(torch, lambda: step(sim), 3) * 1e6
+    plain_wall_us = wall_s(torch, step, 3) * 1e6
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(sim)
+        step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     out = ROOT / "build" / "traces"
@@ -527,18 +565,250 @@ def profile_step(torch, tag, scene, sim):
     kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in kern)
     sweeps_us = sum(e.self_device_time_total for e in kern
-                    if any(n in e.key for n in ("density_kernel", "ac1_kernel",
-                                                "ac2_kernel", "visc_tvc_kernel")))
-    log(f"{tag} profile: profiled step wall {wall_us / 1e3:.3f} ms, device busy "
+                    if any(n in e.key for n in SWEEP_KERNEL_NAMES))
+    log(f"{tag} profile: profiled {what} wall {wall_us / 1e3:.3f} ms, device busy "
         f"{dev_us / 1e3:.3f} ms (idle share of the profiled step "
         f"{1 - dev_us / wall_us:.3f}), sweep kernels {sweeps_us / 1e3:.3f} ms, "
         f"{len(kern)} kernel kinds")
-    log(f"{tag} profile: unprofiled step wall {plain_wall_us / 1e3:.3f} ms; "
+    log(f"{tag} profile: unprofiled {what} wall {plain_wall_us / 1e3:.3f} ms; "
         f"estimated idle share {1 - dev_us / plain_wall_us:.3f} (profiled "
         f"device busy over unprofiled wall: two executions)")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"{tag} profile:   {e.self_device_time_total / 1e3:9.3f} ms "
             f"x{e.count:<4d} {e.key[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# 2d16: the first-generation packed acoustic halves (B5a-d)
+# ---------------------------------------------------------------------------
+
+def packed_inputs(torch, scene, fb, nbr, nbr_wall, dt, wall_b=None,
+                  riemann2=None):
+    """The four packed sweeps' (args, kw) as the packed halves build them
+    from block state `fb` at acoustic dt `dt`; `wall_b` (default: the
+    scene's static wall) and `riemann2` (default: the engine's 2nd-half
+    solver) may be replaced."""
+    from sphinxsys_tpu_torch.physics import fluid_blocks as fbops
+
+    eng = scene.eng
+    wall_b = scene.wall_b if wall_b is None else wall_b
+    riemann2 = eng.riemann2 if riemann2 is None else riemann2
+    _, _, _, pk1, pk1_i = fbops.packed_ac1_inputs(fb, eng.eos, dt)
+    _, pk2, pk2_i = fbops.packed_ac2_inputs(fb, dt)
+    c1 = fbops.packed_ac1_constants(eng.kernel, eng.riemann1)
+    c2 = fbops.packed_ac2_constants(eng.kernel, riemann2)
+    return {
+        "ac1_inner_sweep": ((pk1, nbr), c1),
+        "ac2_inner_sweep": ((pk2, nbr), c2),
+        "ac1_wall_sweep": ((pk1_i, fbops.pack_wall_ac1(wall_b), nbr_wall), c1),
+        "ac2_wall_sweep": ((pk2_i, fbops.pack_wall_ac2(wall_b), nbr_wall), c2),
+    }
+
+
+def packed_bound(torch, name, args, out, pairs):
+    """The least time the card could take for one packed sweep (ms), as
+    `bound` counts it: bytes = the output written once, the window map,
+    and once each packed row (16 slots x 8 channels x 4 B = 512 B) the
+    sweep needs — for an inner sweep the rows its map reaches, for a wall
+    sweep the wall rows its map reaches and the fluid rows that have a wall
+    window; flops = the real pairs times PACKED_PAIR_FLOPS.  Returns (ms,
+    "bytes"|"operations", flops, bytes)."""
+    table = args[-1]
+    src = args[0] if name.endswith("inner_sweep") else args[1]
+    live = table < src.shape[0] - 1
+    row_bytes = src[0].numel() * src.element_size()
+    nbytes = out.numel() * out.element_size() \
+        + table.numel() * table.element_size() \
+        + int(torch.unique(table[live]).numel()) * row_bytes
+    if name.endswith("wall_sweep"):
+        nbytes += int(torch.any(live, dim=1).sum()) * row_bytes
+    flops = pairs * PACKED_PAIR_FLOPS[name]
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            flops, nbytes)
+
+
+def packed_kernel_phase(torch, scene, sim, results):
+    """B5a-d against their plain versions on the same inputs, their times
+    and bounds; then the wall sweeps with seeded non-zero wall kinematics
+    (the static dambreak wall packs zeros there) and the 2nd-half sweeps
+    with the Dissipative solver's constants (limiter 1e30)."""
+    from sphinxsys_tpu_torch.engine import block_fluid as eng_mod
+    from sphinxsys_tpu_torch.ops import block_sweeps as bs
+    from sphinxsys_tpu_torch.ops import packed_sweeps as ps
+    from sphinxsys_tpu_torch.physics import riemann as rs
+
+    eng, fb, wb = scene.eng, sim.fluid_b, scene.wall_b
+    c = sim.nbr_inner.shape[0]
+    real = fb["SlotMask"][:c]
+    dt = eng_mod.acoustic_dt(eng, fb)
+    inputs = packed_inputs(torch, scene, fb, sim.nbr_inner, sim.nbr_wall, dt)
+    pos = inputs["ac1_inner_sweep"][0][0][..., :2]
+    inner, wall = real_pairs(torch, pos, fb["SlotMask"], sim.nbr_inner,
+                             (0.0, 0.0), eng.kernel.cutoff, wb["Position"],
+                             wb["SlotMask"], sim.nbr_wall)
+    self_pairs = int(real.sum())
+    for name, (args, kw) in inputs.items():
+        wrapper, plain = getattr(ps, name), getattr(ps, name + "_plain")
+        got, max_abs = compare(torch, "2d16", name, args, kw, real, module=ps)
+        ms = cuda_ms(torch, lambda: wrapper(*args, **kw), reps=20)
+        plain_ms = cuda_ms(torch, lambda: plain(*args, **kw), reps=3)
+        pairs = inner - self_pairs if name.endswith("inner_sweep") else wall
+        bound_ms, bound_by, flops, nbytes = packed_bound(torch, name, args,
+                                                         got, pairs)
+        log(f"2d16 {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}: {pairs} real pairs, "
+            f"{flops:.4e} flop, {nbytes} B), max_abs_err {max_abs:.3e}")
+        results[f"{name}[2d16]"] = dict(
+            max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, real_pairs=pairs)
+    # the *_p2 route's sweeps on the same state, for comparison
+    for name, (args, kw) in sweep_inputs(torch, scene, sim,
+                                         ("ac1_sweep", "ac2_sweep")).items():
+        wrapper = getattr(bs, name)
+        log(f"2d16 {name} (B2/B3 on the same state): kernel "
+            f"{cuda_ms(torch, lambda: wrapper(*args, **kw), reps=20):.4f} ms")
+
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+    shape = wb["Position"].shape
+    moving = dict(wb, AverageVelocity=0.1 * torch.randn(
+        shape, generator=g, device=DEVICE), AverageAcceleration=torch.randn(
+        shape, generator=g, device=DEVICE))
+    variants = (("moving-wall", dict(wall_b=moving),
+                 ("ac1_wall_sweep", "ac2_wall_sweep")),
+                ("dissipative", dict(riemann2=rs.dissipative_riemann(eng.eos)),
+                 ("ac2_inner_sweep", "ac2_wall_sweep")))
+    for what, kw_in, names in variants:
+        inp = packed_inputs(torch, scene, fb, sim.nbr_inner, sim.nbr_wall, dt,
+                            **kw_in)
+        for name in names:
+            args, kw = inp[name]
+            compare(torch, f"2d16 {what}", name, args, kw, real, module=ps)
+            log(f"2d16 {what} {name}: agrees with its plain version")
+
+    # the mask channel as the only guard: padding slots of the neighbour
+    # tensor moved into the support of their row's first slot, volume 1
+    for name, (args, kw) in inputs.items():
+        j = 0 if name.endswith("inner_sweep") else 1
+        mask_ch, vol_ch = {"ac1_inner_sweep": (ps.CMASK, ps.CVOL),
+                           "ac2_inner_sweep": (ps.CMASK, ps.CVOL),
+                           "ac1_wall_sweep": (ps.W1M, ps.W1VOL),
+                           "ac2_wall_sweep": (ps.W2M, ps.W2VOL)}[name]
+        pk = args[j]
+        pad = pk[..., mask_ch] == 0
+        jitter = (torch.rand(pk.shape[:2] + (2,), generator=g, device=DEVICE)
+                  - 0.5) * eng.kernel.h
+        near = pk.clone()
+        near[..., :2] = torch.where(pad[..., None],
+                                    pk[:, :1, :2] + jitter, pk[..., :2])
+        near[..., vol_ch] = torch.where(pad, torch.ones_like(pad, dtype=pk.dtype),
+                                        pk[..., vol_ch])
+        near_args = args[:j] + (near,) + args[j + 1:]
+        got, _ = compare(torch, "2d16 near-padding", name, near_args, kw, real,
+                         module=ps)
+        ref = channels(torch, getattr(ps, name)(*args, **kw))
+        diff = float((got - ref)[real].abs().max())
+        scale = float(ref[real].abs().max())
+        log(f"2d16 near-padding {name}: max |out - out without it| {diff:.3e} "
+            f"(max|out| {scale:.3e})")
+        check(diff <= 1e-6 * scale,
+              f"2d16 near-padding {name}: padding leaks into real slots")
+
+
+def packed_path(torch, scene, sim, results):
+    """One advection step's acoustic sub-steps from `sim` (after its
+    density prep, B1) twice: through the packed halves (B5a-d, the main
+    path of this configuration, launch counts reset just before it and
+    read just after) and through the *_p2 halves (B2/B3).  Equal sub-step
+    counts, real-slot positions within 5e-5 (small_reference_check's
+    limit), velocity and density within 1e-3 max|ref|, finite fields; then
+    each route's sub-step wall time in turns, and one packed sub-step
+    under torch.profiler."""
+    from sphinxsys_tpu_torch.engine import block_fluid as eng_mod
+    from sphinxsys_tpu_torch.ops import packed_sweeps as ps
+    from sphinxsys_tpu_torch.physics import fluid_blocks as fbops
+
+    eng, nbr, nbr_w = scene.eng, sim.nbr_inner, sim.nbr_wall
+    wc = eng_mod.WallCtx(scene.wall_b, nbr_w)
+    dt_adv = eng_mod.advection_dt(eng, sim.fluid_b)
+    fb0 = eng_mod.advection_prep(eng, sim.fluid_b, nbr, wc)
+    w1 = fbops.pack_wall_ac1(scene.wall_b)
+    w2 = fbops.pack_wall_ac2(scene.wall_b)
+
+    def packed_substep(fb, dt):
+        fb = fbops.acoustic_step_1st_half_packed(
+            fb, nbr, eng.kernel, eng.eos, eng.riemann1, dt, wall_packed=w1,
+            nbr_wall=nbr_w)
+        return fbops.acoustic_step_2nd_half_packed(
+            fb, nbr, eng.kernel, eng.riemann2, dt, wall_packed=w2,
+            nbr_wall=nbr_w)
+
+    def p2_substep(fb, dt):
+        fb = eng_mod.acoustic_first_half(eng, fb, nbr, wc, dt)
+        return eng_mod.acoustic_second_half(eng, fb, nbr, wc, dt)
+
+    def relax(substep):
+        fb, t, n = fb0, torch.zeros_like(dt_adv), 0
+        while bool(t < dt_adv):
+            dt = eng_mod.acoustic_dt(eng, fb, dt_adv)
+            fb = substep(fb, dt)
+            t = t + dt
+            n += 1
+        return fb, n
+
+    ps.reset_launch_counts()
+    got, n_got = relax(packed_substep)
+    counts = dict(ps.LAUNCHES)
+    torch.cuda.synchronize()
+    ref, n_ref = relax(p2_substep)
+    real = fb0["SlotMask"]
+    check(n_got == n_ref, f"2d16: {n_got} packed sub-steps, {n_ref} p2 ones")
+    for k in ("Position", "Velocity", "Density", "Pressure"):
+        check(bool(torch.isfinite(got[k][real]).all()), f"2d16: non-finite {k}")
+    dpos = float((got["Position"][real] - ref["Position"][real]).abs().max())
+    errs = {}
+    for k in ("Velocity", "Density"):
+        scale = float(ref[k][real].abs().max())
+        errs[k] = float((got[k][real] - ref[k][real]).abs().max())
+        check(errs[k] <= 1e-3 * scale,
+              f"2d16: {k} differs by {errs[k]:.3e} > 1e-3 max|ref| {scale:.3e}")
+    log(f"2d16 path: {n_got} acoustic sub-steps on each route, max |dpos| "
+        f"{dpos:.3e}, max |dvel| {errs['Velocity']:.3e}, max |drho| "
+        f"{errs['Density']:.3e}, packed launches {counts}")
+    check(dpos <= 5e-5, f"2d16: positions differ by {dpos:.3e}")
+    for name, (_, key) in PACKED_KERNELS.items():
+        check(counts[key] > 0, f"2d16: kernel {name} never launched")
+        results[f"{name}[2d16]"]["launches"] = counts[key]
+
+    dt = eng_mod.acoustic_dt(eng, fb0, dt_adv)
+    routes = {"p2": p2_substep, "packed": packed_substep}
+    turns = [(r, wall_s(torch, lambda: routes[r](fb0, dt), 5) * 1e3)
+             for r in ("p2", "packed", "packed", "p2")]
+    log("2d16 acoustic sub-step wall clock (ms, median of 5, in turns): "
+        + ", ".join(f"{r} {ms:.3f}" for r, ms in turns))
+    results["_2d16_main"] = dict(
+        n_ac=n_got, dpos=dpos, substep_ms={
+            r: [ms for q, ms in turns if q == r] for r in routes})
+    profile_step(torch, "2d16", lambda: packed_substep(fb0, dt),
+                 what="packed acoustic sub-step")
+
+
+def packed_phase(torch, results):
+    """The 2d16 configuration: the 2D dambreak at its bench width with
+    cap 16, after one advection step of the engine."""
+    from sphinxsys_tpu_torch.cases import dambreak_2d as db
+    from sphinxsys_tpu_torch.engine import scene as sc
+    from sphinxsys_tpu_torch.ops import packed_sweeps as ps
+
+    scene, fluid = db.build_block_case(dx=PACKED_DX, device=DEVICE, cap=ps.CAP)
+    sim = sc.make_advection_step(scene)(sc.init_sim(scene, fluid))
+    check(not bool(sim.overflow), "2d16: block capacity overflow")
+    log(f"2d16: n_fluid={scene.n_fluid} n_wall={scene.base.n_wall} "
+        f"grid={scene.eng.grid.shape} c_max={scene.eng.c_max} "
+        f"cap={scene.eng.cap} wall c_max={scene.bm_wall.c_max}")
+    packed_kernel_phase(torch, scene, sim, results)
+    packed_path(torch, scene, sim, results)
 
 
 def main() -> int:
@@ -563,8 +833,8 @@ def main() -> int:
     from sphinxsys_tpu_torch.engine import scene as sc
     from sphinxsys_tpu_torch.ops import _build
 
-    so, build_log, build_s = _build.build()
-    log(f"build: {so.name} in {build_s:.1f} s")
+    libs, build_log, build_s = _build.build()
+    log(f"build: {', '.join(so.name for so in libs)} in {build_s:.1f} s")
     for line in build_log.splitlines():
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             log(f"ptxas: {line.strip()}")
@@ -590,9 +860,11 @@ def main() -> int:
 
     for tag, cfg in CONFIGS.items():
         scene, sim = run_main_path(torch, tag, cfg, results)
-        profile_step(torch, tag, scene, sim)
-        del scene, sim
+        step = sc.make_advection_step(scene)
+        profile_step(torch, tag, lambda: step(sim))
+        del scene, sim, step
         torch.cuda.empty_cache()
+    packed_phase(torch, results)
 
     kernels = []
     for tag, cfg in CONFIGS.items():
@@ -604,7 +876,15 @@ def main() -> int:
                             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                             "bound_by": r["bound_by"], "library_ms": None})
-    main_paths = {tag: results[f"_{tag}_main"] for tag in CONFIGS}
+    for name, (replaces, _) in PACKED_KERNELS.items():
+        r = results[f"{name}[2d16]"]
+        kernels.append({"name": f"{name}[2d16]", "route": "cuda",
+                        "source": PACKED_SOURCE, "replaces": replaces,
+                        "launches": r["launches"],
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": None})
+    main_paths = {tag: results[f"_{tag}_main"] for tag in (*CONFIGS, "2d16")}
     log("main paths: " + json.dumps(main_paths))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,0 +1,314 @@
+// First-generation packed acoustic sweeps of the 2D WCSPH solver for
+// Hopper (sm_90a).
+//
+// Counterparts of the Pallas kernels in sphinxsys_tpu/ops/pallas_sweep.py:
+//   ac1_inner_kernel <- _ac1_kernel       (ac1_inner_sweep)
+//   ac2_inner_kernel <- _ac2_kernel       (ac2_inner_sweep)
+//   ac1_wall_kernel  <- _ac1_wall_kernel  (ac1_wall_sweep)
+//   ac2_wall_kernel  <- _ac2_wall_kernel  (ac2_wall_sweep)
+// ported for their meaning, not their TPU tiling.  The plain PyTorch
+// versions in sphinxsys_tpu_torch/ops/packed_sweeps.py compute the same sums.
+//
+// Layout: every body is one packed block tensor (rows, 16, 8) float32 —
+// 16 slots of 8 channels, so a slot is 32 contiguous bytes read as two
+// float4 loads — whose last row is the all-padding sentinel (mask 0), and
+// the (C, 9) int32 window maps nbr / nbr_wall (sentinel C / Cw).  The TPU
+// kernels read a pre-gathered packed[nbr] tensor (C, 9, 16, 8); these read
+// the neighbour rows through the window map directly, so that 9x copy
+// (295 MB per call for the 2D dambreak at 320k particles) is never made.
+// A window whose row is the sentinel is skipped: its slots have mask 0 and
+// add exactly zero.
+//
+// Channels (pallas_sweep.py:33, :218-225):
+//   inner          [x, y, vx, vy, p, vol, mask, 0]
+//   ac1 wall, i    [x, y, p, rho, ax, ay, mask, 0]
+//   ac1 wall, wall [x, y, vol, ax, ay, mask, 0, 0]
+//   ac2 wall, i    [x, y, vx, vy, mask, 0, 0, 0]
+//   ac2 wall, wall [x, y, vol, vax, vay, nx, ny, mask]
+//
+// Pair arithmetic exactly as the TPU kernels form it (pallas_sweep.py:50-74,
+// :228-236): r = sqrt(dx^2 + dy^2 + 1e-15), e = d * (1/r) (not the rsqrt
+// form of block_sweeps.cu), dW/dr = (q < 2) ? S (qc-2)^3 qc : 0 with
+// qc = min(q, 2) and S = factor_w/h * 0.625 formed in double by the
+// launcher's caller; every pair is multiplied by mask_i mask_j, and the
+// inner sweeps drop the self pair (centre window 4, j == i).  Padding may
+// carry any finite volume (the mask alone keeps it inert), so never build
+// with --use_fast_math.
+//
+// Design (first correct version): one thread per (cell, i-slot), 16
+// threads per cell; the thread loops over the 9 window rows and the 16
+// j-slots of each, accumulating in float32 registers; no atomics, so
+// results are deterministic.  The 16 threads of a cell read the same j
+// slots (broadcast through L1).  What bounds it: 16 x 16 x 9 = 2304 slot
+// pairs per cell, about 10x the real pairs, ~40 flops each, on neighbour
+// rows that stay in L1/L2 — it is arithmetic- and latency-bound, far above
+// the bytes it must move.  Shared-memory staging of neighbour rows and a
+// per-particle cell walk are later work.
+//
+// Every launcher returns cudaGetLastError() after the launch.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kCap = 16;
+constexpr int kCh = 8;
+constexpr int kWindows = 9;
+constexpr int kCentre = 4;
+constexpr int kThreads = 128;
+
+struct Slot {
+  float c[kCh];
+};
+
+__device__ __forceinline__ Slot load_slot(const float* __restrict__ base) {
+  const float4* p = reinterpret_cast<const float4*>(base);
+  const float4 a = __ldg(p);
+  const float4 b = __ldg(p + 1);
+  return Slot{{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w}};
+}
+
+// Pair geometry and masked dW/dr of one slot pair.
+struct Geom {
+  float r, ex, ey, dw;
+};
+
+__device__ __forceinline__ Geom pair_geom(float xi, float yi, float xj,
+                                          float yj, float m, float inv_h,
+                                          float dw_scale) {
+  Geom g;
+  const float dx = xi - xj;
+  const float dy = yi - yj;
+  g.r = sqrtf(dx * dx + dy * dy + 1e-15f);
+  const float inv_r = 1.0f / g.r;
+  g.ex = dx * inv_r;
+  g.ey = dy * inv_r;
+  const float q = g.r * inv_h;
+  const float qc = fminf(q, 2.0f);
+  const float t = qc - 2.0f;
+  g.dw = (q < 2.0f ? dw_scale * (t * t * t) * qc : 0.0f) * m;
+  return g;
+}
+
+__device__ __forceinline__ float sign0(float x) {
+  // jnp.sign: 0 at 0 (e.n == 0 does happen beside a flat wall)
+  return (float)((x > 0.0f) - (x < 0.0f));
+}
+
+// ---------------------------------------------------------------------------
+// B5a: 1st-half inner sweep.  out (C, 16, 3) = [fx, fy, rd]:
+//   f_i  = -sum (p_i + p_j) dW V_j e_ij
+//   rd_i =  sum (p_i - p_j) inv_rho0c0 dW V_j
+// ---------------------------------------------------------------------------
+__global__ void ac1_inner_kernel(const float* __restrict__ packed,
+                                 const int* __restrict__ nbr, int C,
+                                 float inv_h, float dw_scale, float inv_rho0c0,
+                                 float* __restrict__ out) {
+  const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= (int64_t)C * kCap) return;
+  const int64_t cell = g / kCap;
+  const int i = (int)(g % kCap);
+  const Slot si = load_slot(packed + g * kCh);
+  const float p_i = si.c[4];
+  float fx = 0.0f, fy = 0.0f, rd = 0.0f;
+  for (int w = 0; w < kWindows; ++w) {
+    const int row = nbr[cell * kWindows + w];
+    if (row >= C) continue;
+    const float* pj = packed + (int64_t)row * kCap * kCh;
+    for (int j = 0; j < kCap; ++j) {
+      const Slot sj = load_slot(pj + j * kCh);
+      const float m = (w == kCentre && j == i) ? 0.0f : si.c[6] * sj.c[6];
+      const Geom q = pair_geom(si.c[0], si.c[1], sj.c[0], sj.c[1], m, inv_h,
+                               dw_scale);
+      const float dwv = q.dw * sj.c[5];
+      const float p_j = sj.c[4];
+      const float psum = (p_i + p_j) * dwv;
+      fx -= psum * q.ex;
+      fy -= psum * q.ey;
+      rd += (p_i - p_j) * inv_rho0c0 * dwv;
+    }
+  }
+  out[g * 3 + 0] = fx;
+  out[g * 3 + 1] = fy;
+  out[g * 3 + 2] = rd;
+}
+
+// ---------------------------------------------------------------------------
+// B5b: 2nd-half inner sweep.  out (C, 16, 3) = [dcr, fx, fy]:
+//   u     = (v_i - v_j).e_ij
+//   dcr_i = sum u dW V_j
+//   f_i   = sum rho0c0_geo u min(lim_scale max(u, 0), 1) dW V_j e_ij
+// (lim_scale = limiter_coeff * inv_c0, formed in double by the caller)
+// ---------------------------------------------------------------------------
+__global__ void ac2_inner_kernel(const float* __restrict__ packed,
+                                 const int* __restrict__ nbr, int C,
+                                 float inv_h, float dw_scale, float rho0c0_geo,
+                                 float lim_scale, float* __restrict__ out) {
+  const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= (int64_t)C * kCap) return;
+  const int64_t cell = g / kCap;
+  const int i = (int)(g % kCap);
+  const Slot si = load_slot(packed + g * kCh);
+  float dcr = 0.0f, fx = 0.0f, fy = 0.0f;
+  for (int w = 0; w < kWindows; ++w) {
+    const int row = nbr[cell * kWindows + w];
+    if (row >= C) continue;
+    const float* pj = packed + (int64_t)row * kCap * kCh;
+    for (int j = 0; j < kCap; ++j) {
+      const Slot sj = load_slot(pj + j * kCh);
+      const float m = (w == kCentre && j == i) ? 0.0f : si.c[6] * sj.c[6];
+      const Geom q = pair_geom(si.c[0], si.c[1], sj.c[0], sj.c[1], m, inv_h,
+                               dw_scale);
+      const float dwv = q.dw * sj.c[5];
+      const float du = si.c[2] - sj.c[2];
+      const float dv = si.c[3] - sj.c[3];
+      const float u = du * q.ex + dv * q.ey;
+      dcr += u * dwv;
+      const float lim = fminf(lim_scale * fmaxf(u, 0.0f), 1.0f);
+      const float pjump = rho0c0_geo * u * lim * dwv;
+      fx += pjump * q.ex;
+      fy += pjump * q.ey;
+    }
+  }
+  out[g * 3 + 0] = dcr;
+  out[g * 3 + 1] = fx;
+  out[g * 3 + 2] = fy;
+}
+
+// ---------------------------------------------------------------------------
+// B5c: 1st-half wall sweep (wall terms only).  out (C, 16, 3) = [fx, fy, rd]:
+//   p_w  = p_i + rho_i r max((a_i - a_w).(-e_ik), 0)
+//   f_i  = -sum (p_i + p_w) dW V_k e_ik
+//   rd_i =  sum (p_i - p_w) inv_rho0c0 dW V_k
+// ---------------------------------------------------------------------------
+__global__ void ac1_wall_kernel(const float* __restrict__ packed_i,
+                                const float* __restrict__ wall,
+                                const int* __restrict__ nbr_w, int C, int Cw,
+                                float inv_h, float dw_scale, float inv_rho0c0,
+                                float* __restrict__ out) {
+  const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= (int64_t)C * kCap) return;
+  const int64_t cell = g / kCap;
+  const Slot si = load_slot(packed_i + g * kCh);
+  const float p_i = si.c[2], rho_i = si.c[3];
+  float fx = 0.0f, fy = 0.0f, rd = 0.0f;
+  for (int w = 0; w < kWindows; ++w) {
+    const int row = nbr_w[cell * kWindows + w];
+    if (row >= Cw) continue;
+    const float* pk = wall + (int64_t)row * kCap * kCh;
+    for (int k = 0; k < kCap; ++k) {
+      const Slot sk = load_slot(pk + k * kCh);
+      const Geom q = pair_geom(si.c[0], si.c[1], sk.c[0], sk.c[1],
+                               si.c[6] * sk.c[5], inv_h, dw_scale);
+      const float dwv = q.dw * sk.c[2];
+      const float face_acc = (si.c[4] - sk.c[3]) * (-q.ex) +
+                             (si.c[5] - sk.c[4]) * (-q.ey);
+      const float p_w = p_i + rho_i * q.r * fmaxf(face_acc, 0.0f);
+      const float psum = (p_i + p_w) * dwv;
+      fx -= psum * q.ex;
+      fy -= psum * q.ey;
+      rd += (p_i - p_w) * inv_rho0c0 * dwv;
+    }
+  }
+  out[g * 3 + 0] = fx;
+  out[g * 3 + 1] = fy;
+  out[g * 3 + 2] = rd;
+}
+
+// ---------------------------------------------------------------------------
+// B5d: 2nd-half wall sweep (wall terms only).  out (C, 16, 3) = [dcr, fx, fy]:
+//   dv    = 2 (v_i - v_w)           (v_i minus the mirrored 2 v_w - v_i)
+//   n'    = sign(e_ik.n_k) n_k
+//   dcr_i = sum (dv.e_ik) dW V_k
+//   u     = dv.n'
+//   f_i   = sum rho0c0_geo u min(lim_scale max(u, 0), 1) dW V_k n'
+// ---------------------------------------------------------------------------
+__global__ void ac2_wall_kernel(const float* __restrict__ packed_i,
+                                const float* __restrict__ wall,
+                                const int* __restrict__ nbr_w, int C, int Cw,
+                                float inv_h, float dw_scale, float rho0c0_geo,
+                                float lim_scale, float* __restrict__ out) {
+  const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= (int64_t)C * kCap) return;
+  const int64_t cell = g / kCap;
+  const Slot si = load_slot(packed_i + g * kCh);
+  float dcr = 0.0f, fx = 0.0f, fy = 0.0f;
+  for (int w = 0; w < kWindows; ++w) {
+    const int row = nbr_w[cell * kWindows + w];
+    if (row >= Cw) continue;
+    const float* pk = wall + (int64_t)row * kCap * kCh;
+    for (int k = 0; k < kCap; ++k) {
+      const Slot sk = load_slot(pk + k * kCh);
+      const Geom q = pair_geom(si.c[0], si.c[1], sk.c[0], sk.c[1],
+                               si.c[4] * sk.c[7], inv_h, dw_scale);
+      const float dwv = q.dw * sk.c[2];
+      const float nx = sk.c[5], ny = sk.c[6];
+      const float sgn = sign0(q.ex * nx + q.ey * ny);
+      const float fnx = sgn * nx, fny = sgn * ny;
+      const float dvx = 2.0f * (si.c[2] - sk.c[3]);
+      const float dvy = 2.0f * (si.c[3] - sk.c[4]);
+      dcr += (dvx * q.ex + dvy * q.ey) * dwv;
+      const float u = dvx * fnx + dvy * fny;
+      const float lim = fminf(lim_scale * fmaxf(u, 0.0f), 1.0f);
+      const float pjump = rho0c0_geo * u * lim * dwv;
+      fx += pjump * fnx;
+      fy += pjump * fny;
+    }
+  }
+  out[g * 3 + 0] = dcr;
+  out[g * 3 + 1] = fx;
+  out[g * 3 + 2] = fy;
+}
+
+inline unsigned blocks_for(int C) {
+  return (unsigned)(((int64_t)C * kCap + kThreads - 1) / kThreads);
+}
+
+}  // namespace
+
+extern "C" {
+
+int ac1_inner_launch(const float* packed, const int* nbr, int C, float inv_h,
+                     float dw_scale, float inv_rho0c0, float* out,
+                     void* stream) {
+  const unsigned nb = blocks_for(C);
+  if (nb == 0) return (int)cudaGetLastError();
+  ac1_inner_kernel<<<nb, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      packed, nbr, C, inv_h, dw_scale, inv_rho0c0, out);
+  return (int)cudaGetLastError();
+}
+
+int ac2_inner_launch(const float* packed, const int* nbr, int C, float inv_h,
+                     float dw_scale, float rho0c0_geo, float lim_scale,
+                     float* out, void* stream) {
+  const unsigned nb = blocks_for(C);
+  if (nb == 0) return (int)cudaGetLastError();
+  ac2_inner_kernel<<<nb, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      packed, nbr, C, inv_h, dw_scale, rho0c0_geo, lim_scale, out);
+  return (int)cudaGetLastError();
+}
+
+int ac1_wall_launch(const float* packed_i, const float* wall, const int* nbr_w,
+                    int C, int Cw, float inv_h, float dw_scale,
+                    float inv_rho0c0, float* out, void* stream) {
+  const unsigned nb = blocks_for(C);
+  if (nb == 0) return (int)cudaGetLastError();
+  ac1_wall_kernel<<<nb, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      packed_i, wall, nbr_w, C, Cw, inv_h, dw_scale, inv_rho0c0, out);
+  return (int)cudaGetLastError();
+}
+
+int ac2_wall_launch(const float* packed_i, const float* wall, const int* nbr_w,
+                    int C, int Cw, float inv_h, float dw_scale,
+                    float rho0c0_geo, float lim_scale, float* out,
+                    void* stream) {
+  const unsigned nb = blocks_for(C);
+  if (nb == 0) return (int)cudaGetLastError();
+  ac2_wall_kernel<<<nb, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      packed_i, wall, nbr_w, C, Cw, inv_h, dw_scale, rho0c0_geo, lim_scale,
+      out);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -3,7 +3,7 @@ sphinxsys_tpu/physics/fluid_blocks.py).
 
 A block state is a dict of (C+1, cap, ...) tensors with the reference
 variable names plus "SlotMask" ((C+1, cap) bool); row C is the all-padding
-sentinel.  Two families:
+sentinel.  Three families:
 
 * the `*_b` forms: every pair sweep a loop over the 3^dim windows of dense
   (C, cap_i, cap_j) tensor ops with explicit slot masks — the float64 CPU
@@ -12,7 +12,10 @@ sentinel.  Two families:
   exactly zero;
 * the `*_p2` forms: the same updates with the pair sums taken by
   ops/block_sweeps.py (the CUDA kernels on the card, their plain versions
-  on the CPU).
+  on the CPU);
+* the first-generation packed acoustic halves `*_packed` (2D, cap 16, no
+  periodic box): the same acoustic updates with the pair sums taken by
+  ops/packed_sweeps.py on one packed (rows, 16, 8) tensor per body.
 
 Every form takes `box`, the periodic lengths (0 on an axis that does not
 wrap): pair displacements then take the minimum image.  Padding stays
@@ -30,7 +33,10 @@ import torch
 
 from sphinxsys_tpu_torch.neighbors.cell_blocks import occupied_rows, window_offsets
 from sphinxsys_tpu_torch.ops import block_sweeps as sweeps
-from sphinxsys_tpu_torch.physics.riemann import AcousticRiemannSolver
+from sphinxsys_tpu_torch.ops import packed_sweeps as packed
+from sphinxsys_tpu_torch.physics.riemann import (
+    AcousticRiemannSolver, DissipativeRiemannSolver,
+)
 
 TINY = 1.0e-15
 
@@ -262,8 +268,7 @@ def acoustic_step_1st_half_b(fb, nbr_inner, kernel, dim: int, eos, riemann, dt,
 def acoustic_step_2nd_half_b(fb, nbr_inner, kernel, dim: int, riemann, dt,
                              wall_b=None, nbr_wall=None, box=None):
     mask = fb["SlotMask"]
-    pos = fb["Position"] + torch.where(mask[..., None], fb["Velocity"] * (0.5 * dt),
-                                       torch.zeros_like(fb["Velocity"]))
+    pos = _second_half_pos(fb, dt)
     vel = fb["Velocity"]
     vol = fb["VolumetricMeasure"]
     c, n = nbr_inner.shape[0], occupied_rows(nbr_inner)
@@ -324,14 +329,37 @@ def acoustic_step_1st_half_p2(fb, nbr_inner, wall_b, nbr_wall, kernel, eos,
                               dt, c)
 
 
-def ac2_dissipation(riemann):
-    """(rho0c0_geo, lim_scale) of the B3 sweep for a 2nd-half solver.  The
-    No solver passes rho0c0_geo = 0 and limiter 1, as JAX's Pallas path
-    dispatches it: it still carries a non-zero rho0c0_geo_ave, which would
-    add dissipation that its `*_b` form does not have."""
+def ac2_limiter(riemann):
+    """(rho0c0_geo, limiter_coeff) that JAX's Pallas paths pass the 2nd-half
+    sweeps for a solver, tested in JAX's order (Dissipative before its base
+    class Acoustic):
+      * Dissipative: limiter 1e30, so min(1e30 inv_c0 max(u, 0), 1) is 1
+        for u > 0 but 0 for u <= 0, where its `*_b` form (limiter == 1)
+        keeps rho0c0_geo u;
+      * Acoustic: its own limiter_coeff;
+      * No: rho0c0_geo = 0 and limiter 1 — it still carries a non-zero
+        rho0c0_geo_ave, which would add dissipation that its `*_b` form
+        does not have."""
+    if isinstance(riemann, DissipativeRiemannSolver):
+        return riemann.rho0c0_geo_ave, 1.0e30
     if isinstance(riemann, AcousticRiemannSolver):
-        return riemann.rho0c0_geo_ave, riemann.limiter_coeff * riemann.inv_c0_ave
-    return 0.0, 1.0 * riemann.inv_c0_ave
+        return riemann.rho0c0_geo_ave, riemann.limiter_coeff
+    return 0.0, 1.0
+
+
+def ac2_dissipation(riemann):
+    """(rho0c0_geo, lim_scale) of the B3 sweep for a 2nd-half solver:
+    lim_scale = limiter_coeff * inv_c0_ave, formed in double as JAX's
+    static-float product is (`ac2_limiter`)."""
+    geo, limiter = ac2_limiter(riemann)
+    return geo, limiter * riemann.inv_c0_ave
+
+
+def _second_half_pos(fb, dt):
+    mask = fb["SlotMask"]
+    return fb["Position"] + torch.where(mask[..., None],
+                                        fb["Velocity"] * (0.5 * dt),
+                                        torch.zeros_like(fb["Velocity"]))
 
 
 def acoustic_step_2nd_half_p2(fb, nbr_inner, wall_b, nbr_wall, kernel, riemann,
@@ -339,9 +367,7 @@ def acoustic_step_2nd_half_p2(fb, nbr_inner, wall_b, nbr_wall, kernel, riemann,
     """acoustic_step_2nd_half_b through the B3 sweep.  `wall_static` drops
     the wall velocity channel."""
     geo, lim_scale = ac2_dissipation(riemann)
-    mask = fb["SlotMask"]
-    pos = fb["Position"] + torch.where(mask[..., None], fb["Velocity"] * (0.5 * dt),
-                                       torch.zeros_like(fb["Velocity"]))
+    pos = _second_half_pos(fb, dt)
     vol = fb["VolumetricMeasure"]
     c = nbr_inner.shape[0]
     wall = _wall_args(wall_b, nbr_wall, "Position", "VolumetricMeasure",
@@ -355,6 +381,124 @@ def acoustic_step_2nd_half_p2(fb, nbr_inner, wall_b, nbr_wall, kernel, riemann,
         rho0c0_geo=geo, lim_scale=lim_scale, box=box)
     force = out[..., 1:] * vol[:c][..., None]
     return _second_half_update(fb, force, out[..., 0], pos, dt, c)
+
+
+# ---------------------------------------------------------------------------
+# first-generation packed acoustic halves (2D, Wendland C2, cap 16,
+# non-periodic): the pair sums through ops/packed_sweeps.py (B5a-d), one
+# packed (rows, 16, 8) tensor per body; the update stages are the *_p2 ones
+# ---------------------------------------------------------------------------
+
+def pack_wall_ac1(wall_b):
+    """Static wall tensor of the 1st-half wall sweep:
+    [x, y, vol, ax, ay, mask, 0, 0]."""
+    m = wall_b["SlotMask"].to(wall_b["VolumetricMeasure"].dtype)
+    z = torch.zeros_like(m)
+    pos, acc = wall_b["Position"], wall_b["AverageAcceleration"]
+    return torch.stack([pos[..., 0], pos[..., 1], wall_b["VolumetricMeasure"],
+                        acc[..., 0], acc[..., 1], m, z, z], dim=-1)
+
+
+def pack_wall_ac2(wall_b):
+    """Static wall tensor of the 2nd-half wall sweep:
+    [x, y, vol, vax, vay, nx, ny, mask]."""
+    m = wall_b["SlotMask"].to(wall_b["VolumetricMeasure"].dtype)
+    pos, vel = wall_b["Position"], wall_b["AverageVelocity"]
+    n = wall_b["NormalDirection"]
+    return torch.stack([pos[..., 0], pos[..., 1], wall_b["VolumetricMeasure"],
+                        vel[..., 0], vel[..., 1], n[..., 0], n[..., 1], m],
+                       dim=-1)
+
+
+def _check_packed_case(fb, box):
+    """The packed sweeps are 2D, cap 16 and non-periodic only."""
+    if fb["Position"].shape[-1] != 2:
+        raise ValueError("the packed acoustic halves are 2D only")
+    if fb["Position"].shape[1] != packed.CAP:
+        raise ValueError(f"the packed acoustic halves take cap {packed.CAP}, "
+                         f"got {fb['Position'].shape[1]}")
+    if box is not None and any(b > 0 for b in box):
+        raise ValueError("the packed acoustic halves do not wrap a periodic box")
+
+
+def packed_ac1_inputs(fb, eos, dt):
+    """The 1st half's half-step fields and its sweeps' packed tensors:
+    (rho, p, pos, packed [x, y, vx, vy, p, vol, mask, 0],
+    packed_i [x, y, p, rho, ax, ay, mask, 0] of the wall sweep)."""
+    mask = fb["SlotMask"]
+    rho, p, pos = _half_step_fields(fb, eos, dt)
+    acc = fb["ForcePrior"] / torch.clamp(fb["Mass"], min=TINY)[..., None]
+    z = torch.zeros_like(p)
+    packed_i = torch.stack([pos[..., 0], pos[..., 1], p, rho, acc[..., 0],
+                            acc[..., 1], mask.to(p.dtype), z], dim=-1)
+    return (rho, p, pos, packed.pack_state_2d(
+        pos, fb["Velocity"], p, fb["VolumetricMeasure"], mask), packed_i)
+
+
+def packed_ac2_inputs(fb, dt):
+    """The 2nd half's positions and its sweeps' packed tensors: (pos,
+    packed [x, y, vx, vy, p, vol, mask, 0],
+    packed_i [x, y, vx, vy, mask, 0, 0, 0] of the wall sweep)."""
+    mask, vel, vol = fb["SlotMask"], fb["Velocity"], fb["VolumetricMeasure"]
+    pos = _second_half_pos(fb, dt)
+    z = torch.zeros_like(vol)
+    packed_i = torch.stack([pos[..., 0], pos[..., 1], vel[..., 0], vel[..., 1],
+                            mask.to(vol.dtype), z, z, z], dim=-1)
+    return pos, packed.pack_state_2d(pos, vel, fb["Pressure"], vol,
+                                     mask), packed_i
+
+
+def packed_ac1_constants(kernel, riemann):
+    """Keyword constants of the 1st-half packed sweeps."""
+    return dict(kernel_h=kernel.h, factor_w=kernel._factor_w(2),
+                inv_rho0c0_ave=riemann.inv_rho0c0_ave)
+
+
+def packed_ac2_constants(kernel, riemann):
+    """Keyword constants of the 2nd-half packed sweeps; the Dissipative
+    solver gets limiter 1e30 (`ac2_limiter`), as in JAX."""
+    geo, limiter = ac2_limiter(riemann)
+    return dict(kernel_h=kernel.h, factor_w=kernel._factor_w(2),
+                rho0c0_geo=geo, inv_c0=riemann.inv_c0_ave,
+                limiter_coeff=limiter)
+
+
+def acoustic_step_1st_half_packed(fb, nbr_inner, kernel, eos, riemann, dt,
+                                  wall_packed=None, nbr_wall=None, box=None):
+    """acoustic_step_1st_half_b through the B5a (inner) and B5c (wall)
+    sweeps; counterpart of JAX's `acoustic_step_1st_half_pallas`.
+    `wall_packed` is `pack_wall_ac1(wall_b)`."""
+    _check_packed_case(fb, box)
+    rho, p, pos, pk, pk_i = packed_ac1_inputs(fb, eos, dt)
+    consts = packed_ac1_constants(kernel, riemann)
+    force, rd = packed.ac1_inner_sweep(pk, nbr_inner, **consts)
+    if wall_packed is not None:
+        force_w, rd_w = packed.ac1_wall_sweep(pk_i, wall_packed, nbr_wall,
+                                              **consts)
+        force = force + force_w
+        rd = rd + rd_w
+    return _first_half_update(fb, force, rd, rho, p, pos, dt,
+                              nbr_inner.shape[0])
+
+
+def acoustic_step_2nd_half_packed(fb, nbr_inner, kernel, riemann, dt,
+                                  wall_packed=None, nbr_wall=None, box=None):
+    """acoustic_step_2nd_half_b through the B5b (inner) and B5d (wall)
+    sweeps; counterpart of JAX's `acoustic_step_2nd_half_pallas`.  The wall
+    term uses the same solver as the inner one; `wall_packed` is
+    `pack_wall_ac2(wall_b)`."""
+    _check_packed_case(fb, box)
+    pos, pk, pk_i = packed_ac2_inputs(fb, dt)
+    consts = packed_ac2_constants(kernel, riemann)
+    dcr, pdiss = packed.ac2_inner_sweep(pk, nbr_inner, **consts)
+    if wall_packed is not None:
+        dcr_w, pdiss_w = packed.ac2_wall_sweep(pk_i, wall_packed, nbr_wall,
+                                               **consts)
+        dcr = dcr + dcr_w
+        pdiss = pdiss + pdiss_w
+    c = nbr_inner.shape[0]
+    return _second_half_update(fb, pdiss * fb["VolumetricMeasure"][:c][..., None],
+                               dcr, pos, dt, c)
 
 
 # ---------------------------------------------------------------------------

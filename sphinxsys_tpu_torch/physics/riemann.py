@@ -1,8 +1,9 @@
 """Riemann solvers for the pairwise WCSPH dissipation (counterpart of
 sphinxsys_tpu/physics/riemann.py; reference riemann_solver.h:55-124):
-    No:       no dissipation (the central scheme)
-    Acoustic: DissipativePJump(du) = rho0c0_geo * du * min(coeff * inv_c0_ave * max(du, 0), 1)
-              DissipativeUJump(dp) = dp * inv_rho0c0_ave
+    No:          no dissipation (the central scheme)
+    Acoustic:    DissipativePJump(du) = rho0c0_geo * du * min(coeff * inv_c0_ave * max(du, 0), 1)
+                 DissipativeUJump(dp) = dp * inv_rho0c0_ave
+    Dissipative: the Acoustic jumps with the limiter == 1
 """
 
 from __future__ import annotations
@@ -48,13 +49,23 @@ class AcousticRiemannSolver(NoRiemannSolver):
 
     limiter_coeff: float = 3.0
 
+    def _limiter(self, x):
+        return torch.clamp(self.limiter_coeff * x, max=1.0)
+
     def dissipative_p_jump(self, u_jump):
-        lim = torch.clamp(self.limiter_coeff * (
-            self.inv_c0_ave * torch.clamp(u_jump, min=0.0)), max=1.0)
+        lim = self._limiter(self.inv_c0_ave * torch.clamp(u_jump, min=0.0))
         return self.rho0c0_geo_ave * u_jump * lim
 
     def dissipative_u_jump(self, p_jump):
         return p_jump * self.inv_rho0c0_ave
+
+
+@dataclasses.dataclass(frozen=True)
+class DissipativeRiemannSolver(AcousticRiemannSolver):
+    """BaseAcousticRiemannSolver<NoLimiter>: limiter == 1."""
+
+    def _limiter(self, x):
+        return torch.ones_like(x)
 
 
 def _rho0c0_pair(fluid_i, fluid_j):
@@ -69,6 +80,12 @@ def acoustic_riemann(fluid_i, fluid_j=None,
     rc_i, rc_j, inv_c0 = _rho0c0_pair(fluid_i, fluid_j or fluid_i)
     return AcousticRiemannSolver(rho0c0_i=rc_i, rho0c0_j=rc_j,
                                  inv_c0_ave=inv_c0, limiter_coeff=limiter_coeff)
+
+
+def dissipative_riemann(fluid_i, fluid_j=None) -> DissipativeRiemannSolver:
+    rc_i, rc_j, inv_c0 = _rho0c0_pair(fluid_i, fluid_j or fluid_i)
+    return DissipativeRiemannSolver(rho0c0_i=rc_i, rho0c0_j=rc_j,
+                                    inv_c0_ave=inv_c0)
 
 
 def no_riemann(fluid_i, fluid_j=None) -> NoRiemannSolver:
