@@ -43,11 +43,20 @@ Phases:
      acoustic sub-steps through the packed halves and through the *_p2
      halves from the same state (equal sub-step counts, positions within
      5e-5, every packed kernel launched), each route's sub-step time, and
-     one packed sub-step under torch.profiler.
+     one packed sub-step under torch.profiler;
+  7. layout: on the same state, packed once, B6 and B7
+     (csrc/layout_sweeps.cu, two other decompositions of B5a's sweep)
+     against their plain versions and both against the B5a kernel, B6 also
+     with padding moved into the support, and bounded; then the layout
+     drivers (sphinxsys_tpu_torch/benchmarks/exp_layout*.py) on that state,
+     launch counts reset just before them and read just after, their
+     cross-checks, and B6's, B7's and `prep_t`'s (B7's gather) times from
+     their runs.
 
-Its last two lines are a JSON object of per-kernel results and
-{"ok": true, "device": {...}}.  Any failed check exits non-zero before
-printing them.  Imports no JAX.
+Every kernel and plain-version time is taken by
+sphinxsys_tpu_torch.benchmarks.median_ms, the layout drivers' timer.  Its last two lines are a JSON object of per-kernel
+results and {"ok": true, "device": {...}}.  Any failed check exits
+non-zero before printing them.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -82,6 +91,20 @@ PACKED_SOURCE = "sphinxsys_tpu_torch/csrc/packed_sweeps.cu"
 PACKED_PAIR_FLOPS = {"ac1_inner_sweep": 31, "ac2_inner_sweep": 38,
                      "ac1_wall_sweep": 42, "ac2_wall_sweep": 49}
 PACKED_DX = 0.0025          # the 2D dambreak at its bench width, cap 16
+LAYOUT_KERNELS = {  # layout_sweeps wrapper -> (TPU kernel, launch-counter key)
+    "ac1_flat_sweep": ("benchmarks/exp_layout.py:93", "ac1_flat"),
+    "ac1_t_sweep": ("benchmarks/exp_layout2.py:80", "ac1_t"),
+}
+LAYOUT_SOURCE = "sphinxsys_tpu_torch/csrc/layout_sweeps.cu"
+# float operations per real pair, counted from csrc/layout_sweeps.cu as
+# PACKED_PAIR_FLOPS: the pair geometry 8, the masked dW/dr * V_j 12, the
+# force 7 and the density term 4 (B7's rsqrt and r2 * inv_r stand for B6's
+# sqrt and division; the per-window and shuffle sums are not per pair)
+LAYOUT_PAIR_FLOPS = 31
+# the channel planes B7 loads (csrc/layout_sweeps.cu ac1_t_kernel): of xi_t
+# x, y, p, mask; of xj_t x, y, p, vol, mask (channels of ops/packed_sweeps)
+B7_XI_CHANNELS = (0, 1, 4, 6)
+B7_XJ_CHANNELS = (0, 1, 4, 5, 6)
 DEVICE = "cuda"
 DAMBREAK_KERNELS = ("density_sweep", "ac1_sweep", "ac2_sweep")
 CONFIGS = {  # the bench configs (bench.py:311-318), Taylor–Green at 1M
@@ -109,7 +132,8 @@ PEAK_HBM_BYTES = 3.35e12
 # the CUDA kernels' names, for the profile's sweep share
 SWEEP_KERNEL_NAMES = ("density_kernel", "ac1_kernel", "ac2_kernel",
                       "visc_tvc_kernel", "ac1_inner_kernel", "ac2_inner_kernel",
-                      "ac1_wall_kernel", "ac2_wall_kernel")
+                      "ac1_wall_kernel", "ac2_wall_kernel", "ac1_flat_kernel",
+                      "ac1_t_kernel")
 
 
 class SmokeFailure(Exception):
@@ -123,27 +147,6 @@ def check(cond, msg):
 
 def log(msg):
     print(f"[chip_smoke] {msg}", flush=True)
-
-
-def cuda_ms(torch, fn, reps):
-    """Median device time of fn() over reps runs (CUDA events), after one
-    warm-up call.  Each run would start on an idle card, so a device sleep
-    (~0.5 ms) is queued before the first event: the host's work to enqueue
-    fn (the wrapper's checks, the launch) overlaps it, and the events
-    bracket device time only, not the host's enqueue latency."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(1_000_000)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
 
 
 def wall_s(torch, fn, reps):
@@ -294,10 +297,7 @@ def bound(torch, name, args, out, scene, sim):
     n_per = sum(1 for b in eng.box if b > 0.0)
     flops = inner * pair_flops(name, eng.dim, n_per) + wall * pair_flops(
         name, eng.dim, n_per, wall=True)
-    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
-            inner + wall, flops, nbytes)
+    return (*bytes_or_flops(nbytes, flops), inner + wall, flops, nbytes)
 
 
 def channels(torch, out):
@@ -308,27 +308,18 @@ def channels(torch, out):
     return torch.cat([a if a.dim() == 3 else a[..., None] for a in out], dim=-1)
 
 
-def compare(torch, what, name, args, kw, real, module=None):
-    """One kernel against its plain version on the same inputs.
+def hold(torch, what, got, ref32, ref64, real):
+    """A kernel's output `got` against a float32 reference `ref32` and the
+    float64 plain version `ref64` of the same function on the same inputs.
 
     Tolerance, per output channel over the real slots: the kernel's error
-    against the plain version run in float64 must be at most twice the
-    float32 plain version's own error against it, plus 1e-6 * max|ref| —
-    both sum the same f32 pair terms in different orders, and the ac1
-    force cancels terms far larger than the sum, so only an error scale
-    measured on the same data is meaningful.  As a gross-error guard the
-    kernel must also agree with the f32 plain version to 1e-3 * max|ref|.
-    Returns (kernel output, max|k - p32|)."""
-    from sphinxsys_tpu_torch.ops import block_sweeps as bs
-
-    module = bs if module is None else module
-    wrapper, plain = getattr(module, name), getattr(module, name + "_plain")
-    got = channels(torch, wrapper(*args, **kw))
-    torch.cuda.synchronize()
-    ref32 = channels(torch, plain(*args, **kw))
-    args64 = [a.double() if torch.is_tensor(a) and a.is_floating_point()
-              else a for a in args]
-    ref64 = channels(torch, plain(*args64, **kw))
+    against the float64 plain version must be at most twice the float32
+    reference's own error against it, plus 1e-6 * max|ref| — both sum the
+    same f32 pair terms in different orders, and the ac1 force cancels
+    terms far larger than the sum, so only an error scale measured on the
+    same data is meaningful.  As a gross-error guard the kernel must also
+    agree with the f32 reference to 1e-3 * max|ref|.  Returns
+    max|k - p32|."""
     max_abs = 0.0
     for ch in range(got.shape[-1]):
         k = got[..., ch][real].double()
@@ -339,21 +330,39 @@ def compare(torch, what, name, args, kw, real, module=None):
         err_p = float((p32 - p64).abs().max())
         err_kp = float((k - p32).abs().max())
         max_abs = max(max_abs, err_kp)
-        log(f"{what} {name} ch{ch}: max|ref|={scale:.6e} |k-p32|={err_kp:.3e} "
+        log(f"{what} ch{ch}: max|ref|={scale:.6e} |k-p32|={err_kp:.3e} "
             f"|k-p64|={err_k:.3e} |p32-p64|={err_p:.3e}")
-        check(bool(torch.isfinite(k).all()), f"{what} {name} ch{ch}: non-finite")
+        check(bool(torch.isfinite(k).all()), f"{what} ch{ch}: non-finite")
         check(err_k <= 2.0 * err_p + 1e-6 * scale,
-              f"{what} {name} ch{ch}: kernel error {err_k:.3e} vs f64 exceeds "
-              f"2x the f32 plain error {err_p:.3e} + 1e-6 max|ref|")
+              f"{what} ch{ch}: kernel error {err_k:.3e} vs f64 exceeds "
+              f"2x the f32 reference's error {err_p:.3e} + 1e-6 max|ref|")
         limit = 1e-3 * max(scale, 1e-30)
         check(err_kp <= limit,
-              f"{what} {name} ch{ch}: kernel vs f32 plain {err_kp:.3e} > {limit:.3e}")
-    return got, max_abs
+              f"{what} ch{ch}: kernel vs f32 reference {err_kp:.3e} > {limit:.3e}")
+    return max_abs
+
+
+def compare(torch, what, name, args, kw, real, module=None):
+    """One kernel against its plain version on the same inputs, under
+    `hold`'s criterion (the f32 reference is the plain version run in
+    float32).  Returns (kernel output, max|k - p32|)."""
+    from sphinxsys_tpu_torch.ops import block_sweeps as bs
+
+    module = bs if module is None else module
+    wrapper, plain = getattr(module, name), getattr(module, name + "_plain")
+    got = channels(torch, wrapper(*args, **kw))
+    torch.cuda.synchronize()
+    ref32 = channels(torch, plain(*args, **kw))
+    args64 = [a.double() if torch.is_tensor(a) and a.is_floating_point()
+              else a for a in args]
+    ref64 = channels(torch, plain(*args64, **kw))
+    return got, hold(torch, f"{what} {name}", got, ref32, ref64, real)
 
 
 def compare_kernels(torch, tag, cfg, scene, sim, results):
     """Phase 3: every kernel of the path against its plain version on the
     same inputs, its times and its bound."""
+    from sphinxsys_tpu_torch.benchmarks import median_ms
     from sphinxsys_tpu_torch.ops import block_sweeps as bs
 
     c = sim.nbr_inner.shape[0]
@@ -362,8 +371,8 @@ def compare_kernels(torch, tag, cfg, scene, sim, results):
     for name, (args, kw) in inputs.items():
         wrapper, plain = getattr(bs, name), getattr(bs, name + "_plain")
         got, max_abs = compare(torch, tag, name, args, kw, real)
-        ms = cuda_ms(torch, lambda: wrapper(*args, **kw), reps=20)
-        plain_ms = cuda_ms(torch, lambda: plain(*args, **kw), reps=3)
+        ms = median_ms(lambda: wrapper(*args, **kw), 20, DEVICE)
+        plain_ms = median_ms(lambda: plain(*args, **kw), 3, DEVICE)
         bound_ms, bound_by, pairs, flops, nbytes = bound(
             torch, name, args, got, scene, sim)
         log(f"{tag} {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -605,28 +614,33 @@ def packed_inputs(torch, scene, fb, nbr, nbr_wall, dt, wall_b=None,
     }
 
 
-def packed_bound(torch, name, args, out, pairs):
+def bytes_or_flops(nbytes, flops):
+    """(ms, "bytes"|"operations"): the larger of nbytes over the HBM rate
+    and flops over the float32 rate."""
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def packed_bound(torch, args, out, pairs, pair_flops, wall=False):
     """The least time the card could take for one packed sweep (ms), as
     `bound` counts it: bytes = the output written once, the window map,
     and once each packed row (16 slots x 8 channels x 4 B = 512 B) the
     sweep needs — for an inner sweep the rows its map reaches, for a wall
     sweep the wall rows its map reaches and the fluid rows that have a wall
-    window; flops = the real pairs times PACKED_PAIR_FLOPS.  Returns (ms,
+    window; flops = the real pairs times `pair_flops`.  Returns (ms,
     "bytes"|"operations", flops, bytes)."""
     table = args[-1]
-    src = args[0] if name.endswith("inner_sweep") else args[1]
+    src = args[1] if wall else args[0]
     live = table < src.shape[0] - 1
     row_bytes = src[0].numel() * src.element_size()
     nbytes = out.numel() * out.element_size() \
         + table.numel() * table.element_size() \
         + int(torch.unique(table[live]).numel()) * row_bytes
-    if name.endswith("wall_sweep"):
+    if wall:
         nbytes += int(torch.any(live, dim=1).sum()) * row_bytes
-    flops = pairs * PACKED_PAIR_FLOPS[name]
-    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
-            flops, nbytes)
+    flops = pairs * pair_flops
+    return (*bytes_or_flops(nbytes, flops), flops, nbytes)
 
 
 def packed_kernel_phase(torch, scene, sim, results):
@@ -634,6 +648,7 @@ def packed_kernel_phase(torch, scene, sim, results):
     and bounds; then the wall sweeps with seeded non-zero wall kinematics
     (the static dambreak wall packs zeros there) and the 2nd-half sweeps
     with the Dissipative solver's constants (limiter 1e30)."""
+    from sphinxsys_tpu_torch.benchmarks import median_ms
     from sphinxsys_tpu_torch.engine import block_fluid as eng_mod
     from sphinxsys_tpu_torch.ops import block_sweeps as bs
     from sphinxsys_tpu_torch.ops import packed_sweeps as ps
@@ -652,11 +667,12 @@ def packed_kernel_phase(torch, scene, sim, results):
     for name, (args, kw) in inputs.items():
         wrapper, plain = getattr(ps, name), getattr(ps, name + "_plain")
         got, max_abs = compare(torch, "2d16", name, args, kw, real, module=ps)
-        ms = cuda_ms(torch, lambda: wrapper(*args, **kw), reps=20)
-        plain_ms = cuda_ms(torch, lambda: plain(*args, **kw), reps=3)
+        ms = median_ms(lambda: wrapper(*args, **kw), 20, DEVICE)
+        plain_ms = median_ms(lambda: plain(*args, **kw), 3, DEVICE)
         pairs = inner - self_pairs if name.endswith("inner_sweep") else wall
-        bound_ms, bound_by, flops, nbytes = packed_bound(torch, name, args,
-                                                         got, pairs)
+        bound_ms, bound_by, flops, nbytes = packed_bound(
+            torch, args, got, pairs, PACKED_PAIR_FLOPS[name],
+            wall=name.endswith("wall_sweep"))
         log(f"2d16 {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}: {pairs} real pairs, "
             f"{flops:.4e} flop, {nbytes} B), max_abs_err {max_abs:.3e}")
@@ -668,7 +684,7 @@ def packed_kernel_phase(torch, scene, sim, results):
                                          ("ac1_sweep", "ac2_sweep")).items():
         wrapper = getattr(bs, name)
         log(f"2d16 {name} (B2/B3 on the same state): kernel "
-            f"{cuda_ms(torch, lambda: wrapper(*args, **kw), reps=20):.4f} ms")
+            f"{median_ms(lambda: wrapper(*args, **kw), 20, DEVICE):.4f} ms")
 
     g = torch.Generator(device=DEVICE).manual_seed(7)
     shape = wb["Position"].shape
@@ -695,25 +711,35 @@ def packed_kernel_phase(torch, scene, sim, results):
                            "ac2_inner_sweep": (ps.CMASK, ps.CVOL),
                            "ac1_wall_sweep": (ps.W1M, ps.W1VOL),
                            "ac2_wall_sweep": (ps.W2M, ps.W2VOL)}[name]
-        pk = args[j]
-        pad = pk[..., mask_ch] == 0
-        jitter = (torch.rand(pk.shape[:2] + (2,), generator=g, device=DEVICE)
-                  - 0.5) * eng.kernel.h
-        near = pk.clone()
-        near[..., :2] = torch.where(pad[..., None],
-                                    pk[:, :1, :2] + jitter, pk[..., :2])
-        near[..., vol_ch] = torch.where(pad, torch.ones_like(pad, dtype=pk.dtype),
-                                        pk[..., vol_ch])
-        near_args = args[:j] + (near,) + args[j + 1:]
-        got, _ = compare(torch, "2d16 near-padding", name, near_args, kw, real,
-                         module=ps)
-        ref = channels(torch, getattr(ps, name)(*args, **kw))
-        diff = float((got - ref)[real].abs().max())
-        scale = float(ref[real].abs().max())
-        log(f"2d16 near-padding {name}: max |out - out without it| {diff:.3e} "
-            f"(max|out| {scale:.3e})")
-        check(diff <= 1e-6 * scale,
-              f"2d16 near-padding {name}: padding leaks into real slots")
+        near_padding_check(torch, ps, name, args, kw, j, mask_ch, vol_ch,
+                           eng.kernel.h, real, g)
+
+
+def near_padding_check(torch, module, name, args, kw, j, mask_ch, vol_ch, h,
+                       real, g):
+    """`module.name` with the padding slots of its packed argument `j`
+    moved into the support of their row's first slot (jitter of up to h/2),
+    volume 1: it must agree with its plain version there, and every real
+    slot's sums must stay within 1e-6 max|out| of the run without it."""
+    pk = args[j]
+    pad = pk[..., mask_ch] == 0
+    jitter = (torch.rand(pk.shape[:2] + (2,), generator=g, device=DEVICE)
+              - 0.5) * h
+    near = pk.clone()
+    near[..., :2] = torch.where(pad[..., None], pk[:, :1, :2] + jitter,
+                                pk[..., :2])
+    near[..., vol_ch] = torch.where(pad, torch.ones_like(pad, dtype=pk.dtype),
+                                    pk[..., vol_ch])
+    near_args = args[:j] + (near,) + args[j + 1:]
+    got, _ = compare(torch, "2d16 near-padding", name, near_args, kw, real,
+                     module=module)
+    ref = channels(torch, getattr(module, name)(*args, **kw))
+    diff = float((got - ref)[real].abs().max())
+    scale = float(ref[real].abs().max())
+    log(f"2d16 near-padding {name}: max |out - out without it| {diff:.3e} "
+        f"(max|out| {scale:.3e})")
+    check(diff <= 1e-6 * scale,
+          f"2d16 near-padding {name}: padding leaks into real slots")
 
 
 def packed_path(torch, scene, sim, results):
@@ -794,6 +820,107 @@ def packed_path(torch, scene, sim, results):
                  what="packed acoustic sub-step")
 
 
+# ---------------------------------------------------------------------------
+# layout: B6 and B7, two other decompositions of B5a's sweep
+# ---------------------------------------------------------------------------
+
+def layout_phase(torch, scene, sim, results):
+    """On the 2d16 state (the engine's fields after one advection step,
+    packed once by `pack_layout_state` and shared with the drivers): B6
+    and B7 against their plain versions, B6 with padding moved into the
+    support, and both against the B5a kernel on the same packed tensor
+    (three kernels, one function); then both layout drivers at PACKED_DX
+    on that state, launch counts reset just before them and read just
+    after, their cross-checks, and from their timings each kernel's ms and
+    plain ms beside its bound."""
+    from sphinxsys_tpu_torch.benchmarks import (
+        b5a_channels, exp_layout, exp_layout2, pack_layout_state,
+    )
+    from sphinxsys_tpu_torch.ops import layout_sweeps as ls
+    from sphinxsys_tpu_torch.ops import packed_sweeps as ps
+
+    t0 = time.perf_counter()
+    st = pack_layout_state(scene, sim)
+    pk, nbr, mask = st["packed"], st["nbr"], sim.fluid_b["SlotMask"]
+    c = nbr.shape[0]
+    real = mask[:c]
+    consts = dict(inv_h=st["inv_h"], factor_w=st["factor_w"],
+                  inv_rho0c0=st["inv_rho0c0"])
+    inner, _ = real_pairs(torch, pk[..., :2], mask, nbr, (0.0, 0.0),
+                          scene.eng.kernel.cutoff)
+    pairs = inner - int(real.sum())
+    # slot pairs evaluated: B5a and B6 visit the live windows, B7 all
+    visited = {"ac1_flat_sweep": int((nbr < c).sum()) * ps.CAP ** 2,
+               "ac1_t_sweep": c * ps.NW * ps.CAP ** 2}
+    xi_t, xj_t = ls.prep_t(pk, nbr)
+    b5a32 = torch.stack(b5a_channels(ps.ac1_inner_sweep, st), dim=-1)
+    b5a64 = torch.stack(b5a_channels(ps.ac1_inner_sweep_plain,
+                                     dict(st, packed=pk.double())), dim=-1)
+    g = torch.Generator(device=DEVICE).manual_seed(9)
+    checked = {}
+    for name, args, transposed in (("ac1_flat_sweep", (pk, nbr), False),
+                                   ("ac1_t_sweep", (xi_t, xj_t), True)):
+        got, max_abs = compare(torch, "2d16 layout", name, args, consts,
+                               real.t() if transposed else real, module=ls)
+        as_b5a = got.transpose(0, 1) if transposed else got
+        hold(torch, f"2d16 layout {name} vs the B5a kernel", as_b5a, b5a32,
+             b5a64, real)
+        log(f"2d16 layout {name}: agrees with its plain version and with B5a")
+        if transposed:    # the channel planes it loads, and its output
+            nbytes = got.numel() * got.element_size() + sum(
+                t.numel() // ps.CH * len(chs) * t.element_size()
+                for t, chs in ((xi_t, B7_XI_CHANNELS), (xj_t, B7_XJ_CHANNELS)))
+            flops = pairs * LAYOUT_PAIR_FLOPS
+            bound_ms, bound_by = bytes_or_flops(nbytes, flops)
+        else:             # the same bytes as B5a
+            bound_ms, bound_by, flops, nbytes = packed_bound(
+                torch, args, got, pairs, LAYOUT_PAIR_FLOPS)
+        checked[name] = (max_abs, bound_ms, bound_by, flops, nbytes)
+    # B7's padding arrives pre-gathered, so only B6 takes this guard
+    near_padding_check(torch, ls, "ac1_flat_sweep", (pk, nbr), consts, 0,
+                       ps.CMASK, ps.CVOL, scene.eng.kernel.h, real, g)
+    del xi_t, xj_t, b5a32, b5a64
+    torch.cuda.empty_cache()
+
+    ls.reset_launch_counts()
+    ps.reset_launch_counts()
+    drivers = {m.__name__.rsplit(".", 1)[-1]:
+               m.run(dx=PACKED_DX, device=DEVICE, state=st)
+               for m in (exp_layout, exp_layout2)}
+    counts = dict(ls.LAUNCHES, ac1_inner=ps.LAUNCHES["ac1_inner"])
+    torch.cuda.synchronize()
+    log(f"layout drivers: launches {counts}")
+    for tag, out in drivers.items():
+        check(out["agree"], f"{tag}: cross-checks disagree {out['cross_check']}")
+    for key in counts:
+        check(counts[key] > 0, f"layout drivers: kernel {key} never launched")
+    t1, t2 = drivers["exp_layout"]["ms"], drivers["exp_layout2"]["ms"]
+    timed = {  # (kernel ms, plain ms) from the drivers' runs
+        "ac1_flat_sweep": (t1["d) B6 kernel (C,256) threads"],
+                           t1["b) plain (C,256) flat"]),
+        "ac1_t_sweep": (t2["c2) B7 kernel alone"],
+                        t2["b2) plain (16,16,C) transposed alone"])}
+    prep_ms = t2["g) prep_t (gather + transpose)"]
+    for name, (_, key) in LAYOUT_KERNELS.items():
+        ms, plain_ms = timed[name]
+        max_abs, bound_ms, bound_by, flops, nbytes = checked[name]
+        log(f"2d16 {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}: {pairs} real pairs, "
+            f"{flops:.4e} flop, {nbytes} B), max_abs_err {max_abs:.3e}; "
+            f"{visited[name]} slot pairs evaluated")
+        results[f"{name}[2d16]"] = dict(
+            max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, real_pairs=pairs, launches=counts[key])
+    log(f"2d16 layout: B5a {t1['c) B5a kernel (C,16) threads']:.4f} ms, "
+        f"prep_t {prep_ms:.4f} ms in the same drivers' runs")
+    results["_layout_main"] = dict(prep_t_ms=prep_ms, drivers={
+        tag: dict(ms=out["ms"], cross_check=out["cross_check"])
+        for tag, out in drivers.items()})
+    del st
+    torch.cuda.empty_cache()
+    log(f"layout phase: {time.perf_counter() - t0:.1f} s")
+
+
 def packed_phase(torch, results):
     """The 2d16 configuration: the 2D dambreak at its bench width with
     cap 16, after one advection step of the engine."""
@@ -809,6 +936,7 @@ def packed_phase(torch, results):
         f"cap={scene.eng.cap} wall c_max={scene.bm_wall.c_max}")
     packed_kernel_phase(torch, scene, sim, results)
     packed_path(torch, scene, sim, results)
+    layout_phase(torch, scene, sim, results)
 
 
 def main() -> int:
@@ -876,15 +1004,19 @@ def main() -> int:
                             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                             "bound_by": r["bound_by"], "library_ms": None})
-    for name, (replaces, _) in PACKED_KERNELS.items():
-        r = results[f"{name}[2d16]"]
-        kernels.append({"name": f"{name}[2d16]", "route": "cuda",
-                        "source": PACKED_SOURCE, "replaces": replaces,
-                        "launches": r["launches"],
-                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": None})
-    main_paths = {tag: results[f"_{tag}_main"] for tag in (*CONFIGS, "2d16")}
+    for table, source in ((PACKED_KERNELS, PACKED_SOURCE),
+                          (LAYOUT_KERNELS, LAYOUT_SOURCE)):
+        for name, (replaces, _) in table.items():
+            r = results[f"{name}[2d16]"]
+            kernels.append({"name": f"{name}[2d16]", "route": "cuda",
+                            "source": source, "replaces": replaces,
+                            "launches": r["launches"],
+                            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                            "plain_ms": r["plain_ms"],
+                            "bound_ms": r["bound_ms"],
+                            "bound_by": r["bound_by"], "library_ms": None})
+    main_paths = {tag: results[f"_{tag}_main"]
+                  for tag in (*CONFIGS, "2d16", "layout")}
     log("main paths: " + json.dumps(main_paths))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

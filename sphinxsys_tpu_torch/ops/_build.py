@@ -22,7 +22,8 @@ import types
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = (CSRC / "block_sweeps.cu", CSRC / "packed_sweeps.cu")
+SOURCES = (CSRC / "block_sweeps.cu", CSRC / "packed_sweeps.cu",
+           CSRC / "layout_sweeps.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -46,6 +47,9 @@ ARGTYPES = {
     "ac2_inner_launch": [_P, _P, _I, _F, _F, _F, _F, _P, _P],
     "ac1_wall_launch": [_P, _P, _P, _I, _I, _F, _F, _F, _P, _P],
     "ac2_wall_launch": [_P, _P, _P, _I, _I, _F, _F, _F, _F, _P, _P],
+    # layout_sweeps.cu
+    "ac1_flat_launch": [_P, _P, _I, _F, _F, _F, _P, _P],
+    "ac1_t_launch": [_P, _P, _I, _F, _F, _F, _P, _P],
 }
 
 

@@ -85,6 +85,15 @@ def _constants(kernel_h, factor_w):
 # plain PyTorch versions (exactly the kernels' sums)
 # ---------------------------------------------------------------------------
 
+def _wendland_dw(q, dw_scale):
+    """Wendland C2 dW/dr at q = r/h, q clamped at 2, as the TPU kernels
+    form it."""
+    qc = torch.clamp(q, max=2.0)
+    t = qc - 2.0
+    return torch.where(q < 2.0, dw_scale * (t * t * t) * qc,
+                       torch.zeros_like(q))
+
+
 def _geom(xi, xj, ix, iy, im, jx, jy, jm, inv_h, dw_scale, drop_self):
     """Pair geometry of (n, 16, 8) i and j slot blocks: (r, ex, ey, dW)
     on (n, 16, 16), dW/dr masked by mask_i mask_j (and the self pair)."""
@@ -95,11 +104,7 @@ def _geom(xi, xj, ix, iy, im, jx, jy, jm, inv_h, dw_scale, drop_self):
     m = xi[:, :, None, im] * xj[:, None, :, jm]
     if drop_self:
         m = m * (1.0 - torch.eye(CAP, dtype=m.dtype, device=m.device))
-    q = r * inv_h
-    qc = torch.clamp(q, max=2.0)
-    t = qc - 2.0
-    dw = torch.where(q < 2.0, dw_scale * (t * t * t) * qc,
-                     torch.zeros_like(q)) * m
+    dw = _wendland_dw(r * inv_h, dw_scale) * m
     return r, dx * inv_r, dy * inv_r, dw
 
 

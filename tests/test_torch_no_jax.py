@@ -31,6 +31,9 @@ def test_port_has_modules():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for must in ("sphinxsys_tpu_torch/ops/block_sweeps.py",
                  "sphinxsys_tpu_torch/ops/packed_sweeps.py",
+                 "sphinxsys_tpu_torch/ops/layout_sweeps.py",
+                 "sphinxsys_tpu_torch/benchmarks/exp_layout.py",
+                 "sphinxsys_tpu_torch/benchmarks/exp_layout2.py",
                  "sphinxsys_tpu_torch/engine/scene.py",
                  "sphinxsys_tpu_torch/cases/dambreak_2d.py",
                  "sphinxsys_tpu_torch/cases/dambreak_3d.py",
