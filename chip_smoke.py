@@ -26,7 +26,13 @@ Phases:
      CUDA events and each kernel's bound (the least time the card could
      take: the larger of the bytes it must move over 3.35 TB/s and its
      real pairs' flops over 67 TFLOP/s); the moving-wall variants, and B4
-     with a static and a moving wall on the 2D dambreak;
+     with a static and a moving wall on the 2D dambreak; for B2/B3 the
+     lane x slot pairs their lane groups evaluate, and, in 2D and 3D,
+     padding where the first design never met it (holes: a real slot
+     swapped with its row's last padding slot; near padding: padding
+     moved into the support, VOL 0, real slots unchanged within 1e-6);
+     then B2/B3 at cap 40 (3D, dx=0.05: two i-chunks a cell, also with
+     holes, so that the second chunk holds real slots);
   4. small references: the 2D dambreak (dx=0.1) and Taylor–Green (dx=0.05)
      slices on the card against the same runs on the CPU; Taylor–Green at
      dx=0.01 to t=0.1 against the analytic kinetic-energy decay;
@@ -160,62 +166,6 @@ def wall_s(torch, fn, reps):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     return statistics.median(times)
-
-
-def perturbed(torch, fluid, dx, seed=11):
-    """The fluid state with seeded noise, as the CPU tests put on the
-    Taylor–Green lattice: positions moved by up to 0.1 dx, velocities by
-    N(0, 0.1).  On the bare lattice B4's transport-velocity sum cancels
-    terms ~1e3 times its result, so the f32 rounding of any summation
-    order swamps it; the noise makes every channel a sharp check."""
-    g = torch.Generator(device=DEVICE).manual_seed(seed)
-    pos, vel = fluid["Position"], fluid["Velocity"]
-    shift = torch.rand(pos.shape, generator=g, device=DEVICE) - 0.5
-    kick = torch.randn(vel.shape, generator=g, device=DEVICE)
-    return dict(fluid, Position=pos + 0.2 * dx * shift,
-                Velocity=vel + 0.1 * kick)
-
-
-def sweep_inputs(torch, scene, sim, kernels):
-    """The sweeps' arguments as the *_p2 forms build them, from the current
-    block state (the acoustic ones at the next sub-step's dt)."""
-    from sphinxsys_tpu_torch.engine import block_fluid as eng_mod
-    from sphinxsys_tpu_torch.physics import fluid_blocks as fbops
-
-    eng, fb = scene.eng, sim.fluid_b
-    kern, dim = eng.kernel, eng.dim
-    inv_h = 1.0 / kern.h
-    dw_scale = kern._factor_w(dim) * inv_h * 0.625
-    wb, nw = scene.wall_b, sim.nbr_wall
-    wall = (lambda *k: (None,) * len(k)) if wb is None \
-        else (lambda *k: tuple(wb[x] for x in k))
-    dt = eng_mod.acoustic_dt(eng, fb)
-    rho, p, pos = fbops._half_step_fields(fb, eng.eos, dt)
-    acc = fb["ForcePrior"] / torch.clamp(fb["Mass"], min=fbops.TINY)[..., None]
-    geo, lim_scale = fbops.ac2_dissipation(eng.riemann2)
-    box = eng.box
-    out = {
-        "density_sweep": (
-            (fb["Position"], fb["SlotMask"], sim.nbr_inner,
-             *wall("Position", "VolumetricMeasure"), nw),
-            dict(inv_h=inv_h, factor_w=kern._factor_w(dim), box=box)),
-        "ac1_sweep": (
-            (pos, p, rho, acc, fb["VolumetricMeasure"], sim.nbr_inner,
-             *wall("Position", "VolumetricMeasure"), None, nw),
-            dict(inv_h=inv_h, dw_scale=dw_scale,
-                 inv_rho0c0=eng.riemann1.inv_rho0c0_ave, box=box)),
-        "ac2_sweep": (
-            (pos, fb["Velocity"], fb["VolumetricMeasure"], sim.nbr_inner,
-             *wall("Position", "VolumetricMeasure"), None,
-             *wall("NormalDirection"), nw),
-            dict(inv_h=inv_h, dw_scale=dw_scale, rho0c0_geo=geo,
-                 lim_scale=lim_scale, box=box)),
-        "visc_tvc_sweep": (
-            (fb["Position"], fb["Velocity"], fb["VolumetricMeasure"],
-             sim.nbr_inner, *wall("Position", "VolumetricMeasure"), None, nw),
-            dict(inv_h=inv_h, dw_scale=dw_scale, eps_r=0.01 * eng.h, box=box)),
-    }
-    return {k: out[k] for k in kernels}
 
 
 def real_pairs(torch, pos, mask, nbr, box, cutoff, wall_pos=None,
@@ -362,12 +312,12 @@ def compare(torch, what, name, args, kw, real, module=None):
 def compare_kernels(torch, tag, cfg, scene, sim, results):
     """Phase 3: every kernel of the path against its plain version on the
     same inputs, its times and its bound."""
-    from sphinxsys_tpu_torch.benchmarks import median_ms
+    from sphinxsys_tpu_torch.benchmarks import median_ms, sweep_inputs
     from sphinxsys_tpu_torch.ops import block_sweeps as bs
 
     c = sim.nbr_inner.shape[0]
     real = sim.fluid_b["SlotMask"][:c]
-    inputs = sweep_inputs(torch, scene, sim, cfg["kernels"])
+    inputs = sweep_inputs(scene, sim, cfg["kernels"])
     for name, (args, kw) in inputs.items():
         wrapper, plain = getattr(bs, name), getattr(bs, name + "_plain")
         got, max_abs = compare(torch, tag, name, args, kw, real)
@@ -381,6 +331,13 @@ def compare_kernels(torch, tag, cfg, scene, sim, results):
         results[f"{name}[{tag}]"] = dict(
             max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by, real_pairs=pairs)
+        if name in ("ac1_sweep", "ac2_sweep"):
+            evaluated, split = slot_pairs_evaluated(torch, name, args,
+                                                    sim.fluid_b["SlotMask"])
+            log(f"{tag} {name}: {evaluated} lane x slot pairs evaluated "
+                f"(G={lane_group(args[0].shape[1])}; {pairs} real pairs; "
+                f"{split:.3f} of the cells split), "
+                f"{ms * 1e9 / evaluated:.4f} ps each")
 
 
 def moving_wall_check(torch, tag, scene, sim):
@@ -388,13 +345,15 @@ def moving_wall_check(torch, tag, scene, sim):
     channels present) against their plain versions on the same inputs
     with seeded non-zero wall kinematics; and B4, which the dambreak does
     not run, with the static and the moving wall on the same inputs."""
+    from sphinxsys_tpu_torch.benchmarks import sweep_inputs
+
     g = torch.Generator(device=DEVICE).manual_seed(7)
     wb = scene.wall_b
     wvel = torch.randn(wb["Position"].shape, generator=g, device=DEVICE) * 0.1
     wacc = torch.randn(wb["Position"].shape, generator=g, device=DEVICE)
     c = sim.nbr_inner.shape[0]
     real = sim.fluid_b["SlotMask"][:c]
-    inputs = sweep_inputs(torch, scene, sim, tuple(KERNELS))
+    inputs = sweep_inputs(scene, sim, tuple(KERNELS))
     cases = [("ac1_sweep", 8, wacc), ("ac2_sweep", 6, wvel)]
     if tag == "2d":
         cases += [("visc_tvc_sweep", None, None), ("visc_tvc_sweep", 6, wvel)]
@@ -408,13 +367,141 @@ def moving_wall_check(torch, tag, scene, sim):
         log(f"{what} {name}: agrees with its plain version")
 
 
+def lane_group(cap):
+    """Lanes per cell of the B2/B3 kernels (csrc/block_sweeps.cu)."""
+    return 16 if cap <= 16 else 32
+
+
+def slot_pairs_evaluated(torch, name, args, real):
+    """(lane x slot pairs B2/B3 evaluate, share of split cells) from the
+    block map: for every cell and i-chunk of G lanes holding a real slot,
+    G times the real j-slots (VOL > 0) of its live windows, fluid and
+    wall; a cell whose real i-slots fit in half the group splits them
+    between its halves (evaluating about half as many per lane)."""
+    fluid, wall, maps, _ = READS[name]
+    nbr, nbr_w = (args[i] for i in maps)
+    vol = args[fluid[-1]]
+    c, cap = nbr.shape[0], vol.shape[1]
+    g = lane_group(cap)
+    n_j = (vol > 0).sum(dim=1)
+    per_cell = n_j[nbr.long()].sum(dim=1)
+    if nbr_w is not None:
+        per_cell = per_cell + (args[wall[1]] > 0).sum(dim=1)[nbr_w.long()].sum(dim=1)
+    chunks = torch.stack([real[:c, i0:i0 + g].any(dim=1)
+                          for i0 in range(0, cap, g)], dim=1)
+    live = chunks.sum(dim=1)
+    split = ~real[:c, g // 2:].any(dim=1) & (live > 0)
+    return (int((per_cell * live).sum()) * g,
+            float(split.sum()) / max(int((live > 0).sum()), 1))
+
+
+def swap_holes(torch, name, args, mask, wall_mask):
+    """B2/B3 arguments with, in every row whose first slot is real and last
+    slot padding, the two slots' data swapped (fluid and wall blocks):
+    padding then sits mid-row and a real slot in the last i-chunk.
+    Returns (args, the fluid slot mask after the swap)."""
+    fluid, wall, _, _ = READS[name]
+    args = list(args)
+
+    def perm(m):
+        cap = m.shape[1]
+        idx = torch.arange(cap, device=m.device).repeat(m.shape[0], 1)
+        swap = m[:, 0] & ~m[:, -1]
+        idx[swap, 0] = cap - 1
+        idx[swap, -1] = 0
+        return idx
+
+    for ids, m in ((fluid, mask), (wall, wall_mask)):
+        idx = perm(m)
+        for i in ids:
+            a = args[i]
+            if a is not None:
+                ix = idx if a.dim() == 2 else idx[..., None].expand_as(a)
+                args[i] = torch.gather(a, 1, ix).contiguous()
+    return args, torch.gather(mask, 1, perm(mask))
+
+
+def padding_checks(torch, tag, scene, sim, g):
+    """B2 and B3 with padding where the first design never met it, each
+    against its plain version on the same inputs (moving walls): `holes`,
+    a real slot swapped with its row's last padding slot, fluid and wall
+    (padding mid-row); `near padding`, every padding position moved into
+    the support of its row's first slot (jitter up to h/2), VOL kept 0,
+    whose real slots must stay within 1e-6 max|out| of the run without the
+    move."""
+    from sphinxsys_tpu_torch.benchmarks import sweep_inputs
+    from sphinxsys_tpu_torch.ops import block_sweeps as bs
+
+    wb, fb = scene.wall_b, sim.fluid_b
+    c = sim.nbr_inner.shape[0]
+    real = fb["SlotMask"][:c]
+    h = scene.eng.kernel.h
+    moving = {"ac1_sweep": (8, torch.randn(wb["Position"].shape, generator=g,
+                                           device=DEVICE)),
+              "ac2_sweep": (6, 0.1 * torch.randn(wb["Position"].shape,
+                                                 generator=g, device=DEVICE))}
+    inputs = sweep_inputs(scene, sim, ("ac1_sweep", "ac2_sweep"))
+    for name, (args, kw) in inputs.items():
+        slot, extra = moving[name]
+        args = list(args)
+        args[slot] = extra
+        holed, mask = swap_holes(torch, name, args, fb["SlotMask"],
+                                 wb["SlotMask"])
+        compare(torch, f"{tag} holes", name, holed, kw, mask[:c])
+        log(f"{tag} holes {name}: agrees with its plain version")
+
+        near = list(args)
+        for i, m in ((0, fb["SlotMask"]), (READS[name][1][0], wb["SlotMask"])):
+            p = near[i]
+            jitter = (torch.rand(p.shape, generator=g, device=DEVICE) - 0.5) * h
+            near[i] = torch.where(m[..., None], p, p[:, :1] + jitter)
+        got, _ = compare(torch, f"{tag} near-padding", name, near, kw, real)
+        ref = getattr(bs, name)(*args, **kw)
+        diff = float((got - ref)[real].abs().max())
+        scale = float(ref[real].abs().max())
+        log(f"{tag} near-padding {name}: max |out - out without it| "
+            f"{diff:.3e} (max|out| {scale:.3e})")
+        check(diff <= 1e-6 * scale,
+              f"{tag} near-padding {name}: padding leaks into real slots")
+
+
+def cap40_check(torch):
+    """B2 and B3 at cap 40 (the 3D dambreak's default, dx=0.05), where the
+    lane group sweeps a cell in two i-chunks: against their plain versions
+    after one advection step, and with holes (`swap_holes`) so that the
+    second chunk holds real slots."""
+    from sphinxsys_tpu_torch.benchmarks import sweep_inputs
+    from sphinxsys_tpu_torch.cases import dambreak_3d as db
+    from sphinxsys_tpu_torch.engine import scene as sc
+
+    t0 = time.perf_counter()
+    scene, fluid = db.build_block_case(dx=0.05, device=DEVICE)
+    sim = sc.make_advection_step(scene)(sc.init_sim(scene, fluid))
+    c, cap = sim.nbr_inner.shape[0], scene.eng.cap
+    check(cap > lane_group(cap), f"cap40: cap {cap} fits one i-chunk")
+    fb, wb = sim.fluid_b, scene.wall_b
+    for name, (args, kw) in sweep_inputs(scene, sim,
+                                         ("ac1_sweep", "ac2_sweep")).items():
+        compare(torch, "3d cap40", name, args, kw, fb["SlotMask"][:c])
+        holed, mask = swap_holes(torch, name, args, fb["SlotMask"],
+                                 wb["SlotMask"])
+        check(bool(mask[:c, lane_group(cap):].any()),
+              "cap40: no real slot in the second i-chunk")
+        compare(torch, "3d cap40 holes", name, holed, kw, mask[:c])
+        log(f"3d cap40 {name}: agrees with its plain version, also with "
+            f"real slots in its second i-chunk")
+    log(f"cap40: n_fluid={scene.n_fluid} cap={cap} c_max={scene.eng.c_max} "
+        f"in {time.perf_counter() - t0:.1f} s")
+
+
 def tg_dissipative_ac2_check(torch, scene, sim):
     """The Taylor–Green path passes B3 no dissipation (the No solver); B3's
     force channel with the box is held here with the 1st-half acoustic
     solver's constants instead, on the same inputs."""
+    from sphinxsys_tpu_torch.benchmarks import sweep_inputs
     from sphinxsys_tpu_torch.physics import fluid_blocks as fbops
 
-    args, kw = sweep_inputs(torch, scene, sim, ("ac2_sweep",))["ac2_sweep"]
+    args, kw = sweep_inputs(scene, sim, ("ac2_sweep",))["ac2_sweep"]
     geo, lim_scale = fbops.ac2_dissipation(scene.eng.riemann1)
     kw = dict(kw, rho0c0_geo=geo, lim_scale=lim_scale)
     c = sim.nbr_inner.shape[0]
@@ -648,7 +735,7 @@ def packed_kernel_phase(torch, scene, sim, results):
     and bounds; then the wall sweeps with seeded non-zero wall kinematics
     (the static dambreak wall packs zeros there) and the 2nd-half sweeps
     with the Dissipative solver's constants (limiter 1e30)."""
-    from sphinxsys_tpu_torch.benchmarks import median_ms
+    from sphinxsys_tpu_torch.benchmarks import median_ms, sweep_inputs
     from sphinxsys_tpu_torch.engine import block_fluid as eng_mod
     from sphinxsys_tpu_torch.ops import block_sweeps as bs
     from sphinxsys_tpu_torch.ops import packed_sweeps as ps
@@ -680,7 +767,7 @@ def packed_kernel_phase(torch, scene, sim, results):
             max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by, real_pairs=pairs)
     # the *_p2 route's sweeps on the same state, for comparison
-    for name, (args, kw) in sweep_inputs(torch, scene, sim,
+    for name, (args, kw) in sweep_inputs(scene, sim,
                                          ("ac1_sweep", "ac2_sweep")).items():
         wrapper = getattr(bs, name)
         log(f"2d16 {name} (B2/B3 on the same state): kernel "
@@ -958,6 +1045,7 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     print(smi, flush=True)
 
+    from sphinxsys_tpu_torch.benchmarks import perturbed
     from sphinxsys_tpu_torch.engine import scene as sc
     from sphinxsys_tpu_torch.ops import _build
 
@@ -973,15 +1061,18 @@ def main() -> int:
         db = importlib.import_module(f"sphinxsys_tpu_torch.cases.{cfg['module']}")
         scene, fluid = db.build_block_case(dx=cfg["dx"], device=DEVICE, **cfg["kw"])
         if cfg["noise"]:
-            fluid = perturbed(torch, fluid, cfg["dx"])
+            fluid = perturbed(fluid, cfg["dx"])
         sim = sc.make_advection_step(scene)(sc.init_sim(scene, fluid))
         compare_kernels(torch, tag, cfg, scene, sim, results)
         if scene.wall_b is not None:
             moving_wall_check(torch, tag, scene, sim)
+            padding_checks(torch, tag, scene, sim,
+                           torch.Generator(device=DEVICE).manual_seed(13))
         else:
             tg_dissipative_ac2_check(torch, scene, sim)
         del scene, fluid, sim
         torch.cuda.empty_cache()
+    cap40_check(torch)
     small_reference_check(torch, "dambreak_2d", 0.1, 0.08)
     small_reference_check(torch, "taylor_green_2d", 0.05, 0.08)
     tg_decay_check(torch)

@@ -11,8 +11,13 @@ Each times three decompositions of the same sweep on the same state — B5a
 forms, and cross-checks them.  The default device is the card; the CPU is
 asked for explicitly and runs every sweep's plain version.
 
-This module holds what both drivers share: the state, the timer, the
-cross-check.
+`ab_sweeps` times the B2/B3 kernels of several builds of
+csrc/block_sweeps.cu against each other on the same inputs:
+
+    python -m sphinxsys_tpu_torch.benchmarks.ab_sweeps A.cu B.cu [...]
+
+This module holds what they share: the states, the block sweeps' inputs
+(also chip_smoke.py's), the timer, the cross-check.
 """
 
 from __future__ import annotations
@@ -69,6 +74,63 @@ def b5a_channels(fn, st: dict):
     force, rd = fn(st["packed"], st["nbr"], st["kernel_h"], st["factor_w"],
                    st["inv_rho0c0"])
     return force[..., 0], force[..., 1], rd
+
+
+def perturbed(fluid: dict, dx: float, seed: int = 11) -> dict:
+    """The fluid state with seeded noise, as the CPU tests put on the
+    Taylor–Green lattice: positions moved by up to 0.1 dx, velocities by
+    N(0, 0.1).  On the bare lattice B4's transport-velocity sum cancels
+    terms ~1e3 times its result, so the f32 rounding of any summation
+    order swamps it; the noise makes every channel a sharp check."""
+    pos, vel = fluid["Position"], fluid["Velocity"]
+    g = torch.Generator(device=pos.device).manual_seed(seed)
+    shift = torch.rand(pos.shape, generator=g, device=pos.device) - 0.5
+    kick = torch.randn(vel.shape, generator=g, device=pos.device)
+    return dict(fluid, Position=pos + 0.2 * dx * shift,
+                Velocity=vel + 0.1 * kick)
+
+
+def sweep_inputs(scene, sim, kernels) -> dict:
+    """The block sweeps' (args, kwargs) by wrapper name, as the *_p2 forms
+    build them from the current block state (the acoustic ones at the next
+    sub-step's dt)."""
+    from sphinxsys_tpu_torch.engine import block_fluid as eng_mod
+    from sphinxsys_tpu_torch.physics import fluid_blocks as fbops
+
+    eng, fb = scene.eng, sim.fluid_b
+    kern, dim = eng.kernel, eng.dim
+    inv_h = 1.0 / kern.h
+    dw_scale = kern._factor_w(dim) * inv_h * 0.625
+    wb, nw = scene.wall_b, sim.nbr_wall
+    wall = (lambda *k: (None,) * len(k)) if wb is None \
+        else (lambda *k: tuple(wb[x] for x in k))
+    dt = eng_mod.acoustic_dt(eng, fb)
+    rho, p, pos = fbops._half_step_fields(fb, eng.eos, dt)
+    acc = fb["ForcePrior"] / torch.clamp(fb["Mass"], min=fbops.TINY)[..., None]
+    geo, lim_scale = fbops.ac2_dissipation(eng.riemann2)
+    box = eng.box
+    out = {
+        "density_sweep": (
+            (fb["Position"], fb["SlotMask"], sim.nbr_inner,
+             *wall("Position", "VolumetricMeasure"), nw),
+            dict(inv_h=inv_h, factor_w=kern._factor_w(dim), box=box)),
+        "ac1_sweep": (
+            (pos, p, rho, acc, fb["VolumetricMeasure"], sim.nbr_inner,
+             *wall("Position", "VolumetricMeasure"), None, nw),
+            dict(inv_h=inv_h, dw_scale=dw_scale,
+                 inv_rho0c0=eng.riemann1.inv_rho0c0_ave, box=box)),
+        "ac2_sweep": (
+            (pos, fb["Velocity"], fb["VolumetricMeasure"], sim.nbr_inner,
+             *wall("Position", "VolumetricMeasure"), None,
+             *wall("NormalDirection"), nw),
+            dict(inv_h=inv_h, dw_scale=dw_scale, rho0c0_geo=geo,
+                 lim_scale=lim_scale, box=box)),
+        "visc_tvc_sweep": (
+            (fb["Position"], fb["Velocity"], fb["VolumetricMeasure"],
+             sim.nbr_inner, *wall("Position", "VolumetricMeasure"), None, nw),
+            dict(inv_h=inv_h, dw_scale=dw_scale, eps_r=0.01 * eng.h, box=box)),
+    }
+    return {k: out[k] for k in kernels}
 
 
 def median_ms(fn, k: int, device) -> float:

@@ -1,0 +1,155 @@
+"""B2 and B3 (ac1_sweep / ac2_sweep) of several builds of the block-sweep
+source timed against each other on the same inputs, in turns:
+
+    python -m sphinxsys_tpu_torch.benchmarks.ab_sweeps A.cu B.cu [...]
+
+e.g. A.cu a parent commit's sphinxsys_tpu_torch/csrc/block_sweeps.cu (from
+`git archive`) and B.cu the working tree's.  nvcc compiles each source with
+the port's flags (ops/_build.py) into build/ab/, all at once, and its B2/B3
+launchers are bound by ctypes.  On the states chip_smoke.py measures (the
+2D dambreak at dx=0.0025, the 3D one at dx=0.01 with cap 32, Taylor–Green
+at dx=0.001 with seeded noise, each after one advection step) every build
+runs on the same inputs; its outputs are compared with the first build's on
+the real slots (max |diff| / max |first|, which must stay within 1e-5), and
+it is timed with `median_ms` (20 runs) in four turns: in order, reversed,
+in order, reversed.  Needs the card; exits 1 on a disagreement.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import importlib
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+from sphinxsys_tpu_torch.benchmarks import median_ms, perturbed, sweep_inputs
+from sphinxsys_tpu_torch.ops import _build
+from sphinxsys_tpu_torch.ops import block_sweeps as bs
+
+OUT_DIR = _build.BUILD_DIR.parent / "ab"
+STATES = (  # tag, case module, dx, build_block_case options, seeded noise
+    ("2d", "dambreak_2d", 0.0025, {}, False),
+    ("3d", "dambreak_3d", 0.01, {"cap": 32, "c_max": 125_000}, False),
+    ("tg", "taylor_green_2d", 0.001, {}, True),
+)
+AGREE = 1e-5
+LAUNCHERS = ("ac1_sweep_launch", "ac2_sweep_launch")
+
+
+def build(sources) -> list:
+    """One library per source, compiled in parallel; their B2/B3 launchers."""
+    nvcc = _build.find_nvcc()
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for k, src in enumerate(sources):
+        so = OUT_DIR / f"{k}_{Path(src).stem}.so"
+        jobs.append((so, subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-o", str(so), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    libs = []
+    for so, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {so.name}:\n{log}")
+        lib = ctypes.CDLL(str(so))
+        for name in LAUNCHERS:
+            getattr(lib, name).argtypes = _build.ARGTYPES[name]
+            getattr(lib, name).restype = ctypes.c_int
+        libs.append(lib)
+    return libs
+
+
+def launch(lib, name, args, kw, out):
+    """`name` of one build on the wrappers' arguments, into `out`."""
+    dim = args[0].shape[-1]
+    box = bs._box3(kw["box"], dim)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptr = bs._ptr
+    if name == "ac1_sweep":
+        pos, p, rho, acc, vol, nbr, wpos, wvol, wacc, nbr_w = args
+        consts = (kw["inv_h"], kw["dw_scale"], kw["inv_rho0c0"])
+        fluid = (ptr(pos), ptr(p), ptr(rho), ptr(acc), ptr(vol), ptr(nbr))
+        wall = (ptr(wpos), ptr(wvol), ptr(wacc), ptr(nbr_w))
+        moving = wacc is not None
+    else:
+        pos, vel, vol, nbr, wpos, wvol, wvel, wn, nbr_w = args
+        consts = (kw["inv_h"], kw["dw_scale"], kw["rho0c0_geo"],
+                  kw["lim_scale"])
+        fluid = (ptr(pos), ptr(vel), ptr(vol), ptr(nbr))
+        wall = (ptr(wpos), ptr(wvol), ptr(wvel), ptr(wn), ptr(nbr_w))
+        moving = wvel is not None
+    c, cap = nbr.shape[0], pos.shape[1]
+    cw, capw = (wpos.shape[0] - 1, wpos.shape[1]) if nbr_w is not None \
+        else (0, 0)
+    err = getattr(lib, name + "_launch")(
+        dim, int(moving), *fluid, c, cap, *wall, cw, capw, *consts, *box,
+        ptr(out), stream)
+    bs._raise_on(err, name)
+
+
+def run(sources, k: int = 20) -> bool:
+    """Prints, per state and kernel, each build's time range over the four
+    turns and its disagreement with the first build; True if all agree."""
+    from sphinxsys_tpu_torch.engine import scene as sc
+
+    t0 = time.perf_counter()
+    libs = build(sources)
+    names = [f"[{i}]" for i in range(len(sources))]
+    print(f"built {len(libs)} sources in {time.perf_counter() - t0:.1f} s on "
+          f"{torch.cuda.get_device_name(0)}: " + ", ".join(
+              f"{n} {s}" for n, s in zip(names, sources)), flush=True)
+    agree = True
+    for tag, module, dx, kw_case, noise in STATES:
+        case = importlib.import_module(f"sphinxsys_tpu_torch.cases.{module}")
+        scene, fluid = case.build_block_case(dx=dx, device="cuda", **kw_case)
+        if noise:
+            fluid = perturbed(fluid, dx)
+        sim = sc.make_advection_step(scene)(sc.init_sim(scene, fluid))
+        c = sim.nbr_inner.shape[0]
+        real = sim.fluid_b["SlotMask"][:c]
+        inputs = sweep_inputs(scene, sim, ("ac1_sweep", "ac2_sweep"))
+        for name, (args, kw) in inputs.items():
+            outs = [torch.empty((c,) + tuple(args[0].shape[1:-1])
+                                + (args[0].shape[-1] + 1,), device="cuda")
+                    for _ in libs]
+            for lib, out in zip(libs, outs):
+                launch(lib, name, args, kw, out)
+            torch.cuda.synchronize()
+            scale = float(outs[0][real].abs().max())
+            diffs = [float((o - outs[0])[real].abs().max()) / scale
+                     for o in outs]
+            agree &= all(d <= AGREE for d in diffs)
+            order = list(range(len(libs)))
+            times = [[] for _ in libs]
+            for turn in (order, order[::-1], order, order[::-1]):
+                for i in turn:
+                    times[i].append(median_ms(
+                        lambda: launch(libs[i], name, args, kw, outs[i]), k,
+                        "cuda"))
+            print(f"{tag} {name}: " + ", ".join(
+                f"{n} {min(t):.4f}..{max(t):.4f} ms (diff {d:.1e})"
+                for n, t, d in zip(names, times, diffs)), flush=True)
+        del scene, fluid, sim, inputs
+        torch.cuda.empty_cache()
+    return agree
+
+
+def main(argv=None) -> int:
+    sources = sys.argv[1:] if argv is None else argv
+    if not sources:
+        print(__doc__)
+        return 2
+    if not torch.cuda.is_available():
+        print("ab_sweeps needs the card (torch.cuda.is_available() is False)")
+        return 1
+    ok = run(sources)
+    print("agree" if ok else "DISAGREE", flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

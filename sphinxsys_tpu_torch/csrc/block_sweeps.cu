@@ -16,14 +16,43 @@
 // they contribute exactly zero to every sum, and a sentinel row holds
 // padding only.
 //
-// Design (first correct version): one thread per (cell, i-slot); the
-// thread loops over the 3^DIM window rows and all j-slots of each row,
-// accumulating in float32 registers; no atomics, so results are
-// deterministic.  Threads of one cell read the same j rows (broadcast
-// through L1).  What bounds it: the dense cap x cap x 3^DIM slot sweep is
-// arithmetic on ~10-16x more slot pairs than real pairs, read from L1/L2;
-// shared-memory staging of neighbour rows and a per-particle cell walk are
-// later work.
+// B2 and B3 (the acoustic halves, <- _ac1_kernel / _ac2_kernel): one lane
+// group per cell.  What bounds them on this card is slot-pair issue, not
+// HBM: at 1M particles their bytes take ~0.05 ms, but the first design (a
+// thread per (cell, i-slot) looping over every j-slot up to cap) issued a
+// global load per channel per slot pair, 5-7 against ~40 flops, on ~2x more
+// slot pairs than have a real j, and its threads on rows past the occupied
+// prefix still read the whole window map.  The design:
+//   * a group of G lanes (16 for cap <= 16, else 32) per cell, lane l on
+//     i-slot l, in i-chunks of G for cap > G; register accumulators, no
+//     atomics, so results are deterministic;
+//   * the group reads the cell's window map once, a lane an entry, and
+//     votes (__ballot_sync): a cell with no live window, or an i-chunk with
+//     no real slot, writes zeros and stops;
+//   * live windows are staged once for the group in its own slice of shared
+//     memory, a segment at a time (up to 3 windows whose block rows follow
+//     one another: one contiguous run of slots), repacked as float4
+//     (x, y, z, VOL) plus one or two channel float4s by 4-byte cp.async
+//     copies, double-buffered so that the next segment's copies are in
+//     flight while one is summed.  TMA buys nothing for gathered runs of
+//     0.2-2 KB;
+//   * only real j-slots are summed: the group votes VOL > 0 over the staged
+//     segment and copies its real slots, in order, to the front of a third
+//     buffer, so the pair loop is dense, two or three broadcast LDS.128 per
+//     slot pair.  Every term of B2 and B3 carries dW V_j, so a slot with
+//     VOL 0 adds exactly +-0, wherever the padding sits and under the
+//     periodic wrap too;
+//   * split: when all of a group's real i-slots lie in its lower half,
+//     lanes l and l + G/2 both sum for slot l, over the even and the odd
+//     real j of each segment, and one shuffle adds the halves;
+//   * only warp barriers (__syncwarp on the group's lanes), never a block
+//     barrier.
+// Each lane sums in the first design's order (windows in order, j
+// ascending), split lanes each over their half, so real slots agree with
+// it to f32 roundoff, bitwise where a group does not split.  Padding
+// i-slots (VOL 0) get zeros: the callers scale every output by the slot's
+// VOL or mask it.
+// B1 and B4 still run the first design, j rows shared through L1 only.
 //
 // Periodic boxes: each launcher takes the box lengths (Lx, Ly, Lz) as
 // doubles, 0 where an axis does not wrap, and every pair displacement takes
@@ -36,8 +65,11 @@
 //
 // Every launcher returns cudaGetLastError() after the launch.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -168,103 +200,386 @@ __global__ void density_kernel(const float* __restrict__ pos,
 }
 
 // ---------------------------------------------------------------------------
+// Lane groups (B2, B3): G lanes of one warp sweep one cell.
+// ---------------------------------------------------------------------------
+template <int G>
+__device__ __forceinline__ unsigned low_bits() {
+  if constexpr (G == 32) {
+    return 0xffffffffu;
+  } else {
+    return (1u << G) - 1u;
+  }
+}
+
+template <int G>
+struct Group {
+  unsigned mask;  // the group's lanes in the warp
+  int base;       // its first lane in the warp
+  int lane;       // this thread's lane in the group
+
+  __device__ __forceinline__ Group() {
+    const int wl = threadIdx.x & 31;
+    lane = wl & (G - 1);
+    base = wl - lane;
+    mask = low_bits<G>() << base;
+  }
+  // bit l: `pred` of the group's lane l
+  __device__ __forceinline__ unsigned ballot(bool pred) const {
+    return (__ballot_sync(mask, pred) >> base) & low_bits<G>();
+  }
+  __device__ __forceinline__ void sync() const { __syncwarp(mask); }
+};
+
+// A segment: live windows whose block rows follow one another (row r,
+// r + 1, ...; in row-major cell order the last axis's -1, 0, +1 windows of
+// a cell whose neighbours are all occupied), staged and summed as one run
+// of slots, in the same order as row by row.  A segment holds one row,
+// and up to 3 rows as long as they fit in kSegSlots slots.
+constexpr int kSegSlots = 48;
+
+__host__ __device__ constexpr int seg_rows(int nmax) {
+  return nmax >= kSegSlots / 2 ? 1 : (nmax >= kSegSlots / 3 ? 2 : 3);
+}
+
+// A group's slice of dynamic shared memory, in float4s: its cell's window
+// rows (fluid, then wall; int32), two staging buffers and one buffer of
+// compacted real slots, each NARR float4 arrays of seg_rows(nmax) * nmax
+// slots.
+template <int NWIN>
+__host__ __device__ constexpr int rows_f4() {
+  return (2 * NWIN + 3) / 4;
+}
+
+__host__ __device__ constexpr int buf_f4(int narr, int nmax) {
+  return narr * seg_rows(nmax) * nmax;
+}
+
+template <int NWIN>
+__host__ __device__ constexpr int group_f4(int narr, int nmax) {
+  return rows_f4<NWIN>() + 3 * buf_f4(narr, nmax);
+}
+
+// The window rows of `cell` into rows[0, NWIN), a map entry per lane (two
+// where NWIN > G); returns the live windows (row < sentinel) as bits.
+template <int NWIN, int G>
+__device__ __forceinline__ unsigned live_windows(const Group<G>& g,
+                                                 const int* __restrict__ nbr,
+                                                 int64_t cell, int sentinel,
+                                                 int* rows) {
+  unsigned live = 0u;
+#pragma unroll
+  for (int w0 = 0; w0 < NWIN; w0 += G) {
+    const int w = w0 + g.lane;
+    bool ok = false;
+    if (w < NWIN) {
+      const int row = nbr[cell * NWIN + w];
+      rows[w] = row;
+      ok = row < sentinel;
+    }
+    live |= g.ballot(ok) << w0;
+  }
+  return live;
+}
+
+__device__ __forceinline__ void copy4(float* dst, const float* src) {
+  __pipeline_memcpy_async(dst, src, sizeof(float));
+}
+
+// Copies of the DIM channels of slots [0, n) of the row at slot `base` of
+// `src` into components 0..DIM-1 of dst[j]; of one channel into component
+// `k` of dst[j].
+template <int DIM, int G>
+__device__ __forceinline__ void stage_vec(const Group<G>& g, float4* dst,
+                                          const float* src, int64_t base,
+                                          int n) {
+  for (int j = g.lane; j < n; j += G) {
+#pragma unroll
+    for (int k = 0; k < DIM; ++k) {
+      copy4(reinterpret_cast<float*>(dst + j) + k, src + (base + j) * DIM + k);
+    }
+  }
+}
+
+template <int G>
+__device__ __forceinline__ void stage_scalar(const Group<G>& g, float4* dst,
+                                             int k, const float* src,
+                                             int64_t base, int n) {
+  for (int j = g.lane; j < n; j += G) {
+    copy4(reinterpret_cast<float*>(dst + j) + k, src + base + j);
+  }
+}
+
+// Copies the real slots (VOL = raw[j].w > 0) of a staged segment of n
+// slots, each with its narr float4s (arrays `arr` float4s apart), to the
+// front of `dst` (same layout) in ascending j; returns their count.
+template <int G>
+__device__ __forceinline__ int compact_real(const Group<G>& g,
+                                            const float4* raw, int n,
+                                            int narr, int arr, float4* dst) {
+  const unsigned below = (1u << g.lane) - 1u;
+  int count = 0;
+  for (int j0 = 0; j0 < n; j0 += G) {
+    const int jl = j0 + g.lane;
+    const float4 a = jl < n ? raw[jl] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const bool real = a.w > 0.0f;
+    const unsigned live = g.ballot(real);
+    if (real) {
+      const int k = count + __popc(live & below);
+      dst[k] = a;
+      for (int r = 1; r < narr; ++r) dst[r * arr + k] = raw[r * arr + jl];
+    }
+    count += __popc(live);
+  }
+  return count;
+}
+
+// One cell's live windows, fluid rows (bits of `fluid`, ascending), then
+// wall rows, a segment at a time: stage(wall, row, m, dst) issues the
+// copies of rows row .. row + m - 1 (m * cap slots, m * capw for the wall)
+// into a staging buffer; its real slots are compacted into `cmp` and
+// sum(wall, count, cmp) sums them.  The next segment's copies are in
+// flight while one is summed (two staging buffers at `buf`, then `cmp`,
+// each narr arrays of `arr` float4s; past the last segment an empty copy
+// group is committed).
+template <int G, class Stage, class Sum>
+__device__ __forceinline__ void walk_rows(const Group<G>& g, unsigned fluid,
+                                          unsigned wall, const int* rows,
+                                          const int* wrows, int cap, int capw,
+                                          int narr, int arr, float4* buf,
+                                          Stage&& stage, Sum&& sum) {
+  const int len = narr * arr;
+  const int max_rows = arr / (cap > capw ? cap : capw);
+  float4* cmp = buf + 2 * len;
+  unsigned sf = fluid, sw = wall;  // windows still to stage
+  // stages the next segment into `dst`; returns its rows (0: none left),
+  // *is_wall whether it is a wall segment
+  auto stage_next = [&](float4* dst, bool* is_wall) {
+    unsigned& live = sf != 0u ? sf : sw;
+    const int* r = sf != 0u ? rows : wrows;
+    *is_wall = sf == 0u;
+    int m = 0;
+    if (live != 0u) {
+      const int row = r[__ffs(live) - 1];
+      do {
+        live &= live - 1u;
+        ++m;
+      } while (m < max_rows && live != 0u && r[__ffs(live) - 1] == row + m);
+      stage(*is_wall, row, m, dst);
+    }
+    __pipeline_commit();
+    return m;
+  };
+  float4* cur = buf;
+  float4* nxt = buf + len;
+  bool cur_wall, nxt_wall;
+  int m = stage_next(cur, &cur_wall);
+  while (m > 0) {
+    const int m_next = stage_next(nxt, &nxt_wall);
+    __pipeline_wait_prior(1);
+    g.sync();
+    const int count =
+        compact_real(g, cur, m * (cur_wall ? capw : cap), narr, arr, cmp);
+    g.sync();
+    sum(cur_wall, count, cmp);
+    g.sync();
+    float4* t = cur;
+    cur = nxt;
+    nxt = t;
+    cur_wall = nxt_wall;
+    m = m_next;
+  }
+}
+
+__device__ __forceinline__ float comp(const float4& v, int k) {
+  return k == 0 ? v.x : (k == 1 ? v.y : (k == 2 ? v.z : v.w));
+}
+
+// fn(j) over the compacted real slots [0, count), j ascending; in a split
+// group (group-uniform) the lower half takes the even j, the upper the odd.
+template <int G, class Fn>
+__device__ __forceinline__ void for_each_slot(const Group<G>& g, bool split,
+                                              int count, Fn&& fn) {
+  const int step = split ? 2 : 1;
+  for (int j = split && g.lane >= G / 2 ? 1 : 0; j < count; j += step) fn(j);
+}
+
+// In a split group, adds the upper half's partial sum to the lower's.
+template <int G>
+__device__ __forceinline__ float fold_halves(const Group<G>& g, float x) {
+  return x + __shfl_down_sync(g.mask, x, G / 2, G);
+}
+
+// A lane's i-slot in the i-chunk at i0.  Lane l owns slot i0 + l: it
+// writes that slot's sums, zeros where the slot is padding (VOL 0).  The
+// group votes on its real slots; when all of them lie in the lower half
+// (split), lanes l and l + G/2 both sum for slot i0 + l, each over half
+// of the real j-slots (for_each_slot), and fold_halves adds them.
+struct Slot {
+  int64_t gs;     // the slot this lane sums for (clamped into the row)
+  int64_t go;     // the slot this lane owns
+  bool has;       // the summed slot exists (< cap)
+  bool own;       // the owned slot exists
+  bool own_real;  // the owned slot is real
+  bool split;
+  unsigned real;  // the chunk's real slots, bit l: slot i0 + l
+};
+
+template <int G>
+__device__ __forceinline__ Slot lane_slot(const Group<G>& g, int64_t cell,
+                                          int cap, int i0,
+                                          const float* __restrict__ vol) {
+  Slot s;
+  const int io = i0 + g.lane;
+  s.own = io < cap;
+  s.go = cell * cap + (s.own ? io : 0);
+  s.own_real = s.own && vol[s.go] > 0.0f;
+  s.real = g.ballot(s.own_real);
+  s.split = (s.real >> (G / 2)) == 0u;
+  const int is = s.split ? i0 + (g.lane & (G / 2 - 1)) : io;
+  s.has = is < cap;
+  s.gs = cell * cap + (s.has ? is : 0);
+  return s;
+}
+
+// ---------------------------------------------------------------------------
 // B2: first acoustic half (pressure relaxation).  out (C, cap, DIM+1):
 //   f_i  = -sum (p_i + p_j) dW V_j e_ij
 //   rd_i =  sum (p_i - p_j) dW V_j * inv_rho0c0
 // wall term: p_w = p_i + rho_i r max((a_i - a_w).(-e), 0)  (a_w = 0 when
 // MOVING is false)
+// Staged: (x, y, z, VOL) and p (fluid) or the wall acceleration (MOVING).
 // ---------------------------------------------------------------------------
-template <int DIM, bool MOVING, bool WRAP>
-__global__ void ac1_kernel(const float* __restrict__ pos,
-                           const float* __restrict__ p,
-                           const float* __restrict__ rho,
-                           const float* __restrict__ acc,
-                           const float* __restrict__ vol,
-                           const int* __restrict__ nbr, int C, int cap,
-                           const float* __restrict__ wpos,
-                           const float* __restrict__ wvol,
-                           const float* __restrict__ wacc,
-                           const int* __restrict__ nbr_w, int Cw, int capw,
-                           float inv_h, float dw_scale, float inv_rho0c0,
-                           Box box, float* __restrict__ out) {
+template <int DIM, bool MOVING, bool WRAP, int G>
+__global__ void __launch_bounds__(kThreads)
+    ac1_kernel(const float* __restrict__ pos, const float* __restrict__ p,
+               const float* __restrict__ rho, const float* __restrict__ acc,
+               const float* __restrict__ vol, const int* __restrict__ nbr,
+               int C, int cap, const float* __restrict__ wpos,
+               const float* __restrict__ wvol, const float* __restrict__ wacc,
+               const int* __restrict__ nbr_w, int Cw, int capw, float inv_h,
+               float dw_scale, float inv_rho0c0, Box box, int nmax,
+               float* __restrict__ out) {
   constexpr int NWIN = NW<DIM>::value;
-  const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= (int64_t)C * cap) return;
-  const int64_t cell = g / cap;
-  float xi[DIM];
-#pragma unroll
-  for (int k = 0; k < DIM; ++k) xi[k] = pos[g * DIM + k];
-  const float p_i = p[g];
+  constexpr int NARR = 2;
+  extern __shared__ float4 group_smem[];
+  const Group<G> g;
+  const int64_t cell = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / G;
+  if (cell >= C) return;  // whole groups
+  float4* mine = group_smem + (threadIdx.x / G) * group_f4<NWIN>(NARR, nmax);
+  int* rows = reinterpret_cast<int*>(mine);
+  int* wrows = rows + NWIN;
+  float4* buf = mine + rows_f4<NWIN>();
+  const int arr = seg_rows(nmax) * nmax;  // slots of a staged array
+  const unsigned fluid = live_windows<NWIN>(g, nbr, cell, C, rows);
+  const unsigned wall =
+      nbr_w != nullptr ? live_windows<NWIN>(g, nbr_w, cell, Cw, wrows) : 0u;
+  g.sync();
 
-  float f[DIM];
+  for (int i0 = 0; i0 < cap; i0 += G) {
+    const Slot s = lane_slot(g, cell, cap, i0, vol);
+    const int64_t gi = s.gs;
+    float xi[DIM], a_i[DIM];
 #pragma unroll
-  for (int k = 0; k < DIM; ++k) f[k] = 0.0f;
-  float rd = 0.0f;
-  for (int w = 0; w < NWIN; ++w) {
-    const int row = nbr[cell * NWIN + w];
-    if (row >= C) continue;
-    const int64_t base = (int64_t)row * cap;
-    for (int j = 0; j < cap; ++j) {
-      float d[DIM];
-      float r2 = 0.0f;
-#pragma unroll
-      for (int k = 0; k < DIM; ++k) {
-        d[k] = min_image<WRAP>(xi[k] - pos[(base + j) * DIM + k], k, box);
-        r2 += d[k] * d[k];
-      }
-      const Pair q = wendland_dwv(r2, vol[base + j], inv_h, dw_scale);
-      const float p_j = p[base + j];
-      const float psum = (p_i + p_j) * q.dwv * q.inv_r;
-#pragma unroll
-      for (int k = 0; k < DIM; ++k) f[k] -= psum * d[k];
-      rd += (p_i - p_j) * q.dwv;
+    for (int k = 0; k < DIM; ++k) {
+      xi[k] = s.has ? pos[gi * DIM + k] : 0.0f;
+      a_i[k] = s.has && nbr_w != nullptr ? acc[gi * DIM + k] : 0.0f;
     }
-  }
-  rd *= inv_rho0c0;
+    const float p_i = s.has ? p[gi] : 0.0f;
+    const float rho_i = s.has && nbr_w != nullptr ? rho[gi] : 0.0f;
 
-  if (nbr_w != nullptr) {
-    const float rho_i = rho[g];
-    float a_i[DIM];
+    float f[DIM], fw[DIM];
 #pragma unroll
-    for (int k = 0; k < DIM; ++k) a_i[k] = acc[g * DIM + k];
-    float fw[DIM];
+    for (int k = 0; k < DIM; ++k) f[k] = fw[k] = 0.0f;
+    float rd = 0.0f, rdw = 0.0f;
+
+    auto stage = [&](bool is_wall, int row, int m, float4* dst) {
+      if (!is_wall) {
+        const int64_t base = (int64_t)row * cap;
+        stage_vec<DIM>(g, dst, pos, base, m * cap);
+        stage_scalar(g, dst, 3, vol, base, m * cap);
+        stage_scalar(g, dst + arr, 0, p, base, m * cap);
+      } else {
+        const int64_t base = (int64_t)row * capw;
+        stage_vec<DIM>(g, dst, wpos, base, m * capw);
+        stage_scalar(g, dst, 3, wvol, base, m * capw);
+        if constexpr (MOVING) {
+          stage_vec<DIM>(g, dst + arr, wacc, base, m * capw);
+        }
+      }
+    };
+    auto sum = [&](bool is_wall, int count, const float4* src) {
+      if (!is_wall) {
+        for_each_slot(g, s.split, count, [&](int j) {
+          const float4 xj = src[j];
+          float d[DIM];
+          float r2 = 0.0f;
 #pragma unroll
-    for (int k = 0; k < DIM; ++k) fw[k] = 0.0f;
-    float rdw = 0.0f;
-    for (int w = 0; w < NWIN; ++w) {
-      const int row = nbr_w[cell * NWIN + w];
-      if (row >= Cw) continue;
-      const int64_t base = (int64_t)row * capw;
-      for (int j = 0; j < capw; ++j) {
-        float d[DIM];
-        float r2 = 0.0f;
+          for (int k = 0; k < DIM; ++k) {
+            d[k] = min_image<WRAP>(xi[k] - comp(xj, k), k, box);
+            r2 += d[k] * d[k];
+          }
+          const Pair q = wendland_dwv(r2, xj.w, inv_h, dw_scale);
+          const float p_j = src[arr + j].x;
+          const float psum = (p_i + p_j) * q.dwv * q.inv_r;
+#pragma unroll
+          for (int k = 0; k < DIM; ++k) f[k] -= psum * d[k];
+          rd += (p_i - p_j) * q.dwv;
+        });
+      } else {
+        for_each_slot(g, s.split, count, [&](int j) {
+          const float4 xj = src[j];
+          float d[DIM];
+          float r2 = 0.0f;
+#pragma unroll
+          for (int k = 0; k < DIM; ++k) {
+            d[k] = min_image<WRAP>(xi[k] - comp(xj, k), k, box);
+            r2 += d[k] * d[k];
+          }
+          const Pair q = wendland_dwv(r2, xj.w, inv_h, dw_scale);
+          float4 aw = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          if constexpr (MOVING) aw = src[arr + j];
+          float face_acc = 0.0f;
+#pragma unroll
+          for (int k = 0; k < DIM; ++k) {
+            const float e = d[k] * q.inv_r;
+            const float da = MOVING ? a_i[k] - comp(aw, k) : a_i[k];
+            face_acc += da * (-e);
+          }
+          const float p_w = p_i + rho_i * q.r * fmaxf(face_acc, 0.0f);
+          const float psum = (p_i + p_w) * q.dwv * q.inv_r;
+#pragma unroll
+          for (int k = 0; k < DIM; ++k) fw[k] -= psum * d[k];
+          rdw += (p_i - p_w) * q.dwv;
+        });
+      }
+    };
+    if ((fluid | wall) != 0u && s.real != 0u) {
+      walk_rows(g, fluid, wall, rows, wrows, cap, capw, NARR, arr, buf,
+                stage, sum);
+      if (s.split) {
 #pragma unroll
         for (int k = 0; k < DIM; ++k) {
-          d[k] = min_image<WRAP>(xi[k] - wpos[(base + j) * DIM + k], k, box);
-          r2 += d[k] * d[k];
+          f[k] = fold_halves(g, f[k]);
+          fw[k] = fold_halves(g, fw[k]);
         }
-        const Pair q = wendland_dwv(r2, wvol[base + j], inv_h, dw_scale);
-        float face_acc = 0.0f;
-#pragma unroll
-        for (int k = 0; k < DIM; ++k) {
-          const float e = d[k] * q.inv_r;
-          const float da = MOVING ? a_i[k] - wacc[(base + j) * DIM + k] : a_i[k];
-          face_acc += da * (-e);
-        }
-        const float p_w = p_i + rho_i * q.r * fmaxf(face_acc, 0.0f);
-        const float psum = (p_i + p_w) * q.dwv * q.inv_r;
-#pragma unroll
-        for (int k = 0; k < DIM; ++k) fw[k] -= psum * d[k];
-        rdw += (p_i - p_w) * q.dwv;
+        rd = fold_halves(g, rd);
+        rdw = fold_halves(g, rdw);
       }
     }
+
+    rd *= inv_rho0c0;
+    if (nbr_w != nullptr) {
 #pragma unroll
-    for (int k = 0; k < DIM; ++k) f[k] += fw[k];
-    rd += rdw * inv_rho0c0;
+      for (int k = 0; k < DIM; ++k) f[k] += fw[k];
+      rd += rdw * inv_rho0c0;
+    }
+    if (s.own) {
+      const int64_t go = s.go * (DIM + 1);
+#pragma unroll
+      for (int k = 0; k < DIM; ++k) out[go + k] = s.own_real ? f[k] : 0.0f;
+      out[go + DIM] = s.own_real ? rd : 0.0f;
+    }
   }
-#pragma unroll
-  for (int k = 0; k < DIM; ++k) out[g * (DIM + 1) + k] = f[k];
-  out[g * (DIM + 1) + DIM] = rd;
 }
 
 // ---------------------------------------------------------------------------
@@ -273,113 +588,156 @@ __global__ void ac1_kernel(const float* __restrict__ pos,
 //   f_i   = sum rho0c0_geo u min(lim_scale max(u, 0), 1) dW V_j e_ij
 // wall term: the jump is mirrored to 2 (v_i - v_w) along sign(e.n) n
 // (v_w = 0 when MOVING is false)
+// Staged: (x, y, z, VOL) and the velocity (fluid); (x, y, z, VOL), the
+// normal and, MOVING, the velocity (wall).
 // ---------------------------------------------------------------------------
-template <int DIM, bool MOVING, bool WRAP>
-__global__ void ac2_kernel(const float* __restrict__ pos,
-                           const float* __restrict__ vel,
-                           const float* __restrict__ vol,
-                           const int* __restrict__ nbr, int C, int cap,
-                           const float* __restrict__ wpos,
-                           const float* __restrict__ wvol,
-                           const float* __restrict__ wvel,
-                           const float* __restrict__ wn,
-                           const int* __restrict__ nbr_w, int Cw, int capw,
-                           float inv_h, float dw_scale, float rho0c0_geo,
-                           float lim_scale, Box box, float* __restrict__ out) {
+template <int DIM, bool MOVING, bool WRAP, int G>
+__global__ void __launch_bounds__(kThreads)
+    ac2_kernel(const float* __restrict__ pos, const float* __restrict__ vel,
+               const float* __restrict__ vol, const int* __restrict__ nbr,
+               int C, int cap, const float* __restrict__ wpos,
+               const float* __restrict__ wvol, const float* __restrict__ wvel,
+               const float* __restrict__ wn, const int* __restrict__ nbr_w,
+               int Cw, int capw, float inv_h, float dw_scale, float rho0c0_geo,
+               float lim_scale, Box box, int nmax, float* __restrict__ out) {
   constexpr int NWIN = NW<DIM>::value;
-  const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= (int64_t)C * cap) return;
-  const int64_t cell = g / cap;
-  float xi[DIM], v_i[DIM];
-#pragma unroll
-  for (int k = 0; k < DIM; ++k) {
-    xi[k] = pos[g * DIM + k];
-    v_i[k] = vel[g * DIM + k];
-  }
+  constexpr int NARR = MOVING ? 3 : 2;
+  extern __shared__ float4 group_smem[];
+  const Group<G> g;
+  const int64_t cell = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / G;
+  if (cell >= C) return;  // whole groups
+  float4* mine = group_smem + (threadIdx.x / G) * group_f4<NWIN>(NARR, nmax);
+  int* rows = reinterpret_cast<int*>(mine);
+  int* wrows = rows + NWIN;
+  float4* buf = mine + rows_f4<NWIN>();
+  const int arr = seg_rows(nmax) * nmax;  // slots of a staged array
+  const unsigned fluid = live_windows<NWIN>(g, nbr, cell, C, rows);
+  const unsigned wall =
+      nbr_w != nullptr ? live_windows<NWIN>(g, nbr_w, cell, Cw, wrows) : 0u;
+  g.sync();
 
-  float dcr = 0.0f;
-  float f[DIM];
+  for (int i0 = 0; i0 < cap; i0 += G) {
+    const Slot s = lane_slot(g, cell, cap, i0, vol);
+    const int64_t gi = s.gs;
+    float xi[DIM], v_i[DIM];
 #pragma unroll
-  for (int k = 0; k < DIM; ++k) f[k] = 0.0f;
-  for (int w = 0; w < NWIN; ++w) {
-    const int row = nbr[cell * NWIN + w];
-    if (row >= C) continue;
-    const int64_t base = (int64_t)row * cap;
-    for (int j = 0; j < cap; ++j) {
-      float d[DIM];
-      float r2 = 0.0f;
+    for (int k = 0; k < DIM; ++k) {
+      xi[k] = s.has ? pos[gi * DIM + k] : 0.0f;
+      v_i[k] = s.has ? vel[gi * DIM + k] : 0.0f;
+    }
+
+    float f[DIM], fw[DIM];
 #pragma unroll
-      for (int k = 0; k < DIM; ++k) {
-        d[k] = min_image<WRAP>(xi[k] - pos[(base + j) * DIM + k], k, box);
-        r2 += d[k] * d[k];
+    for (int k = 0; k < DIM; ++k) f[k] = fw[k] = 0.0f;
+    float dcr = 0.0f, dcrw = 0.0f;
+
+    auto stage = [&](bool is_wall, int row, int m, float4* dst) {
+      if (!is_wall) {
+        const int64_t base = (int64_t)row * cap;
+        stage_vec<DIM>(g, dst, pos, base, m * cap);
+        stage_scalar(g, dst, 3, vol, base, m * cap);
+        stage_vec<DIM>(g, dst + arr, vel, base, m * cap);
+      } else {
+        const int64_t base = (int64_t)row * capw;
+        stage_vec<DIM>(g, dst, wpos, base, m * capw);
+        stage_scalar(g, dst, 3, wvol, base, m * capw);
+        stage_vec<DIM>(g, dst + arr, wn, base, m * capw);
+        if constexpr (MOVING) {
+          stage_vec<DIM>(g, dst + 2 * arr, wvel, base, m * capw);
+        }
       }
-      const Pair q = wendland_dwv(r2, vol[base + j], inv_h, dw_scale);
-      float e[DIM];
-      float u = 0.0f;
+    };
+    auto sum = [&](bool is_wall, int count, const float4* src) {
+      if (!is_wall) {
+        for_each_slot(g, s.split, count, [&](int j) {
+          const float4 xj = src[j];
+          const float4 vj = src[arr + j];
+          float d[DIM];
+          float r2 = 0.0f;
 #pragma unroll
-      for (int k = 0; k < DIM; ++k) {
-        e[k] = d[k] * q.inv_r;
-        u += (v_i[k] - vel[(base + j) * DIM + k]) * e[k];
+          for (int k = 0; k < DIM; ++k) {
+            d[k] = min_image<WRAP>(xi[k] - comp(xj, k), k, box);
+            r2 += d[k] * d[k];
+          }
+          const Pair q = wendland_dwv(r2, xj.w, inv_h, dw_scale);
+          float e[DIM];
+          float u = 0.0f;
+#pragma unroll
+          for (int k = 0; k < DIM; ++k) {
+            e[k] = d[k] * q.inv_r;
+            u += (v_i[k] - comp(vj, k)) * e[k];
+          }
+          dcr += u * q.dwv;
+          const float lim = fminf(lim_scale * fmaxf(u, 0.0f), 1.0f);
+          const float pj = rho0c0_geo * u * lim * q.dwv;
+#pragma unroll
+          for (int k = 0; k < DIM; ++k) f[k] += pj * e[k];
+        });
+      } else {
+        for_each_slot(g, s.split, count, [&](int j) {
+          const float4 xj = src[j];
+          const float4 nj = src[arr + j];
+          float4 vw = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          if constexpr (MOVING) vw = src[2 * arr + j];
+          float d[DIM];
+          float r2 = 0.0f;
+#pragma unroll
+          for (int k = 0; k < DIM; ++k) {
+            d[k] = min_image<WRAP>(xi[k] - comp(xj, k), k, box);
+            r2 += d[k] * d[k];
+          }
+          const Pair q = wendland_dwv(r2, xj.w, inv_h, dw_scale);
+          float e[DIM], n[DIM], dv[DIM];
+          float e_dot_n = 0.0f;
+#pragma unroll
+          for (int k = 0; k < DIM; ++k) {
+            e[k] = d[k] * q.inv_r;
+            n[k] = comp(nj, k);
+            e_dot_n += e[k] * n[k];
+            dv[k] = MOVING ? 2.0f * (v_i[k] - comp(vw, k)) : 2.0f * v_i[k];
+          }
+          const float sgn = sign0(e_dot_n);
+          float dve = 0.0f, u = 0.0f;
+#pragma unroll
+          for (int k = 0; k < DIM; ++k) {
+            dve += dv[k] * e[k];
+            u += dv[k] * (sgn * n[k]);
+          }
+          dcrw += dve * q.dwv;
+          const float lim = fminf(lim_scale * fmaxf(u, 0.0f), 1.0f);
+          const float pj = rho0c0_geo * u * lim * q.dwv;
+#pragma unroll
+          for (int k = 0; k < DIM; ++k) fw[k] += pj * (sgn * n[k]);
+        });
       }
-      dcr += u * q.dwv;
-      const float lim = fminf(lim_scale * fmaxf(u, 0.0f), 1.0f);
-      const float pj = rho0c0_geo * u * lim * q.dwv;
+    };
+    if ((fluid | wall) != 0u && s.real != 0u) {
+      walk_rows(g, fluid, wall, rows, wrows, cap, capw, NARR, arr, buf,
+                stage, sum);
+      if (s.split) {
 #pragma unroll
-      for (int k = 0; k < DIM; ++k) f[k] += pj * e[k];
+        for (int k = 0; k < DIM; ++k) {
+          f[k] = fold_halves(g, f[k]);
+          fw[k] = fold_halves(g, fw[k]);
+        }
+        dcr = fold_halves(g, dcr);
+        dcrw = fold_halves(g, dcrw);
+      }
+    }
+
+    if (nbr_w != nullptr) {
+      dcr += dcrw;
+#pragma unroll
+      for (int k = 0; k < DIM; ++k) f[k] += fw[k];
+    }
+    if (s.own) {
+      const int64_t go = s.go * (DIM + 1);
+      out[go] = s.own_real ? dcr : 0.0f;
+#pragma unroll
+      for (int k = 0; k < DIM; ++k) out[go + 1 + k] = s.own_real ? f[k] : 0.0f;
     }
   }
-
-  if (nbr_w != nullptr) {
-    float dcrw = 0.0f;
-    float fw[DIM];
-#pragma unroll
-    for (int k = 0; k < DIM; ++k) fw[k] = 0.0f;
-    for (int w = 0; w < NWIN; ++w) {
-      const int row = nbr_w[cell * NWIN + w];
-      if (row >= Cw) continue;
-      const int64_t base = (int64_t)row * capw;
-      for (int j = 0; j < capw; ++j) {
-        float d[DIM];
-        float r2 = 0.0f;
-#pragma unroll
-        for (int k = 0; k < DIM; ++k) {
-          d[k] = min_image<WRAP>(xi[k] - wpos[(base + j) * DIM + k], k, box);
-          r2 += d[k] * d[k];
-        }
-        const Pair q = wendland_dwv(r2, wvol[base + j], inv_h, dw_scale);
-        float e[DIM], n[DIM], dv[DIM];
-        float e_dot_n = 0.0f;
-#pragma unroll
-        for (int k = 0; k < DIM; ++k) {
-          e[k] = d[k] * q.inv_r;
-          n[k] = wn[(base + j) * DIM + k];
-          e_dot_n += e[k] * n[k];
-          dv[k] = MOVING ? 2.0f * (v_i[k] - wvel[(base + j) * DIM + k])
-                         : 2.0f * v_i[k];
-        }
-        const float sgn = sign0(e_dot_n);
-        float dve = 0.0f, u = 0.0f;
-#pragma unroll
-        for (int k = 0; k < DIM; ++k) {
-          dve += dv[k] * e[k];
-          u += dv[k] * (sgn * n[k]);
-        }
-        dcrw += dve * q.dwv;
-        const float lim = fminf(lim_scale * fmaxf(u, 0.0f), 1.0f);
-        const float pj = rho0c0_geo * u * lim * q.dwv;
-#pragma unroll
-        for (int k = 0; k < DIM; ++k) fw[k] += pj * (sgn * n[k]);
-      }
-    }
-    dcr += dcrw;
-#pragma unroll
-    for (int k = 0; k < DIM; ++k) f[k] += fw[k];
-  }
-  out[g * (DIM + 1)] = dcr;
-#pragma unroll
-  for (int k = 0; k < DIM; ++k) out[g * (DIM + 1) + 1 + k] = f[k];
 }
-
 // ---------------------------------------------------------------------------
 // B4: viscous force + transport-velocity correction in one window pass
 // (both read the same j data).  out (C, cap, 2 DIM) = [fv (DIM), I (DIM)]:
@@ -518,6 +876,39 @@ int dispatch(int dim, bool moving, bool wrap, F&& launch) {
   return (int)cudaGetLastError();
 }
 
+// As dispatch, for the lane-group kernels: launch(flags, G) with G = 16
+// lanes a cell for cap <= 16, else 32, as std::integral_constant.
+template <class F>
+int dispatch_grouped(int dim, bool moving, bool wrap, int cap, F&& launch) {
+  if (cap <= 16) {
+    return dispatch(dim, moving, wrap, [&](auto f) {
+      launch(f, std::integral_constant<int, 16>{});
+    });
+  }
+  return dispatch(dim, moving, wrap, [&](auto f) {
+    launch(f, std::integral_constant<int, 32>{});
+  });
+}
+
+// One group of G lanes per cell: blocks, and the dynamic shared memory of
+// a block's kThreads / G groups (group_f4 float4s each);
+// above the default 48 KB the kernel is allowed more first.
+template <int G>
+inline unsigned group_blocks(int C) {
+  return (unsigned)(((int64_t)C * G + kThreads - 1) / kThreads);
+}
+
+template <int NWIN, int G, class K>
+inline size_t group_smem(K kernel, int narr, int nmax) {
+  const size_t bytes =
+      (size_t)(kThreads / G) * group_f4<NWIN>(narr, nmax) * sizeof(float4);
+  if (bytes > 48 * 1024) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)bytes);
+  }
+  return bytes;
+}
+
 }  // namespace
 
 extern "C" {
@@ -547,14 +938,18 @@ int ac1_sweep_launch(int dim, int moving, const float* pos, const float* p,
                      float inv_rho0c0, double bx, double by, double bz,
                      float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned nb = blocks_for(C, cap);
-  if (nb == 0) return (int)cudaGetLastError();
+  if (C == 0) return (int)cudaGetLastError();
   const Box box = make_box(bx, by, bz);
-  return dispatch(dim, moving != 0, box_wraps(box), [&](auto f) {
+  const int nmax = cap > capw ? cap : capw;
+  return dispatch_grouped(dim, moving != 0, box_wraps(box), cap,
+                          [&](auto f, auto group) {
     using F = decltype(f);
-    ac1_kernel<F::dim, F::moving, F::wrap><<<nb, kThreads, 0, s>>>(
+    constexpr int G = decltype(group)::value;
+    auto kernel = ac1_kernel<F::dim, F::moving, F::wrap, G>;
+    const size_t smem = group_smem<NW<F::dim>::value, G>(kernel, 2, nmax);
+    kernel<<<group_blocks<G>(C), kThreads, smem, s>>>(
         pos, p, rho, acc, vol, nbr, C, cap, wpos, wvol, wacc, nbr_w, Cw, capw,
-        inv_h, dw_scale, inv_rho0c0, box, out);
+        inv_h, dw_scale, inv_rho0c0, box, nmax, out);
   });
 }
 
@@ -566,14 +961,19 @@ int ac2_sweep_launch(int dim, int moving, const float* pos, const float* vel,
                      float lim_scale, double bx, double by, double bz,
                      float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned nb = blocks_for(C, cap);
-  if (nb == 0) return (int)cudaGetLastError();
+  if (C == 0) return (int)cudaGetLastError();
   const Box box = make_box(bx, by, bz);
-  return dispatch(dim, moving != 0, box_wraps(box), [&](auto f) {
+  const int nmax = cap > capw ? cap : capw;
+  return dispatch_grouped(dim, moving != 0, box_wraps(box), cap,
+                          [&](auto f, auto group) {
     using F = decltype(f);
-    ac2_kernel<F::dim, F::moving, F::wrap><<<nb, kThreads, 0, s>>>(
+    constexpr int G = decltype(group)::value;
+    auto kernel = ac2_kernel<F::dim, F::moving, F::wrap, G>;
+    const size_t smem =
+        group_smem<NW<F::dim>::value, G>(kernel, F::moving ? 3 : 2, nmax);
+    kernel<<<group_blocks<G>(C), kThreads, smem, s>>>(
         pos, vel, vol, nbr, C, cap, wpos, wvol, wvel, wn, nbr_w, Cw, capw,
-        inv_h, dw_scale, rho0c0_geo, lim_scale, box, out);
+        inv_h, dw_scale, rho0c0_geo, lim_scale, box, nmax, out);
   });
 }
 

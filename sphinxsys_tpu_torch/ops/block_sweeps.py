@@ -13,14 +13,23 @@ float32 tensor launches the kernel (or raises); anything else raises.
 
 What bounds them on the card: counting each byte once and only the real
 pairs' flops, every sweep's least time is its bytes over the HBM rate
-(chip_smoke.py's bound).  The kernels run far above it because the dense
-cap x cap x 3^dim slot sweep evaluates ~9x (2D) to ~20x (3D) more slot
-pairs than real pairs, ~20-50 flops each, on data that stays in L1/L2 (a
-cell's j rows are read by all its cap threads): they are compute- and
-latency-bound, not HBM-bound.  The first design keeps one
-thread per (cell, i-slot) with register accumulators and skips sentinel
-windows (the TPU's per-tile wall-flag skip, per cell); staging neighbour
-rows in shared memory and a per-particle cell walk are later work.
+(chip_smoke.py's bound; 3D B3's is its flops).  The kernels run far
+above it because they issue work per slot pair, not per byte: neighbour
+rows stay in L1/L2, and the slot pairs outnumber the real pairs.
+
+B2 and B3 (ac1_sweep, ac2_sweep) are bound by slot-pair issue.  Their
+kernels put one lane group on a cell (16 lanes for cap <= 16, else 32;
+lane l on i-slot l), skip cells with no live window by a vote, stage each
+live window once for the group in shared memory (runs of windows on
+consecutive block rows together, the next run's cp.async copies in flight
+while one is summed), compact the real j-slots (VOL > 0) to the front and
+sum only those, two or three shared-memory loads per slot pair; when a
+cell's real i-slots fit in half the group, the two halves split its real
+j-slots.  A slot with VOL 0 adds exactly zero to every B2/B3 term, so
+skipping it changes no real slot's sum; padding i-slots get zeros.
+B1 and B4 (density_sweep, visc_tvc_sweep) keep the first design: one
+thread per (cell, i-slot) over every j-slot of the live windows, j rows
+shared through L1, sentinel windows skipped.
 
 Inputs are block arrays in their natural layout: fluid fields (C+1, cap, .),
 wall fields (Cw+1, capw, .), window maps nbr (C, 3^dim) int32 with sentinel

@@ -34,6 +34,7 @@ def test_port_has_modules():
                  "sphinxsys_tpu_torch/ops/layout_sweeps.py",
                  "sphinxsys_tpu_torch/benchmarks/exp_layout.py",
                  "sphinxsys_tpu_torch/benchmarks/exp_layout2.py",
+                 "sphinxsys_tpu_torch/benchmarks/ab_sweeps.py",
                  "sphinxsys_tpu_torch/engine/scene.py",
                  "sphinxsys_tpu_torch/cases/dambreak_2d.py",
                  "sphinxsys_tpu_torch/cases/dambreak_3d.py",

@@ -1,0 +1,152 @@
+"""The property the B2/B3 kernels' slot skip rests on, held on the plain
+versions in float64: a slot whose VolumetricMeasure is 0 adds exactly
+nothing to any ac1_sweep / ac2_sweep sum, wherever it sits and whatever
+else it carries.
+
+On the slotted initial state of the 2D and 3D dambreaks and the doubly
+periodic Taylor–Green vortex (seeded noise on the real slots, a moving
+wall where there is one), every padding slot of the fluid and wall blocks
+is moved into the support of a random real particle and given random
+pressure, density, velocity and acceleration, its VOL kept at 0; then the
+slots of every row are permuted at random, so that padding sits mid-row.
+Every real slot's sums must equal those of the untouched blocks, through
+the permutation, within 1e-12 relative.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from sphinxsys_tpu_torch.cases import dambreak_2d as tdb2, dambreak_3d as tdb3
+from sphinxsys_tpu_torch.cases import taylor_green_2d as ttg
+from sphinxsys_tpu_torch.engine import scene as sc
+from sphinxsys_tpu_torch.ops import block_sweeps as bs
+
+torch.set_num_threads(1)
+
+F64 = torch.float64
+CASES = {"2d": (tdb2, 0.1, {}), "3d": (tdb3, 0.1, {"cap": 32}),
+         "tg": (ttg, 0.05, {})}
+SEEDS = {"2d": 0, "3d": 1, "tg": 2}
+
+
+def _state(tag):
+    """Block state, wall and window maps of a case, with seeded noise on the
+    real slots and, for a wall, seeded wall kinematics."""
+    mod, dx, kw = CASES[tag]
+    scene, fluid = mod.build_block_case(dx=dx, dtype=F64, device="cpu", **kw)
+    sim = sc.init_sim(scene, fluid)
+    rng = np.random.default_rng(SEEDS[tag])
+    fb = {k: v.clone() for k, v in sim.fluid_b.items()}
+    m = fb["SlotMask"]
+    n, dim = int(m.sum()), fb["Position"].shape[-1]
+
+    def noise(shape, scale):
+        return torch.as_tensor(rng.normal(0.0, scale, shape), dtype=F64)
+
+    fb["Position"][m] += noise((n, dim), 0.1 * dx)
+    fb["Velocity"][m] = noise((n, dim), 0.3)
+    fb["Density"][m] = 1.0 + noise(n, 0.01)
+    fb["Pressure"][m] = noise(n, 2.0)
+    fb["ForcePrior"][m] = noise((n, dim), 0.05)
+    wb = None
+    if scene.wall_b is not None:
+        wb = {k: v.clone() for k, v in scene.wall_b.items()}
+        wm = wb["SlotMask"]
+        nw = int(wm.sum())
+        wb["AverageVelocity"][wm] = noise((nw, dim), 0.2)
+        wb["AverageAcceleration"][wm] = noise((nw, dim), 1.0)
+    return dict(scene=scene, fb=fb, wb=wb, nbr=sim.nbr_inner,
+                nbr_wall=sim.nbr_wall, h=scene.eng.kernel.h)
+
+
+@pytest.fixture(scope="module")
+def states():
+    return {}
+
+
+def _get(states, tag):
+    if tag not in states:
+        states[tag] = _state(tag)
+    return states[tag]
+
+
+def _sweep(name, s, fb, wb):
+    """One plain sweep on the given blocks, as the *_p2 halves call it."""
+    eng = s["scene"].eng
+    kern, dim = eng.kernel, eng.dim
+    inv_h = 1.0 / kern.h
+    common = dict(inv_h=inv_h, dw_scale=kern._factor_w(dim) * inv_h * 0.625,
+                  box=eng.box)
+    nw = s["nbr_wall"] if wb is not None else None
+    wall = (lambda *k: (None,) * len(k)) if wb is None \
+        else (lambda *k: tuple(wb[x] for x in k))
+    if name == "ac1":
+        acc = fb["ForcePrior"] / torch.clamp(fb["Mass"], min=1e-30)[..., None]
+        return bs.ac1_sweep(fb["Position"], fb["Pressure"], fb["Density"], acc,
+                            fb["VolumetricMeasure"], s["nbr"],
+                            *wall("Position", "VolumetricMeasure",
+                                  "AverageAcceleration"), nw,
+                            inv_rho0c0=eng.riemann1.inv_rho0c0_ave, **common)
+    return bs.ac2_sweep(fb["Position"], fb["Velocity"], fb["VolumetricMeasure"],
+                        s["nbr"], *wall("Position", "VolumetricMeasure",
+                                        "AverageVelocity", "NormalDirection"),
+                        nw, rho0c0_geo=3.0, lim_scale=0.5, **common)
+
+
+def _disturb(blocks, rng, h, keys):
+    """Padding slots moved into the support of random real particles (jitter
+    of up to h per axis) and given random values in `keys`, VOL kept 0;
+    then every row's slots permuted at random.  Returns (blocks, perm) with
+    new[r, k] = old[r, perm[r, k]]."""
+    out = {k: v.clone() for k, v in blocks.items()}
+    mask = out["SlotMask"]
+    pad = ~mask
+    n_pad = int(pad.sum())
+    real_pos = out["Position"][mask]
+    pick = torch.as_tensor(rng.integers(0, real_pos.shape[0], n_pad))
+    jitter = torch.as_tensor(rng.uniform(-h, h, (n_pad, real_pos.shape[1])),
+                             dtype=F64)
+    out["Position"][pad] = real_pos[pick] + jitter
+    for k in keys:
+        shape = out[k][pad].shape
+        out[k][pad] = torch.as_tensor(rng.normal(0.0, 1.0, shape), dtype=F64)
+    assert bool((out["VolumetricMeasure"][pad] == 0).all())
+    rows, cap = mask.shape
+    perm = torch.as_tensor(np.argsort(rng.random((rows, cap)), axis=1))
+    for k, v in out.items():
+        if v.dim() >= 2 and v.shape[:2] == (rows, cap):
+            idx = perm if v.dim() == 2 else perm[..., None].expand_as(v)
+            out[k] = torch.gather(v, 1, idx)
+    return out, perm
+
+
+@pytest.mark.parametrize("name", ["ac1", "ac2"])
+@pytest.mark.parametrize("tag", ["2d", "3d", "tg"])
+def test_padding_adds_nothing_f64(states, tag, name):
+    s = _get(states, tag)
+    fb, wb = s["fb"], s["wb"]
+    rng = np.random.default_rng([SEEDS[tag], 1 if name == "ac1" else 2])
+    ref = _sweep(name, s, fb, wb)
+
+    fb2, perm = _disturb(fb, rng, s["h"], ("Pressure", "Density", "Velocity",
+                                            "ForcePrior"))
+    wb2 = None
+    if wb is not None:
+        wb2, _ = _disturb(wb, rng, s["h"], ("AverageVelocity",
+                                             "AverageAcceleration",
+                                             "NormalDirection"))
+    m2 = fb2["SlotMask"]
+    assert bool(((~m2[:, :-1]) & m2[:, 1:]).any()), "no padding mid-row"
+    got = _sweep(name, s, fb2, wb2)
+
+    c = s["nbr"].shape[0]
+    real = fb2["SlotMask"][:c]
+    back = torch.gather(ref, 1, perm[:c, :, None].expand_as(ref))
+    for ch in range(ref.shape[-1]):
+        a, b = got[..., ch][real], back[..., ch][real]
+        scale = float(b.abs().max())
+        assert scale > 0.0, f"{tag} {name} ch{ch}: all zero"
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-12,
+                                   atol=1e-12 * scale,
+                                   err_msg=f"{tag} {name} ch{ch}")
