@@ -26,12 +26,13 @@ Phases:
      CUDA events and each kernel's bound (the least time the card could
      take: the larger of the bytes it must move over 3.35 TB/s and its
      real pairs' flops over 67 TFLOP/s); the moving-wall variants, and B4
-     with a static and a moving wall on the 2D dambreak; for B2/B3 the
+     with a static and a moving wall on the 2D dambreak; for B1-B4 the
      lane x slot pairs their lane groups evaluate, and, in 2D and 3D,
      padding where the first design never met it (holes: a real slot
-     swapped with its row's last padding slot; near padding: padding
-     moved into the support, VOL 0, real slots unchanged within 1e-6);
-     then B2/B3 at cap 40 (3D, dx=0.05: two i-chunks a cell, also with
+     swapped with its row's last padding slot, B1's mask moved with it;
+     near padding: padding moved into the support, VOL 0 and mask 0, real
+     slots unchanged within 1e-6; B4 with a static and a moving wall);
+     then B1-B4 at cap 40 (3D, dx=0.05: two i-chunks a cell, also with
      holes, so that the second chunk holds real slots);
   4. small references: the 2D dambreak (dx=0.1) and Taylor–Green (dx=0.05)
      slices on the card against the same runs on the CPU; Taylor–Green at
@@ -331,13 +332,12 @@ def compare_kernels(torch, tag, cfg, scene, sim, results):
         results[f"{name}[{tag}]"] = dict(
             max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by, real_pairs=pairs)
-        if name in ("ac1_sweep", "ac2_sweep"):
-            evaluated, split = slot_pairs_evaluated(torch, name, args,
-                                                    sim.fluid_b["SlotMask"])
-            log(f"{tag} {name}: {evaluated} lane x slot pairs evaluated "
-                f"(G={lane_group(args[0].shape[1])}; {pairs} real pairs; "
-                f"{split:.3f} of the cells split), "
-                f"{ms * 1e9 / evaluated:.4f} ps each")
+        evaluated, split = slot_pairs_evaluated(torch, name, args,
+                                                sim.fluid_b["SlotMask"])
+        log(f"{tag} {name}: {evaluated} lane x slot pairs evaluated "
+            f"(G={lane_group(args[0].shape[1])}; {pairs} real pairs; "
+            f"{split:.3f} of the cells split), "
+            f"{ms * 1e9 / evaluated:.4f} ps each")
 
 
 def moving_wall_check(torch, tag, scene, sim):
@@ -368,16 +368,17 @@ def moving_wall_check(torch, tag, scene, sim):
 
 
 def lane_group(cap):
-    """Lanes per cell of the B2/B3 kernels (csrc/block_sweeps.cu)."""
+    """Lanes per cell of the block-sweep kernels (csrc/block_sweeps.cu)."""
     return 16 if cap <= 16 else 32
 
 
 def slot_pairs_evaluated(torch, name, args, real):
-    """(lane x slot pairs B2/B3 evaluate, share of split cells) from the
-    block map: for every cell and i-chunk of G lanes holding a real slot,
-    G times the real j-slots (VOL > 0) of its live windows, fluid and
-    wall; a cell whose real i-slots fit in half the group splits them
-    between its halves (evaluating about half as many per lane)."""
+    """(lane x slot pairs a block sweep evaluates, share of split cells)
+    from the block map: for every cell and i-chunk of G lanes holding a
+    real slot, G times the real j-slots (VOL > 0; B1's fluid rows: mask)
+    of its live windows, fluid and wall; a cell whose real i-slots fit in
+    half the group splits them between its halves (evaluating about half
+    as many per lane)."""
     fluid, wall, maps, _ = READS[name]
     nbr, nbr_w = (args[i] for i in maps)
     vol = args[fluid[-1]]
@@ -396,10 +397,11 @@ def slot_pairs_evaluated(torch, name, args, real):
 
 
 def swap_holes(torch, name, args, mask, wall_mask):
-    """B2/B3 arguments with, in every row whose first slot is real and last
-    slot padding, the two slots' data swapped (fluid and wall blocks):
-    padding then sits mid-row and a real slot in the last i-chunk.
-    Returns (args, the fluid slot mask after the swap)."""
+    """Block-sweep arguments with, in every row whose first slot is real
+    and last slot padding, the two slots' data swapped (fluid and wall
+    blocks; every array in READS, B1's mask too): padding then sits
+    mid-row and a real slot in the last i-chunk.  Returns (args, the fluid
+    slot mask after the swap)."""
     fluid, wall, _, _ = READS[name]
     args = list(args)
 
@@ -422,13 +424,13 @@ def swap_holes(torch, name, args, mask, wall_mask):
 
 
 def padding_checks(torch, tag, scene, sim, g):
-    """B2 and B3 with padding where the first design never met it, each
-    against its plain version on the same inputs (moving walls): `holes`,
-    a real slot swapped with its row's last padding slot, fluid and wall
-    (padding mid-row); `near padding`, every padding position moved into
-    the support of its row's first slot (jitter up to h/2), VOL kept 0,
-    whose real slots must stay within 1e-6 max|out| of the run without the
-    move."""
+    """B1-B4 with padding where the first design never met it, each against
+    its plain version on the same inputs (B2/B3 with a moving wall, B4 with
+    a static and a moving one): `holes`, a real slot swapped with its row's
+    last padding slot, fluid and wall (padding mid-row); `near padding`,
+    every padding position moved into the support of its row's first slot
+    (jitter up to h/2), VOL and mask kept 0, whose real slots must stay
+    within 1e-6 max|out| of the run without the move."""
     from sphinxsys_tpu_torch.benchmarks import sweep_inputs
     from sphinxsys_tpu_torch.ops import block_sweeps as bs
 
@@ -436,40 +438,45 @@ def padding_checks(torch, tag, scene, sim, g):
     c = sim.nbr_inner.shape[0]
     real = fb["SlotMask"][:c]
     h = scene.eng.kernel.h
-    moving = {"ac1_sweep": (8, torch.randn(wb["Position"].shape, generator=g,
-                                           device=DEVICE)),
-              "ac2_sweep": (6, 0.1 * torch.randn(wb["Position"].shape,
-                                                 generator=g, device=DEVICE))}
-    inputs = sweep_inputs(scene, sim, ("ac1_sweep", "ac2_sweep"))
-    for name, (args, kw) in inputs.items():
-        slot, extra = moving[name]
+    shape = wb["Position"].shape
+    wacc = torch.randn(shape, generator=g, device=DEVICE)
+    wvel = 0.1 * torch.randn(shape, generator=g, device=DEVICE)
+    inputs = sweep_inputs(scene, sim, tuple(KERNELS))
+    cases = (("density_sweep", "", None, None),
+             ("ac1_sweep", "", 8, wacc), ("ac2_sweep", "", 6, wvel),
+             ("visc_tvc_sweep", " static-wall", None, None),
+             ("visc_tvc_sweep", " moving-wall", 6, wvel))
+    for name, wall_kind, slot, extra in cases:
+        args, kw = inputs[name]
         args = list(args)
-        args[slot] = extra
+        if slot is not None:
+            args[slot] = extra
+        what = f"{tag}{wall_kind}"
         holed, mask = swap_holes(torch, name, args, fb["SlotMask"],
                                  wb["SlotMask"])
-        compare(torch, f"{tag} holes", name, holed, kw, mask[:c])
-        log(f"{tag} holes {name}: agrees with its plain version")
+        compare(torch, f"{what} holes", name, holed, kw, mask[:c])
+        log(f"{what} holes {name}: agrees with its plain version")
 
         near = list(args)
         for i, m in ((0, fb["SlotMask"]), (READS[name][1][0], wb["SlotMask"])):
             p = near[i]
             jitter = (torch.rand(p.shape, generator=g, device=DEVICE) - 0.5) * h
             near[i] = torch.where(m[..., None], p, p[:, :1] + jitter)
-        got, _ = compare(torch, f"{tag} near-padding", name, near, kw, real)
+        got, _ = compare(torch, f"{what} near-padding", name, near, kw, real)
         ref = getattr(bs, name)(*args, **kw)
         diff = float((got - ref)[real].abs().max())
         scale = float(ref[real].abs().max())
-        log(f"{tag} near-padding {name}: max |out - out without it| "
+        log(f"{what} near-padding {name}: max |out - out without it| "
             f"{diff:.3e} (max|out| {scale:.3e})")
         check(diff <= 1e-6 * scale,
-              f"{tag} near-padding {name}: padding leaks into real slots")
+              f"{what} near-padding {name}: padding leaks into real slots")
 
 
 def cap40_check(torch):
-    """B2 and B3 at cap 40 (the 3D dambreak's default, dx=0.05), where the
+    """B1-B4 at cap 40 (the 3D dambreak's default, dx=0.05), where the
     lane group sweeps a cell in two i-chunks: against their plain versions
-    after one advection step, and with holes (`swap_holes`) so that the
-    second chunk holds real slots."""
+    after one advection step (B4 with the static wall), and with holes
+    (`swap_holes`) so that the second chunk holds real slots."""
     from sphinxsys_tpu_torch.benchmarks import sweep_inputs
     from sphinxsys_tpu_torch.cases import dambreak_3d as db
     from sphinxsys_tpu_torch.engine import scene as sc
@@ -480,8 +487,7 @@ def cap40_check(torch):
     c, cap = sim.nbr_inner.shape[0], scene.eng.cap
     check(cap > lane_group(cap), f"cap40: cap {cap} fits one i-chunk")
     fb, wb = sim.fluid_b, scene.wall_b
-    for name, (args, kw) in sweep_inputs(scene, sim,
-                                         ("ac1_sweep", "ac2_sweep")).items():
+    for name, (args, kw) in sweep_inputs(scene, sim, tuple(KERNELS)).items():
         compare(torch, "3d cap40", name, args, kw, fb["SlotMask"][:c])
         holed, mask = swap_holes(torch, name, args, fb["SlotMask"],
                                  wb["SlotMask"])

@@ -1,18 +1,21 @@
-"""B2 and B3 (ac1_sweep / ac2_sweep) of several builds of the block-sweep
-source timed against each other on the same inputs, in turns:
+"""The block sweeps B1-B4 (density_sweep, ac1_sweep, ac2_sweep,
+visc_tvc_sweep) of several builds of the block-sweep source timed against
+each other on the same inputs, in turns:
 
     python -m sphinxsys_tpu_torch.benchmarks.ab_sweeps A.cu B.cu [...]
 
 e.g. A.cu a parent commit's sphinxsys_tpu_torch/csrc/block_sweeps.cu (from
 `git archive`) and B.cu the working tree's.  nvcc compiles each source with
-the port's flags (ops/_build.py) into build/ab/, all at once, and its B2/B3
+the port's flags (ops/_build.py) into build/ab/, all at once, and its
 launchers are bound by ctypes.  On the states chip_smoke.py measures (the
 2D dambreak at dx=0.0025, the 3D one at dx=0.01 with cap 32, Taylor–Green
 at dx=0.001 with seeded noise, each after one advection step) every build
-runs on the same inputs; its outputs are compared with the first build's on
-the real slots (max |diff| / max |first|, which must stay within 1e-5), and
-it is timed with `median_ms` (20 runs) in four turns: in order, reversed,
-in order, reversed.  Needs the card; exits 1 on a disagreement.
+runs each sweep of the state on the same inputs: B1-B3 on all three, B4
+on Taylor–Green and on the 2D dambreak with its static wall.  Its outputs
+are compared with the first build's on the real slots (max |diff| / max
+|first|, which must stay within 1e-5), and it is timed with `median_ms`
+(20 runs) in four turns: in order, reversed, in order, reversed.  Needs
+the card; exits 1 on a disagreement.
 """
 
 from __future__ import annotations
@@ -31,17 +34,20 @@ from sphinxsys_tpu_torch.ops import _build
 from sphinxsys_tpu_torch.ops import block_sweeps as bs
 
 OUT_DIR = _build.BUILD_DIR.parent / "ab"
-STATES = (  # tag, case module, dx, build_block_case options, seeded noise
-    ("2d", "dambreak_2d", 0.0025, {}, False),
-    ("3d", "dambreak_3d", 0.01, {"cap": 32, "c_max": 125_000}, False),
-    ("tg", "taylor_green_2d", 0.001, {}, True),
+B1_B3 = ("density_sweep", "ac1_sweep", "ac2_sweep")
+ALL = B1_B3 + ("visc_tvc_sweep",)
+STATES = (  # tag, case module, dx, build_block_case options, seeded noise,
+    # sweeps
+    ("2d", "dambreak_2d", 0.0025, {}, False, ALL),
+    ("3d", "dambreak_3d", 0.01, {"cap": 32, "c_max": 125_000}, False, B1_B3),
+    ("tg", "taylor_green_2d", 0.001, {}, True, ALL),
 )
 AGREE = 1e-5
-LAUNCHERS = ("ac1_sweep_launch", "ac2_sweep_launch")
+LAUNCHERS = tuple(f"{name}_launch" for name in ALL)
 
 
 def build(sources) -> list:
-    """One library per source, compiled in parallel; their B2/B3 launchers."""
+    """One library per source, compiled in parallel; their B1-B4 launchers."""
     nvcc = _build.find_nvcc()
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
@@ -64,31 +70,59 @@ def build(sources) -> list:
 
 
 def launch(lib, name, args, kw, out):
-    """`name` of one build on the wrappers' arguments, into `out`."""
+    """`name` of one build on the wrappers' arguments, into `out` (B1's mask
+    as float32, as the kernel reads it: `launch_args`)."""
     dim = args[0].shape[-1]
     box = bs._box3(kw["box"], dim)
     stream = torch.cuda.current_stream().cuda_stream
     ptr = bs._ptr
-    if name == "ac1_sweep":
+    if name == "density_sweep":
+        pos, mask, nbr, wpos, wvol, nbr_w = args
+        head = (dim,)
+        consts = (kw["inv_h"], kw["factor_w"])
+        fluid = (ptr(pos), ptr(mask), ptr(nbr))
+        wall = (ptr(wpos), ptr(wvol), ptr(nbr_w))
+    elif name == "ac1_sweep":
         pos, p, rho, acc, vol, nbr, wpos, wvol, wacc, nbr_w = args
+        head = (dim, int(wacc is not None))
         consts = (kw["inv_h"], kw["dw_scale"], kw["inv_rho0c0"])
         fluid = (ptr(pos), ptr(p), ptr(rho), ptr(acc), ptr(vol), ptr(nbr))
         wall = (ptr(wpos), ptr(wvol), ptr(wacc), ptr(nbr_w))
-        moving = wacc is not None
-    else:
+    elif name == "ac2_sweep":
         pos, vel, vol, nbr, wpos, wvol, wvel, wn, nbr_w = args
+        head = (dim, int(wvel is not None))
         consts = (kw["inv_h"], kw["dw_scale"], kw["rho0c0_geo"],
                   kw["lim_scale"])
         fluid = (ptr(pos), ptr(vel), ptr(vol), ptr(nbr))
         wall = (ptr(wpos), ptr(wvol), ptr(wvel), ptr(wn), ptr(nbr_w))
-        moving = wvel is not None
+    else:
+        pos, vel, vol, nbr, wpos, wvol, wvel, nbr_w = args
+        head = (dim, int(wvel is not None))
+        consts = (kw["inv_h"], kw["dw_scale"], kw["eps_r"])
+        fluid = (ptr(pos), ptr(vel), ptr(vol), ptr(nbr))
+        wall = (ptr(wpos), ptr(wvol), ptr(wvel), ptr(nbr_w))
     c, cap = nbr.shape[0], pos.shape[1]
     cw, capw = (wpos.shape[0] - 1, wpos.shape[1]) if nbr_w is not None \
         else (0, 0)
     err = getattr(lib, name + "_launch")(
-        dim, int(moving), *fluid, c, cap, *wall, cw, capw, *consts, *box,
-        ptr(out), stream)
+        *head, *fluid, c, cap, *wall, cw, capw, *consts, *box, ptr(out),
+        stream)
     bs._raise_on(err, name)
+
+
+def launch_args(name, args) -> tuple:
+    """The wrapper's arguments as `launch` takes them: B1's bool mask made
+    float32 once, outside the timed calls (the wrapper converts it)."""
+    if name != "density_sweep":
+        return tuple(args)
+    return (args[0], args[1].to(torch.float32).contiguous(), *args[2:])
+
+
+def out_shape(name, pos) -> tuple:
+    """A sweep's (C, cap, k) output shape from its fluid positions."""
+    c, cap, dim = pos.shape[0] - 1, pos.shape[1], pos.shape[2]
+    k = {"density_sweep": 2, "visc_tvc_sweep": 2 * dim}.get(name, dim + 1)
+    return (c, cap, k)
 
 
 def run(sources, k: int = 20) -> bool:
@@ -103,7 +137,7 @@ def run(sources, k: int = 20) -> bool:
           f"{torch.cuda.get_device_name(0)}: " + ", ".join(
               f"{n} {s}" for n, s in zip(names, sources)), flush=True)
     agree = True
-    for tag, module, dx, kw_case, noise in STATES:
+    for tag, module, dx, kw_case, noise, sweeps in STATES:
         case = importlib.import_module(f"sphinxsys_tpu_torch.cases.{module}")
         scene, fluid = case.build_block_case(dx=dx, device="cuda", **kw_case)
         if noise:
@@ -111,10 +145,10 @@ def run(sources, k: int = 20) -> bool:
         sim = sc.make_advection_step(scene)(sc.init_sim(scene, fluid))
         c = sim.nbr_inner.shape[0]
         real = sim.fluid_b["SlotMask"][:c]
-        inputs = sweep_inputs(scene, sim, ("ac1_sweep", "ac2_sweep"))
+        inputs = sweep_inputs(scene, sim, sweeps)
         for name, (args, kw) in inputs.items():
-            outs = [torch.empty((c,) + tuple(args[0].shape[1:-1])
-                                + (args[0].shape[-1] + 1,), device="cuda")
+            args = launch_args(name, args)
+            outs = [torch.empty(out_shape(name, args[0]), device="cuda")
                     for _ in libs]
             for lib, out in zip(libs, outs):
                 launch(lib, name, args, kw, out)

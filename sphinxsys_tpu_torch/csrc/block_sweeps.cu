@@ -16,13 +16,13 @@
 // they contribute exactly zero to every sum, and a sentinel row holds
 // padding only.
 //
-// B2 and B3 (the acoustic halves, <- _ac1_kernel / _ac2_kernel): one lane
-// group per cell.  What bounds them on this card is slot-pair issue, not
-// HBM: at 1M particles their bytes take ~0.05 ms, but the first design (a
-// thread per (cell, i-slot) looping over every j-slot up to cap) issued a
-// global load per channel per slot pair, 5-7 against ~40 flops, on ~2x more
-// slot pairs than have a real j, and its threads on rows past the occupied
-// prefix still read the whole window map.  The design:
+// All four kernels: one lane group per cell.  What bounds them on this card
+// is slot-pair issue, not HBM: at 1M particles their bytes take 0.01-0.06
+// ms, but the first design (a thread per (cell, i-slot) looping over every
+// j-slot up to cap) issued a global load per channel per slot pair, 3-7
+// against 20-40 flops, on ~2x more slot pairs than have a real j, and its
+// threads on rows past the occupied prefix still read the whole window
+// map.  The design:
 //   * a group of G lanes (16 for cap <= 16, else 32) per cell, lane l on
 //     i-slot l, in i-chunks of G for cap > G; register accumulators, no
 //     atomics, so results are deterministic;
@@ -32,16 +32,17 @@
 //   * live windows are staged once for the group in its own slice of shared
 //     memory, a segment at a time (up to 3 windows whose block rows follow
 //     one another: one contiguous run of slots), repacked as float4
-//     (x, y, z, VOL) plus one or two channel float4s by 4-byte cp.async
+//     (x, y, z, w) plus up to two channel float4s by 4-byte cp.async
 //     copies, double-buffered so that the next segment's copies are in
-//     flight while one is summed.  TMA buys nothing for gathered runs of
+//     flight while one is summed.  w is VOL, except in B1's fluid rows,
+//     where it is the mask.  TMA buys nothing for gathered runs of
 //     0.2-2 KB;
-//   * only real j-slots are summed: the group votes VOL > 0 over the staged
+//   * only real j-slots are summed: the group votes w > 0 over the staged
 //     segment and copies its real slots, in order, to the front of a third
-//     buffer, so the pair loop is dense, two or three broadcast LDS.128 per
-//     slot pair.  Every term of B2 and B3 carries dW V_j, so a slot with
-//     VOL 0 adds exactly +-0, wherever the padding sits and under the
-//     periodic wrap too;
+//     buffer, so the pair loop is dense, one to three broadcast LDS.128 per
+//     slot pair.  Every term of B2-B4 carries dW V_j, and B1's carry
+//     mask_j (fluid) or V_k (wall), so a slot with w = 0 adds exactly +-0,
+//     wherever the padding sits and under the periodic wrap too;
 //   * split: when all of a group's real i-slots lie in its lower half,
 //     lanes l and l + G/2 both sum for slot l, over the even and the odd
 //     real j of each segment, and one shuffle adds the halves;
@@ -49,10 +50,11 @@
 //     barrier.
 // Each lane sums in the first design's order (windows in order, j
 // ascending), split lanes each over their half, so real slots agree with
-// it to f32 roundoff, bitwise where a group does not split.  Padding
-// i-slots (VOL 0) get zeros: the callers scale every output by the slot's
-// VOL or mask it.
-// B1 and B4 still run the first design, j rows shared through L1 only.
+// it to f32 roundoff; in B2/B3 bitwise where a group does not split (B1's
+// r and B4's viscous quotient are rounded differently, see there).  Padding
+// i-slots (VOL 0; B1: mask 0) get zeros: the callers scale every output by
+// the slot's VOL or mask it, or (B1's density without a free surface)
+// write padding values that no real slot reads.
 //
 // Periodic boxes: each launcher takes the box lengths (Lx, Ly, Lz) as
 // doubles, 0 where an axis does not wrap, and every pair displacement takes
@@ -135,72 +137,7 @@ __device__ __forceinline__ float sign0(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// B1: density summation.  out (C, cap, 2) = [sig, sigw]:
-//   sig  = sum_w sum_j W_ij mask_j  (self pair included: W(0) is the seed)
-//   sigw = sum_w sum_k W_ik V_k     (wall)
-// ---------------------------------------------------------------------------
-template <int DIM, bool WRAP>
-__global__ void density_kernel(const float* __restrict__ pos,
-                               const float* __restrict__ mask,
-                               const int* __restrict__ nbr, int C, int cap,
-                               const float* __restrict__ wpos,
-                               const float* __restrict__ wvol,
-                               const int* __restrict__ nbr_w, int Cw, int capw,
-                               float inv_h, float factor_w, Box box,
-                               float* __restrict__ out) {
-  constexpr int NWIN = NW<DIM>::value;
-  const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= (int64_t)C * cap) return;
-  const int64_t cell = g / cap;
-  float xi[DIM];
-#pragma unroll
-  for (int k = 0; k < DIM; ++k) xi[k] = pos[g * DIM + k];
-
-  float sig = 0.0f;
-  for (int w = 0; w < NWIN; ++w) {
-    const int row = nbr[cell * NWIN + w];
-    if (row >= C) continue;
-    const float* pj = pos + (int64_t)row * cap * DIM;
-    const float* mj = mask + (int64_t)row * cap;
-    for (int j = 0; j < cap; ++j) {
-      float r2 = 0.0f;
-#pragma unroll
-      for (int k = 0; k < DIM; ++k) {
-        const float d = min_image<WRAP>(xi[k] - pj[j * DIM + k], k, box);
-        r2 += d * d;
-      }
-      const float qc = fminf(sqrtf(r2) * inv_h, 2.0f);
-      const float t = 1.0f - 0.5f * qc;
-      sig += factor_w * (t * t * t * t) * (2.0f * qc + 1.0f) * mj[j];
-    }
-  }
-
-  float sigw = 0.0f;
-  if (nbr_w != nullptr) {
-    for (int w = 0; w < NWIN; ++w) {
-      const int row = nbr_w[cell * NWIN + w];
-      if (row >= Cw) continue;
-      const float* pj = wpos + (int64_t)row * capw * DIM;
-      const float* vj = wvol + (int64_t)row * capw;
-      for (int j = 0; j < capw; ++j) {
-        float r2 = 0.0f;
-#pragma unroll
-        for (int k = 0; k < DIM; ++k) {
-          const float d = min_image<WRAP>(xi[k] - pj[j * DIM + k], k, box);
-          r2 += d * d;
-        }
-        const float qc = fminf(sqrtf(r2) * inv_h, 2.0f);
-        const float t = 1.0f - 0.5f * qc;
-        sigw += factor_w * (t * t * t * t) * (2.0f * qc + 1.0f) * vj[j];
-      }
-    }
-  }
-  out[g * 2 + 0] = sig;
-  out[g * 2 + 1] = sigw;
-}
-
-// ---------------------------------------------------------------------------
-// Lane groups (B2, B3): G lanes of one warp sweep one cell.
+// Lane groups: G lanes of one warp sweep one cell.
 // ---------------------------------------------------------------------------
 template <int G>
 __device__ __forceinline__ unsigned low_bits() {
@@ -439,6 +376,107 @@ __device__ __forceinline__ Slot lane_slot(const Group<G>& g, int64_t cell,
   s.has = is < cap;
   s.gs = cell * cap + (s.has ? is : 0);
   return s;
+}
+
+// ---------------------------------------------------------------------------
+// B1: density summation.  out (C, cap, 2) = [sig, sigw]:
+//   sig  = sum_w sum_j W_ij mask_j  (self pair included: W(0) is the seed)
+//   sigw = sum_w sum_k W_ik V_k     (wall)
+// Staged: (x, y, z, mask) (fluid) or (x, y, z, VOL) (wall), one float4 a
+// slot; a lane's i-slot is real where its mask is.  Bound, like B2-B4, by
+// slot-pair issue: the first design read 3-4 floats from global memory per
+// slot pair for ~20 flops.
+// ---------------------------------------------------------------------------
+
+// W_ij w_j of the staged slot xj = (x, y, z, w), Wendland C2 with q clamped
+// at 2.  r = r2 rsqrtf(r2), as in B2-B4, but guarded instead of offset by
+// an epsilon: the self pair's r2 is exactly 0, where r2 rsqrtf(r2) is
+// 0 * inf, and r = 0 gives W(0) = factor_w exactly.  The correctly rounded
+// sqrtf (a subroutine with a slow-path branch) made the TG sweep 0.333 ms
+// against 0.266 ms with this form (H100, 700 W, benchmarks/ab_sweeps.py).
+template <int DIM, bool WRAP>
+__device__ __forceinline__ float density_term(const float* xi,
+                                              const float4& xj, float inv_h,
+                                              float factor_w, const Box& box) {
+  float r2 = 0.0f;
+#pragma unroll
+  for (int k = 0; k < DIM; ++k) {
+    const float d = min_image<WRAP>(xi[k] - comp(xj, k), k, box);
+    r2 += d * d;
+  }
+  const float r = r2 > 0.0f ? r2 * rsqrtf(r2) : 0.0f;
+  const float qc = fminf(r * inv_h, 2.0f);
+  const float t = 1.0f - 0.5f * qc;
+  return factor_w * (t * t * t * t) * (2.0f * qc + 1.0f) * xj.w;
+}
+
+template <int DIM, bool WRAP, int G>
+__global__ void __launch_bounds__(kThreads)
+    density_kernel(const float* __restrict__ pos,
+                   const float* __restrict__ mask, const int* __restrict__ nbr,
+                   int C, int cap, const float* __restrict__ wpos,
+                   const float* __restrict__ wvol,
+                   const int* __restrict__ nbr_w, int Cw, int capw,
+                   float inv_h, float factor_w, Box box, int nmax,
+                   float* __restrict__ out) {
+  constexpr int NWIN = NW<DIM>::value;
+  constexpr int NARR = 1;
+  extern __shared__ float4 group_smem[];
+  const Group<G> g;
+  const int64_t cell = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / G;
+  if (cell >= C) return;  // whole groups
+  float4* mine = group_smem + (threadIdx.x / G) * group_f4<NWIN>(NARR, nmax);
+  int* rows = reinterpret_cast<int*>(mine);
+  int* wrows = rows + NWIN;
+  float4* buf = mine + rows_f4<NWIN>();
+  const int arr = seg_rows(nmax) * nmax;  // slots of a staged array
+  const unsigned fluid = live_windows<NWIN>(g, nbr, cell, C, rows);
+  const unsigned wall =
+      nbr_w != nullptr ? live_windows<NWIN>(g, nbr_w, cell, Cw, wrows) : 0u;
+  g.sync();
+
+  for (int i0 = 0; i0 < cap; i0 += G) {
+    const Slot s = lane_slot(g, cell, cap, i0, mask);
+    float xi[DIM];
+#pragma unroll
+    for (int k = 0; k < DIM; ++k) xi[k] = s.has ? pos[s.gs * DIM + k] : 0.0f;
+    float sig = 0.0f, sigw = 0.0f;
+
+    auto stage = [&](bool is_wall, int row, int m, float4* dst) {
+      if (!is_wall) {
+        const int64_t base = (int64_t)row * cap;
+        stage_vec<DIM>(g, dst, pos, base, m * cap);
+        stage_scalar(g, dst, 3, mask, base, m * cap);
+      } else {
+        const int64_t base = (int64_t)row * capw;
+        stage_vec<DIM>(g, dst, wpos, base, m * capw);
+        stage_scalar(g, dst, 3, wvol, base, m * capw);
+      }
+    };
+    auto sum = [&](bool is_wall, int count, const float4* src) {
+      if (!is_wall) {
+        for_each_slot(g, s.split, count, [&](int j) {
+          sig += density_term<DIM, WRAP>(xi, src[j], inv_h, factor_w, box);
+        });
+      } else {
+        for_each_slot(g, s.split, count, [&](int j) {
+          sigw += density_term<DIM, WRAP>(xi, src[j], inv_h, factor_w, box);
+        });
+      }
+    };
+    if ((fluid | wall) != 0u && s.real != 0u) {
+      walk_rows(g, fluid, wall, rows, wrows, cap, capw, NARR, arr, buf,
+                stage, sum);
+      if (s.split) {
+        sig = fold_halves(g, sig);
+        sigw = fold_halves(g, sigw);
+      }
+    }
+    if (s.own) {
+      out[s.go * 2 + 0] = s.own_real ? sig : 0.0f;
+      out[s.go * 2 + 1] = s.own_real ? sigw : 0.0f;
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -745,101 +783,152 @@ __global__ void __launch_bounds__(kThreads)
 //   I_i  = -sum 2 dW V_j e_ij
 // wall term: the fv jump doubled, against the wall velocity (v_w = 0 when
 // MOVING is false); the I term as for fluid neighbours.  The caller scales
-// fv by 2 mu V_i and applies the limited TVC shift.  Like B1-B3 it is
-// bound by pair arithmetic on L1/L2-resident neighbour rows: ~2x more
-// flops per slot pair than B1 on the same slot pairs.
+// fv by 2 mu V_i and applies the limited TVC shift.  Bound, like B1-B3, by
+// slot-pair issue: per slot pair it loads what B3 loads, and adds a
+// reciprocal (visc_scale) and 4 DIM accumulators (fv, I; fluid and wall).
+// Staged: (x, y, z, VOL) and the velocity (fluid); (x, y, z, VOL) and,
+// MOVING, the velocity (wall).
 // ---------------------------------------------------------------------------
-template <int DIM, bool MOVING, bool WRAP>
-__global__ void visc_tvc_kernel(const float* __restrict__ pos,
-                                const float* __restrict__ vel,
-                                const float* __restrict__ vol,
-                                const int* __restrict__ nbr, int C, int cap,
-                                const float* __restrict__ wpos,
-                                const float* __restrict__ wvol,
-                                const float* __restrict__ wvel,
-                                const int* __restrict__ nbr_w, int Cw,
-                                int capw, float inv_h, float dw_scale,
-                                float eps_r, Box box,
-                                float* __restrict__ out) {
-  constexpr int NWIN = NW<DIM>::value;
-  const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= (int64_t)C * cap) return;
-  const int64_t cell = g / cap;
-  float xi[DIM], v_i[DIM];
-#pragma unroll
-  for (int k = 0; k < DIM; ++k) {
-    xi[k] = pos[g * DIM + k];
-    v_i[k] = vel[g * DIM + k];
-  }
 
-  float fv[DIM], inc[DIM];
-#pragma unroll
-  for (int k = 0; k < DIM; ++k) fv[k] = inc[k] = 0.0f;
-  for (int w = 0; w < NWIN; ++w) {
-    const int row = nbr[cell * NWIN + w];
-    if (row >= C) continue;
-    const int64_t base = (int64_t)row * cap;
-    for (int j = 0; j < cap; ++j) {
-      float d[DIM];
-      float r2 = 0.0f;
-#pragma unroll
-      for (int k = 0; k < DIM; ++k) {
-        d[k] = min_image<WRAP>(xi[k] - pos[(base + j) * DIM + k], k, box);
-        r2 += d[k] * d[k];
-      }
-      const Pair q = wendland_dwv(r2, vol[base + j], inv_h, dw_scale);
-      const float scale = q.dwv / (q.r + eps_r);
-      const float ie = 2.0f * q.dwv * q.inv_r;
-#pragma unroll
-      for (int k = 0; k < DIM; ++k) {
-        fv[k] += (v_i[k] - vel[(base + j) * DIM + k]) * scale;
-        inc[k] -= ie * d[k];
-      }
-    }
-  }
-
-  if (nbr_w != nullptr) {
-    float fvw[DIM], incw[DIM];
-#pragma unroll
-    for (int k = 0; k < DIM; ++k) fvw[k] = incw[k] = 0.0f;
-    for (int w = 0; w < NWIN; ++w) {
-      const int row = nbr_w[cell * NWIN + w];
-      if (row >= Cw) continue;
-      const int64_t base = (int64_t)row * capw;
-      for (int j = 0; j < capw; ++j) {
-        float d[DIM];
-        float r2 = 0.0f;
-#pragma unroll
-        for (int k = 0; k < DIM; ++k) {
-          d[k] = min_image<WRAP>(xi[k] - wpos[(base + j) * DIM + k], k, box);
-          r2 += d[k] * d[k];
-        }
-        const Pair q = wendland_dwv(r2, wvol[base + j], inv_h, dw_scale);
-        const float scale = 2.0f * q.dwv / (q.r + eps_r);
-        const float ie = 2.0f * q.dwv * q.inv_r;
-#pragma unroll
-        for (int k = 0; k < DIM; ++k) {
-          const float dv = MOVING ? v_i[k] - wvel[(base + j) * DIM + k] : v_i[k];
-          fvw[k] += dv * scale;
-          incw[k] -= ie * d[k];
-        }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < DIM; ++k) {
-      fv[k] += fvw[k];
-      inc[k] += incw[k];
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < DIM; ++k) {
-    out[g * (2 * DIM) + k] = fv[k];
-    out[g * (2 * DIM) + DIM + k] = inc[k];
-  }
+// dW V_j / (r + eps_r) as a correctly rounded reciprocal times dW V_j: two
+// roundings where the plain version's divide has one.  The IEEE divide is a
+// subroutine with a slow-path branch; on an H100 (700 W) it made the TG
+// sweep 0.556 ms against 0.392 ms with this form (benchmarks/ab_sweeps.py).
+__device__ __forceinline__ float visc_scale(float dwv, float r_eps) {
+  return __frcp_rn(r_eps) * dwv;
 }
 
-inline unsigned blocks_for(int C, int cap) {
-  return (unsigned)(((int64_t)C * cap + kThreads - 1) / kThreads);
+template <int DIM, bool MOVING, bool WRAP, int G>
+__global__ void __launch_bounds__(kThreads)
+    visc_tvc_kernel(const float* __restrict__ pos,
+                    const float* __restrict__ vel,
+                    const float* __restrict__ vol, const int* __restrict__ nbr,
+                    int C, int cap, const float* __restrict__ wpos,
+                    const float* __restrict__ wvol,
+                    const float* __restrict__ wvel,
+                    const int* __restrict__ nbr_w, int Cw, int capw,
+                    float inv_h, float dw_scale, float eps_r, Box box,
+                    int nmax, float* __restrict__ out) {
+  constexpr int NWIN = NW<DIM>::value;
+  constexpr int NARR = 2;
+  extern __shared__ float4 group_smem[];
+  const Group<G> g;
+  const int64_t cell = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / G;
+  if (cell >= C) return;  // whole groups
+  float4* mine = group_smem + (threadIdx.x / G) * group_f4<NWIN>(NARR, nmax);
+  int* rows = reinterpret_cast<int*>(mine);
+  int* wrows = rows + NWIN;
+  float4* buf = mine + rows_f4<NWIN>();
+  const int arr = seg_rows(nmax) * nmax;  // slots of a staged array
+  const unsigned fluid = live_windows<NWIN>(g, nbr, cell, C, rows);
+  const unsigned wall =
+      nbr_w != nullptr ? live_windows<NWIN>(g, nbr_w, cell, Cw, wrows) : 0u;
+  g.sync();
+
+  for (int i0 = 0; i0 < cap; i0 += G) {
+    const Slot s = lane_slot(g, cell, cap, i0, vol);
+    const int64_t gi = s.gs;
+    float xi[DIM], v_i[DIM];
+#pragma unroll
+    for (int k = 0; k < DIM; ++k) {
+      xi[k] = s.has ? pos[gi * DIM + k] : 0.0f;
+      v_i[k] = s.has ? vel[gi * DIM + k] : 0.0f;
+    }
+
+    float fv[DIM], inc[DIM], fvw[DIM], incw[DIM];
+#pragma unroll
+    for (int k = 0; k < DIM; ++k) fv[k] = inc[k] = fvw[k] = incw[k] = 0.0f;
+
+    auto stage = [&](bool is_wall, int row, int m, float4* dst) {
+      if (!is_wall) {
+        const int64_t base = (int64_t)row * cap;
+        stage_vec<DIM>(g, dst, pos, base, m * cap);
+        stage_scalar(g, dst, 3, vol, base, m * cap);
+        stage_vec<DIM>(g, dst + arr, vel, base, m * cap);
+      } else {
+        const int64_t base = (int64_t)row * capw;
+        stage_vec<DIM>(g, dst, wpos, base, m * capw);
+        stage_scalar(g, dst, 3, wvol, base, m * capw);
+        if constexpr (MOVING) {
+          stage_vec<DIM>(g, dst + arr, wvel, base, m * capw);
+        }
+      }
+    };
+    auto sum = [&](bool is_wall, int count, const float4* src) {
+      if (!is_wall) {
+        for_each_slot(g, s.split, count, [&](int j) {
+          const float4 xj = src[j];
+          const float4 vj = src[arr + j];
+          float d[DIM];
+          float r2 = 0.0f;
+#pragma unroll
+          for (int k = 0; k < DIM; ++k) {
+            d[k] = min_image<WRAP>(xi[k] - comp(xj, k), k, box);
+            r2 += d[k] * d[k];
+          }
+          const Pair q = wendland_dwv(r2, xj.w, inv_h, dw_scale);
+          const float scale = visc_scale(q.dwv, q.r + eps_r);
+          const float ie = 2.0f * q.dwv * q.inv_r;
+#pragma unroll
+          for (int k = 0; k < DIM; ++k) {
+            fv[k] += (v_i[k] - comp(vj, k)) * scale;
+            inc[k] -= ie * d[k];
+          }
+        });
+      } else {
+        for_each_slot(g, s.split, count, [&](int j) {
+          const float4 xj = src[j];
+          float4 vw = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          if constexpr (MOVING) vw = src[arr + j];
+          float d[DIM];
+          float r2 = 0.0f;
+#pragma unroll
+          for (int k = 0; k < DIM; ++k) {
+            d[k] = min_image<WRAP>(xi[k] - comp(xj, k), k, box);
+            r2 += d[k] * d[k];
+          }
+          const Pair q = wendland_dwv(r2, xj.w, inv_h, dw_scale);
+          const float scale = visc_scale(2.0f * q.dwv, q.r + eps_r);
+          const float ie = 2.0f * q.dwv * q.inv_r;
+#pragma unroll
+          for (int k = 0; k < DIM; ++k) {
+            const float dv = MOVING ? v_i[k] - comp(vw, k) : v_i[k];
+            fvw[k] += dv * scale;
+            incw[k] -= ie * d[k];
+          }
+        });
+      }
+    };
+    if ((fluid | wall) != 0u && s.real != 0u) {
+      walk_rows(g, fluid, wall, rows, wrows, cap, capw, NARR, arr, buf,
+                stage, sum);
+      if (s.split) {
+#pragma unroll
+        for (int k = 0; k < DIM; ++k) {
+          fv[k] = fold_halves(g, fv[k]);
+          inc[k] = fold_halves(g, inc[k]);
+          fvw[k] = fold_halves(g, fvw[k]);
+          incw[k] = fold_halves(g, incw[k]);
+        }
+      }
+    }
+
+    if (nbr_w != nullptr) {
+#pragma unroll
+      for (int k = 0; k < DIM; ++k) {
+        fv[k] += fvw[k];
+        inc[k] += incw[k];
+      }
+    }
+    if (s.own) {
+      const int64_t go = s.go * (2 * DIM);
+#pragma unroll
+      for (int k = 0; k < DIM; ++k) {
+        out[go + k] = s.own_real ? fv[k] : 0.0f;
+        out[go + DIM + k] = s.own_real ? inc[k] : 0.0f;
+      }
+    }
+  }
 }
 
 // Compile-time flags of one kernel instance.
@@ -919,14 +1008,18 @@ int density_sweep_launch(int dim, const float* pos, const float* mask,
                          float inv_h, float factor_w, double bx, double by,
                          double bz, float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned nb = blocks_for(C, cap);
-  if (nb == 0) return (int)cudaGetLastError();
+  if (C == 0) return (int)cudaGetLastError();
   const Box box = make_box(bx, by, bz);
-  return dispatch(dim, false, box_wraps(box), [&](auto f) {
+  const int nmax = cap > capw ? cap : capw;
+  return dispatch_grouped(dim, false, box_wraps(box), cap,
+                          [&](auto f, auto group) {
     using F = decltype(f);
-    density_kernel<F::dim, F::wrap><<<nb, kThreads, 0, s>>>(
+    constexpr int G = decltype(group)::value;
+    auto kernel = density_kernel<F::dim, F::wrap, G>;
+    const size_t smem = group_smem<NW<F::dim>::value, G>(kernel, 1, nmax);
+    kernel<<<group_blocks<G>(C), kThreads, smem, s>>>(
         pos, mask, nbr, C, cap, wpos, wvol, nbr_w, Cw, capw, inv_h, factor_w,
-        box, out);
+        box, nmax, out);
   });
 }
 
@@ -985,14 +1078,18 @@ int visc_tvc_sweep_launch(int dim, int moving, const float* pos,
                           double bx, double by, double bz, float* out,
                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned nb = blocks_for(C, cap);
-  if (nb == 0) return (int)cudaGetLastError();
+  if (C == 0) return (int)cudaGetLastError();
   const Box box = make_box(bx, by, bz);
-  return dispatch(dim, moving != 0, box_wraps(box), [&](auto f) {
+  const int nmax = cap > capw ? cap : capw;
+  return dispatch_grouped(dim, moving != 0, box_wraps(box), cap,
+                          [&](auto f, auto group) {
     using F = decltype(f);
-    visc_tvc_kernel<F::dim, F::moving, F::wrap><<<nb, kThreads, 0, s>>>(
+    constexpr int G = decltype(group)::value;
+    auto kernel = visc_tvc_kernel<F::dim, F::moving, F::wrap, G>;
+    const size_t smem = group_smem<NW<F::dim>::value, G>(kernel, 2, nmax);
+    kernel<<<group_blocks<G>(C), kThreads, smem, s>>>(
         pos, vel, vol, nbr, C, cap, wpos, wvol, wvel, nbr_w, Cw, capw, inv_h,
-        dw_scale, eps_r, box, out);
+        dw_scale, eps_r, box, nmax, out);
   });
 }
 

@@ -14,22 +14,22 @@ float32 tensor launches the kernel (or raises); anything else raises.
 What bounds them on the card: counting each byte once and only the real
 pairs' flops, every sweep's least time is its bytes over the HBM rate
 (chip_smoke.py's bound; 3D B3's is its flops).  The kernels run far
-above it because they issue work per slot pair, not per byte: neighbour
-rows stay in L1/L2, and the slot pairs outnumber the real pairs.
+above it because they issue work per slot pair, not per byte: each
+neighbour row is read from L2 once per cell that has it in its windows,
+and the lane x slot pairs outnumber the real pairs.
 
-B2 and B3 (ac1_sweep, ac2_sweep) are bound by slot-pair issue.  Their
-kernels put one lane group on a cell (16 lanes for cap <= 16, else 32;
-lane l on i-slot l), skip cells with no live window by a vote, stage each
-live window once for the group in shared memory (runs of windows on
-consecutive block rows together, the next run's cp.async copies in flight
-while one is summed), compact the real j-slots (VOL > 0) to the front and
-sum only those, two or three shared-memory loads per slot pair; when a
-cell's real i-slots fit in half the group, the two halves split its real
-j-slots.  A slot with VOL 0 adds exactly zero to every B2/B3 term, so
-skipping it changes no real slot's sum; padding i-slots get zeros.
-B1 and B4 (density_sweep, visc_tvc_sweep) keep the first design: one
-thread per (cell, i-slot) over every j-slot of the live windows, j rows
-shared through L1, sentinel windows skipped.
+So all four are bound by slot-pair issue.  Their kernels put one lane group
+on a cell (16 lanes for cap <= 16, else 32; lane l on i-slot l), skip
+cells with no live window by a vote, stage each live window once for the
+group in shared memory (runs of windows on consecutive block rows
+together, the next run's cp.async copies in flight while one is summed),
+compact the real j-slots to the front and sum only those, one to three
+shared-memory loads per slot pair; when a cell's real i-slots fit in half
+the group, the two halves split its real j-slots.  A real j-slot is one
+with VOL > 0, or, in B1's fluid rows, mask > 0: every B2-B4 term carries
+V_j and B1's carries mask_j (fluid) or V_k (wall), so skipping the others
+changes no real slot's sum.  Padding i-slots (VOL 0; B1: mask 0) get
+zeros, where the plain versions sum them like real slots.
 
 Inputs are block arrays in their natural layout: fluid fields (C+1, cap, .),
 wall fields (Cw+1, capw, .), window maps nbr (C, 3^dim) int32 with sentinel

@@ -1,16 +1,18 @@
-"""The property the B2/B3 kernels' slot skip rests on, held on the plain
-versions in float64: a slot whose VolumetricMeasure is 0 adds exactly
-nothing to any ac1_sweep / ac2_sweep sum, wherever it sits and whatever
-else it carries.
+"""The property the block-sweep kernels' slot skip rests on, held on the
+plain versions in float64: a slot whose VolumetricMeasure is 0 (and, for
+B1's fluid sum, whose SlotMask is False) adds exactly nothing to any
+density_sweep / ac1_sweep / ac2_sweep / visc_tvc_sweep sum, wherever it
+sits and whatever else it carries.
 
 On the slotted initial state of the 2D and 3D dambreaks and the doubly
 periodic Taylor–Green vortex (seeded noise on the real slots, a moving
-wall where there is one), every padding slot of the fluid and wall blocks
-is moved into the support of a random real particle and given random
-pressure, density, velocity and acceleration, its VOL kept at 0; then the
-slots of every row are permuted at random, so that padding sits mid-row.
-Every real slot's sums must equal those of the untouched blocks, through
-the permutation, within 1e-12 relative.
+wall where there is one: B4 takes the wall velocity as its moving wall),
+every padding slot of the fluid and wall blocks is moved into the support
+of a random real particle and given random pressure, density, velocity
+and acceleration, its VOL and mask kept at 0; then the slots of every row
+are permuted at random, so that padding sits mid-row.  Every real slot's
+sums must equal those of the untouched blocks, through the permutation,
+within 1e-12 relative.
 """
 
 import numpy as np
@@ -72,7 +74,7 @@ def _get(states, tag):
 
 
 def _sweep(name, s, fb, wb):
-    """One plain sweep on the given blocks, as the *_p2 halves call it."""
+    """One plain sweep on the given blocks, as the *_p2 forms call it."""
     eng = s["scene"].eng
     kern, dim = eng.kernel, eng.dim
     inv_h = 1.0 / kern.h
@@ -81,6 +83,17 @@ def _sweep(name, s, fb, wb):
     nw = s["nbr_wall"] if wb is not None else None
     wall = (lambda *k: (None,) * len(k)) if wb is None \
         else (lambda *k: tuple(wb[x] for x in k))
+    if name == "density":
+        return bs.density_sweep(fb["Position"], fb["SlotMask"], s["nbr"],
+                                *wall("Position", "VolumetricMeasure"), nw,
+                                inv_h=inv_h, factor_w=kern._factor_w(dim),
+                                box=eng.box)
+    if name == "visc_tvc":
+        return bs.visc_tvc_sweep(fb["Position"], fb["Velocity"],
+                                 fb["VolumetricMeasure"], s["nbr"],
+                                 *wall("Position", "VolumetricMeasure",
+                                       "AverageVelocity"), nw,
+                                 eps_r=0.01 * eng.h, **common)
     if name == "ac1":
         acc = fb["ForcePrior"] / torch.clamp(fb["Mass"], min=1e-30)[..., None]
         return bs.ac1_sweep(fb["Position"], fb["Pressure"], fb["Density"], acc,
@@ -121,12 +134,15 @@ def _disturb(blocks, rng, h, keys):
     return out, perm
 
 
-@pytest.mark.parametrize("name", ["ac1", "ac2"])
+SWEEPS = ("ac1", "ac2", "density", "visc_tvc")
+
+
+@pytest.mark.parametrize("name", SWEEPS)
 @pytest.mark.parametrize("tag", ["2d", "3d", "tg"])
 def test_padding_adds_nothing_f64(states, tag, name):
     s = _get(states, tag)
     fb, wb = s["fb"], s["wb"]
-    rng = np.random.default_rng([SEEDS[tag], 1 if name == "ac1" else 2])
+    rng = np.random.default_rng([SEEDS[tag], 1 + SWEEPS.index(name)])
     ref = _sweep(name, s, fb, wb)
 
     fb2, perm = _disturb(fb, rng, s["h"], ("Pressure", "Density", "Velocity",
@@ -146,6 +162,10 @@ def test_padding_adds_nothing_f64(states, tag, name):
     for ch in range(ref.shape[-1]):
         a, b = got[..., ch][real], back[..., ch][real]
         scale = float(b.abs().max())
+        if name == "density" and ch == 1 and wb is None:
+            assert scale == 0.0 and float(a.abs().max()) == 0.0, \
+                f"{tag} density: a wall sum without a wall"
+            continue
         assert scale > 0.0, f"{tag} {name} ch{ch}: all zero"
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-12,
                                    atol=1e-12 * scale,
