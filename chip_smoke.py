@@ -12,8 +12,8 @@ cell-block engine — at full size:
     doubly periodic grid, cap 12, c_max 147,456 (viscous force and
     transport-velocity correction, no wall);
   * 2d16: the 2D dambreak at dx=0.0025 with cap 16, its acoustic sub-steps
-    through the first-generation packed halves (B5a-d,
-    csrc/packed_sweeps.cu), as benchmarks/micro_sweep.py composed them.
+    through the packed halves (B5a-d, csrc/packed_sweeps.cu), as
+    benchmarks/micro_sweep.py composed them.
 
 Phases:
 
@@ -45,8 +45,13 @@ Phases:
      advection step under torch.profiler (device busy and idle share;
      Chrome traces to build/traces/);
   6. 2d16: on the dambreak state after one advection step, B5a-d against
-     their plain versions (and with a moving wall and the Dissipative
-     solver's constants), timed and bounded; then one advection step's
+     their plain versions (and with a moving wall, the Dissipative
+     solver's constants and padding of volume 1 moved into the support),
+     timed and bounded, with the lane x slot pairs B5a/B5b evaluate, the
+     B2/B3 times on the same state, a check that window 4 is each cell's
+     own row (B5a/B5b drop the self pair by slot index), and B5a/B5b with
+     holes (real slots unchanged through the swap within 1e-6) and with
+     coincident particles; then one advection step's
      acoustic sub-steps through the packed halves and through the *_p2
      halves from the same state (equal sub-step counts, positions within
      5e-5, every packed kernel launched), each route's sub-step time, and
@@ -684,29 +689,6 @@ def profile_step(torch, tag, step, what="advection step"):
 # 2d16: the first-generation packed acoustic halves (B5a-d)
 # ---------------------------------------------------------------------------
 
-def packed_inputs(torch, scene, fb, nbr, nbr_wall, dt, wall_b=None,
-                  riemann2=None):
-    """The four packed sweeps' (args, kw) as the packed halves build them
-    from block state `fb` at acoustic dt `dt`; `wall_b` (default: the
-    scene's static wall) and `riemann2` (default: the engine's 2nd-half
-    solver) may be replaced."""
-    from sphinxsys_tpu_torch.physics import fluid_blocks as fbops
-
-    eng = scene.eng
-    wall_b = scene.wall_b if wall_b is None else wall_b
-    riemann2 = eng.riemann2 if riemann2 is None else riemann2
-    _, _, _, pk1, pk1_i = fbops.packed_ac1_inputs(fb, eng.eos, dt)
-    _, pk2, pk2_i = fbops.packed_ac2_inputs(fb, dt)
-    c1 = fbops.packed_ac1_constants(eng.kernel, eng.riemann1)
-    c2 = fbops.packed_ac2_constants(eng.kernel, riemann2)
-    return {
-        "ac1_inner_sweep": ((pk1, nbr), c1),
-        "ac2_inner_sweep": ((pk2, nbr), c2),
-        "ac1_wall_sweep": ((pk1_i, fbops.pack_wall_ac1(wall_b), nbr_wall), c1),
-        "ac2_wall_sweep": ((pk2_i, fbops.pack_wall_ac2(wall_b), nbr_wall), c2),
-    }
-
-
 def bytes_or_flops(nbytes, flops):
     """(ms, "bytes"|"operations"): the larger of nbytes over the HBM rate
     and flops over the float32 rate."""
@@ -736,13 +718,93 @@ def packed_bound(torch, args, out, pairs, pair_flops, wall=False):
     return (*bytes_or_flops(nbytes, flops), flops, nbytes)
 
 
+def own_row_check(torch, nbr):
+    """B5a/B5b drop the self pair by slot index; that is JAX's (window 4,
+    j == i) test where window 4 of every live cell is its own block row
+    and no other window repeats it (no periodic box)."""
+    c = nbr.shape[0]
+    own = nbr[:, 4] == torch.arange(c, device=nbr.device, dtype=nbr.dtype)
+    empty = (nbr == c).all(dim=1)
+    others = torch.cat([nbr[:, :4], nbr[:, 5:]], dim=1)
+    check(bool((own | empty).all()),
+          "2d16: window 4 of a live cell is not its own block row")
+    check(not bool(((others == nbr[:, 4:5]) & own[:, None]).any()),
+          "2d16: another window repeats a cell's own block row")
+    log(f"2d16: nbr[:, 4] is the own row of each of the {int(own.sum())} "
+        f"live cells and no other window repeats it ({int(empty.sum())} "
+        f"empty rows)")
+
+
+def packed_slot_pairs(torch, ps, packed, nbr):
+    """(slot pairs B5a/B5b's first design evaluated, lane x slot pairs its
+    lane groups evaluate, share of split cells), from the packed map: the
+    first design 16 x 16 per live window of every cell; a lane group 16
+    lanes times the real j-slots (mask != 0) of its live windows, for every
+    cell with a real slot (a split cell's lanes each take about half)."""
+    c = nbr.shape[0]
+    real = packed[..., ps.CMASK] != 0          # the sentinel row: none
+    before = int((nbr < c).sum()) * ps.CAP ** 2
+    per_cell = real.sum(dim=1)[nbr.long()].sum(dim=1)
+    has = real[:c].any(dim=1)
+    after = int((per_cell * has).sum()) * ps.CAP
+    split = has & ~real[:c, ps.CAP // 2:].any(dim=1)
+    return before, after, float(split.sum()) / max(int(has.sum()), 1)
+
+
+def packed_holes(torch, ps, packed):
+    """`packed` with, in every row whose first slot is real and last slot
+    padding, the two slots swapped (padding mid-row, a real slot in the
+    upper half); and the swap, new[r, k] = old[r, idx[r, k]]."""
+    m = packed[..., ps.CMASK] != 0
+    idx = torch.arange(ps.CAP, device=packed.device).repeat(packed.shape[0], 1)
+    swap = m[:, 0] & ~m[:, -1]
+    idx[swap, 0] = ps.CAP - 1
+    idx[swap, -1] = 0
+    return torch.gather(packed, 1, idx[..., None].expand_as(packed)), idx
+
+
+def packed_lane_group_checks(torch, ps, inputs, base, c):
+    """B5a/B5b where the first design never met it, each against its plain
+    version on the same inputs: `holes` (packed_holes; every real slot's
+    sums must stay within 1e-6 max|out| of the run without the swap), and
+    `coincident`, slot 1's particle moved onto slot 0's position in every
+    row where both are real (a real pair at r = 0 that is not the self
+    pair)."""
+    for name in ("ac1_inner_sweep", "ac2_inner_sweep"):
+        (pk, nbr), kw = inputs[name]
+        holed, idx = packed_holes(torch, ps, pk)
+        real_h = (holed[..., ps.CMASK] != 0)[:c]
+        got, _ = compare(torch, "2d16 holes", name, (holed, nbr), kw, real_h,
+                         module=ps)
+        back = torch.gather(got, 1, idx[:c, :, None].expand_as(got))
+        real = (pk[..., ps.CMASK] != 0)[:c]
+        diff = float((back - base[name])[real].abs().max())
+        scale = float(base[name][real].abs().max())
+        log(f"2d16 holes {name}: agrees with its plain version; max |out - "
+            f"out without the swap| {diff:.3e} (max|out| {scale:.3e})")
+        check(diff <= 1e-6 * scale,
+              f"2d16 holes {name}: real slots moved through the swap")
+        m = pk[..., ps.CMASK] != 0
+        both = m[:, 0] & m[:, 1]
+        co = pk.clone()
+        co[both, 1, :2] = co[both, 0, :2]
+        compare(torch, "2d16 coincident", name, (co, nbr), kw, real,
+                module=ps)
+        log(f"2d16 coincident {name}: agrees with its plain version "
+            f"({int(both.sum())} coincident pairs)")
+
+
 def packed_kernel_phase(torch, scene, sim, results):
     """B5a-d against their plain versions on the same inputs, their times
-    and bounds; then the wall sweeps with seeded non-zero wall kinematics
-    (the static dambreak wall packs zeros there) and the 2nd-half sweeps
-    with the Dissipative solver's constants (limiter 1e30)."""
-    from sphinxsys_tpu_torch.benchmarks import median_ms, sweep_inputs
-    from sphinxsys_tpu_torch.engine import block_fluid as eng_mod
+    and bounds; the lane × slot pairs B5a/B5b evaluate and the B2/B3 times
+    on the same state; then the wall sweeps with seeded non-zero wall
+    kinematics (the static dambreak wall packs zeros there), the 2nd-half
+    sweeps with the Dissipative solver's constants (limiter 1e30), padding
+    moved into the support with volume 1 (the mask its only guard), and
+    B5a/B5b with holes and coincident particles."""
+    from sphinxsys_tpu_torch.benchmarks import (
+        median_ms, packed_inputs, sweep_inputs,
+    )
     from sphinxsys_tpu_torch.ops import block_sweeps as bs
     from sphinxsys_tpu_torch.ops import packed_sweeps as ps
     from sphinxsys_tpu_torch.physics import riemann as rs
@@ -750,16 +812,18 @@ def packed_kernel_phase(torch, scene, sim, results):
     eng, fb, wb = scene.eng, sim.fluid_b, scene.wall_b
     c = sim.nbr_inner.shape[0]
     real = fb["SlotMask"][:c]
-    dt = eng_mod.acoustic_dt(eng, fb)
-    inputs = packed_inputs(torch, scene, fb, sim.nbr_inner, sim.nbr_wall, dt)
+    own_row_check(torch, sim.nbr_inner)
+    inputs = packed_inputs(scene, sim)
     pos = inputs["ac1_inner_sweep"][0][0][..., :2]
     inner, wall = real_pairs(torch, pos, fb["SlotMask"], sim.nbr_inner,
                              (0.0, 0.0), eng.kernel.cutoff, wb["Position"],
                              wb["SlotMask"], sim.nbr_wall)
     self_pairs = int(real.sum())
+    base = {}
     for name, (args, kw) in inputs.items():
         wrapper, plain = getattr(ps, name), getattr(ps, name + "_plain")
         got, max_abs = compare(torch, "2d16", name, args, kw, real, module=ps)
+        base[name] = got
         ms = median_ms(lambda: wrapper(*args, **kw), 20, DEVICE)
         plain_ms = median_ms(lambda: plain(*args, **kw), 3, DEVICE)
         pairs = inner - self_pairs if name.endswith("inner_sweep") else wall
@@ -772,12 +836,22 @@ def packed_kernel_phase(torch, scene, sim, results):
         results[f"{name}[2d16]"] = dict(
             max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by, real_pairs=pairs)
-    # the *_p2 route's sweeps on the same state, for comparison
+        if name.endswith("inner_sweep"):
+            before, after, split = packed_slot_pairs(torch, ps, args[0],
+                                                     args[1])
+            log(f"2d16 {name}: {after} lane x slot pairs evaluated (first "
+                f"design: {before} slot pairs; {pairs} real pairs; "
+                f"{split:.3f} of the cells split), "
+                f"{ms * 1e9 / after:.4f} ps each")
+    # the *_p2 route's sweeps (B2/B3) on the same state, for comparison
+    b2b3 = {}
     for name, (args, kw) in sweep_inputs(scene, sim,
                                          ("ac1_sweep", "ac2_sweep")).items():
         wrapper = getattr(bs, name)
+        b2b3[name] = median_ms(lambda: wrapper(*args, **kw), 20, DEVICE)
         log(f"2d16 {name} (B2/B3 on the same state): kernel "
-            f"{median_ms(lambda: wrapper(*args, **kw), 20, DEVICE):.4f} ms")
+            f"{b2b3[name]:.4f} ms")
+    results["_2d16_b2b3_main"] = b2b3
 
     g = torch.Generator(device=DEVICE).manual_seed(7)
     shape = wb["Position"].shape
@@ -789,8 +863,7 @@ def packed_kernel_phase(torch, scene, sim, results):
                 ("dissipative", dict(riemann2=rs.dissipative_riemann(eng.eos)),
                  ("ac2_inner_sweep", "ac2_wall_sweep")))
     for what, kw_in, names in variants:
-        inp = packed_inputs(torch, scene, fb, sim.nbr_inner, sim.nbr_wall, dt,
-                            **kw_in)
+        inp = packed_inputs(scene, sim, **kw_in)
         for name in names:
             args, kw = inp[name]
             compare(torch, f"2d16 {what}", name, args, kw, real, module=ps)
@@ -806,6 +879,7 @@ def packed_kernel_phase(torch, scene, sim, results):
                            "ac2_wall_sweep": (ps.W2M, ps.W2VOL)}[name]
         near_padding_check(torch, ps, name, args, kw, j, mask_ch, vol_ch,
                            eng.kernel.h, real, g)
+    packed_lane_group_checks(torch, ps, inputs, base, c)
 
 
 def near_padding_check(torch, module, name, args, kw, j, mask_ch, vol_ch, h,
@@ -1004,7 +1078,7 @@ def layout_phase(torch, scene, sim, results):
         results[f"{name}[2d16]"] = dict(
             max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by, real_pairs=pairs, launches=counts[key])
-    log(f"2d16 layout: B5a {t1['c) B5a kernel (C,16) threads']:.4f} ms, "
+    log(f"2d16 layout: B5a {t1['c) B5a kernel (16-lane groups)']:.4f} ms, "
         f"prep_t {prep_ms:.4f} ms in the same drivers' runs")
     results["_layout_main"] = dict(prep_t_ms=prep_ms, drivers={
         tag: dict(ms=out["ms"], cross_check=out["cross_check"])
@@ -1113,7 +1187,7 @@ def main() -> int:
                             "bound_ms": r["bound_ms"],
                             "bound_by": r["bound_by"], "library_ms": None})
     main_paths = {tag: results[f"_{tag}_main"]
-                  for tag in (*CONFIGS, "2d16", "layout")}
+                  for tag in (*CONFIGS, "2d16", "2d16_b2b3", "layout")}
     log("main paths: " + json.dumps(main_paths))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -6,18 +6,20 @@ import a case module the engine work has since removed and no longer run):
     python -m sphinxsys_tpu_torch.benchmarks.exp_layout2  [--dx 0.1 --device cpu]
 
 Each times three decompositions of the same sweep on the same state — B5a
-(one thread per (cell, i)), B6 (one per (cell, i, j)) and B7 (one per
-(i, cell) on a pre-gathered channel-major copy) — beside plain PyTorch
-forms, and cross-checks them.  The default device is the card; the CPU is
-asked for explicitly and runs every sweep's plain version.
+(a 16-lane group per cell over its real slots), B6 (one thread per
+(cell, i, j)) and B7 (one per (i, cell) on a pre-gathered channel-major
+copy) — beside plain PyTorch forms, and cross-checks them.  The default
+device is the card; the CPU is asked for explicitly and runs every
+sweep's plain version.
 
-`ab_sweeps` times the B2/B3 kernels of several builds of
-csrc/block_sweeps.cu against each other on the same inputs:
+`ab_sweeps` times the kernels of several builds of one source
+(csrc/block_sweeps.cu or csrc/packed_sweeps.cu) against each other on the
+same inputs:
 
     python -m sphinxsys_tpu_torch.benchmarks.ab_sweeps A.cu B.cu [...]
 
-This module holds what they share: the states, the block sweeps' inputs
-(also chip_smoke.py's), the timer, the cross-check.
+This module holds what they share: the states, the block and packed
+sweeps' inputs (also chip_smoke.py's), the timer, the cross-check.
 """
 
 from __future__ import annotations
@@ -131,6 +133,31 @@ def sweep_inputs(scene, sim, kernels) -> dict:
             dict(inv_h=inv_h, dw_scale=dw_scale, eps_r=0.01 * eng.h, box=box)),
     }
     return {k: out[k] for k in kernels}
+
+
+def packed_inputs(scene, sim, wall_b=None, riemann2=None) -> dict:
+    """The four packed sweeps' (args, kwargs) by wrapper name, as the packed
+    halves build them from the current block state (at the next sub-step's
+    dt); `wall_b` (default: the scene's wall) and `riemann2` (default: the
+    engine's 2nd-half solver) may be replaced."""
+    from sphinxsys_tpu_torch.engine import block_fluid as eng_mod
+    from sphinxsys_tpu_torch.physics import fluid_blocks as fbops
+
+    eng, fb = scene.eng, sim.fluid_b
+    wall_b = scene.wall_b if wall_b is None else wall_b
+    riemann2 = eng.riemann2 if riemann2 is None else riemann2
+    dt = eng_mod.acoustic_dt(eng, fb)
+    _, _, _, pk1, pk1_i = fbops.packed_ac1_inputs(fb, eng.eos, dt)
+    _, pk2, pk2_i = fbops.packed_ac2_inputs(fb, dt)
+    c1 = fbops.packed_ac1_constants(eng.kernel, eng.riemann1)
+    c2 = fbops.packed_ac2_constants(eng.kernel, riemann2)
+    nbr, nbr_w = sim.nbr_inner, sim.nbr_wall
+    return {
+        "ac1_inner_sweep": ((pk1, nbr), c1),
+        "ac2_inner_sweep": ((pk2, nbr), c2),
+        "ac1_wall_sweep": ((pk1_i, fbops.pack_wall_ac1(wall_b), nbr_w), c1),
+        "ac2_wall_sweep": ((pk2_i, fbops.pack_wall_ac2(wall_b), nbr_w), c2),
+    }
 
 
 def median_ms(fn, k: int, device) -> float:

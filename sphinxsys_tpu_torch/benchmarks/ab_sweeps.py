@@ -1,21 +1,26 @@
-"""The block sweeps B1-B4 (density_sweep, ac1_sweep, ac2_sweep,
-visc_tvc_sweep) of several builds of the block-sweep source timed against
+"""The pair sweeps of several builds of one kernel source timed against
 each other on the same inputs, in turns:
 
     python -m sphinxsys_tpu_torch.benchmarks.ab_sweeps A.cu B.cu [...]
 
-e.g. A.cu a parent commit's sphinxsys_tpu_torch/csrc/block_sweeps.cu (from
-`git archive`) and B.cu the working tree's.  nvcc compiles each source with
-the port's flags (ops/_build.py) into build/ab/, all at once, and its
-launchers are bound by ctypes.  On the states chip_smoke.py measures (the
-2D dambreak at dx=0.0025, the 3D one at dx=0.01 with cap 32, Taylor–Green
-at dx=0.001 with seeded noise, each after one advection step) every build
-runs each sweep of the state on the same inputs: B1-B3 on all three, B4
-on Taylor–Green and on the 2D dambreak with its static wall.  Its outputs
-are compared with the first build's on the real slots (max |diff| / max
-|first|, which must stay within 1e-5), and it is timed with `median_ms`
-(20 runs) in four turns: in order, reversed, in order, reversed.  Needs
-the card; exits 1 on a disagreement.
+e.g. A.cu a parent commit's sphinxsys_tpu_torch/csrc/block_sweeps.cu or
+packed_sweeps.cu (from `git archive`) and B.cu the working tree's.  nvcc
+compiles each source with the port's flags (ops/_build.py) into build/ab/,
+all at once, finding a quoted include (lane_groups.cuh) beside the source,
+and the launchers each library exports are bound by ctypes.  On the states
+chip_smoke.py measures, each after one advection step, every build runs
+each sweep that all builds export on the same inputs:
+
+  * the block sweeps B1-B4 (block_sweeps.cu): the 2D dambreak at dx=0.0025
+    (B1-B4, B4 with its static wall), the 3D one at dx=0.01 with cap 32
+    (B1-B3) and Taylor–Green at dx=0.001 with seeded noise (B1-B4);
+  * the packed sweeps B5a-d (packed_sweeps.cu): 2d16, the 2D dambreak at
+    dx=0.0025 with cap 16, on the inputs the packed halves build.
+
+A sweep's outputs are compared with the first build's on the real slots
+(max |diff| / max |first|, which must stay within 1e-5), and it is timed
+with `median_ms` (20 runs) in four turns: in order, reversed, in order,
+reversed.  Needs the card; exits 1 on a disagreement.
 """
 
 from __future__ import annotations
@@ -29,25 +34,37 @@ from pathlib import Path
 
 import torch
 
-from sphinxsys_tpu_torch.benchmarks import median_ms, perturbed, sweep_inputs
+from sphinxsys_tpu_torch.benchmarks import (
+    median_ms, packed_inputs, perturbed, sweep_inputs,
+)
 from sphinxsys_tpu_torch.ops import _build
 from sphinxsys_tpu_torch.ops import block_sweeps as bs
+from sphinxsys_tpu_torch.ops import packed_sweeps as ps
 
 OUT_DIR = _build.BUILD_DIR.parent / "ab"
 B1_B3 = ("density_sweep", "ac1_sweep", "ac2_sweep")
 ALL = B1_B3 + ("visc_tvc_sweep",)
+PACKED = ("ac1_inner_sweep", "ac2_inner_sweep", "ac1_wall_sweep",
+          "ac2_wall_sweep")
 STATES = (  # tag, case module, dx, build_block_case options, seeded noise,
     # sweeps
     ("2d", "dambreak_2d", 0.0025, {}, False, ALL),
     ("3d", "dambreak_3d", 0.01, {"cap": 32, "c_max": 125_000}, False, B1_B3),
     ("tg", "taylor_green_2d", 0.001, {}, True, ALL),
+    ("2d16", "dambreak_2d", 0.0025, {"cap": ps.CAP}, False, PACKED),
 )
 AGREE = 1e-5
-LAUNCHERS = tuple(f"{name}_launch" for name in ALL)
+
+
+def launcher(name) -> str:
+    """A sweep's C launcher (ops/_build.py ARGTYPES)."""
+    return name.replace("_sweep", "_launch") if name in PACKED \
+        else f"{name}_launch"
 
 
 def build(sources) -> list:
-    """One library per source, compiled in parallel; their B1-B4 launchers."""
+    """One library per source, compiled in parallel; each bound to the
+    launchers of ops/_build.py that it exports."""
     nvcc = _build.find_nvcc()
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
@@ -62,16 +79,46 @@ def build(sources) -> list:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {so.name}:\n{log}")
         lib = ctypes.CDLL(str(so))
-        for name in LAUNCHERS:
-            getattr(lib, name).argtypes = _build.ARGTYPES[name]
-            getattr(lib, name).restype = ctypes.c_int
+        for name, argtypes in _build.ARGTYPES.items():
+            fn = getattr(lib, name, None)
+            if fn is not None:
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
         libs.append(lib)
     return libs
+
+
+def exported(lib, name) -> bool:
+    return hasattr(lib, launcher(name))
+
+
+def launch_packed(lib, name, args, kw, out):
+    """A packed sweep of one build on its wrapper's arguments, into `out`,
+    as ops/packed_sweeps.py passes them to the launcher."""
+    ptr = bs._ptr
+    consts = ps._constants(kw["kernel_h"], kw["factor_w"])
+    if name.startswith("ac1"):
+        consts += (kw["inv_rho0c0_ave"],)
+    else:
+        consts += (kw["rho0c0_geo"], kw["limiter_coeff"] * kw["inv_c0"])
+    if name.endswith("inner_sweep"):
+        packed, nbr = args
+        head = (ptr(packed), ptr(nbr), nbr.shape[0])
+    else:
+        packed_i, wall, nbr_w = args
+        head = (ptr(packed_i), ptr(wall), ptr(nbr_w), nbr_w.shape[0],
+                wall.shape[0] - 1)
+    err = getattr(lib, launcher(name))(
+        *head, *consts, ptr(out), torch.cuda.current_stream().cuda_stream)
+    bs._raise_on(err, name)
 
 
 def launch(lib, name, args, kw, out):
     """`name` of one build on the wrappers' arguments, into `out` (B1's mask
     as float32, as the kernel reads it: `launch_args`)."""
+    if name in PACKED:
+        launch_packed(lib, name, args, kw, out)
+        return
     dim = args[0].shape[-1]
     box = bs._box3(kw["box"], dim)
     stream = torch.cuda.current_stream().cuda_stream
@@ -118,8 +165,11 @@ def launch_args(name, args) -> tuple:
     return (args[0], args[1].to(torch.float32).contiguous(), *args[2:])
 
 
-def out_shape(name, pos) -> tuple:
-    """A sweep's (C, cap, k) output shape from its fluid positions."""
+def out_shape(name, args) -> tuple:
+    """A sweep's (C, cap, k) output shape from its arguments."""
+    if name in PACKED:
+        return (args[-1].shape[0], ps.CAP, 3)
+    pos = args[0]
     c, cap, dim = pos.shape[0] - 1, pos.shape[1], pos.shape[2]
     k = {"density_sweep": 2, "visc_tvc_sweep": 2 * dim}.get(name, dim + 1)
     return (c, cap, k)
@@ -138,6 +188,10 @@ def run(sources, k: int = 20) -> bool:
               f"{n} {s}" for n, s in zip(names, sources)), flush=True)
     agree = True
     for tag, module, dx, kw_case, noise, sweeps in STATES:
+        sweeps = tuple(n for n in sweeps
+                       if all(exported(lib, n) for lib in libs))
+        if not sweeps:
+            continue
         case = importlib.import_module(f"sphinxsys_tpu_torch.cases.{module}")
         scene, fluid = case.build_block_case(dx=dx, device="cuda", **kw_case)
         if noise:
@@ -145,10 +199,12 @@ def run(sources, k: int = 20) -> bool:
         sim = sc.make_advection_step(scene)(sc.init_sim(scene, fluid))
         c = sim.nbr_inner.shape[0]
         real = sim.fluid_b["SlotMask"][:c]
-        inputs = sweep_inputs(scene, sim, sweeps)
-        for name, (args, kw) in inputs.items():
+        inputs = packed_inputs(scene, sim) if sweeps[0] in PACKED \
+            else sweep_inputs(scene, sim, sweeps)
+        for name in sweeps:
+            args, kw = inputs[name]
             args = launch_args(name, args)
-            outs = [torch.empty(out_shape(name, args[0]), device="cuda")
+            outs = [torch.empty(out_shape(name, args), device="cuda")
                     for _ in libs]
             for lib, out in zip(libs, outs):
                 launch(lib, name, args, kw, out)

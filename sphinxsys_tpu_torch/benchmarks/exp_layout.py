@@ -5,12 +5,13 @@ On the TPU the hypothesis was that the (C, 16, 16) pair broadcasts waste
 7/8 of the vector lanes and that flattening the pairs onto the lane axis,
 (C, 256), recovers them.  On the card the flat layout is B6: one thread
 per (cell, i, j) slot pair with a warp-shuffle sum over j, against B5a's
-one thread per (cell, i) looping over j.
+16-lane group per cell, lane i summing the cell's real j-slots, staged in
+shared memory.
 
 Variants (the inner first-half acoustic sweep, one launch per run):
   a) plain (C, 16, 16) broadcasts   — B5a's plain version
   b) plain (C, 256) flattened pairs — B6's plain version
-  c) B5a kernel (C, 16) threads
+  c) B5a kernel (16-lane groups)
   d) B6 kernel (C, 256) threads
 Cross-check: b against d (as the JAX script), and B5a (c) against d.
 
@@ -50,7 +51,7 @@ def run(dx: float = 0.0025, device="cuda", k: int = 20,
             lambda: b5a_channels(ps.ac1_inner_sweep_plain, st),
         "b) plain (C,256) flat":
             lambda: ls.ac1_flat_sweep_plain(packed, nbr, *consts),
-        "c) B5a kernel (C,16) threads":
+        "c) B5a kernel (16-lane groups)":
             lambda: b5a_channels(ps.ac1_inner_sweep, st),
         "d) B6 kernel (C,256) threads":
             lambda: ls.ac1_flat_sweep(packed, nbr, *consts),
@@ -62,7 +63,7 @@ def run(dx: float = 0.0025, device="cuda", k: int = 20,
 
     flat_plain = variants["b) plain (C,256) flat"]()
     flat = variants["d) B6 kernel (C,256) threads"]()
-    b5a = variants["c) B5a kernel (C,16) threads"]()
+    b5a = variants["c) B5a kernel (16-lane groups)"]()
     cross = {"b_vs_d": rel_err(flat, flat_plain), "c_vs_d": rel_err(flat, b5a)}
     agree = all(e <= CROSS_TOL for e in cross.values())
     print(f"b vs d (flat plain vs B6): {cross['b_vs_d']:.3e}, c vs d (B5a vs "

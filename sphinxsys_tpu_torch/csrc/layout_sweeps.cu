@@ -56,11 +56,13 @@
 // (vx, vy and the zero channel are never loaded), about 213 MB with its
 // output at bench width.
 // Both evaluate all 16 x 16 slot pairs of each window they visit, about
-// 10x the real pairs, ~31 flops each, far above what the bytes allow: both
-// are bound by that arithmetic and its latency.  B6 skips sentinel windows
-// as B5a does; B7 evaluates every window, padding cells included, and on
-// an H100 still takes B5a's time (0.22 ms at the 2D dambreak's bench
-// width), while B6 takes 1.3x it.
+// 17x (B6) and 23x (B7) the real pairs, ~31 flops each, far above what the
+// bytes allow: both are bound by that arithmetic and its latency.  B6
+// skips sentinel windows as B5a does; B7 evaluates every window, padding
+// cells included.  At the 2D dambreak's bench width on an H100 (700 W)
+// B7 takes 0.22 ms and B6 0.29 ms, 1.8x and 2.4x the time of B5a's lane
+// groups (0.124 ms), which stage each window once in shared memory and
+// sum only its real j-slots (chip_smoke.py's layout phase).
 //
 // Every launcher returns cudaGetLastError() after the launch.
 

@@ -1,5 +1,4 @@
-// First-generation packed acoustic sweeps of the 2D WCSPH solver for
-// Hopper (sm_90a).
+// Packed acoustic sweeps of the 2D WCSPH solver for Hopper (sm_90a).
 //
 // Counterparts of the Pallas kernels in sphinxsys_tpu/ops/pallas_sweep.py:
 //   ac1_inner_kernel <- _ac1_kernel       (ac1_inner_sweep)
@@ -35,38 +34,64 @@
 // carry any finite volume (the mask alone keeps it inert), so never build
 // with --use_fast_math.
 //
-// Design (first correct version): one thread per (cell, i-slot), 16
-// threads per cell; the thread loops over the 9 window rows and the 16
-// j-slots of each, accumulating in float32 registers; no atomics, so
-// results are deterministic.  The 16 threads of a cell read the same j
-// slots (broadcast through L1).  What bounds it: 16 x 16 x 9 = 2304 slot
-// pairs per cell, about 10x the real pairs, ~40 flops each, on neighbour
-// rows that stay in L1/L2 — it is arithmetic- and latency-bound, far above
-// the bytes it must move.  Shared-memory staging of neighbour rows and a
-// per-particle cell walk are later work.
+// The inner sweeps (B5a, B5b): lane groups (lane_groups.cuh), as B1-B4.
+// At the 2D dambreak's bench width their bytes take ~0.012 ms on an H100;
+// what bounds them is slot-pair issue.  The first design (a thread per
+// (cell, i-slot) looping over the 16 j-slots of every live window) issued
+// two float4 loads per slot pair, on 17x more slot pairs than real pairs
+// (padding j-slots, and i-threads of padding slots walking every window).
+// The design:
+//   * 16 lanes per cell, lane l on i-slot l; register accumulators, no
+//     atomics, so results are deterministic;
+//   * the group reads the cell's window map once and votes: a cell with no
+//     live window or no real slot writes zeros and stops;
+//   * live windows are staged in the group's slice of shared memory a
+//     segment (up to 3 consecutive block rows, 1.5 KB contiguous) at a time,
+//     whole slots as they lie, by 16-byte cp.async (two per slot),
+//     double-buffered;
+//   * only real j-slots (mask != 0) are summed: the group compacts them in
+//     order, each copy carrying its global slot index in the unused
+//     channel 7, and a lane drops the slot equal to its own (the self pair
+//     by index: with nbr[:, 4] the cell's own row and no window repeated,
+//     as without a periodic box, this is JAX's (window 4, j == i) test).
+//     mask_i mask_j stays in every term, so a slot of mask 0 adds exactly
+//     +-0 and one of any other mask keeps its weight;
+//   * split: when a cell's real i-slots fit in lanes 0-7, lanes l and l + 8
+//     sum for slot l over the even and the odd real j, and one shuffle adds
+//     the halves (about 5 real particles a cell: almost every cell).
+// Each lane sums in the first design's order (windows in order, j
+// ascending), split lanes each over their half, so real slots agree with it
+// to f32 roundoff.  Padding i-slots get zeros (mask_i = 0 gives them).
+//
+// The wall sweeps (B5c, B5d) keep the first design: one thread per (cell,
+// i-slot) looping over the 16 slots of every live wall window, reading
+// them through L1.
 //
 // Every launcher returns cudaGetLastError() after the launch.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "lane_groups.cuh"
 
 namespace {
 
 constexpr int kCap = 16;
 constexpr int kCh = 8;
 constexpr int kWindows = 9;
-constexpr int kCentre = 4;
-constexpr int kThreads = 128;
+constexpr int kMask = 6;  // the mask channel of the inner layout
 
-struct Slot {
+// One packed slot's 8 channels.
+struct Slot8 {
   float c[kCh];
 };
 
-__device__ __forceinline__ Slot load_slot(const float* __restrict__ base) {
+__device__ __forceinline__ Slot8 load_slot(const float* __restrict__ base) {
   const float4* p = reinterpret_cast<const float4*>(base);
   const float4 a = __ldg(p);
   const float4 b = __ldg(p + 1);
-  return Slot{{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w}};
+  return Slot8{{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w}};
 }
 
 // Pair geometry and masked dW/dr of one slot pair.
@@ -97,41 +122,109 @@ __device__ __forceinline__ float sign0(float x) {
 }
 
 // ---------------------------------------------------------------------------
+// B5a / B5b: inner sweeps, one 16-lane group per cell (see the top).
+// ---------------------------------------------------------------------------
+constexpr int kNarr = 2;                             // float4 parts a slot
+constexpr int kSegSlotsPacked = seg_rows(kCap) * kCap;  // slots a buffer
+
+// Copies of rows row .. row + m - 1 of the packed tensor (m * 16 slots,
+// contiguous) into dst as they lie, slot j's parts at dst[2 j], dst[2 j + 1]
+// (PackedSlots), one 16-byte cp.async a part.
+__device__ __forceinline__ void stage_packed(const Group<kCap>& g, float4* dst,
+                                             const float* __restrict__ packed,
+                                             int row, int m) {
+  const float4* src =
+      reinterpret_cast<const float4*>(packed) + (int64_t)row * kCap * kNarr;
+  for (int q = g.lane; q < m * kCap * kNarr; q += kCap) {
+    __pipeline_memcpy_async(dst + q, src + q, sizeof(float4));
+  }
+}
+
+// The group's state for one cell: its slice of shared memory, its live
+// windows and this lane's i-slot (lane_slot on the mask channel).
+struct InnerCell {
+  float4* buf;
+  int* rows;
+  unsigned live;
+  Slot s;
+};
+
+__device__ __forceinline__ InnerCell inner_cell(
+    const Group<kCap>& g, float4* smem, const float* __restrict__ packed,
+    const int* __restrict__ nbr, int64_t cell, int C) {
+  InnerCell ic;
+  float4* mine = smem + (threadIdx.x / kCap) * group_f4<kWindows>(kNarr, kCap);
+  ic.rows = reinterpret_cast<int*>(mine);
+  ic.buf = mine + rows_f4<kWindows>();
+  ic.live = live_windows<kWindows>(g, nbr, cell, C, ic.rows);
+  g.sync();
+  ic.s = lane_slot<PackedSlots>(g, cell, kCap, 0, packed + kMask);
+  return ic;
+}
+
+// Walks the cell's live windows and calls pair(xj, cj, m) for every real
+// j-slot of this lane's half (xj = [x, y, vx, vy], cj = [p, vol, mask,
+// slot index]) with m = mask_i mask_j, 0 for the lane's own slot.
+template <class Pair>
+__device__ __forceinline__ void inner_pairs(const Group<kCap>& g,
+                                            const InnerCell& ic,
+                                            const float* __restrict__ packed,
+                                            float mask_i, Pair&& pair) {
+  const int self = (int)ic.s.gs;
+  auto stage = [&](bool, int row, int m, float4* dst) {
+    stage_packed(g, dst, packed, row, m);
+  };
+  auto sum = [&](bool, int count, const float4* src) {
+    for_each_slot(g, ic.s.split, count, [&](int j) {
+      const float4 xj = src[2 * j];
+      const float4 cj = src[2 * j + 1];
+      pair(xj, cj, __float_as_int(cj.w) == self ? 0.0f : mask_i * cj.z);
+    });
+  };
+  walk_rows<PackedSlots>(g, ic.live, 0u, ic.rows, nullptr, kCap, 0, kNarr,
+                         kSegSlotsPacked, ic.buf, stage, sum);
+}
+
+// ---------------------------------------------------------------------------
 // B5a: 1st-half inner sweep.  out (C, 16, 3) = [fx, fy, rd]:
 //   f_i  = -sum (p_i + p_j) dW V_j e_ij
 //   rd_i =  sum (p_i - p_j) inv_rho0c0 dW V_j
 // ---------------------------------------------------------------------------
-__global__ void ac1_inner_kernel(const float* __restrict__ packed,
-                                 const int* __restrict__ nbr, int C,
-                                 float inv_h, float dw_scale, float inv_rho0c0,
-                                 float* __restrict__ out) {
-  const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= (int64_t)C * kCap) return;
-  const int64_t cell = g / kCap;
-  const int i = (int)(g % kCap);
-  const Slot si = load_slot(packed + g * kCh);
+__global__ void __launch_bounds__(kThreads)
+    ac1_inner_kernel(const float* __restrict__ packed,
+                     const int* __restrict__ nbr, int C, float inv_h,
+                     float dw_scale, float inv_rho0c0,
+                     float* __restrict__ out) {
+  extern __shared__ float4 group_smem[];
+  const Group<kCap> g;
+  const int64_t cell = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / kCap;
+  if (cell >= C) return;  // whole groups
+  const InnerCell ic = inner_cell(g, group_smem, packed, nbr, cell, C);
+  const Slot8 si = load_slot(packed + ic.s.gs * kCh);
   const float p_i = si.c[4];
   float fx = 0.0f, fy = 0.0f, rd = 0.0f;
-  for (int w = 0; w < kWindows; ++w) {
-    const int row = nbr[cell * kWindows + w];
-    if (row >= C) continue;
-    const float* pj = packed + (int64_t)row * kCap * kCh;
-    for (int j = 0; j < kCap; ++j) {
-      const Slot sj = load_slot(pj + j * kCh);
-      const float m = (w == kCentre && j == i) ? 0.0f : si.c[6] * sj.c[6];
-      const Geom q = pair_geom(si.c[0], si.c[1], sj.c[0], sj.c[1], m, inv_h,
+  if (ic.live != 0u && ic.s.real != 0u) {
+    inner_pairs(g, ic, packed, si.c[kMask],
+                [&](const float4& xj, const float4& cj, float m) {
+      const Geom q = pair_geom(si.c[0], si.c[1], xj.x, xj.y, m, inv_h,
                                dw_scale);
-      const float dwv = q.dw * sj.c[5];
-      const float p_j = sj.c[4];
+      const float dwv = q.dw * cj.y;
+      const float p_j = cj.x;
       const float psum = (p_i + p_j) * dwv;
       fx -= psum * q.ex;
       fy -= psum * q.ey;
       rd += (p_i - p_j) * inv_rho0c0 * dwv;
+    });
+    if (ic.s.split) {
+      fx = fold_halves(g, fx);
+      fy = fold_halves(g, fy);
+      rd = fold_halves(g, rd);
     }
   }
-  out[g * 3 + 0] = fx;
-  out[g * 3 + 1] = fy;
-  out[g * 3 + 2] = rd;
+  const bool keep = ic.s.own_real;
+  out[ic.s.go * 3 + 0] = keep ? fx : 0.0f;
+  out[ic.s.go * 3 + 1] = keep ? fy : 0.0f;
+  out[ic.s.go * 3 + 2] = keep ? rd : 0.0f;
 }
 
 // ---------------------------------------------------------------------------
@@ -141,39 +234,43 @@ __global__ void ac1_inner_kernel(const float* __restrict__ packed,
 //   f_i   = sum rho0c0_geo u min(lim_scale max(u, 0), 1) dW V_j e_ij
 // (lim_scale = limiter_coeff * inv_c0, formed in double by the caller)
 // ---------------------------------------------------------------------------
-__global__ void ac2_inner_kernel(const float* __restrict__ packed,
-                                 const int* __restrict__ nbr, int C,
-                                 float inv_h, float dw_scale, float rho0c0_geo,
-                                 float lim_scale, float* __restrict__ out) {
-  const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= (int64_t)C * kCap) return;
-  const int64_t cell = g / kCap;
-  const int i = (int)(g % kCap);
-  const Slot si = load_slot(packed + g * kCh);
+__global__ void __launch_bounds__(kThreads)
+    ac2_inner_kernel(const float* __restrict__ packed,
+                     const int* __restrict__ nbr, int C, float inv_h,
+                     float dw_scale, float rho0c0_geo, float lim_scale,
+                     float* __restrict__ out) {
+  extern __shared__ float4 group_smem[];
+  const Group<kCap> g;
+  const int64_t cell = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / kCap;
+  if (cell >= C) return;  // whole groups
+  const InnerCell ic = inner_cell(g, group_smem, packed, nbr, cell, C);
+  const Slot8 si = load_slot(packed + ic.s.gs * kCh);
   float dcr = 0.0f, fx = 0.0f, fy = 0.0f;
-  for (int w = 0; w < kWindows; ++w) {
-    const int row = nbr[cell * kWindows + w];
-    if (row >= C) continue;
-    const float* pj = packed + (int64_t)row * kCap * kCh;
-    for (int j = 0; j < kCap; ++j) {
-      const Slot sj = load_slot(pj + j * kCh);
-      const float m = (w == kCentre && j == i) ? 0.0f : si.c[6] * sj.c[6];
-      const Geom q = pair_geom(si.c[0], si.c[1], sj.c[0], sj.c[1], m, inv_h,
+  if (ic.live != 0u && ic.s.real != 0u) {
+    inner_pairs(g, ic, packed, si.c[kMask],
+                [&](const float4& xj, const float4& cj, float m) {
+      const Geom q = pair_geom(si.c[0], si.c[1], xj.x, xj.y, m, inv_h,
                                dw_scale);
-      const float dwv = q.dw * sj.c[5];
-      const float du = si.c[2] - sj.c[2];
-      const float dv = si.c[3] - sj.c[3];
+      const float dwv = q.dw * cj.y;
+      const float du = si.c[2] - xj.z;
+      const float dv = si.c[3] - xj.w;
       const float u = du * q.ex + dv * q.ey;
       dcr += u * dwv;
       const float lim = fminf(lim_scale * fmaxf(u, 0.0f), 1.0f);
       const float pjump = rho0c0_geo * u * lim * dwv;
       fx += pjump * q.ex;
       fy += pjump * q.ey;
+    });
+    if (ic.s.split) {
+      dcr = fold_halves(g, dcr);
+      fx = fold_halves(g, fx);
+      fy = fold_halves(g, fy);
     }
   }
-  out[g * 3 + 0] = dcr;
-  out[g * 3 + 1] = fx;
-  out[g * 3 + 2] = fy;
+  const bool keep = ic.s.own_real;
+  out[ic.s.go * 3 + 0] = keep ? dcr : 0.0f;
+  out[ic.s.go * 3 + 1] = keep ? fx : 0.0f;
+  out[ic.s.go * 3 + 2] = keep ? fy : 0.0f;
 }
 
 // ---------------------------------------------------------------------------
@@ -190,7 +287,7 @@ __global__ void ac1_wall_kernel(const float* __restrict__ packed_i,
   const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= (int64_t)C * kCap) return;
   const int64_t cell = g / kCap;
-  const Slot si = load_slot(packed_i + g * kCh);
+  const Slot8 si = load_slot(packed_i + g * kCh);
   const float p_i = si.c[2], rho_i = si.c[3];
   float fx = 0.0f, fy = 0.0f, rd = 0.0f;
   for (int w = 0; w < kWindows; ++w) {
@@ -198,7 +295,7 @@ __global__ void ac1_wall_kernel(const float* __restrict__ packed_i,
     if (row >= Cw) continue;
     const float* pk = wall + (int64_t)row * kCap * kCh;
     for (int k = 0; k < kCap; ++k) {
-      const Slot sk = load_slot(pk + k * kCh);
+      const Slot8 sk = load_slot(pk + k * kCh);
       const Geom q = pair_geom(si.c[0], si.c[1], sk.c[0], sk.c[1],
                                si.c[6] * sk.c[5], inv_h, dw_scale);
       const float dwv = q.dw * sk.c[2];
@@ -232,14 +329,14 @@ __global__ void ac2_wall_kernel(const float* __restrict__ packed_i,
   const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= (int64_t)C * kCap) return;
   const int64_t cell = g / kCap;
-  const Slot si = load_slot(packed_i + g * kCh);
+  const Slot8 si = load_slot(packed_i + g * kCh);
   float dcr = 0.0f, fx = 0.0f, fy = 0.0f;
   for (int w = 0; w < kWindows; ++w) {
     const int row = nbr_w[cell * kWindows + w];
     if (row >= Cw) continue;
     const float* pk = wall + (int64_t)row * kCap * kCh;
     for (int k = 0; k < kCap; ++k) {
-      const Slot sk = load_slot(pk + k * kCh);
+      const Slot8 sk = load_slot(pk + k * kCh);
       const Geom q = pair_geom(si.c[0], si.c[1], sk.c[0], sk.c[1],
                                si.c[4] * sk.c[7], inv_h, dw_scale);
       const float dwv = q.dw * sk.c[2];
@@ -272,9 +369,11 @@ extern "C" {
 int ac1_inner_launch(const float* packed, const int* nbr, int C, float inv_h,
                      float dw_scale, float inv_rho0c0, float* out,
                      void* stream) {
-  const unsigned nb = blocks_for(C);
+  const unsigned nb = group_blocks<kCap>(C);
   if (nb == 0) return (int)cudaGetLastError();
-  ac1_inner_kernel<<<nb, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const size_t smem =
+      group_smem_bytes<kWindows, kCap>(ac1_inner_kernel, kNarr, kCap);
+  ac1_inner_kernel<<<nb, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       packed, nbr, C, inv_h, dw_scale, inv_rho0c0, out);
   return (int)cudaGetLastError();
 }
@@ -282,9 +381,11 @@ int ac1_inner_launch(const float* packed, const int* nbr, int C, float inv_h,
 int ac2_inner_launch(const float* packed, const int* nbr, int C, float inv_h,
                      float dw_scale, float rho0c0_geo, float lim_scale,
                      float* out, void* stream) {
-  const unsigned nb = blocks_for(C);
+  const unsigned nb = group_blocks<kCap>(C);
   if (nb == 0) return (int)cudaGetLastError();
-  ac2_inner_kernel<<<nb, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const size_t smem =
+      group_smem_bytes<kWindows, kCap>(ac2_inner_kernel, kNarr, kCap);
+  ac2_inner_kernel<<<nb, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       packed, nbr, C, inv_h, dw_scale, rho0c0_geo, lim_scale, out);
   return (int)cudaGetLastError();
 }

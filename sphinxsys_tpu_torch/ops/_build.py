@@ -3,8 +3,9 @@
 nvcc compiles each source into its own shared library with a plain C
 interface, all sources at once in parallel, and each library is loaded
 with ctypes (no PyTorch headers: the build takes seconds, not minutes).
-A library is built at first use, keyed on a hash of its source and the
-flags, into `build/kernels/` beside the package (listed in .gitignore).
+A library is built at first use, keyed on a hash of its source, the
+shared headers (csrc/*.cuh) and the flags, into `build/kernels/` beside
+the package (listed in .gitignore).
 A missing nvcc or a failed build raises; nothing falls back.
 """
 
@@ -64,8 +65,11 @@ def find_nvcc() -> str:
 
 
 def library_path(src: Path) -> Path:
-    """Where `src`'s library goes, keyed on the source and the flags."""
+    """Where `src`'s library goes, keyed on the source, the headers beside
+    it (a source may include any of them) and the flags."""
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}_{h.hexdigest()[:16]}.so"
 

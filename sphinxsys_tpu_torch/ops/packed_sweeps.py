@@ -1,4 +1,4 @@
-"""The first-generation packed acoustic sweeps (2D, Wendland C2, cap 16):
+"""The packed acoustic sweeps (2D, Wendland C2, cap 16):
 the inner and wall pair sums of both acoustic halves on one packed
 (rows, 16, 8) block tensor per body (counterpart of
 sphinxsys_tpu/ops/pallas_sweep.py, whose names and return shapes it keeps).
@@ -17,13 +17,16 @@ not count).
 
 What bounds them on the card: counting each byte once and only the real
 pairs' flops, a sweep's least time is its bytes over the HBM rate
-(chip_smoke.py's bound).  The kernels run far above it: the dense sweep
-evaluates 16 x 16 x 9 slot pairs per cell, about 10x the real pairs, ~40
-flops each, on neighbour rows that stay in L1/L2 — they are compute- and
-latency-bound.  The design reads neighbour rows through the window map
-(the TPU's pre-gathered packed[nbr] is never made), one thread per
-(cell, i-slot), and skips sentinel windows; shared-memory staging and a
-per-particle cell walk are later work.
+(chip_smoke.py's bound), ~0.012 ms for the inner sweeps at the 2D
+dambreak's bench width.  They run far above it, bound by slot-pair issue
+and per-cell latency.  All four read neighbour rows through the window
+map (the TPU's pre-gathered packed[nbr] is never made) and skip sentinel
+windows.  The inner sweeps (B5a, B5b) run a 16-lane group per cell
+(csrc/lane_groups.cuh, as B1-B4): its live window rows staged whole in
+shared memory, only the real j-slots (mask != 0) summed, the self pair
+dropped by slot index, lanes of a cell with at most 8 real slots split
+over j.  The wall sweeps (B5c, B5d) keep the first design, one thread per
+(cell, i-slot) over all 16 slots of each live wall window.
 
 Padding slots are guarded by the mask channel alone (they may carry any
 finite volume); the inner sweeps drop the self pair.  The TPU's `tile_c`

@@ -4,12 +4,17 @@ package (ops/pallas_sweep.py, fluid_blocks.acoustic_step_*_pallas) on the
 same inputs:
 
 * (a) each plain sweep against JAX's Pallas kernel in interpret mode on
-  three input sets — random particles whose padding carries VOL = 1, at
-  1e9 (as tests/test_pallas_sweep.py builds them) and moved inside the
-  support of real particles, where the mask channel alone keeps it inert,
-  and the dambreak block state at dx = 0.1, cap 16, with
-  seeded perturbations and a moving wall — at |port - JAX| <= 2e-5 max|JAX|
-  per channel on the real slots (the criterion of test_pallas_sweep.py);
+  five input sets — random particles whose padding carries VOL = 1, at
+  1e9 (as tests/test_pallas_sweep.py builds them); moved inside the
+  support of real particles, where the mask channel alone keeps it inert;
+  that input with every row's slots permuted at random (padding mid-row,
+  the self slot moved with its particle: the lane-group kernels compact
+  the real slots and drop the self pair by slot index); real particles
+  moved onto another real particle of their cell (pairs at r = 0 that are
+  not the self pair); and the dambreak block state at dx = 0.1, cap 16,
+  with seeded perturbations and a moving wall — at |port - JAX| <= 2e-5
+  max|JAX| per channel on the real slots (the criterion of
+  test_pallas_sweep.py);
 * (b) the packed halves in float32 against JAX's Pallas halves (interpret)
   at rtol 2e-5 / atol 1e-5, with a static and a moving wall and the
   Acoustic, Dissipative and No solvers in the 2nd half;
@@ -67,8 +72,11 @@ def random_input():
     """600 random fluid and 150 random wall particles in the unit square
     (dx = 0.04) whose padding slots carry VOL = 1: packed tensors for all
     four sweeps with the padding at 1e9 ("random", the input of
-    tests/test_pallas_sweep.py) and with the padding moved into the square
-    ("random_near"), where the mask channel alone keeps it inert."""
+    tests/test_pallas_sweep.py); with the padding moved into the square
+    ("random_near"), where the mask channel alone keeps it inert; that
+    input with every row's slots permuted ("random_holes"); and "random"
+    with some real particles moved onto another real particle of their
+    cell ("random_coincident")."""
     rng = np.random.default_rng(0)
     n, nw, dx = 600, 150, 0.04
     adaptation = JAdaptation(spacing=dx, dim=2)
@@ -121,9 +129,43 @@ def random_input():
         xy = jnp.asarray(rng.uniform(0, 1, pk.shape[:2] + (2,)), jnp.float32)
         return pk.at[..., :2].set(jnp.where(mk[..., None], pk[..., :2], xy))
 
-    return {"random": far, "random_near": dict(
-        far, packed=near(packed, m), wall1=near(far["wall1"], mw),
-        wall2=near(far["wall2"], mw))}
+    near_inp = dict(far, packed=near(packed, m), wall1=near(far["wall1"], mw),
+                    wall2=near(far["wall2"], mw))
+
+    def holes(inp):
+        """Every row's slots permuted at random, fluid and wall rows (each
+        side's packed tensors alike): padding sits mid-row and the self
+        slot moves with its particle."""
+        pf = np.argsort(rng.random(m.shape), axis=1)
+        pw = np.argsort(rng.random(mw.shape), axis=1)
+
+        def take(a, perm):
+            return jnp.take_along_axis(a, jnp.asarray(perm)[..., None], axis=1)
+
+        real = np.take_along_axis(np.asarray(m), pf, axis=1)[:c_max]
+        assert np.any(~real[:, :-1] & real[:, 1:]), "no padding mid-row"
+        return dict(inp, packed=take(inp["packed"], pf),
+                    packed_i1=take(inp["packed_i1"], pf),
+                    packed_i2=take(inp["packed_i2"], pf),
+                    wall1=take(inp["wall1"], pw), wall2=take(inp["wall2"], pw),
+                    real=real)
+
+    def coincident(inp):
+        """In half the rows with two real slots or more, slot 1's particle
+        moved onto slot 0's position (fluid side): real pairs at r = 0."""
+        mk = np.asarray(m)
+        pick = mk[:, 0] & mk[:, 1] & (rng.random(mk.shape[0]) < 0.5)
+        assert pick.sum() >= 10
+        out = dict(inp)
+        for k in ("packed", "packed_i1", "packed_i2"):
+            a = np.array(inp[k])
+            a[pick, 1, :2] = a[pick, 0, :2]
+            out[k] = jnp.asarray(a)
+        return out
+
+    return {"random": far, "random_near": near_inp,
+            "random_holes": holes(near_inp),
+            "random_coincident": coincident(far)}
 
 
 def _moving(wall, seed):
@@ -229,7 +271,8 @@ def _channels(out):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("name", SWEEPS)
-@pytest.mark.parametrize("which", ["random", "random_near", "dambreak"])
+@pytest.mark.parametrize("which", ["random", "random_near", "random_holes",
+                                   "random_coincident", "dambreak"])
 def test_plain_sweep_matches_pallas_interpret(random_input, dambreak, which,
                                               name):
     if which != "dambreak":

@@ -1,8 +1,10 @@
-"""The property the block-sweep kernels' slot skip rests on, held on the
+"""The property the lane-group kernels' slot skip rests on, held on the
 plain versions in float64: a slot whose VolumetricMeasure is 0 (and, for
 B1's fluid sum, whose SlotMask is False) adds exactly nothing to any
-density_sweep / ac1_sweep / ac2_sweep / visc_tvc_sweep sum, wherever it
-sits and whatever else it carries.
+density_sweep / ac1_sweep / ac2_sweep / visc_tvc_sweep sum, and a packed
+slot whose mask channel is 0 adds exactly nothing to any
+ac1_inner_sweep / ac2_inner_sweep sum, whatever its VOL, wherever it sits
+and whatever else it carries.
 
 On the slotted initial state of the 2D and 3D dambreaks and the doubly
 periodic Taylor–Green vortex (seeded noise on the real slots, a moving
@@ -23,13 +25,14 @@ from sphinxsys_tpu_torch.cases import dambreak_2d as tdb2, dambreak_3d as tdb3
 from sphinxsys_tpu_torch.cases import taylor_green_2d as ttg
 from sphinxsys_tpu_torch.engine import scene as sc
 from sphinxsys_tpu_torch.ops import block_sweeps as bs
+from sphinxsys_tpu_torch.ops import packed_sweeps as ps
 
 torch.set_num_threads(1)
 
 F64 = torch.float64
 CASES = {"2d": (tdb2, 0.1, {}), "3d": (tdb3, 0.1, {"cap": 32}),
-         "tg": (ttg, 0.05, {})}
-SEEDS = {"2d": 0, "3d": 1, "tg": 2}
+         "tg": (ttg, 0.05, {}), "2d16": (tdb2, 0.1, {"cap": ps.CAP})}
+SEEDS = {"2d": 0, "3d": 1, "tg": 2, "2d16": 3}
 
 
 def _state(tag):
@@ -124,7 +127,8 @@ def _disturb(blocks, rng, h, keys):
     for k in keys:
         shape = out[k][pad].shape
         out[k][pad] = torch.as_tensor(rng.normal(0.0, 1.0, shape), dtype=F64)
-    assert bool((out["VolumetricMeasure"][pad] == 0).all())
+    assert "VolumetricMeasure" in keys or \
+        bool((out["VolumetricMeasure"][pad] == 0).all())
     rows, cap = mask.shape
     perm = torch.as_tensor(np.argsort(rng.random((rows, cap)), axis=1))
     for k, v in out.items():
@@ -170,3 +174,49 @@ def test_padding_adds_nothing_f64(states, tag, name):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-12,
                                    atol=1e-12 * scale,
                                    err_msg=f"{tag} {name} ch{ch}")
+
+
+def _packed_sweep(name, s, fb):
+    """One plain packed inner sweep on blocks `fb`, packed as the packed
+    halves pack them, with the engine's constants (B5b with the Acoustic
+    solver's dissipation)."""
+    eng = s["scene"].eng
+    packed = ps.pack_state_2d(fb["Position"], fb["Velocity"], fb["Pressure"],
+                              fb["VolumetricMeasure"], fb["SlotMask"])
+    consts = dict(kernel_h=eng.kernel.h, factor_w=eng.kernel._factor_w(2))
+    if name == "ac1_inner":
+        force, rd = ps.ac1_inner_sweep_plain(
+            packed, s["nbr"], **consts,
+            inv_rho0c0_ave=eng.riemann1.inv_rho0c0_ave)
+        return torch.cat([force, rd[..., None]], dim=-1)
+    r = eng.riemann1
+    dcr, pdiss = ps.ac2_inner_sweep_plain(
+        packed, s["nbr"], **consts, rho0c0_geo=r.rho0c0_geo_ave,
+        inv_c0=r.inv_c0_ave, limiter_coeff=r.limiter_coeff)
+    return torch.cat([dcr[..., None], pdiss], dim=-1)
+
+
+@pytest.mark.parametrize("name", ["ac1_inner", "ac2_inner"])
+def test_packed_padding_adds_nothing_f64(states, name):
+    s = _get(states, "2d16")
+    fb = s["fb"]
+    rng = np.random.default_rng([SEEDS["2d16"], 1 + ("ac1_inner",
+                                                     "ac2_inner").index(name)])
+    ref = _packed_sweep(name, s, fb)
+    fb2, perm = _disturb(fb, rng, s["h"], ("Pressure", "Velocity",
+                                           "VolumetricMeasure"))
+    pad = ~fb2["SlotMask"]
+    assert bool((fb2["VolumetricMeasure"][pad] != 0).all())
+    assert bool(((~fb2["SlotMask"][:, :-1]) & fb2["SlotMask"][:, 1:]).any())
+    got = _packed_sweep(name, s, fb2)
+
+    c = s["nbr"].shape[0]
+    real = fb2["SlotMask"][:c]
+    back = torch.gather(ref, 1, perm[:c, :, None].expand_as(ref))
+    for ch in range(ref.shape[-1]):
+        a, b = got[..., ch][real], back[..., ch][real]
+        scale = float(b.abs().max())
+        assert scale > 0.0, f"{name} ch{ch}: all zero"
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-12,
+                                   atol=1e-12 * scale,
+                                   err_msg=f"{name} ch{ch}")
