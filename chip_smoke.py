@@ -58,10 +58,14 @@ Phases:
      one packed sub-step under torch.profiler;
   7. layout: on the same state, packed once, B6 and B7
      (csrc/layout_sweeps.cu, two other decompositions of B5a's sweep)
-     against their plain versions and both against the B5a kernel, B6 also
-     with padding moved into the support, and bounded; then the layout
-     drivers (sphinxsys_tpu_torch/benchmarks/exp_layout*.py) on that state,
-     launch counts reset just before them and read just after, their
+     against their plain versions and both against the B5a kernel, and
+     bounded, with the pairs each evaluates beside its first design's; both
+     with holes (real slots unchanged through the swap within 1e-6), with
+     coincident particles and with padding of volume 1 moved into the
+     support, B7 always through `prep_t`, and B7 at C - 3 cells (4-byte
+     copies, a ragged last tile); then the layout drivers
+     (sphinxsys_tpu_torch/benchmarks/exp_layout*.py) on that state, launch
+     counts reset just before them and read just after, their
      cross-checks, and B6's, B7's and `prep_t`'s (B7's gather) times from
      their runs.
 
@@ -111,12 +115,14 @@ LAYOUT_SOURCE = "sphinxsys_tpu_torch/csrc/layout_sweeps.cu"
 # float operations per real pair, counted from csrc/layout_sweeps.cu as
 # PACKED_PAIR_FLOPS: the pair geometry 8, the masked dW/dr * V_j 12, the
 # force 7 and the density term 4 (B7's rsqrt and r2 * inv_r stand for B6's
-# sqrt and division; the per-window and shuffle sums are not per pair)
+# sqrt and division; B7's per-window sums are not per pair).  Kept as the
+# first designs were bounded, so that the bounds of all designs compare.
 LAYOUT_PAIR_FLOPS = 31
-# the channel planes B7 loads (csrc/layout_sweeps.cu ac1_t_kernel): of xi_t
-# x, y, p, mask; of xj_t x, y, p, vol, mask (channels of ops/packed_sweeps)
+# the channel planes B7 reads (csrc/layout_sweeps.cu ac1_t_kernel; channels
+# of ops/packed_sweeps): of xi_t x, y, p and mask, whole; of xj_t the mask,
+# whole, and x, y, p and vol on the j-rows its tiles stage
 B7_XI_CHANNELS = (0, 1, 4, 6)
-B7_XJ_CHANNELS = (0, 1, 4, 5, 6)
+B7_XJ_STAGED = (0, 1, 4, 5)
 DEVICE = "cuda"
 DAMBREAK_KERNELS = ("density_sweep", "ac1_sweep", "ac2_sweep")
 CONFIGS = {  # the bench configs (bench.py:311-318), Taylor–Green at 1M
@@ -763,34 +769,40 @@ def packed_holes(torch, ps, packed):
     return torch.gather(packed, 1, idx[..., None].expand_as(packed)), idx
 
 
-def packed_lane_group_checks(torch, ps, inputs, base, c):
-    """B5a/B5b where the first design never met it, each against its plain
-    version on the same inputs: `holes` (packed_holes; every real slot's
-    sums must stay within 1e-6 max|out| of the run without the swap), and
-    `coincident`, slot 1's particle moved onto slot 0's position in every
-    row where both are real (a real pair at r = 0 that is not the self
-    pair)."""
-    for name in ("ac1_inner_sweep", "ac2_inner_sweep"):
-        (pk, nbr), kw = inputs[name]
+def lane_group_checks(torch, ps, module, inputs, base, c, tag="2d16",
+                      prep=None, transposed=()):
+    """`module`'s packed sweeps where their first designs never met it,
+    each against its plain version on the same inputs: `holes`
+    (packed_holes; every real slot's sums must stay within 1e-6 max|out|
+    of the run without the swap), and `coincident`, slot 1's particle
+    moved onto slot 0's position in every row where both are real (a real
+    pair at r = 0 that is not the self pair).  `inputs`: {name: ((packed,
+    nbr), kw)}; `base`: each sweep's output on them as (C, 16, 3).
+    `prep(name, packed, nbr)`, if given, makes a sweep's arguments (B7's
+    `prep_t`); a sweep named in `transposed` returns (16, C) sums."""
+    prep = prep or (lambda name, pk, nbr: (pk, nbr))
+    for name, ((pk, nbr), kw) in inputs.items():
+        t = name in transposed
         holed, idx = packed_holes(torch, ps, pk)
         real_h = (holed[..., ps.CMASK] != 0)[:c]
-        got, _ = compare(torch, "2d16 holes", name, (holed, nbr), kw, real_h,
-                         module=ps)
+        got, _ = compare(torch, f"{tag} holes", name, prep(name, holed, nbr),
+                         kw, real_h.t() if t else real_h, module=module)
+        got = got.transpose(0, 1) if t else got
         back = torch.gather(got, 1, idx[:c, :, None].expand_as(got))
-        real = (pk[..., ps.CMASK] != 0)[:c]
+        m = pk[..., ps.CMASK] != 0
+        real = m[:c]
         diff = float((back - base[name])[real].abs().max())
         scale = float(base[name][real].abs().max())
-        log(f"2d16 holes {name}: agrees with its plain version; max |out - "
+        log(f"{tag} holes {name}: agrees with its plain version; max |out - "
             f"out without the swap| {diff:.3e} (max|out| {scale:.3e})")
         check(diff <= 1e-6 * scale,
-              f"2d16 holes {name}: real slots moved through the swap")
-        m = pk[..., ps.CMASK] != 0
+              f"{tag} holes {name}: real slots moved through the swap")
         both = m[:, 0] & m[:, 1]
         co = pk.clone()
         co[both, 1, :2] = co[both, 0, :2]
-        compare(torch, "2d16 coincident", name, (co, nbr), kw, real,
-                module=ps)
-        log(f"2d16 coincident {name}: agrees with its plain version "
+        compare(torch, f"{tag} coincident", name, prep(name, co, nbr), kw,
+                real.t() if t else real, module=module)
+        log(f"{tag} coincident {name}: agrees with its plain version "
             f"({int(both.sum())} coincident pairs)")
 
 
@@ -879,15 +891,19 @@ def packed_kernel_phase(torch, scene, sim, results):
                            "ac2_wall_sweep": (ps.W2M, ps.W2VOL)}[name]
         near_padding_check(torch, ps, name, args, kw, j, mask_ch, vol_ch,
                            eng.kernel.h, real, g)
-    packed_lane_group_checks(torch, ps, inputs, base, c)
+    lane_group_checks(torch, ps, ps, {n: inputs[n] for n in (
+        "ac1_inner_sweep", "ac2_inner_sweep")}, base, c)
 
 
 def near_padding_check(torch, module, name, args, kw, j, mask_ch, vol_ch, h,
-                       real, g):
+                       real, g, prep=None):
     """`module.name` with the padding slots of its packed argument `j`
     moved into the support of their row's first slot (jitter of up to h/2),
     volume 1: it must agree with its plain version there, and every real
-    slot's sums must stay within 1e-6 max|out| of the run without it."""
+    slot's sums must stay within 1e-6 max|out| of the run without it.
+    `prep`, if given, makes the sweep's arguments from these (B7's
+    `prep_t`)."""
+    prep = (lambda a: a) if prep is None else prep
     pk = args[j]
     pad = pk[..., mask_ch] == 0
     jitter = (torch.rand(pk.shape[:2] + (2,), generator=g, device=DEVICE)
@@ -897,10 +913,10 @@ def near_padding_check(torch, module, name, args, kw, j, mask_ch, vol_ch, h,
                                 pk[..., :2])
     near[..., vol_ch] = torch.where(pad, torch.ones_like(pad, dtype=pk.dtype),
                                     pk[..., vol_ch])
-    near_args = args[:j] + (near,) + args[j + 1:]
+    near_args = prep(args[:j] + (near,) + args[j + 1:])
     got, _ = compare(torch, "2d16 near-padding", name, near_args, kw, real,
                      module=module)
-    ref = channels(torch, getattr(module, name)(*args, **kw))
+    ref = channels(torch, getattr(module, name)(*prep(args), **kw))
     diff = float((got - ref)[real].abs().max())
     scale = float(ref[real].abs().max())
     log(f"2d16 near-padding {name}: max |out - out without it| {diff:.3e} "
@@ -991,15 +1007,97 @@ def packed_path(torch, scene, sim, results):
 # layout: B6 and B7, two other decompositions of B5a's sweep
 # ---------------------------------------------------------------------------
 
+def b7_vote(torch, ps, xi_t, xj_t):
+    """B7's tile vote, from its inputs' masks (csrc/layout_sweeps.cu): per
+    32-cell tile, which i-rows hold a real slot (16, tiles), which j-rows of
+    each window hold one (9, 16, tiles), and the tile's cells (tiles,)."""
+    c = xi_t.shape[-1]
+    tiles = -(-c // 32)
+
+    def rows(m):   # (..., 16, C) masks -> (..., 16, tiles): row has a real slot
+        m = torch.nn.functional.pad(m != 0, (0, tiles * 32 - c))
+        return m.reshape(*m.shape[:-1], tiles, 32).any(dim=-1)
+
+    cells = (c - 32 * torch.arange(tiles, device=xi_t.device)).clamp(max=32)
+    return rows(xi_t[ps.CMASK]), rows(xj_t[:, ps.CMASK]), cells
+
+
+def b7_bytes(xi_t, out, vote):
+    """(bytes B7 must move, bytes of its first design's count) for one
+    sweep.  Each array once: the output; xi_t's x, y, p and mask planes and
+    xj_t's 9 mask planes, whole (the tile vote reads them); xj_t's x, y, p
+    and vol only on the j-rows that the vote keeps, a j-row with a real
+    slot of a window in a tile with a real i-slot (the rows the kernel
+    stages).  The first design's count took those 4 planes whole too."""
+    i_rows, j_rows, cells = vote
+    plane = xi_t[0].numel() * xi_t.element_size()
+    fixed = out.numel() * out.element_size() \
+        + (len(B7_XI_CHANNELS) + j_rows.shape[0]) * plane
+    kept = (j_rows & i_rows.any(dim=0)).sum(dim=(0, 1))       # (tiles,)
+    staged = int((kept * cells).sum()) * xi_t.element_size()
+    whole = j_rows.shape[0] * plane
+    return (fixed + len(B7_XJ_STAGED) * staged,
+            fixed + len(B7_XJ_STAGED) * whole)
+
+
+def layout_pairs_evaluated(torch, ps, pk, nbr, vote):
+    """{name: (slot pairs the first design evaluated, pairs the current
+    design evaluates)} from the inputs' masks.  First designs: B6 16 x 16
+    per live window, B7 16 x 16 per window of every cell.  B6 now: for each
+    cell with a real slot, its real i-slots times the real j-slots of its
+    live windows.  B7 now (`vote`, b7_vote's): for each 32-cell tile, per
+    window, its i-rows with a real slot times its j-rows with one, times
+    the 32 cells (csrc/layout_sweeps.cu)."""
+    c = nbr.shape[0]
+    real = pk[..., ps.CMASK] != 0              # the sentinel row: none
+    n_i = real[:c].sum(dim=1)
+    n_j = real.sum(dim=1)[nbr.long()].sum(dim=1)
+    b6 = int((n_i * n_j).sum())
+    i_rows, j_rows, _ = vote
+    b7 = int((i_rows.sum(dim=0) * j_rows.sum(dim=(0, 1))).sum()) * 32
+    return {"ac1_flat_sweep": (int((nbr < c).sum()) * ps.CAP ** 2, b6),
+            "ac1_t_sweep": (c * ps.NW * ps.CAP ** 2, b7)}
+
+
+def layout_inputs(ls, name, pk, nbr):
+    """B6's or B7's arguments from a packed state (B7: `prep_t`)."""
+    return (pk, nbr) if name == "ac1_flat_sweep" else ls.prep_t(pk, nbr)
+
+
+def layout_lane_checks(torch, ls, ps, pk, nbr, consts, real, base, h, g):
+    """B6 and B7 where their first designs never met it, each against its
+    plain version (B7 on `prep_t` of the same packed tensor): lane_group_
+    checks' holes and coincident particles, near padding (padding of
+    volume 1 moved into the support: the mask the only guard, which B7's
+    tile vote now rests on), and B7 at C - 3 cells (4-byte copies, a
+    ragged last tile).  `base`: each sweep's output on `pk` as (C, 16, 3)."""
+    c = nbr.shape[0]
+    lane_group_checks(torch, ps, ls, {n: ((pk, nbr), consts)
+                                      for n in LAYOUT_KERNELS},
+                      base, c, tag="2d16 layout",
+                      prep=lambda n, p, m: layout_inputs(ls, n, p, m),
+                      transposed=("ac1_t_sweep",))
+    for name in LAYOUT_KERNELS:
+        t = name == "ac1_t_sweep"
+        near_padding_check(torch, ls, name, (pk, nbr), consts, 0, ps.CMASK,
+                           ps.CVOL, h, real.t() if t else real, g,
+                           prep=lambda a, n=name: layout_inputs(ls, n, *a))
+    ragged = ls.prep_t(pk, nbr[:c - 3])
+    compare(torch, "2d16 layout ragged", "ac1_t_sweep", ragged, consts,
+            real[:c - 3].t(), module=ls)
+    log(f"2d16 layout ragged ac1_t_sweep: agrees with its plain version at "
+        f"C = {c - 3} (4-byte copies, a ragged last tile)")
+
+
 def layout_phase(torch, scene, sim, results):
     """On the 2d16 state (the engine's fields after one advection step,
     packed once by `pack_layout_state` and shared with the drivers): B6
-    and B7 against their plain versions, B6 with padding moved into the
-    support, and both against the B5a kernel on the same packed tensor
-    (three kernels, one function); then both layout drivers at PACKED_DX
-    on that state, launch counts reset just before them and read just
-    after, their cross-checks, and from their timings each kernel's ms and
-    plain ms beside its bound."""
+    and B7 against their plain versions and both against the B5a kernel
+    on the same packed tensor (three kernels, one function), the pairs
+    each evaluates, then `layout_lane_checks`; then both layout drivers at
+    PACKED_DX on that state, launch counts reset just before them and read
+    just after, their cross-checks, and from their timings each kernel's
+    ms and plain ms beside its bound."""
     from sphinxsys_tpu_torch.benchmarks import (
         b5a_channels, exp_layout, exp_layout2, pack_layout_state,
     )
@@ -1016,37 +1114,37 @@ def layout_phase(torch, scene, sim, results):
     inner, _ = real_pairs(torch, pk[..., :2], mask, nbr, (0.0, 0.0),
                           scene.eng.kernel.cutoff)
     pairs = inner - int(real.sum())
-    # slot pairs evaluated: B5a and B6 visit the live windows, B7 all
-    visited = {"ac1_flat_sweep": int((nbr < c).sum()) * ps.CAP ** 2,
-               "ac1_t_sweep": c * ps.NW * ps.CAP ** 2}
     xi_t, xj_t = ls.prep_t(pk, nbr)
+    vote = b7_vote(torch, ps, xi_t, xj_t)
+    evaluated = layout_pairs_evaluated(torch, ps, pk, nbr, vote)
     b5a32 = torch.stack(b5a_channels(ps.ac1_inner_sweep, st), dim=-1)
     b5a64 = torch.stack(b5a_channels(ps.ac1_inner_sweep_plain,
                                      dict(st, packed=pk.double())), dim=-1)
-    g = torch.Generator(device=DEVICE).manual_seed(9)
-    checked = {}
+    checked, base = {}, {}
     for name, args, transposed in (("ac1_flat_sweep", (pk, nbr), False),
                                    ("ac1_t_sweep", (xi_t, xj_t), True)):
         got, max_abs = compare(torch, "2d16 layout", name, args, consts,
                                real.t() if transposed else real, module=ls)
-        as_b5a = got.transpose(0, 1) if transposed else got
-        hold(torch, f"2d16 layout {name} vs the B5a kernel", as_b5a, b5a32,
-             b5a64, real)
+        base[name] = got.transpose(0, 1) if transposed else got
+        hold(torch, f"2d16 layout {name} vs the B5a kernel", base[name],
+             b5a32, b5a64, real)
         log(f"2d16 layout {name}: agrees with its plain version and with B5a")
-        if transposed:    # the channel planes it loads, and its output
-            nbytes = got.numel() * got.element_size() + sum(
-                t.numel() // ps.CH * len(chs) * t.element_size()
-                for t, chs in ((xi_t, B7_XI_CHANNELS), (xj_t, B7_XJ_CHANNELS)))
+        if transposed:    # the planes and rows it reads, and its output
+            nbytes, whole = b7_bytes(xi_t, got, vote)
             flops = pairs * LAYOUT_PAIR_FLOPS
             bound_ms, bound_by = bytes_or_flops(nbytes, flops)
+            log(f"2d16 layout {name}: bound {bound_ms:.4f} ms from {nbytes} B "
+                f"(the first design's count, every staged plane whole: "
+                f"{whole} B, {bytes_or_flops(whole, flops)[0]:.4f} ms)")
         else:             # the same bytes as B5a
             bound_ms, bound_by, flops, nbytes = packed_bound(
                 torch, args, got, pairs, LAYOUT_PAIR_FLOPS)
         checked[name] = (max_abs, bound_ms, bound_by, flops, nbytes)
-    # B7's padding arrives pre-gathered, so only B6 takes this guard
-    near_padding_check(torch, ls, "ac1_flat_sweep", (pk, nbr), consts, 0,
-                       ps.CMASK, ps.CVOL, scene.eng.kernel.h, real, g)
-    del xi_t, xj_t, b5a32, b5a64
+    del xi_t, xj_t, vote, b5a32, b5a64
+    layout_lane_checks(torch, ls, ps, pk, nbr, consts, real, base,
+                       scene.eng.kernel.h,
+                       torch.Generator(device=DEVICE).manual_seed(9))
+    del base
     torch.cuda.empty_cache()
 
     ls.reset_launch_counts()
@@ -1063,21 +1161,24 @@ def layout_phase(torch, scene, sim, results):
         check(counts[key] > 0, f"layout drivers: kernel {key} never launched")
     t1, t2 = drivers["exp_layout"]["ms"], drivers["exp_layout2"]["ms"]
     timed = {  # (kernel ms, plain ms) from the drivers' runs
-        "ac1_flat_sweep": (t1["d) B6 kernel (C,256) threads"],
+        "ac1_flat_sweep": (t1[exp_layout.B6_KERNEL],
                            t1["b) plain (C,256) flat"]),
-        "ac1_t_sweep": (t2["c2) B7 kernel alone"],
+        "ac1_t_sweep": (t2[exp_layout2.B7_KERNEL],
                         t2["b2) plain (16,16,C) transposed alone"])}
     prep_ms = t2["g) prep_t (gather + transpose)"]
     for name, (_, key) in LAYOUT_KERNELS.items():
         ms, plain_ms = timed[name]
         max_abs, bound_ms, bound_by, flops, nbytes = checked[name]
+        first, now = evaluated[name]
         log(f"2d16 {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}: {pairs} real pairs, "
             f"{flops:.4e} flop, {nbytes} B), max_abs_err {max_abs:.3e}; "
-            f"{visited[name]} slot pairs evaluated")
+            f"{now} pairs evaluated (first design: {first} slot pairs), "
+            f"{ms * 1e9 / now:.4f} ps each")
         results[f"{name}[2d16]"] = dict(
             max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, real_pairs=pairs, launches=counts[key])
+            bound_by=bound_by, real_pairs=pairs, launches=counts[key],
+            pairs_evaluated=now)
     log(f"2d16 layout: B5a {t1['c) B5a kernel (16-lane groups)']:.4f} ms, "
         f"prep_t {prep_ms:.4f} ms in the same drivers' runs")
     results["_layout_main"] = dict(prep_t_ms=prep_ms, drivers={

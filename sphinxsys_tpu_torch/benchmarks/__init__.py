@@ -6,15 +6,16 @@ import a case module the engine work has since removed and no longer run):
     python -m sphinxsys_tpu_torch.benchmarks.exp_layout2  [--dx 0.1 --device cpu]
 
 Each times three decompositions of the same sweep on the same state — B5a
-(a 16-lane group per cell over its real slots), B6 (one thread per
-(cell, i, j)) and B7 (one per (i, cell) on a pre-gathered channel-major
-copy) — beside plain PyTorch forms, and cross-checks them.  The default
+(a 16-lane group per cell over its real slots), B6 (a warp per cell, its
+real slot pairs spread over the lanes) and B7 (a thread per (i, cell) on a
+pre-gathered channel-major copy, in 32-cell tiles that skip rows without a
+real slot) — beside plain PyTorch forms, and cross-checks them.  The default
 device is the card; the CPU is asked for explicitly and runs every
 sweep's plain version.
 
 `ab_sweeps` times the kernels of several builds of one source
-(csrc/block_sweeps.cu or csrc/packed_sweeps.cu) against each other on the
-same inputs:
+(csrc/block_sweeps.cu, csrc/packed_sweeps.cu or csrc/layout_sweeps.cu)
+against each other on the same inputs:
 
     python -m sphinxsys_tpu_torch.benchmarks.ab_sweeps A.cu B.cu [...]
 

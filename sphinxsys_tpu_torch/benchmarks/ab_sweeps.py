@@ -3,24 +3,29 @@ each other on the same inputs, in turns:
 
     python -m sphinxsys_tpu_torch.benchmarks.ab_sweeps A.cu B.cu [...]
 
-e.g. A.cu a parent commit's sphinxsys_tpu_torch/csrc/block_sweeps.cu or
-packed_sweeps.cu (from `git archive`) and B.cu the working tree's.  nvcc
-compiles each source with the port's flags (ops/_build.py) into build/ab/,
-all at once, finding a quoted include (lane_groups.cuh) beside the source,
-and the launchers each library exports are bound by ctypes.  On the states
-chip_smoke.py measures, each after one advection step, every build runs
-each sweep that all builds export on the same inputs:
+e.g. A.cu a parent commit's sphinxsys_tpu_torch/csrc/block_sweeps.cu,
+packed_sweeps.cu or layout_sweeps.cu (from `git archive`) and B.cu the
+working tree's.  nvcc compiles each source with the port's flags
+(ops/_build.py) into build/ab/, all at once, finding a quoted include
+(lane_groups.cuh) beside the source, and the launchers each library exports
+are bound by ctypes.  On the states chip_smoke.py measures, each after one
+advection step, every build runs each sweep that all builds export on the
+same inputs:
 
   * the block sweeps B1-B4 (block_sweeps.cu): the 2D dambreak at dx=0.0025
     (B1-B4, B4 with its static wall), the 3D one at dx=0.01 with cap 32
     (B1-B3) and Taylor–Green at dx=0.001 with seeded noise (B1-B4);
   * the packed sweeps B5a-d (packed_sweeps.cu): 2d16, the 2D dambreak at
-    dx=0.0025 with cap 16, on the inputs the packed halves build.
+    dx=0.0025 with cap 16, on the inputs the packed halves build;
+  * the layout sweeps B6 and B7 (layout_sweeps.cu): the same 2d16 state
+    packed as the layout drivers take it (`pack_layout_state`), B7 on
+    `prep_t`'s pre-gathered input.
 
-A sweep's outputs are compared with the first build's on the real slots
-(max |diff| / max |first|, which must stay within 1e-5), and it is timed
-with `median_ms` (20 runs) in four turns: in order, reversed, in order,
-reversed.  Needs the card; exits 1 on a disagreement.
+Each build's ptxas lines (registers, spills) are printed.  A sweep's
+outputs are compared with the first build's on the real slots (max |diff|
+/ max |first|, which must stay within 1e-5; 0.0 is bit for bit), and it is
+timed with `median_ms` (20 runs) in four turns: in order, reversed, in
+order, reversed.  Needs the card; exits 1 on a disagreement.
 """
 
 from __future__ import annotations
@@ -35,10 +40,11 @@ from pathlib import Path
 import torch
 
 from sphinxsys_tpu_torch.benchmarks import (
-    median_ms, packed_inputs, perturbed, sweep_inputs,
+    median_ms, pack_layout_state, packed_inputs, perturbed, sweep_inputs,
 )
 from sphinxsys_tpu_torch.ops import _build
 from sphinxsys_tpu_torch.ops import block_sweeps as bs
+from sphinxsys_tpu_torch.ops import layout_sweeps as ls
 from sphinxsys_tpu_torch.ops import packed_sweeps as ps
 
 OUT_DIR = _build.BUILD_DIR.parent / "ab"
@@ -46,19 +52,20 @@ B1_B3 = ("density_sweep", "ac1_sweep", "ac2_sweep")
 ALL = B1_B3 + ("visc_tvc_sweep",)
 PACKED = ("ac1_inner_sweep", "ac2_inner_sweep", "ac1_wall_sweep",
           "ac2_wall_sweep")
+LAYOUT = ("ac1_flat_sweep", "ac1_t_sweep")
 STATES = (  # tag, case module, dx, build_block_case options, seeded noise,
     # sweeps
     ("2d", "dambreak_2d", 0.0025, {}, False, ALL),
     ("3d", "dambreak_3d", 0.01, {"cap": 32, "c_max": 125_000}, False, B1_B3),
     ("tg", "taylor_green_2d", 0.001, {}, True, ALL),
-    ("2d16", "dambreak_2d", 0.0025, {"cap": ps.CAP}, False, PACKED),
+    ("2d16", "dambreak_2d", 0.0025, {"cap": ps.CAP}, False, PACKED + LAYOUT),
 )
 AGREE = 1e-5
 
 
 def launcher(name) -> str:
     """A sweep's C launcher (ops/_build.py ARGTYPES)."""
-    return name.replace("_sweep", "_launch") if name in PACKED \
+    return name.replace("_sweep", "_launch") if name in PACKED + LAYOUT \
         else f"{name}_launch"
 
 
@@ -78,6 +85,10 @@ def build(sources) -> list:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {so.name}:\n{log}")
+        for line in log.splitlines():   # -Xptxas -v: registers, spills
+            if "Compiling entry" in line or "registers" in line \
+                    or "spill" in line:
+                print(f"{so.stem} ptxas: {line.strip()}", flush=True)
         lib = ctypes.CDLL(str(so))
         for name, argtypes in _build.ARGTYPES.items():
             fn = getattr(lib, name, None)
@@ -113,11 +124,26 @@ def launch_packed(lib, name, args, kw, out):
     bs._raise_on(err, name)
 
 
+def launch_layout(lib, name, args, kw, out):
+    """B6 or B7 of one build on its wrapper's arguments ((packed, nbr) or
+    (xi_t, xj_t)), into `out`, as ops/layout_sweeps.py passes them."""
+    a, b = args
+    c = b.shape[0] if name == "ac1_flat_sweep" else a.shape[-1]
+    err = getattr(lib, launcher(name))(
+        bs._ptr(a), bs._ptr(b), c, kw["inv_h"],
+        ls._dw_scale(kw["inv_h"], kw["factor_w"]), kw["inv_rho0c0"],
+        bs._ptr(out), torch.cuda.current_stream().cuda_stream)
+    bs._raise_on(err, name)
+
+
 def launch(lib, name, args, kw, out):
     """`name` of one build on the wrappers' arguments, into `out` (B1's mask
     as float32, as the kernel reads it: `launch_args`)."""
     if name in PACKED:
         launch_packed(lib, name, args, kw, out)
+        return
+    if name in LAYOUT:
+        launch_layout(lib, name, args, kw, out)
         return
     dim = args[0].shape[-1]
     box = bs._box3(kw["box"], dim)
@@ -166,13 +192,43 @@ def launch_args(name, args) -> tuple:
 
 
 def out_shape(name, args) -> tuple:
-    """A sweep's (C, cap, k) output shape from its arguments."""
+    """A sweep's output shape from its arguments: (C, cap, k); B6's
+    (3, C, 16) and B7's (3, 16, C)."""
     if name in PACKED:
         return (args[-1].shape[0], ps.CAP, 3)
+    if name == "ac1_flat_sweep":
+        return (3, args[1].shape[0], ps.CAP)
+    if name == "ac1_t_sweep":
+        return (3, ps.CAP, args[0].shape[-1])
     pos = args[0]
     c, cap, dim = pos.shape[0] - 1, pos.shape[1], pos.shape[2]
     k = {"density_sweep": 2, "visc_tvc_sweep": 2 * dim}.get(name, dim + 1)
     return (c, cap, k)
+
+
+def per_slot(name, out):
+    """An output as (C, cap, k), slot-major whatever the sweep's layout."""
+    if name == "ac1_flat_sweep":
+        return out.permute(1, 2, 0)
+    if name == "ac1_t_sweep":
+        return out.permute(2, 1, 0)
+    return out
+
+
+def state_inputs(scene, sim, sweeps) -> dict:
+    """The (args, kwargs) of each sweep in `sweeps` on one state."""
+    out = {}
+    if any(n in PACKED for n in sweeps):
+        out.update(packed_inputs(scene, sim))
+    if any(n in LAYOUT for n in sweeps):
+        st = pack_layout_state(scene, sim)
+        kw = {k: st[k] for k in ("inv_h", "factor_w", "inv_rho0c0")}
+        out["ac1_flat_sweep"] = ((st["packed"], st["nbr"]), kw)
+        out["ac1_t_sweep"] = (ls.prep_t(st["packed"], st["nbr"]), kw)
+    block = tuple(n for n in sweeps if n not in PACKED + LAYOUT)
+    if block:
+        out.update(sweep_inputs(scene, sim, block))
+    return out
 
 
 def run(sources, k: int = 20) -> bool:
@@ -199,8 +255,7 @@ def run(sources, k: int = 20) -> bool:
         sim = sc.make_advection_step(scene)(sc.init_sim(scene, fluid))
         c = sim.nbr_inner.shape[0]
         real = sim.fluid_b["SlotMask"][:c]
-        inputs = packed_inputs(scene, sim) if sweeps[0] in PACKED \
-            else sweep_inputs(scene, sim, sweeps)
+        inputs = state_inputs(scene, sim, sweeps)
         for name in sweeps:
             args, kw = inputs[name]
             args = launch_args(name, args)
@@ -209,9 +264,10 @@ def run(sources, k: int = 20) -> bool:
             for lib, out in zip(libs, outs):
                 launch(lib, name, args, kw, out)
             torch.cuda.synchronize()
-            scale = float(outs[0][real].abs().max())
-            diffs = [float((o - outs[0])[real].abs().max()) / scale
-                     for o in outs]
+            first = per_slot(name, outs[0])[real]
+            scale = float(first.abs().max())
+            diffs = [float((per_slot(name, o)[real] - first).abs().max())
+                     / scale for o in outs]
             agree &= all(d <= AGREE for d in diffs)
             order = list(range(len(libs)))
             times = [[] for _ in libs]

@@ -3,16 +3,18 @@ package's benchmarks/exp_layout.py).
 
 On the TPU the hypothesis was that the (C, 16, 16) pair broadcasts waste
 7/8 of the vector lanes and that flattening the pairs onto the lane axis,
-(C, 256), recovers them.  On the card the flat layout is B6: one thread
-per (cell, i, j) slot pair with a warp-shuffle sum over j, against B5a's
-16-lane group per cell, lane i summing the cell's real j-slots, staged in
-shared memory.
+(C, 256), recovers them.  On the card the flat layout is B6: one warp per
+cell, its real (i, j) slot pairs flattened onto the 32 lanes (a lane keeps
+one real i-slot and takes every few real j-slots, a butterfly per i at the
+end), against B5a's 16-lane group per cell, lane i summing the cell's real
+j-slots.  Both stage the cell's windows in shared memory and skip
+padding.
 
 Variants (the inner first-half acoustic sweep, one launch per run):
   a) plain (C, 16, 16) broadcasts   — B5a's plain version
   b) plain (C, 256) flattened pairs — B6's plain version
   c) B5a kernel (16-lane groups)
-  d) B6 kernel (C, 256) threads
+  d) B6 kernel (a warp per cell, real pairs on the lanes)
 Cross-check: b against d (as the JAX script), and B5a (c) against d.
 
     python -m sphinxsys_tpu_torch.benchmarks.exp_layout [--dx --device --k]
@@ -31,6 +33,8 @@ from sphinxsys_tpu_torch.benchmarks import (
 from sphinxsys_tpu_torch.device import resolve_device
 from sphinxsys_tpu_torch.ops import layout_sweeps as ls
 from sphinxsys_tpu_torch.ops import packed_sweeps as ps
+
+B6_KERNEL = "d) B6 kernel (warp per cell, real pairs on lanes)"
 
 
 def run(dx: float = 0.0025, device="cuda", k: int = 20,
@@ -53,8 +57,7 @@ def run(dx: float = 0.0025, device="cuda", k: int = 20,
             lambda: ls.ac1_flat_sweep_plain(packed, nbr, *consts),
         "c) B5a kernel (16-lane groups)":
             lambda: b5a_channels(ps.ac1_inner_sweep, st),
-        "d) B6 kernel (C,256) threads":
-            lambda: ls.ac1_flat_sweep(packed, nbr, *consts),
+        B6_KERNEL: lambda: ls.ac1_flat_sweep(packed, nbr, *consts),
     }
     ms = {}
     for label, fn in variants.items():
@@ -62,7 +65,7 @@ def run(dx: float = 0.0025, device="cuda", k: int = 20,
         report(label, ms[label])
 
     flat_plain = variants["b) plain (C,256) flat"]()
-    flat = variants["d) B6 kernel (C,256) threads"]()
+    flat = variants[B6_KERNEL]()
     b5a = variants["c) B5a kernel (16-lane groups)"]()
     cross = {"b_vs_d": rel_err(flat, flat_plain), "c_vs_d": rel_err(flat, b5a)}
     agree = all(e <= CROSS_TOL for e in cross.values())

@@ -6,14 +6,16 @@ filled the vector lanes.  On the card that layout is B7: the neighbour
 rows are gathered and transposed channel-major beforehand (`prep_t`,
 xj_t (9, 8, 16, C)), and one thread per (i, cell), the cell on the
 fastest axis, streams them with every read coalesced and none indirect.
-The gather costs a 295 MB copy at the 2D dambreak's bench width.
+A block of 32 cells votes on its masks and stages and sums only the slot
+rows that hold a real slot somewhere in the tile.  The gather costs a
+295 MB copy at the 2D dambreak's bench width.
 
 Variants (the inner first-half acoustic sweep, one launch per run):
   a)  plain (C, 16, 16) broadcasts      — B5a's plain version
   b)  plain (16, 16, C) transposed, prep_t included
   b2) plain (16, 16, C) transposed alone on a fixed input
   c)  prep_t + B7 kernel
-  c2) B7 kernel alone on a fixed input
+  c2) B7 kernel alone on a fixed input (the tile's live rows only)
   g)  prep_t alone — the input cost of (c)
 Cross-check: b against c on the same input (as the JAX script), and the
 B5a kernel against c transposed.
@@ -34,6 +36,8 @@ from sphinxsys_tpu_torch.benchmarks import (
 from sphinxsys_tpu_torch.device import resolve_device
 from sphinxsys_tpu_torch.ops import layout_sweeps as ls
 from sphinxsys_tpu_torch.ops import packed_sweeps as ps
+
+B7_KERNEL = "c2) B7 kernel alone (tile's live rows)"
 
 
 def run(dx: float = 0.0025, device="cuda", k: int = 20,
@@ -60,7 +64,7 @@ def run(dx: float = 0.0025, device="cuda", k: int = 20,
             lambda: ls.ac1_t_sweep_plain(xi_t, xj_t, *consts),
         "c) B7 kernel incl prep_t":
             lambda: ls.ac1_t_sweep(*ls.prep_t(packed, nbr), *consts),
-        "c2) B7 kernel alone": lambda: ls.ac1_t_sweep(xi_t, xj_t, *consts),
+        B7_KERNEL: lambda: ls.ac1_t_sweep(xi_t, xj_t, *consts),
     }
     ms = {}
     for label, fn in variants.items():

@@ -1,8 +1,10 @@
 // Lane groups for the cell-block pair sweeps on Hopper (sm_90a): G lanes of
 // one warp sweep one cell, its live window rows staged in the group's slice
 // of shared memory a segment at a time and only their real j-slots summed.
-// Included by block_sweeps.cu (B1-B4) and packed_sweeps.cu (B5a/B5b); each
-// source is its own library, so everything here stays file-local.
+// Included by block_sweeps.cu (B1-B4), packed_sweeps.cu (B5a/B5b) and
+// layout_sweeps.cu (B6, whose 32-lane warp walks a cell's rows the same way
+// but spreads the pairs over its lanes); each source is its own library, so
+// everything here stays file-local.
 //
 // What differs between the two is the staged slot: a layout class says
 // where a slot's float4 parts sit in a staging buffer, which channel marks
@@ -136,6 +138,20 @@ __device__ __forceinline__ unsigned live_windows(const Group<G>& g,
     live |= g.ballot(ok) << w0;
   }
   return live;
+}
+
+// Copies of rows row .. row + m - 1 of a packed (rows, cap, 8) tensor
+// (m * cap slots, contiguous) into dst as they lie, slot j's parts at
+// dst[2 j], dst[2 j + 1] (PackedSlots), one 16-byte cp.async a part.
+template <int G>
+__device__ __forceinline__ void stage_packed(const Group<G>& g, float4* dst,
+                                             const float* __restrict__ packed,
+                                             int cap, int row, int m) {
+  const float4* src =
+      reinterpret_cast<const float4*>(packed) + (int64_t)row * cap * 2;
+  for (int q = g.lane; q < m * cap * 2; q += G) {
+    __pipeline_memcpy_async(dst + q, src + q, sizeof(float4));
+  }
 }
 
 // Copies the real slots of a staged segment of n slots, each with its narr

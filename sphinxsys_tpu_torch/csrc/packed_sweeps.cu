@@ -127,19 +127,6 @@ __device__ __forceinline__ float sign0(float x) {
 constexpr int kNarr = 2;                             // float4 parts a slot
 constexpr int kSegSlotsPacked = seg_rows(kCap) * kCap;  // slots a buffer
 
-// Copies of rows row .. row + m - 1 of the packed tensor (m * 16 slots,
-// contiguous) into dst as they lie, slot j's parts at dst[2 j], dst[2 j + 1]
-// (PackedSlots), one 16-byte cp.async a part.
-__device__ __forceinline__ void stage_packed(const Group<kCap>& g, float4* dst,
-                                             const float* __restrict__ packed,
-                                             int row, int m) {
-  const float4* src =
-      reinterpret_cast<const float4*>(packed) + (int64_t)row * kCap * kNarr;
-  for (int q = g.lane; q < m * kCap * kNarr; q += kCap) {
-    __pipeline_memcpy_async(dst + q, src + q, sizeof(float4));
-  }
-}
-
 // The group's state for one cell: its slice of shared memory, its live
 // windows and this lane's i-slot (lane_slot on the mask channel).
 struct InnerCell {
@@ -172,7 +159,7 @@ __device__ __forceinline__ void inner_pairs(const Group<kCap>& g,
                                             float mask_i, Pair&& pair) {
   const int self = (int)ic.s.gs;
   auto stage = [&](bool, int row, int m, float4* dst) {
-    stage_packed(g, dst, packed, row, m);
+    stage_packed(g, dst, packed, kCap, row, m);
   };
   auto sum = [&](bool, int count, const float4* src) {
     for_each_slot(g, ic.s.split, count, [&](int j) {

@@ -9,23 +9,32 @@ arguments and return shapes they keep.
 Each has a hand-written CUDA kernel (csrc/layout_sweeps.cu, built by
 ops/_build.py) and, beside it, a plain PyTorch version (`*_plain`, the
 counterparts of `ac1_flat_jnp` and `ac1_transposed_jnp`) that computes the
-same sums with the same arithmetic.  Dispatch as in ops/packed_sweeps.py: a
+same sums with the same arithmetic (but for B6's r and 1/r, which its
+kernel forms by rsqrt and its plain version, as JAX, by sqrt and a
+division).  Dispatch as in ops/packed_sweeps.py: a
 CPU tensor runs the plain version; a CUDA float32 tensor launches the
 kernel (or raises); anything else raises.  `LAUNCHES` counts kernel
 launches (plain runs do not count).
 
-* `ac1_flat_sweep(packed (C+1, 16, 8), nbr (C, 9), ...)`: one thread per
-  (cell, i, j) slot pair, the j-sum a warp shuffle; neighbour rows are read
-  through `nbr`, so JAX's pre-gathered packed[nbr] is never made.
+* `ac1_flat_sweep(packed (C+1, 16, 8), nbr (C, 9), ...)`: one 32-lane warp
+  per cell; its live window rows are staged in shared memory and their
+  real slots compacted, and the real (i, j) slot pairs are flattened onto
+  the lanes, each lane keeping one real i-slot; the sums over j are folded
+  per i in a fixed order (no atomics).  Neighbour rows are read through
+  `nbr`, so JAX's pre-gathered packed[nbr] is never made.
 * `ac1_t_sweep(xi_t (8, 16, C), xj_t (9, 8, 16, C), ...)`: the pre-gathered,
   channel-major input that `prep_t` builds, the cell on the fastest axis
-  (every read coalesced, none indirect); returns (16, C) sums, the
-  transpose of the others'.  `prep_t` is plain torch (a gather and a
-  permuting copy, each writing 295 MB at the 2D dambreak's bench width).
+  (every read coalesced, none indirect), one thread per (i-slot, cell) in
+  tiles of 32 cells that vote on their masks and stage and sum only the
+  slot rows holding a real slot; returns (16, C) sums, the transpose of
+  the others'.  `prep_t` is plain torch (a gather and a permuting copy,
+  each writing 295 MB at the 2D dambreak's bench width).
 
-What bounds them on the card, and the design, are set out in the CUDA
-source.  The TPU's `tile_c` has no counterpart: the cell count need not be
-a multiple of any tile.
+Both kernels are bound by bytes on the card (PERF.md, section 6); what
+held their first designs above that bound was evaluating every slot pair,
+padding included.  Both now skip slots of mask 0, which add exactly
+nothing.  The CUDA source sets the designs out.  The TPU's `tile_c` has
+no counterpart: the cell count need not be a multiple of any tile.
 """
 
 from __future__ import annotations

@@ -6,11 +6,14 @@ benchmarks/exp_layout2.py) on the same inputs:
 * (a) the plain B6 / B7 in float32 against JAX's B6 / B7 Pallas kernels in
   interpret mode, |port - JAX| <= 2e-5 max|JAX| per channel on the real
   slots (the bound tests/test_torch_packed_sweeps.py holds B5a-d to), on
-  three inputs: random particles whose padding carries VOL = 1, parked at
+  four inputs: random particles whose padding carries VOL = 1, parked at
   1e9 ("random") and moved inside the support of real particles, where
-  the mask channel alone keeps it inert ("random_near"), and the JAX
-  dambreak block state at dx = 0.1, cap 16, with seeded noise, packed on
-  both sides through `convert` ("dambreak");
+  the mask channel alone keeps it inert ("random_near"), the random
+  particles with the 16 slots of every row permuted at random, so that
+  padding sits mid-row ("random_holes": the kernels skip padding by its
+  mask, not by its place in the row), and the JAX dambreak block state at
+  dx = 0.1, cap 16, with seeded noise, packed on both sides through
+  `convert` ("dambreak");
 * (b) the plain versions in float64 against `ac1_flat_jnp` /
   `ac1_transposed_jnp` in float64, within 1e-10 max|JAX| per channel;
 * (c) the plain B6, the transposed plain B7 and the plain B5a against each
@@ -134,6 +137,12 @@ def inputs():
     random = dict(packed=packed, nbr=np.asarray(bm.nbr_block),
                   real=np.asarray(m[:c_max]),
                   consts=_consts(adaptation.kernel, JFluid(rho0=1.0, c0=10.0)))
+    perm = np.argsort(rng.random(packed.shape[:2]), axis=1)
+    holes = dict(random,
+                 packed=np.take_along_axis(packed, perm[..., None], axis=1),
+                 real=np.take_along_axis(np.asarray(m), perm, axis=1)[:c_max])
+    assert np.any(~holes["real"][:, :-1] & holes["real"][:, 1:]), \
+        "no padding mid-row"
 
     jscene, jfluid = jdb2.build_block_case(dx=0.1, cap=16)
     sim = jsc.init_sim(jscene, jfluid)
@@ -156,7 +165,7 @@ def inputs():
     dambreak = dict(packed=tpacked, nbr=nbr, real=mk[:nbr.shape[0]],
                     consts=_consts(base.kernel, base.eos))
     return {"random": random, "random_near": dict(random, packed=near),
-            "dambreak": dambreak}
+            "random_holes": holes, "dambreak": dambreak}
 
 
 def _jax_prep(packed, nbr):
@@ -194,7 +203,8 @@ def _assert_rel(got, ref, tol, what, mask=None):
 # (a) float32 against the Pallas kernels (interpret)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("which", ["random", "random_near", "dambreak"])
+@pytest.mark.parametrize("which", ["random", "random_near", "random_holes",
+                                   "dambreak"])
 @pytest.mark.parametrize("name", SWEEPS)
 def test_plain_matches_pallas_interpret(jax_layout, inputs, name, which):
     jl, jl2 = jax_layout

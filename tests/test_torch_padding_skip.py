@@ -14,7 +14,9 @@ of a random real particle and given random pressure, density, velocity
 and acceleration, its VOL and mask kept at 0; then the slots of every row
 are permuted at random, so that padding sits mid-row.  Every real slot's
 sums must equal those of the untouched blocks, through the permutation,
-within 1e-12 relative.
+within 1e-12 relative.  The packed cases (cap 16) also give the padding a
+random VOL, and cover the layout sweeps ac1_flat_sweep (B6) and
+ac1_t_sweep (B7, through `prep_t`), whose kernels skip the same slots.
 """
 
 import numpy as np
@@ -25,6 +27,7 @@ from sphinxsys_tpu_torch.cases import dambreak_2d as tdb2, dambreak_3d as tdb3
 from sphinxsys_tpu_torch.cases import taylor_green_2d as ttg
 from sphinxsys_tpu_torch.engine import scene as sc
 from sphinxsys_tpu_torch.ops import block_sweeps as bs
+from sphinxsys_tpu_torch.ops import layout_sweeps as ls
 from sphinxsys_tpu_torch.ops import packed_sweeps as ps
 
 torch.set_num_threads(1)
@@ -176,14 +179,25 @@ def test_padding_adds_nothing_f64(states, tag, name):
                                    err_msg=f"{tag} {name} ch{ch}")
 
 
+PACKED_SWEEPS = ("ac1_inner", "ac2_inner", "ac1_flat", "ac1_t")
+
+
 def _packed_sweep(name, s, fb):
     """One plain packed inner sweep on blocks `fb`, packed as the packed
     halves pack them, with the engine's constants (B5b with the Acoustic
-    solver's dissipation)."""
+    solver's dissipation), as (C, 16, 3); B7 on `prep_t`'s input."""
     eng = s["scene"].eng
     packed = ps.pack_state_2d(fb["Position"], fb["Velocity"], fb["Pressure"],
                               fb["VolumetricMeasure"], fb["SlotMask"])
     consts = dict(kernel_h=eng.kernel.h, factor_w=eng.kernel._factor_w(2))
+    layout = (1.0 / eng.kernel.h, eng.kernel._factor_w(2),
+              eng.riemann1.inv_rho0c0_ave)
+    if name == "ac1_flat":
+        return torch.stack(ls.ac1_flat_sweep_plain(packed, s["nbr"], *layout),
+                           dim=-1)
+    if name == "ac1_t":
+        out = ls.ac1_t_sweep_plain(*ls.prep_t(packed, s["nbr"]), *layout)
+        return torch.stack(out, dim=-1).transpose(0, 1)
     if name == "ac1_inner":
         force, rd = ps.ac1_inner_sweep_plain(
             packed, s["nbr"], **consts,
@@ -196,12 +210,11 @@ def _packed_sweep(name, s, fb):
     return torch.cat([dcr[..., None], pdiss], dim=-1)
 
 
-@pytest.mark.parametrize("name", ["ac1_inner", "ac2_inner"])
+@pytest.mark.parametrize("name", PACKED_SWEEPS)
 def test_packed_padding_adds_nothing_f64(states, name):
     s = _get(states, "2d16")
     fb = s["fb"]
-    rng = np.random.default_rng([SEEDS["2d16"], 1 + ("ac1_inner",
-                                                     "ac2_inner").index(name)])
+    rng = np.random.default_rng([SEEDS["2d16"], 1 + PACKED_SWEEPS.index(name)])
     ref = _packed_sweep(name, s, fb)
     fb2, perm = _disturb(fb, rng, s["h"], ("Pressure", "Velocity",
                                            "VolumetricMeasure"))
