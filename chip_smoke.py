@@ -49,9 +49,12 @@ Phases:
      solver's constants and padding of volume 1 moved into the support),
      timed and bounded, with the lane x slot pairs B5a/B5b evaluate, the
      B2/B3 times on the same state, a check that window 4 is each cell's
-     own row (B5a/B5b drop the self pair by slot index), and B5a/B5b with
+     own row (B5a/B5b drop the self pair by slot index), B5a/B5b with
      holes (real slots unchanged through the swap within 1e-6) and with
-     coincident particles; then one advection step's
+     coincident particles, and B5c/B5d with holes in the i-rows and the
+     wall rows (the same criterion) and with every wall row made full,
+     beside the slot pairs their lane groups evaluate and their first
+     design's; then one advection step's
      acoustic sub-steps through the packed halves and through the *_p2
      halves from the same state (equal sub-step counts, positions within
      5e-5, every packed kernel launched), each route's sub-step time, and
@@ -757,11 +760,12 @@ def packed_slot_pairs(torch, ps, packed, nbr):
     return before, after, float(split.sum()) / max(int(has.sum()), 1)
 
 
-def packed_holes(torch, ps, packed):
+def packed_holes(torch, ps, packed, mask_ch=None):
     """`packed` with, in every row whose first slot is real and last slot
-    padding, the two slots swapped (padding mid-row, a real slot in the
-    upper half); and the swap, new[r, k] = old[r, idx[r, k]]."""
-    m = packed[..., ps.CMASK] != 0
+    padding (mask channel `mask_ch`, default the inner layout's), the two
+    slots swapped (padding mid-row, a real slot in the upper half); and the
+    swap, new[r, k] = old[r, idx[r, k]]."""
+    m = packed[..., ps.CMASK if mask_ch is None else mask_ch] != 0
     idx = torch.arange(ps.CAP, device=packed.device).repeat(packed.shape[0], 1)
     swap = m[:, 0] & ~m[:, -1]
     idx[swap, 0] = ps.CAP - 1
@@ -806,14 +810,94 @@ def lane_group_checks(torch, ps, module, inputs, base, c, tag="2d16",
             f"({int(both.sum())} coincident pairs)")
 
 
+def wall_slot_pairs(torch, ps, packed_i, wall, nbr_w, i_ch, w_ch):
+    """(slot pairs B5c/B5d's first design evaluated, lane x slot pairs its
+    lane groups evaluate, cells with a live wall window, of them those with
+    a real i-slot), from the wall map: the first design 16 x 16 per live
+    wall window of every cell; a lane group 16 lanes times the real wall
+    slots (mask != 0) of its live windows, for every cell with a live
+    window and a real i-slot."""
+    c, cw = nbr_w.shape[0], wall.shape[0] - 1
+    live = nbr_w < cw                     # the sentinel row holds no real slot
+    real_w = (wall[..., w_ch] != 0).sum(dim=1)
+    windowed = live.any(dim=1)
+    working = windowed & (packed_i[:c, :, i_ch] != 0).any(dim=1)
+    per_cell = real_w[nbr_w.long()].sum(dim=1)
+    before = int(live.sum()) * ps.CAP ** 2
+    after = int((per_cell * working).sum()) * ps.CAP
+    return before, after, int(windowed.sum()), int(working.sum())
+
+
+def full_wall_rows(torch, wall, w_ch, h, g):
+    """`wall` with every padding slot of a row that holds a real slot made
+    real: its row's first slot copied there, mask 1, its position moved by
+    up to h/2 (into the support of the fluid beside that slot)."""
+    m = wall[..., w_ch] != 0
+    fill = ~m & m.any(dim=1, keepdim=True)
+    full = torch.where(fill[..., None], wall[:, :1, :].expand_as(wall), wall)
+    jitter = (torch.rand(wall.shape[:2] + (2,), generator=g, device=DEVICE)
+              - 0.5) * h
+    full[..., :2] = torch.where(fill[..., None], full[..., :2] + jitter,
+                                full[..., :2])
+    full[..., w_ch] = torch.where(fill, torch.ones_like(full[..., w_ch]),
+                                  full[..., w_ch])
+    return full
+
+
+def wall_checks(torch, ps, inputs, c, h, g):
+    """B5c/B5d where their first design never met them, each against its
+    plain version on the same inputs (`inputs`: packed_inputs with a
+    moving wall, so that every output channel is live): holes on both
+    sides (packed_holes on the i-rows and on the wall rows; every real
+    slot's sums within 1e-6 max|out| of the run without the swap) and full
+    wall rows (full_wall_rows: the compaction meets whole rows, the
+    unsplit cells long lists); and the slot pairs each design evaluates."""
+    masks = {"ac1_wall_sweep": (ps.I1M, ps.W1M),   # (i-side, wall) masks
+             "ac2_wall_sweep": (ps.I2M, ps.W2M)}
+    for name, (i_ch, w_ch) in masks.items():
+        (pk_i, wall, nbr_w), kw = inputs[name]
+        before, after, windowed, working = wall_slot_pairs(
+            torch, ps, pk_i, wall, nbr_w, i_ch, w_ch)
+        log(f"2d16 {name}: {after} lane x slot pairs evaluated (first "
+            f"design: {before} slot pairs) in {working} cells with a wall "
+            f"window and a real slot ({windowed} with a wall window, of "
+            f"{c} cells)")
+        base = channels(torch, getattr(ps, name)(pk_i, wall, nbr_w, **kw))
+        holed_i, idx = packed_holes(torch, ps, pk_i, i_ch)
+        holed_w, _ = packed_holes(torch, ps, wall, w_ch)
+        real_h = (holed_i[..., i_ch] != 0)[:c]
+        got, _ = compare(torch, "2d16 holes", name, (holed_i, holed_w, nbr_w),
+                         kw, real_h, module=ps)
+        back = torch.gather(got, 1, idx[:c, :, None].expand_as(got))
+        real = (pk_i[..., i_ch] != 0)[:c]
+        diff = float((back - base)[real].abs().max())
+        scale = float(base[real].abs().max())
+        log(f"2d16 holes {name}: agrees with its plain version, i-rows and "
+            f"wall rows swapped; max |out - out without the swap| "
+            f"{diff:.3e} (max|out| {scale:.3e})")
+        check(diff <= 1e-6 * scale,
+              f"2d16 holes {name}: real slots moved through the swap")
+        full = full_wall_rows(torch, wall, w_ch, h, g)
+        compare(torch, "2d16 full-wall-rows", name, (pk_i, full, nbr_w), kw,
+                real, module=ps)
+        _, after_full, _, _ = wall_slot_pairs(torch, ps, pk_i, full, nbr_w,
+                                              i_ch, w_ch)
+        unsplit = int(((pk_i[:c, ps.CAP // 2:, i_ch] != 0).any(dim=1)
+                       & (nbr_w < wall.shape[0] - 1).any(dim=1)).sum())
+        log(f"2d16 full-wall-rows {name}: agrees with its plain version "
+            f"({after_full} lane x slot pairs; {unsplit} cells with a wall "
+            f"window do not split)")
+
+
 def packed_kernel_phase(torch, scene, sim, results):
     """B5a-d against their plain versions on the same inputs, their times
     and bounds; the lane × slot pairs B5a/B5b evaluate and the B2/B3 times
     on the same state; then the wall sweeps with seeded non-zero wall
     kinematics (the static dambreak wall packs zeros there), the 2nd-half
     sweeps with the Dissipative solver's constants (limiter 1e30), padding
-    moved into the support with volume 1 (the mask its only guard), and
-    B5a/B5b with holes and coincident particles."""
+    moved into the support with volume 1 (the mask its only guard),
+    B5a/B5b with holes and coincident particles, and B5c/B5d with holes on
+    both sides and full wall rows (`wall_checks`)."""
     from sphinxsys_tpu_torch.benchmarks import (
         median_ms, packed_inputs, sweep_inputs,
     )
@@ -870,12 +954,13 @@ def packed_kernel_phase(torch, scene, sim, results):
     moving = dict(wb, AverageVelocity=0.1 * torch.randn(
         shape, generator=g, device=DEVICE), AverageAcceleration=torch.randn(
         shape, generator=g, device=DEVICE))
-    variants = (("moving-wall", dict(wall_b=moving),
+    moving_inputs = packed_inputs(scene, sim, wall_b=moving)
+    variants = (("moving-wall", moving_inputs,
                  ("ac1_wall_sweep", "ac2_wall_sweep")),
-                ("dissipative", dict(riemann2=rs.dissipative_riemann(eng.eos)),
+                ("dissipative", packed_inputs(
+                    scene, sim, riemann2=rs.dissipative_riemann(eng.eos)),
                  ("ac2_inner_sweep", "ac2_wall_sweep")))
-    for what, kw_in, names in variants:
-        inp = packed_inputs(scene, sim, **kw_in)
+    for what, inp, names in variants:
         for name in names:
             args, kw = inp[name]
             compare(torch, f"2d16 {what}", name, args, kw, real, module=ps)
@@ -893,6 +978,7 @@ def packed_kernel_phase(torch, scene, sim, results):
                            eng.kernel.h, real, g)
     lane_group_checks(torch, ps, ps, {n: inputs[n] for n in (
         "ac1_inner_sweep", "ac2_inner_sweep")}, base, c)
+    wall_checks(torch, ps, moving_inputs, c, eng.kernel.h, g)
 
 
 def near_padding_check(torch, module, name, args, kw, j, mask_ch, vol_ch, h,

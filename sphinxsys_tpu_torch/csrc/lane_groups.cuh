@@ -1,7 +1,7 @@
 // Lane groups for the cell-block pair sweeps on Hopper (sm_90a): G lanes of
 // one warp sweep one cell, its live window rows staged in the group's slice
 // of shared memory a segment at a time and only their real j-slots summed.
-// Included by block_sweeps.cu (B1-B4), packed_sweeps.cu (B5a/B5b) and
+// Included by block_sweeps.cu (B1-B4), packed_sweeps.cu (B5a-d) and
 // layout_sweeps.cu (B6, whose 32-lane warp walks a cell's rows the same way
 // but spreads the pairs over its lanes); each source is its own library, so
 // everything here stays file-local.
@@ -16,7 +16,13 @@
 //                [x, y, vx, vy | p, vol, mask, 0] as two float4s side by
 //                side; real where mask != 0; the compacted copy carries the
 //                slot's global index (row * 16 + j) in channel 7, so that a
-//                lane can drop its self pair by index.
+//                lane can drop its self pair by index;
+//   PackedWallSlots<CH>  the packed wall slots of B5c/B5d, copied as
+//                PackedSlots are; real where channel CH (part 1: 5 for
+//                [x, y, vol, ax | ay, mask, 0, 0], 7 for
+//                [x, y, vol, vax | vay, nx, ny, mask]) != 0; the compacted
+//                copy is the slot as it is (channel 7 may be the mask, and
+//                a wall sweep has no self pair to drop).
 
 #pragma once
 
@@ -86,6 +92,17 @@ struct PackedSlots {
   __device__ static __forceinline__ float4 tag(const float4& a,
                                                int64_t slot) {
     return make_float4(a.x, a.y, a.z, __int_as_float((int)slot));
+  }
+};
+
+template <int CH>
+struct PackedWallSlots : PackedSlots {
+  static_assert(CH >= 4 && CH < 8, "the mask lies in part 1");
+  __device__ static __forceinline__ float key(const float4& a) {
+    return CH == 4 ? a.x : CH == 5 ? a.y : CH == 6 ? a.z : a.w;
+  }
+  __device__ static __forceinline__ float4 tag(const float4& a, int64_t) {
+    return a;
   }
 };
 

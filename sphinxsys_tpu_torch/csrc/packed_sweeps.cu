@@ -63,9 +63,30 @@
 // ascending), split lanes each over their half, so real slots agree with it
 // to f32 roundoff.  Padding i-slots get zeros (mask_i = 0 gives them).
 //
-// The wall sweeps (B5c, B5d) keep the first design: one thread per (cell,
-// i-slot) looping over the 16 slots of every live wall window, reading
-// them through L1.
+// The wall sweeps (B5c, B5d): lane groups too, from the same helpers.  Their
+// bytes take ~0.005 ms on an H100 at the 2D dambreak's bench width, but the
+// first design (a thread per (cell, i-slot) that loaded its 32-byte i-slot,
+// read all 9 map entries and walked the 16 slots of every live wall window)
+// moved ~3x those bytes: only ~1.4% of the cells there have a wall window,
+// and it read every i-slot all the same.  The design:
+//   * 16 lanes per cell (two cells a warp), lane l on i-slot l; the group
+//     reads the cell's wall map row, a lane an entry, and votes: a cell
+//     with no live wall window writes its 192 bytes of zeros, one float4
+//     store a lane, and stops without reading packed_i;
+//   * a live cell votes on its real i-slots (the i-side mask, channel 6
+//     for ac1, 4 for ac2) and stops the same way if it has none; only then
+//     does a lane load its 32-byte i-slot;
+//   * the live wall rows are staged as B5a/B5b stage theirs, in the same
+//     slice of shared memory (whole slots, 16-byte cp.async, segments of up
+//     to 2 consecutive rows, double-buffered), and only real wall slots
+//     are summed: the wall mask lies in channel 5 (ac1) or 7 (ac2) and the
+//     compacted copy keeps the slot as it is (PackedWallSlots); a wall
+//     sweep has no self pair;
+//   * split as B5a/B5b: when a cell's real i-slots fit in lanes 0-7, lanes
+//     l and l + 8 sum over the even and the odd real wall slots.
+// The pair arithmetic is the first design's; each lane sums in its order
+// (windows in order, slots ascending), split lanes each over their half, so
+// real slots agree with it to f32 roundoff.
 //
 // Every launcher returns cudaGetLastError() after the launch.
 
@@ -261,43 +282,134 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
+// B5c / B5d: wall sweeps, one group per cell (see the top).
+// ---------------------------------------------------------------------------
+constexpr int kMaskI1 = 6;  // i-side mask channel, ac1 wall layout
+constexpr int kMaskI2 = 4;  // i-side mask channel, ac2 wall layout
+using Wall1Slots = PackedWallSlots<5>;  // [x, y, vol, ax | ay, mask, 0, 0]
+using Wall2Slots = PackedWallSlots<7>;  // [x, y, vol, vax | vay, nx, ny, mask]
+
+// The group's state for one live cell: its slice of shared memory (laid out
+// as B5a/B5b's), its live wall windows, this lane's i-slot (lane_slot on the
+// i-side mask channel) and that slot's 8 channels.
+struct WallCell {
+  float4* buf;
+  int* rows;
+  unsigned live;
+  Slot s;
+  Slot8 si;
+};
+
+// Zeros over the whole (16, 3) output row of `cell`: 192 contiguous bytes,
+// 16-byte aligned, one float4 store a lane.
+__device__ __forceinline__ void zero_cell(const Group<kCap>& g,
+                                          float* __restrict__ out,
+                                          int64_t cell) {
+  if (g.lane < kCap * 3 / 4) {
+    reinterpret_cast<float4*>(out + cell * kCap * 3)[g.lane] =
+        make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+}
+
+// Votes on `cell`'s wall windows, then on its real i-slots; returns false,
+// its zeros written, for a cell with no live wall window or no real i-slot.
+// packed_i is read only in a cell with a live wall window.
+template <int MASK_I>
+__device__ __forceinline__ bool wall_cell(const Group<kCap>& g, float4* smem,
+                                          const float* __restrict__ packed_i,
+                                          const int* __restrict__ nbr_w,
+                                          int64_t cell, int Cw,
+                                          float* __restrict__ out,
+                                          WallCell* wc) {
+  float4* mine = smem + (threadIdx.x / kCap) * group_f4<kWindows>(kNarr, kCap);
+  wc->rows = reinterpret_cast<int*>(mine);
+  wc->buf = mine + rows_f4<kWindows>();
+  wc->live = live_windows<kWindows>(g, nbr_w, cell, Cw, wc->rows);
+  if (wc->live != 0u) {
+    wc->s = lane_slot<PackedSlots>(g, cell, kCap, 0, packed_i + MASK_I);
+    if (wc->s.real != 0u) {
+      g.sync();
+      wc->si = load_slot(packed_i + wc->s.gs * kCh);
+      return true;
+    }
+  }
+  zero_cell(g, out, cell);
+  return false;
+}
+
+// Walks the cell's live wall windows and calls pair(a, b) for every real
+// wall slot of this lane's half (a, b: the slot's two float4 parts).
+template <class L, class Pair>
+__device__ __forceinline__ void wall_pairs(const Group<kCap>& g,
+                                           const WallCell& wc,
+                                           const float* __restrict__ wall,
+                                           Pair&& pair) {
+  auto stage = [&](bool, int row, int m, float4* dst) {
+    stage_packed(g, dst, wall, kCap, row, m);
+  };
+  auto sum = [&](bool, int count, const float4* src) {
+    for_each_slot(g, wc.s.split, count,
+                  [&](int k) { pair(src[2 * k], src[2 * k + 1]); });
+  };
+  walk_rows<L>(g, wc.live, 0u, wc.rows, nullptr, kCap, 0, kNarr,
+               kSegSlotsPacked, wc.buf, stage, sum);
+}
+
+// The three sums of this lane's slot, halves folded; zeros where it is
+// padding.
+__device__ __forceinline__ void store_wall(const Group<kCap>& g,
+                                           const WallCell& wc,
+                                           float* __restrict__ out, float a,
+                                           float b, float c) {
+  if (wc.s.split) {
+    a = fold_halves(g, a);
+    b = fold_halves(g, b);
+    c = fold_halves(g, c);
+  }
+  const bool keep = wc.s.own_real;
+  out[wc.s.go * 3 + 0] = keep ? a : 0.0f;
+  out[wc.s.go * 3 + 1] = keep ? b : 0.0f;
+  out[wc.s.go * 3 + 2] = keep ? c : 0.0f;
+}
+
+// ---------------------------------------------------------------------------
 // B5c: 1st-half wall sweep (wall terms only).  out (C, 16, 3) = [fx, fy, rd]:
 //   p_w  = p_i + rho_i r max((a_i - a_w).(-e_ik), 0)
 //   f_i  = -sum (p_i + p_w) dW V_k e_ik
 //   rd_i =  sum (p_i - p_w) inv_rho0c0 dW V_k
 // ---------------------------------------------------------------------------
-__global__ void ac1_wall_kernel(const float* __restrict__ packed_i,
-                                const float* __restrict__ wall,
-                                const int* __restrict__ nbr_w, int C, int Cw,
-                                float inv_h, float dw_scale, float inv_rho0c0,
-                                float* __restrict__ out) {
-  const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= (int64_t)C * kCap) return;
-  const int64_t cell = g / kCap;
-  const Slot8 si = load_slot(packed_i + g * kCh);
+__global__ void __launch_bounds__(kThreads)
+    ac1_wall_kernel(const float* __restrict__ packed_i,
+                    const float* __restrict__ wall,
+                    const int* __restrict__ nbr_w, int C, int Cw, float inv_h,
+                    float dw_scale, float inv_rho0c0,
+                    float* __restrict__ out) {
+  extern __shared__ float4 group_smem[];
+  const Group<kCap> g;
+  const int64_t cell = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / kCap;
+  if (cell >= C) return;  // whole groups
+  WallCell wc;
+  if (!wall_cell<kMaskI1>(g, group_smem, packed_i, nbr_w, cell, Cw, out,
+                          &wc)) {
+    return;
+  }
+  const Slot8& si = wc.si;
   const float p_i = si.c[2], rho_i = si.c[3];
   float fx = 0.0f, fy = 0.0f, rd = 0.0f;
-  for (int w = 0; w < kWindows; ++w) {
-    const int row = nbr_w[cell * kWindows + w];
-    if (row >= Cw) continue;
-    const float* pk = wall + (int64_t)row * kCap * kCh;
-    for (int k = 0; k < kCap; ++k) {
-      const Slot8 sk = load_slot(pk + k * kCh);
-      const Geom q = pair_geom(si.c[0], si.c[1], sk.c[0], sk.c[1],
-                               si.c[6] * sk.c[5], inv_h, dw_scale);
-      const float dwv = q.dw * sk.c[2];
-      const float face_acc = (si.c[4] - sk.c[3]) * (-q.ex) +
-                             (si.c[5] - sk.c[4]) * (-q.ey);
-      const float p_w = p_i + rho_i * q.r * fmaxf(face_acc, 0.0f);
-      const float psum = (p_i + p_w) * dwv;
-      fx -= psum * q.ex;
-      fy -= psum * q.ey;
-      rd += (p_i - p_w) * inv_rho0c0 * dwv;
-    }
-  }
-  out[g * 3 + 0] = fx;
-  out[g * 3 + 1] = fy;
-  out[g * 3 + 2] = rd;
+  // a = [x, y, vol, ax], b = [ay, mask, 0, 0]
+  wall_pairs<Wall1Slots>(g, wc, wall, [&](const float4& a, const float4& b) {
+    const Geom q = pair_geom(si.c[0], si.c[1], a.x, a.y, si.c[kMaskI1] * b.y,
+                             inv_h, dw_scale);
+    const float dwv = q.dw * a.z;
+    const float face_acc =
+        (si.c[4] - a.w) * (-q.ex) + (si.c[5] - b.x) * (-q.ey);
+    const float p_w = p_i + rho_i * q.r * fmaxf(face_acc, 0.0f);
+    const float psum = (p_i + p_w) * dwv;
+    fx -= psum * q.ex;
+    fy -= psum * q.ey;
+    rd += (p_i - p_w) * inv_rho0c0 * dwv;
+  });
+  store_wall(g, wc, out, fx, fy, rd);
 }
 
 // ---------------------------------------------------------------------------
@@ -308,45 +420,41 @@ __global__ void ac1_wall_kernel(const float* __restrict__ packed_i,
 //   u     = dv.n'
 //   f_i   = sum rho0c0_geo u min(lim_scale max(u, 0), 1) dW V_k n'
 // ---------------------------------------------------------------------------
-__global__ void ac2_wall_kernel(const float* __restrict__ packed_i,
-                                const float* __restrict__ wall,
-                                const int* __restrict__ nbr_w, int C, int Cw,
-                                float inv_h, float dw_scale, float rho0c0_geo,
-                                float lim_scale, float* __restrict__ out) {
-  const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= (int64_t)C * kCap) return;
-  const int64_t cell = g / kCap;
-  const Slot8 si = load_slot(packed_i + g * kCh);
-  float dcr = 0.0f, fx = 0.0f, fy = 0.0f;
-  for (int w = 0; w < kWindows; ++w) {
-    const int row = nbr_w[cell * kWindows + w];
-    if (row >= Cw) continue;
-    const float* pk = wall + (int64_t)row * kCap * kCh;
-    for (int k = 0; k < kCap; ++k) {
-      const Slot8 sk = load_slot(pk + k * kCh);
-      const Geom q = pair_geom(si.c[0], si.c[1], sk.c[0], sk.c[1],
-                               si.c[4] * sk.c[7], inv_h, dw_scale);
-      const float dwv = q.dw * sk.c[2];
-      const float nx = sk.c[5], ny = sk.c[6];
-      const float sgn = sign0(q.ex * nx + q.ey * ny);
-      const float fnx = sgn * nx, fny = sgn * ny;
-      const float dvx = 2.0f * (si.c[2] - sk.c[3]);
-      const float dvy = 2.0f * (si.c[3] - sk.c[4]);
-      dcr += (dvx * q.ex + dvy * q.ey) * dwv;
-      const float u = dvx * fnx + dvy * fny;
-      const float lim = fminf(lim_scale * fmaxf(u, 0.0f), 1.0f);
-      const float pjump = rho0c0_geo * u * lim * dwv;
-      fx += pjump * fnx;
-      fy += pjump * fny;
-    }
+__global__ void __launch_bounds__(kThreads)
+    ac2_wall_kernel(const float* __restrict__ packed_i,
+                    const float* __restrict__ wall,
+                    const int* __restrict__ nbr_w, int C, int Cw, float inv_h,
+                    float dw_scale, float rho0c0_geo, float lim_scale,
+                    float* __restrict__ out) {
+  extern __shared__ float4 group_smem[];
+  const Group<kCap> g;
+  const int64_t cell = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / kCap;
+  if (cell >= C) return;  // whole groups
+  WallCell wc;
+  if (!wall_cell<kMaskI2>(g, group_smem, packed_i, nbr_w, cell, Cw, out,
+                          &wc)) {
+    return;
   }
-  out[g * 3 + 0] = dcr;
-  out[g * 3 + 1] = fx;
-  out[g * 3 + 2] = fy;
-}
-
-inline unsigned blocks_for(int C) {
-  return (unsigned)(((int64_t)C * kCap + kThreads - 1) / kThreads);
+  const Slot8& si = wc.si;
+  float dcr = 0.0f, fx = 0.0f, fy = 0.0f;
+  // a = [x, y, vol, vax], b = [vay, nx, ny, mask]
+  wall_pairs<Wall2Slots>(g, wc, wall, [&](const float4& a, const float4& b) {
+    const Geom q = pair_geom(si.c[0], si.c[1], a.x, a.y, si.c[kMaskI2] * b.w,
+                             inv_h, dw_scale);
+    const float dwv = q.dw * a.z;
+    const float nx = b.y, ny = b.z;
+    const float sgn = sign0(q.ex * nx + q.ey * ny);
+    const float fnx = sgn * nx, fny = sgn * ny;
+    const float dvx = 2.0f * (si.c[2] - a.w);
+    const float dvy = 2.0f * (si.c[3] - b.x);
+    dcr += (dvx * q.ex + dvy * q.ey) * dwv;
+    const float u = dvx * fnx + dvy * fny;
+    const float lim = fminf(lim_scale * fmaxf(u, 0.0f), 1.0f);
+    const float pjump = rho0c0_geo * u * lim * dwv;
+    fx += pjump * fnx;
+    fy += pjump * fny;
+  });
+  store_wall(g, wc, out, dcr, fx, fy);
 }
 
 }  // namespace
@@ -380,9 +488,12 @@ int ac2_inner_launch(const float* packed, const int* nbr, int C, float inv_h,
 int ac1_wall_launch(const float* packed_i, const float* wall, const int* nbr_w,
                     int C, int Cw, float inv_h, float dw_scale,
                     float inv_rho0c0, float* out, void* stream) {
-  const unsigned nb = blocks_for(C);
+  const unsigned nb = group_blocks<kCap>(C);
   if (nb == 0) return (int)cudaGetLastError();
-  ac1_wall_kernel<<<nb, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (reinterpret_cast<uintptr_t>(out) % 16) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      group_smem_bytes<kWindows, kCap>(ac1_wall_kernel, kNarr, kCap);
+  ac1_wall_kernel<<<nb, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       packed_i, wall, nbr_w, C, Cw, inv_h, dw_scale, inv_rho0c0, out);
   return (int)cudaGetLastError();
 }
@@ -391,9 +502,12 @@ int ac2_wall_launch(const float* packed_i, const float* wall, const int* nbr_w,
                     int C, int Cw, float inv_h, float dw_scale,
                     float rho0c0_geo, float lim_scale, float* out,
                     void* stream) {
-  const unsigned nb = blocks_for(C);
+  const unsigned nb = group_blocks<kCap>(C);
   if (nb == 0) return (int)cudaGetLastError();
-  ac2_wall_kernel<<<nb, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (reinterpret_cast<uintptr_t>(out) % 16) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      group_smem_bytes<kWindows, kCap>(ac2_wall_kernel, kNarr, kCap);
+  ac2_wall_kernel<<<nb, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       packed_i, wall, nbr_w, C, Cw, inv_h, dw_scale, rho0c0_geo, lim_scale,
       out);
   return (int)cudaGetLastError();

@@ -17,16 +17,17 @@ not count).
 
 What bounds them on the card: counting each byte once and only the real
 pairs' flops, a sweep's least time is its bytes over the HBM rate
-(chip_smoke.py's bound), ~0.012 ms for the inner sweeps at the 2D
-dambreak's bench width.  They run far above it, bound by slot-pair issue
-and per-cell latency.  All four read neighbour rows through the window
-map (the TPU's pre-gathered packed[nbr] is never made) and skip sentinel
-windows.  The inner sweeps (B5a, B5b) run a 16-lane group per cell
+(chip_smoke.py's bound), ~0.012 ms for the inner sweeps and ~0.005 ms for
+the wall sweeps at the 2D dambreak's bench width.  They run above it,
+bound by slot-pair issue and per-cell latency.  All four read neighbour
+rows through the window map (the TPU's pre-gathered packed[nbr] is never
+made) and skip sentinel windows.  All four run a 16-lane group per cell
 (csrc/lane_groups.cuh, as B1-B4): its live window rows staged whole in
-shared memory, only the real j-slots (mask != 0) summed, the self pair
-dropped by slot index, lanes of a cell with at most 8 real slots split
-over j.  The wall sweeps (B5c, B5d) keep the first design, one thread per
-(cell, i-slot) over all 16 slots of each live wall window.
+shared memory, only the real j-slots (mask != 0) summed, lanes of a cell
+with at most 8 real slots split over j.  The inner sweeps (B5a, B5b) drop
+the self pair by slot index.  The wall sweeps (B5c, B5d) first vote on the
+cell's wall windows: a cell with none (most cells) writes zeros without
+reading its i-slots.
 
 Padding slots are guarded by the mask channel alone (they may carry any
 finite volume); the inner sweeps drop the self pair.  The TPU's `tile_c`

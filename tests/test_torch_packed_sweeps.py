@@ -14,7 +14,9 @@ same inputs:
   not the self pair); and the dambreak block state at dx = 0.1, cap 16,
   with seeded perturbations and a moving wall — at |port - JAX| <= 2e-5
   max|JAX| per channel on the real slots (the criterion of
-  test_pallas_sweep.py);
+  test_pallas_sweep.py); and a cell whose wall windows are all the
+  sentinel gets exact zeros from both wall sweeps (the wall kernels'
+  early exit);
 * (b) the packed halves in float32 against JAX's Pallas halves (interpret)
   at rtol 2e-5 / atol 1e-5, with a static and a moving wall and the
   Acoustic, Dissipative and No solvers in the 2nd half;
@@ -290,6 +292,32 @@ def test_plain_sweep_matches_pallas_interpret(random_input, dambreak, which,
                                    err_msg=f"{which} {name} ch{ch}")
         # padding slots add nothing and receive nothing
         assert not np.any(a[~real]), f"{which} {name} ch{ch}: padding"
+
+
+@pytest.mark.parametrize("name", ["ac1_wall", "ac2_wall"])
+def test_wall_sweep_cells_without_wall_window_get_zeros(random_input, name):
+    """The property B5c/B5d's early exit rests on: a cell whose wall windows
+    are all the sentinel gets exact zeros in every slot, real ones included,
+    from JAX's Pallas kernel (interpret) and from the plain version; every
+    other cell keeps its sums exactly."""
+    inp = random_input["random_near"]
+    nbr_w = np.array(inp["nbr_w"])
+    cw = inp["wall1"].shape[0] - 1
+    cut = ((nbr_w < cw).any(axis=1) & inp["real"].any(axis=1)
+           & (np.arange(nbr_w.shape[0]) % 2 == 0))
+    assert cut.sum() >= 10
+    nbr_cut = nbr_w.copy()
+    nbr_cut[cut] = cw
+    riemann = jrs.acoustic_riemann(JFluid(rho0=1.0, c0=10.0))
+    jref, tref = _sweep_args(inp, name, riemann)
+    jout, tout = _sweep_args(dict(inp, nbr_w=jnp.asarray(nbr_cut)), name,
+                             riemann)
+    for ch, (t, j, t0, j0) in enumerate(zip(_channels(tout), _channels(jout),
+                                            _channels(tref), _channels(jref))):
+        assert np.abs(t0[cut]).max() > 0.0, f"{name} ch{ch}: nothing to cut"
+        assert not np.any(t[cut]) and not np.any(j[cut]), f"{name} ch{ch}"
+        np.testing.assert_array_equal(t[~cut], t0[~cut], err_msg=f"ch{ch}")
+        np.testing.assert_array_equal(j[~cut], j0[~cut], err_msg=f"ch{ch}")
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,10 @@ are permuted at random, so that padding sits mid-row.  Every real slot's
 sums must equal those of the untouched blocks, through the permutation,
 within 1e-12 relative.  The packed cases (cap 16) also give the padding a
 random VOL, and cover the layout sweeps ac1_flat_sweep (B6) and
-ac1_t_sweep (B7, through `prep_t`), whose kernels skip the same slots.
+ac1_t_sweep (B7, through `prep_t`), whose kernels skip the same slots, and
+the wall sweeps ac1_wall_sweep / ac2_wall_sweep (B5c / B5d), whose wall
+padding (mask 0, random VOL) is moved into the support of real fluid
+particles and mid-row, the fluid padding with it.
 """
 
 import numpy as np
@@ -29,6 +32,7 @@ from sphinxsys_tpu_torch.engine import scene as sc
 from sphinxsys_tpu_torch.ops import block_sweeps as bs
 from sphinxsys_tpu_torch.ops import layout_sweeps as ls
 from sphinxsys_tpu_torch.ops import packed_sweeps as ps
+from sphinxsys_tpu_torch.physics import fluid_blocks as fbops
 
 torch.set_num_threads(1)
 
@@ -113,16 +117,17 @@ def _sweep(name, s, fb, wb):
                         nw, rho0c0_geo=3.0, lim_scale=0.5, **common)
 
 
-def _disturb(blocks, rng, h, keys):
-    """Padding slots moved into the support of random real particles (jitter
-    of up to h per axis) and given random values in `keys`, VOL kept 0;
+def _disturb(blocks, rng, h, keys, near=None):
+    """Padding slots moved into the support of random real particles (of
+    these blocks, or the positions `near`; jitter of up to h per axis) and
+    given random values in `keys`, VOL kept 0 unless it is one of them;
     then every row's slots permuted at random.  Returns (blocks, perm) with
     new[r, k] = old[r, perm[r, k]]."""
     out = {k: v.clone() for k, v in blocks.items()}
     mask = out["SlotMask"]
     pad = ~mask
     n_pad = int(pad.sum())
-    real_pos = out["Position"][mask]
+    real_pos = out["Position"][mask] if near is None else near
     pick = torch.as_tensor(rng.integers(0, real_pos.shape[0], n_pad))
     jitter = torch.as_tensor(rng.uniform(-h, h, (n_pad, real_pos.shape[1])),
                              dtype=F64)
@@ -179,17 +184,34 @@ def test_padding_adds_nothing_f64(states, tag, name):
                                    err_msg=f"{tag} {name} ch{ch}")
 
 
-PACKED_SWEEPS = ("ac1_inner", "ac2_inner", "ac1_flat", "ac1_t")
+PACKED_SWEEPS = ("ac1_inner", "ac2_inner", "ac1_flat", "ac1_t", "ac1_wall",
+                 "ac2_wall")
+WALL_DT = 1e-3   # the half-step the wall sweeps' i-side fields are taken at
 
 
-def _packed_sweep(name, s, fb):
-    """One plain packed inner sweep on blocks `fb`, packed as the packed
-    halves pack them, with the engine's constants (B5b with the Acoustic
-    solver's dissipation), as (C, 16, 3); B7 on `prep_t`'s input."""
+def _packed_sweep(name, s, fb, wb):
+    """One plain packed sweep on blocks `fb` (and wall blocks `wb`), packed
+    as the packed halves pack them, with the engine's constants (B5b and
+    B5d with the Acoustic solver's dissipation), as (C, 16, 3); B7 on
+    `prep_t`'s input."""
     eng = s["scene"].eng
+    r = eng.riemann1
+    consts = dict(kernel_h=eng.kernel.h, factor_w=eng.kernel._factor_w(2))
+    if name == "ac1_wall":
+        pk_i = fbops.packed_ac1_inputs(fb, eng.eos, WALL_DT)[-1]
+        force, rd = ps.ac1_wall_sweep_plain(
+            pk_i, fbops.pack_wall_ac1(wb), s["nbr_wall"], **consts,
+            inv_rho0c0_ave=r.inv_rho0c0_ave)
+        return torch.cat([force, rd[..., None]], dim=-1)
+    if name == "ac2_wall":
+        pk_i = fbops.packed_ac2_inputs(fb, WALL_DT)[-1]
+        dcr, pdiss = ps.ac2_wall_sweep_plain(
+            pk_i, fbops.pack_wall_ac2(wb), s["nbr_wall"], **consts,
+            rho0c0_geo=r.rho0c0_geo_ave, inv_c0=r.inv_c0_ave,
+            limiter_coeff=r.limiter_coeff)
+        return torch.cat([dcr[..., None], pdiss], dim=-1)
     packed = ps.pack_state_2d(fb["Position"], fb["Velocity"], fb["Pressure"],
                               fb["VolumetricMeasure"], fb["SlotMask"])
-    consts = dict(kernel_h=eng.kernel.h, factor_w=eng.kernel._factor_w(2))
     layout = (1.0 / eng.kernel.h, eng.kernel._factor_w(2),
               eng.riemann1.inv_rho0c0_ave)
     if name == "ac1_flat":
@@ -203,7 +225,6 @@ def _packed_sweep(name, s, fb):
             packed, s["nbr"], **consts,
             inv_rho0c0_ave=eng.riemann1.inv_rho0c0_ave)
         return torch.cat([force, rd[..., None]], dim=-1)
-    r = eng.riemann1
     dcr, pdiss = ps.ac2_inner_sweep_plain(
         packed, s["nbr"], **consts, rho0c0_geo=r.rho0c0_geo_ave,
         inv_c0=r.inv_c0_ave, limiter_coeff=r.limiter_coeff)
@@ -213,15 +234,24 @@ def _packed_sweep(name, s, fb):
 @pytest.mark.parametrize("name", PACKED_SWEEPS)
 def test_packed_padding_adds_nothing_f64(states, name):
     s = _get(states, "2d16")
-    fb = s["fb"]
+    fb, wb = s["fb"], s["wb"]
+    wall = name.endswith("wall")
     rng = np.random.default_rng([SEEDS["2d16"], 1 + PACKED_SWEEPS.index(name)])
-    ref = _packed_sweep(name, s, fb)
-    fb2, perm = _disturb(fb, rng, s["h"], ("Pressure", "Velocity",
-                                           "VolumetricMeasure"))
-    pad = ~fb2["SlotMask"]
-    assert bool((fb2["VolumetricMeasure"][pad] != 0).all())
-    assert bool(((~fb2["SlotMask"][:, :-1]) & fb2["SlotMask"][:, 1:]).any())
-    got = _packed_sweep(name, s, fb2)
+    ref = _packed_sweep(name, s, fb, wb)
+    keys = ("Pressure", "Velocity", "VolumetricMeasure")
+    fb2, perm = _disturb(fb, rng, s["h"],
+                         keys + (("Density", "ForcePrior") if wall else ()))
+    wb2 = wb
+    if wall:
+        wb2, _ = _disturb(wb, rng, s["h"], (
+            "VolumetricMeasure", "AverageVelocity", "AverageAcceleration",
+            "NormalDirection"), near=fb["Position"][fb["SlotMask"]])
+    for blocks in (fb2, wb2) if wall else (fb2,):
+        pad = ~blocks["SlotMask"]
+        assert bool((blocks["VolumetricMeasure"][pad] != 0).all())
+        assert bool(((~blocks["SlotMask"][:, :-1])
+                     & blocks["SlotMask"][:, 1:]).any()), "no padding mid-row"
+    got = _packed_sweep(name, s, fb2, wb2)
 
     c = s["nbr"].shape[0]
     real = fb2["SlotMask"][:c]
