@@ -13,7 +13,10 @@ cell-block engine — at full size:
     transport-velocity correction, no wall);
   * 2d16: the 2D dambreak at dx=0.0025 with cap 16, its acoustic sub-steps
     through the packed halves (B5a-d, csrc/packed_sweeps.cu), as
-    benchmarks/micro_sweep.py composed them.
+    benchmarks/micro_sweep.py composed them;
+  * tc1m: the twisting column on the lattice-stencil solid at dx=0.0175
+    (bench.py:330): 349 x 57 x 57 = 1,133,901 sites, 80 taps, its two tap
+    sums through L1 / L2 (csrc/lattice_sweeps.cu).
 
 Phases:
 
@@ -70,7 +73,18 @@ Phases:
      (sphinxsys_tpu_torch/benchmarks/exp_layout*.py) on that state, launch
      counts reset just before them and read just after, their
      cross-checks, and B6's, B7's and `prep_t`'s (B7's gather) times from
-     their runs.
+     their runs;
+  8. lattice solid: the plain path on the card (use_kernels=False, JAX's
+     tap loops as torch ops): its step time and, from one profiled step,
+     its device launches; the main path (build_case -> init_sim ->
+     make_run_chunk, >= 40 steps, counts reset just before, L1 and L2
+     once a step, fields finite, the holder at its initial positions), the
+     step by part, one profiled step and pair_interaction_updates_per_sec
+     counted as bench.py:239-242 counts it; L1 and L2 against their plain
+     versions on that state and on it notched with NaN planted in the
+     notch, timed and bounded; the dx=0.1 column through the kernels
+     against the plain versions to t=0.02 (equal step counts, positions
+     within 5e-5 of max|x|) and to t=0.5 against JAX's committed tip curve.
 
 Every kernel and plain-version time is taken by
 sphinxsys_tpu_torch.benchmarks.median_ms, the layout drivers' timer.  Its last two lines are a JSON object of per-kernel
@@ -126,6 +140,24 @@ LAYOUT_PAIR_FLOPS = 31
 # whole, and x, y, p and vol on the j-rows its tiles stage
 B7_XI_CHANNELS = (0, 1, 4, 6)
 B7_XJ_STAGED = (0, 1, 4, 5)
+LATTICE_KERNELS = {  # lattice_sweeps wrapper -> (what it stands in for, counter key)
+    "lattice_force": ("sphinxsys_tpu/physics/solid_lattice.py:285 (the tap loop "
+                      "of decomposed_integration_1st_half_lattice :241; "
+                      "XLA-fused, no Pallas kernel)", "lattice_force"),
+    "lattice_dfdt": ("sphinxsys_tpu/physics/solid_lattice.py:335 (the tap loop "
+                     "of integration_2nd_half_lattice :314; XLA-fused, no "
+                     "Pallas kernel)", "lattice_dfdt"),
+}
+LATTICE_SOURCE = "sphinxsys_tpu_torch/csrc/lattice_sweeps.cu"
+SOLID_DX = 0.0175          # the bench's lattice solid (bench.py:330)
+SOLID_STEPS = 40           # bench.py's BENCH_STEPS
+SOLID_GOLDEN = ("tests/golden/refdb/twisting_column_3d/"
+                "MyObserver_Position_Run_0_result.xml")
+# the leading snapshots of SOLID_GOLDEN that the JAX package's own float32
+# run (CPU) reproduces within 0.1; it leaves the curve after them, and ends
+# after 140 snapshots where the curve has 142
+# (tests/test_torch_solid_lattice.py::test_golden_tip_curve_span)
+GOLDEN_HELD = 99
 DEVICE = "cuda"
 DAMBREAK_KERNELS = ("density_sweep", "ac1_sweep", "ac2_sweep")
 CONFIGS = {  # the bench configs (bench.py:311-318), Taylor–Green at 1M
@@ -154,7 +186,8 @@ PEAK_HBM_BYTES = 3.35e12
 SWEEP_KERNEL_NAMES = ("density_kernel", "ac1_kernel", "ac2_kernel",
                       "visc_tvc_kernel", "ac1_inner_kernel", "ac2_inner_kernel",
                       "ac1_wall_kernel", "ac2_wall_kernel", "ac1_flat_kernel",
-                      "ac1_t_kernel")
+                      "ac1_t_kernel", "lattice_force_kernel",
+                      "lattice_dfdt_kernel")
 
 
 class SmokeFailure(Exception):
@@ -663,7 +696,9 @@ def profile_step(torch, tag, step, what="advection step"):
     time.  The profiler slows the host side, so the same step is also
     timed unprofiled (median of 3) and an idle-share estimate is printed
     that divides the profiled device busy by that wall time — two different
-    executions, labelled as such.  Writes a Chrome trace to build/traces/."""
+    executions, labelled as such.  Writes a Chrome trace to build/traces/.
+    Returns (device busy us, profiled wall us, unprofiled wall us, device
+    launches: kernels, copies and sets)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -689,9 +724,12 @@ def profile_step(torch, tag, step, what="advection step"):
     log(f"{tag} profile: unprofiled {what} wall {plain_wall_us / 1e3:.3f} ms; "
         f"estimated idle share {1 - dev_us / plain_wall_us:.3f} (profiled "
         f"device busy over unprofiled wall: two executions)")
+    launches = sum(e.count for e in kern)
+    log(f"{tag} profile: {launches} device launches (kernels, copies, sets)")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"{tag} profile:   {e.self_device_time_total / 1e3:9.3f} ms "
             f"x{e.count:<4d} {e.key[:90]}")
+    return dev_us, wall_us, plain_wall_us, launches
 
 
 # ---------------------------------------------------------------------------
@@ -1293,6 +1331,304 @@ def packed_phase(torch, results):
     layout_phase(torch, scene, sim, results)
 
 
+# ---------------------------------------------------------------------------
+# 8. the lattice solid: the twisting column on L1 / L2
+# ---------------------------------------------------------------------------
+
+def lattice_args(torch, case, col, dt):
+    """L1's and L2's arguments on a column state, as the step builds them
+    (L1 from the first half's prelude at `dt`)."""
+    from sphinxsys_tpu_torch.physics import solid_lattice as sl
+
+    lat, mat = case.lat, case.material
+    pos_f, _, _, jm2d, S_f = sl.decomposed_stress(col, mat, dt, case.adaptation.h)
+    vol0 = lat.dx ** 3
+    return {"lattice_force": (pos_f, S_f, jm2d, col["LatticeValid"], lat.shape,
+                              lat.taps, vol0,
+                              sl.CORRECTION_FACTOR * mat.shear_modulus),
+            "lattice_dfdt": (col["Velocity"], col["LatticeValid"], lat.shape,
+                             lat.taps, vol0)}
+
+
+def lattice_pairs(torch, lat, valid):
+    """Real pairs per tap: sites i (every one is computed) whose j = i + o
+    lies in the box and is valid, from this run's mask."""
+    from sphinxsys_tpu_torch.ops import lattice_sweeps as ls
+
+    m = max(abs(c) for o, *_ in lat.taps for c in o)
+    mP = ls._pad(valid.reshape(lat.shape).to(torch.int32), m)
+    return [int(ls._tap(mP, o, m, lat.shape).sum()) for o, *_ in lat.taps]
+
+
+def lattice_bound(torch, name, lat, args, out):
+    """The least time the card could take for one L1 / L2 call (ms): the
+    larger of its bytes (each input once, the output once) over the HBM
+    rate and its real pairs' flops over the float32 rate.  Flops per real
+    pair of tap o, counted from csrc/lattice_sweeps.cu (add, mul, sub one
+    each; e_b = 0 terms skipped): L1 14 + 9 nnz(e_o), L2 3 + 6 nnz(e_o).
+    Returns (ms, by, real pairs, flops, bytes)."""
+    pairs = lattice_pairs(torch, lat, args[3] if name == "lattice_force"
+                          else args[1])
+    nnz = [sum(1 for c in e0 if c != 0.0) for o, r0, e0, W0, dW0 in lat.taps]
+    per = [(14 + 9 * k) if name == "lattice_force" else (3 + 6 * k)
+           for k in nnz]
+    flops = sum(p * f for p, f in zip(pairs, per))
+    nbytes = out.numel() * out.element_size() + sum(
+        a.numel() * a.element_size() for a in args if torch.is_tensor(a))
+    return (*bytes_or_flops(nbytes, flops), sum(pairs), flops, nbytes)
+
+
+def lattice_hold(torch, what, name, args):
+    """One lattice kernel against its plain version on the same CUDA inputs
+    (float32, and float64 for `hold`'s error scale), every site held, the
+    invalid ones too (the kernel computes them as JAX does).  Returns
+    (kernel output, max|k - p32|)."""
+    from sphinxsys_tpu_torch.ops import lattice_sweeps as ls
+
+    wrapper, plain = getattr(ls, name), getattr(ls, name + "_plain")
+    got = wrapper(*args)
+    torch.cuda.synchronize()
+    ref32 = plain(*args)
+    ref64 = plain(*[a.double() if torch.is_tensor(a) and a.is_floating_point()
+                    else a for a in args])
+    n = got.shape[0]
+    flat = [t.reshape(n, -1) for t in (got, ref32, ref64)]
+    real = torch.ones(n, dtype=torch.bool, device=got.device)
+    return got, hold(torch, f"{what} {name}", *flat, real)
+
+
+def notched(torch, col, lat):
+    """The column with a notch cut out (x in (2, 2.5), y > 0: LatticeValid
+    False) and NaN planted in every per-site field of the notch."""
+    x, y = col["InitialPosition"][:, 0], col["InitialPosition"][:, 1]
+    cut = (x > 2.0) & (x < 2.5) & (y > 0.0)
+    out = dict(col, LatticeValid=col["LatticeValid"] & ~cut)
+    for k in ("Position", "Velocity", "DeformationGradient", "DeformationRate",
+              "LinearGradientCorrectionMatrix"):
+        t = out[k].clone()
+        t[cut] = float("nan")
+        out[k] = t
+    return out, int(cut.sum())
+
+
+def golden_tip_x():
+    """Tip x of the JAX twisting-column curve (snapshot order)."""
+    import xml.etree.ElementTree as ET
+
+    part = ET.parse(ROOT / SOLID_GOLDEN).getroot().find(
+        "Result_Element/Particle_0")
+    snaps = sorted(part.attrib.items(), key=lambda kv: int(kv[0].split("_")[1]))
+    return [json.loads(v.lstrip("~"))[0] for _, v in snaps]
+
+
+def solid_plain_path(torch, case, col, results):
+    """The plain path on the card (`use_kernels=False`: JAX's tap loops as
+    torch ops): its steady step time and, from one profiled step, its
+    device launches — what a hand kernel has to beat."""
+    import dataclasses
+
+    from sphinxsys_tpu_torch.cases import twisting_column_3d as tc
+
+    pcase = dataclasses.replace(case, use_kernels=False)
+    s = tc.init_sim(pcase, col)
+    for _ in range(2):
+        s = tc._step(pcase, s)
+    ms = wall_s(torch, lambda: tc._step(pcase, s), 3) * 1e3
+    dev_us, wall_us, _, launches = profile_step(
+        torch, "tc1m_plain", lambda: tc._step(pcase, s), "plain step")
+    log(f"tc1m plain path: steady step {ms:.3f} ms (wall clock, median of 3), "
+        f"{launches} device launches a step, device busy {dev_us / 1e3:.3f} ms "
+        f"of a profiled {wall_us / 1e3:.3f} ms")
+    results["_tc1m_plain_main"] = dict(ms_per_step=ms, launches_per_step=launches,
+                                  device_busy_ms=dev_us / 1e3)
+
+
+def solid_main_path(torch, results):
+    """The bench's lattice solid (dx = 0.0175: 349 x 57 x 57 = 1,133,901
+    sites, the holder 6 layers deep) through
+    build_case -> init_sim -> make_run_chunk for >= SOLID_STEPS steps, L1 and
+    L2 once a step; then the step by part, one profiled step, and the
+    pair-update rate counted as bench.py counts it."""
+    from sphinxsys_tpu_torch.cases import twisting_column_3d as tc
+    from sphinxsys_tpu_torch.ops import lattice_sweeps as ls
+    from sphinxsys_tpu_torch.physics import solid as sd
+    from sphinxsys_tpu_torch.physics import solid_lattice as sl
+
+    t0 = time.perf_counter()
+    case, col = tc.build_case(dx=SOLID_DX, engine="lattice", device=DEVICE)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    lat = case.lat
+    log(f"tc1m: lattice {lat.shape} = {case.n_column} sites, {len(lat.taps)} "
+        f"taps, setup {setup_s:.2f} s")
+    solid_plain_path(torch, case, col, results)
+
+    run = tc.make_run_chunk(case)
+    ls.reset_launch_counts()
+    t0 = time.perf_counter()
+    s = run(tc.init_sim(case, col), 1e-9)           # one step: learn dt
+    dt0 = float(s.time) / s.n_steps
+    while s.n_steps < SOLID_STEPS:
+        s = run(s, float(s.time) + (SOLID_STEPS - s.n_steps + 0.5) * dt0)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = dict(ls.LAUNCHES)
+    c = s.column
+    for k in ("Position", "Velocity", "DeformationGradient", "DeformationRate",
+              "Force", "Density"):
+        check(bool(torch.isfinite(c[k]).all()), f"tc1m: non-finite {k}")
+    hm = case.holder_mask
+    held = float((c["Position"][hm] - c["InitialPosition"][hm]).abs().max())
+    check(held < 1e-3, f"tc1m: the holder moved by {held:.3e}")
+    for name, (_, key) in LATTICE_KERNELS.items():
+        check(counts[key] == s.n_steps,
+              f"tc1m: {name} launched {counts[key]} times in {s.n_steps} steps")
+    pairs = sum((lat.shape[0] - abs(o[0])) * (lat.shape[1] - abs(o[1]))
+                * (lat.shape[2] - abs(o[2])) for o, *_ in lat.taps)
+    rate = 2 * s.n_steps * pairs / elapsed
+    log(f"tc1m main path: {s.n_steps} steps to t={float(s.time):.6e} in "
+        f"{elapsed:.3f} s ({elapsed / s.n_steps * 1e3:.3f} ms a step, wall "
+        f"clock, first step included), launches {counts}, holder |dx| "
+        f"{held:.3e}; pairs a sweep {pairs}, pair_interaction_updates_per_sec "
+        f"{rate:.6e}")
+
+    # the steady step by part (host wall clock, synchronised)
+    dt = sd.solid_acoustic_time_step(c, case.material.sound_speed,
+                                     case.adaptation.h, cfl=0.5)
+    args = lattice_args(torch, case, c, dt)
+    half1 = sl.decomposed_integration_1st_half_lattice(
+        c, lat, case.material, dt, case.adaptation.h)
+    fixed = sd.fix_constraint(half1, case.holder_mask)
+    parts = {
+        "step": wall_s(torch, lambda: tc._step(case, s), 5),
+        "dt": wall_s(torch, lambda: sd.solid_acoustic_time_step(
+            c, case.material.sound_speed, case.adaptation.h, cfl=0.5), 5),
+        "prelude": wall_s(torch, lambda: sl.decomposed_stress(
+            c, case.material, dt, case.adaptation.h), 5),
+        "L1": wall_s(torch, lambda: ls.lattice_force(*args["lattice_force"]), 5),
+        "half1": wall_s(torch, lambda: sl.decomposed_integration_1st_half_lattice(
+            c, lat, case.material, dt, case.adaptation.h), 5),
+        "constraint": wall_s(torch, lambda: sd.fix_constraint(
+            half1, case.holder_mask), 5),
+        "L2": wall_s(torch, lambda: ls.lattice_dfdt(*args["lattice_dfdt"]), 5),
+        "half2": wall_s(torch, lambda: sl.integration_2nd_half_lattice(
+            fixed, lat, dt), 5),
+    }
+    parts = {k: v * 1e3 for k, v in parts.items()}
+    parts["epilogue1"] = parts["half1"] - parts["prelude"] - parts["L1"]
+    parts["epilogue2"] = parts["half2"] - parts["L2"]
+    log("tc1m step parts (ms, wall clock): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()))
+    dev_us, wall_us, plain_us, launches = profile_step(
+        torch, "tc1m", lambda: tc._step(case, s), "step")
+    results["_tc1m_main"] = dict(
+        steps=s.n_steps, ms_per_step=elapsed / s.n_steps * 1e3, parts_ms=parts,
+        device_busy_ms=dev_us / 1e3, launches_per_step=launches,
+        pairs_per_sweep=pairs, pair_interaction_updates_per_sec=rate)
+    for name, (_, key) in LATTICE_KERNELS.items():
+        results[f"{name}[tc1m]"] = dict(launches=counts[key])
+    return case, s
+
+
+def solid_kernel_checks(torch, case, s, results):
+    """L1 and L2 against their plain versions on the 1.13M state after the
+    main path, timed and bounded; then on the same state notched, with NaN
+    planted in the notch."""
+    from sphinxsys_tpu_torch.benchmarks import median_ms
+    from sphinxsys_tpu_torch.ops import lattice_sweeps as ls
+    from sphinxsys_tpu_torch.physics import solid as sd
+
+    c = s.column
+    dt = sd.solid_acoustic_time_step(c, case.material.sound_speed,
+                                     case.adaptation.h, cfl=0.5)
+    for name, args in lattice_args(torch, case, c, dt).items():
+        wrapper, plain = getattr(ls, name), getattr(ls, name + "_plain")
+        got, max_abs = lattice_hold(torch, "tc1m", name, args)
+        ms = median_ms(lambda: wrapper(*args), 20, DEVICE)
+        plain_ms = median_ms(lambda: plain(*args), 3, DEVICE)
+        bound_ms, bound_by, pairs, flops, nbytes = lattice_bound(
+            torch, name, case.lat, args, got)
+        log(f"tc1m {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}: {pairs} real pairs, {flops:.4e} "
+            f"flop, {nbytes} B), max_abs_err {max_abs:.3e}")
+        results[f"{name}[tc1m]"].update(
+            max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, real_pairs=pairs)
+    cut_col, n_cut = notched(torch, c, case.lat)
+    for name, args in lattice_args(torch, case, cut_col, dt).items():
+        got, _ = lattice_hold(torch, f"tc1m notched ({n_cut} NaN sites)", name,
+                              args)
+
+
+def solid_golden_check(torch):
+    """The twisting column at dx = 0.1 through the kernels to t = 0.5, the
+    tip sampled every 20 steps as benchmarks/run_refdb_parity.py:544-553
+    did, against JAX's float32 curve (SOLID_GOLDEN): the envelope of
+    tests/test_twisting_column.py:33-34, and the tip x within 0.1 (one dx)
+    at each of the GOLDEN_HELD leading snapshots, the span over which the
+    JAX package's own float32 run reproduces the curve; beyond it only
+    the largest gap is printed."""
+    from sphinxsys_tpu_torch.cases import twisting_column_3d as tc
+
+    case, col = tc.build_case(dx=0.1, engine="lattice", device=DEVICE)
+    s = tc.init_sim(case, col)
+    idx, w = tc.tip_observer(case, col)
+    xs = [float(tc.observe_tip(s, idx, w)[0])]
+    t0 = time.perf_counter()
+    while float(s.time) < 0.5:
+        for _ in range(20):
+            s = tc._step(case, s)
+        xs.append(float(tc.observe_tip(s, idx, w)[0]))
+    run_s = time.perf_counter() - t0
+    gold = golden_tip_x()
+    gaps = [abs(a - b) for a, b in zip(xs, gold)]
+    held = max(gaps[:GOLDEN_HELD])
+    log(f"tc golden: dx=0.1 {s.n_steps} steps to t={float(s.time):.6f} in "
+        f"{run_s:.2f} s, {len(xs)} snapshots (the curve {len(gold)}), tip x "
+        f"in [{min(xs):.4f}, {max(xs):.4f}] (the curve [{min(gold):.4f}, "
+        f"{max(gold):.4f}]), max |x - curve| {held:.4e} over the first "
+        f"{GOLDEN_HELD} snapshots, {max(gaps):.4e} over all {len(gaps)}")
+    check(9.0 < max(xs) < 10.2 and 2.8 < min(xs) < 3.8,
+          f"tc golden: tip envelope [{min(xs)}, {max(xs)}]")
+    check(len(xs) >= GOLDEN_HELD, f"tc golden: only {len(xs)} snapshots")
+    check(held <= 0.1, f"tc golden: tip x off the curve by {held:.4e}")
+    return dict(snapshots=len(xs), max_gap_held=held, max_gap=max(gaps),
+                tip_min=min(xs), tip_max=max(xs))
+
+
+def solid_small_reference(torch, t_end=0.02):
+    """The dx = 0.1 column on the card through the kernels against the same
+    run through the plain versions: equal step counts, positions within
+    5e-5 of max|x|."""
+    from sphinxsys_tpu_torch.cases import twisting_column_3d as tc
+
+    runs = []
+    for use_kernels in (True, False):
+        case, col = tc.build_case(dx=0.1, engine="lattice", device=DEVICE,
+                                  use_kernels=use_kernels)
+        runs.append(tc.make_run_chunk(case)(tc.init_sim(case, col), t_end))
+    (k, p) = runs
+    err = float((k.column["Position"] - p.column["Position"]).abs().max())
+    scale = float(p.column["Position"].abs().max())
+    log(f"tc small reference: dx=0.1 to t={t_end} kernels {k.n_steps} steps, "
+        f"plain {p.n_steps} steps, max |dpos| {err:.3e} (max|x| {scale:.3f})")
+    check(k.n_steps == p.n_steps, "tc small reference: step counts differ")
+    check(err <= 5e-5 * scale,
+          f"tc small reference: positions differ by {err:.3e}")
+
+
+def solid_phase(torch, results):
+    """Phase 8: the lattice solid."""
+    t0 = time.perf_counter()
+    case, s = solid_main_path(torch, results)
+    solid_kernel_checks(torch, case, s, results)
+    del case, s
+    torch.cuda.empty_cache()
+    solid_small_reference(torch)
+    results["_tc1m_main"]["golden"] = solid_golden_check(torch)
+    log(f"lattice solid phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not (ROOT / "sphinxsys_tpu_torch").is_dir():
         log("FAIL: the sphinxsys_tpu_torch package is not beside this script")
@@ -1351,6 +1687,7 @@ def main() -> int:
         del scene, sim, step
         torch.cuda.empty_cache()
     packed_phase(torch, results)
+    solid_phase(torch, results)
 
     kernels = []
     for tag, cfg in CONFIGS.items():
@@ -1362,11 +1699,12 @@ def main() -> int:
                             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                             "bound_by": r["bound_by"], "library_ms": None})
-    for table, source in ((PACKED_KERNELS, PACKED_SOURCE),
-                          (LAYOUT_KERNELS, LAYOUT_SOURCE)):
+    for table, source, tag in ((PACKED_KERNELS, PACKED_SOURCE, "2d16"),
+                               (LAYOUT_KERNELS, LAYOUT_SOURCE, "2d16"),
+                               (LATTICE_KERNELS, LATTICE_SOURCE, "tc1m")):
         for name, (replaces, _) in table.items():
-            r = results[f"{name}[2d16]"]
-            kernels.append({"name": f"{name}[2d16]", "route": "cuda",
+            r = results[f"{name}[{tag}]"]
+            kernels.append({"name": f"{name}[{tag}]", "route": "cuda",
                             "source": source, "replaces": replaces,
                             "launches": r["launches"],
                             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -1374,7 +1712,8 @@ def main() -> int:
                             "bound_ms": r["bound_ms"],
                             "bound_by": r["bound_by"], "library_ms": None})
     main_paths = {tag: results[f"_{tag}_main"]
-                  for tag in (*CONFIGS, "2d16", "2d16_b2b3", "layout")}
+                  for tag in (*CONFIGS, "2d16", "2d16_b2b3", "layout",
+                              "tc1m", "tc1m_plain")}
     log("main paths: " + json.dumps(main_paths))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

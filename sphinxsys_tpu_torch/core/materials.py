@@ -1,9 +1,10 @@
 """Materials (counterpart of sphinxsys_tpu/core/materials.py): the
-weakly-compressible fluid only."""
+weakly-compressible fluid and the Neo-Hookean elastic solid."""
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,3 +25,51 @@ class WeaklyCompressibleFluid:
 
     def sound_speed(self, p=None, rho=None):
         return self.c0
+
+
+@dataclasses.dataclass(frozen=True)
+class ElasticSolid:
+    """Linear-elastic solid parameterized by (rho0, E, nu)
+    (materials/elastic_solid.h:46-341)."""
+
+    rho0: float = 1.0
+    youngs_modulus: float = 1.0
+    poisson_ratio: float = 0.3
+
+    @property
+    def shear_modulus(self) -> float:  # G
+        return 0.5 * self.youngs_modulus / (1.0 + self.poisson_ratio)
+
+    @property
+    def bulk_modulus(self) -> float:  # K
+        return self.youngs_modulus / (3.0 * (1.0 - 2.0 * self.poisson_ratio))
+
+    @property
+    def lambda0(self) -> float:  # Lame first parameter
+        nu, E = self.poisson_ratio, self.youngs_modulus
+        return nu * E / ((1.0 + nu) * (1.0 - 2.0 * nu))
+
+    @property
+    def sound_speed(self) -> float:
+        """c0 = sqrt(K/rho0), the elastic acoustic time step's speed
+        (materials/elastic_solid.cpp setSoundSpeeds)."""
+        return math.sqrt(self.bulk_modulus / self.rho0)
+
+    @property
+    def shear_wave_speed(self) -> float:
+        """cs0 = sqrt(G/rho0) (elastic_solid.cpp setSoundSpeeds)."""
+        return math.sqrt(self.shear_modulus / self.rho0)
+
+    def volumetric_kirchhoff(self, J):
+        """Volumetric Kirchhoff stress scalar of the decomposed shear /
+        volumetric split (elastic_solid.cpp:98): K J (J - 1)."""
+        return self.bulk_modulus * J * (J - 1.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class NeoHookeanSolid(ElasticSolid):
+    """Compressible Neo-Hookean solid (elastic_solid.h NeoHookeanSolid)."""
+
+    def volumetric_kirchhoff(self, J):
+        """elastic_solid.cpp:129: 0.5 K (J^2 - 1)."""
+        return 0.5 * self.bulk_modulus * (J * J - 1.0)

@@ -24,7 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = (CSRC / "block_sweeps.cu", CSRC / "packed_sweeps.cu",
-           CSRC / "layout_sweeps.cu")
+           CSRC / "layout_sweeps.cu", CSRC / "lattice_sweeps.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -51,6 +51,9 @@ ARGTYPES = {
     # layout_sweeps.cu
     "ac1_flat_launch": [_P, _P, _I, _F, _F, _F, _P, _P],
     "ac1_t_launch": [_P, _P, _I, _F, _F, _F, _P, _P],
+    # lattice_sweeps.cu
+    "lattice_force_launch": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P, _P],
+    "lattice_dfdt_launch": [_P, _P, _I, _I, _I, _P, _P, _I, _P, _P],
 }
 
 

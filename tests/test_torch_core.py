@@ -105,9 +105,10 @@ def test_adaptation_and_riemann_match_jax(scenes, dim):
     assert tcase.eos.p0 == jcase.eos.p0
 
 
-@pytest.mark.parametrize("entry", ["build_case", "build_block_case"])
-@pytest.mark.parametrize("case", ["dambreak_2d", "dambreak_3d",
-                                  "taylor_green_2d"])
+@pytest.mark.parametrize("case,entry", [
+    (case, entry) for case in ("dambreak_2d", "dambreak_3d", "taylor_green_2d")
+    for entry in ("build_case", "build_block_case")
+] + [("twisting_column_3d", "build_case")])
 def test_entry_points_default_to_the_card(case, entry):
     """The case entry points run on the card unless asked for the CPU:
     with no device given they ask for "cuda", and raise where there is

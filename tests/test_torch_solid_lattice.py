@@ -1,0 +1,405 @@
+"""Parity of the port's lattice-stencil solid (core/materials.py,
+physics/solid.py, physics/solid_lattice.py, ops/lattice_sweeps.py and
+cases/twisting_column_3d.py) with the JAX package, on the CPU in float64.
+
+Inputs: the 14 x 6 x 6 box of tests/test_solid_lattice.py at dx = 0.1
+(a smooth velocity, pre-strain and strain rate), full and with its notch
+(`test_pk2_first_half_matches[masked]`), the notch's sites poisoned with
+NaN in every per-site input the sweeps must not read; and the twisting
+column at dx = 0.1 (6,100 sites).  Tolerances: the tap table 1e-15
+relative (its constants are formed in float64 on both sides); everything
+else 1e-12 relative to max|.|, which is float64 roundoff after the ~80-tap
+sums and the closed-form 3x3 cofactors (JAX: LU); the 30-step column
+1e-10."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from sphinxsys_tpu.cases import twisting_column_3d as jtc
+from sphinxsys_tpu.core.adaptation import SPHAdaptation as JAdaptation
+from sphinxsys_tpu.core.materials import NeoHookeanSolid as JNeoHookean
+from sphinxsys_tpu.physics import solid as jsd
+from sphinxsys_tpu.physics import solid_lattice as jsl
+from sphinxsys_tpu_torch.cases import twisting_column_3d as ttc
+from sphinxsys_tpu_torch.core.adaptation import SPHAdaptation as TAdaptation
+from sphinxsys_tpu_torch.core.materials import NeoHookeanSolid as TNeoHookean
+from sphinxsys_tpu_torch.ops import lattice_sweeps as ls
+from sphinxsys_tpu_torch.physics import solid as tsd
+from sphinxsys_tpu_torch.physics import solid_lattice as tsl
+
+torch.set_num_threads(1)
+
+SHAPE = (14, 6, 6)
+DX = 0.1
+DT = 1e-5
+MATERIAL = dict(rho0=1100.0, youngs_modulus=1.7e7, poisson_ratio=0.45)
+
+
+def _notch(pos):
+    """The notch of tests/test_solid_lattice.py's masked box."""
+    return ~((pos[:, 0] > 0.55) & (pos[:, 0] < 0.95) & (pos[:, 1] > 0.25))
+
+
+def _close(got, ref, tol, what=""):
+    """NaN where the reference has NaN; elsewhere within tol * max|ref|."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    assert got.shape == ref.shape, what
+    nan = np.isnan(ref)
+    np.testing.assert_array_equal(np.isnan(got), nan, err_msg=what)
+    scale = np.abs(ref[~nan]).max() if (~nan).any() else 0.0
+    err = np.abs(got[~nan] - ref[~nan]).max() if (~nan).any() else 0.0
+    assert err <= tol * max(scale, 1e-300), f"{what}: {err:.3e} vs {scale:.3e}"
+
+
+def _box(masked):
+    """The box state (numpy arrays) and its JAX lattice."""
+    xs, ys, zs = (np.arange(n) * DX for n in SHAPE)
+    pos = np.stack(np.meshgrid(xs, ys, zs, indexing="ij"), -1).reshape(-1, 3)
+    valid = _notch(pos) if masked else np.ones(len(pos), bool)
+    n = len(pos)
+    vel = np.stack([0.3 * np.sin(2 * pos[:, 1]),
+                    0.2 * np.cos(3 * pos[:, 0]) * pos[:, 2],
+                    0.1 * pos[:, 0] * pos[:, 1]], -1)
+    F0 = (np.eye(3)[None] + 0.02 * np.stack(
+        [np.sin(pos * 1.7), np.cos(pos * 1.1), np.sin(pos * 0.7 + 1.0)], -2))
+    dF = 0.01 * np.sin(pos)[..., None] * np.eye(3)
+    jlat = jsl.make_lattice(JAdaptation(spacing=DX, dim=3).kernel, DX, SHAPE)
+    B = np.asarray(jsl.lattice_correction_matrix(jlat, jnp.asarray(valid),
+                                                 dtype=jnp.float64))
+    poison = ~valid
+    state = {
+        "Position": pos.copy(), "Velocity": vel, "DeformationGradient": F0,
+        "DeformationRate": dF, "LinearGradientCorrectionMatrix": B,
+        "InitialPosition": pos.copy(),
+        "Mass": np.where(valid, 1100.0 * DX ** 3, 1.0),
+        "VolumetricMeasure": np.full(n, DX ** 3),
+        "Density": np.full(n, 1100.0),
+        "Force": 1e-3 * np.cos(pos), "ForcePrior": 1e-2 * np.sin(pos),
+        "StressPK1OnParticle": np.zeros((n, 3, 3)),
+    }
+    for k in ("Position", "Velocity", "DeformationGradient", "DeformationRate",
+              "LinearGradientCorrectionMatrix"):
+        state[k] = state[k].copy()
+        state[k][poison] = np.nan
+    state["LatticeValid"] = valid
+    return state, jlat
+
+
+def _jax_state(state):
+    out = {k: jnp.asarray(v) for k, v in state.items()}
+    out["NReal"] = jnp.asarray(len(state["Position"]), jnp.int32)
+    return out
+
+
+def _torch_state(state):
+    out = {k: torch.as_tensor(v) for k, v in state.items()}
+    out["NReal"] = len(state["Position"])
+    return out
+
+
+def _port_lattice():
+    return tsl.make_lattice(TAdaptation(spacing=DX, dim=3).kernel, DX, SHAPE)
+
+
+MASKS = pytest.mark.parametrize("masked", [False, True], ids=["full", "notch"])
+
+
+def test_tap_table_matches_jax():
+    jlat = jsl.make_lattice(JAdaptation(spacing=DX, dim=3).kernel, DX, SHAPE)
+    tlat = _port_lattice()
+    assert len(tlat.taps) == len(jlat.taps) == 80
+    for (jo, jr, je, jw, jdw), (to, tr, te, tw, tdw) in zip(jlat.taps, tlat.taps):
+        assert tuple(to) == tuple(jo)
+        for got, ref in ((tr, jr), (tw, jw), (tdw, jdw)):
+            assert abs(got - ref) <= 1e-15 * abs(ref)
+        np.testing.assert_allclose(te, np.asarray(je), rtol=1e-15, atol=0)
+    assert tlat.w0 == pytest.approx(jlat.w0, rel=1e-15)
+    assert (tlat.shape, tlat.dx, tlat.dim) == (jlat.shape, jlat.dx, jlat.dim)
+
+
+@MASKS
+def test_correction_matrix_matches_jax(masked):
+    state, jlat = _box(masked)
+    got = tsl.lattice_correction_matrix(
+        _port_lattice(), torch.as_tensor(state["LatticeValid"]), torch.float64)
+    ref = jsl.lattice_correction_matrix(
+        jlat, jnp.asarray(state["LatticeValid"]), dtype=jnp.float64)
+    _close(got.numpy(), ref, 1e-12)
+
+
+@MASKS
+def test_first_half_matches_jax(masked):
+    """Every output field, invalid (NaN-poisoned) sites included."""
+    state, jlat = _box(masked)
+    h = JAdaptation(spacing=DX, dim=3).h
+    ref = jsl.decomposed_integration_1st_half_lattice(
+        _jax_state(state), jlat, JNeoHookean(**MATERIAL), DT, h)
+    got = tsl.decomposed_integration_1st_half_lattice(
+        _torch_state(state), _port_lattice(), TNeoHookean(**MATERIAL),
+        torch.tensor(DT, dtype=torch.float64), h)
+    assert set(got) == set(ref)
+    for k in ("Position", "DeformationGradient", "Density", "Force", "Velocity"):
+        _close(got[k].numpy(), ref[k], 1e-12, k)
+    assert masked == bool(np.isnan(got["Density"].numpy()).any())
+
+
+@MASKS
+def test_second_half_matches_jax(masked):
+    state, jlat = _box(masked)
+    ref = jsl.integration_2nd_half_lattice(_jax_state(state), jlat, DT)
+    got = tsl.integration_2nd_half_lattice(
+        _torch_state(state), _port_lattice(), torch.tensor(DT, dtype=torch.float64))
+    for k in ("Position", "DeformationRate", "DeformationGradient"):
+        _close(got[k].numpy(), ref[k], 1e-12, k)
+
+
+def _stress_inputs(state):
+    """Position, S_f and Jm2d with the notch's sites NaN, as the first half
+    hands them to L1 (S_f and Jm2d from seeded noise)."""
+    rng = np.random.default_rng(7)
+    n = len(state["Position"])
+    S = 1e5 * rng.normal(size=(n, 3, 3))
+    jm2d = 1.0 + 0.01 * rng.normal(size=n)
+    bad = ~state["LatticeValid"]
+    S[bad] = np.nan
+    jm2d[bad] = np.nan
+    return state["Position"], S, jm2d
+
+
+@MASKS
+def test_lattice_force_plain_matches_jax_tap_sum(masked):
+    """L1's plain version, on the inputs the port's first half hands to L1
+    (`decomposed_stress`), against JAX's first-half tap sum, recovered
+    from its Force with Mass = rho0 (so Force = sum * valid): the valid
+    sites; the invalid ones' sums (JAX multiplies them by 0) are held
+    finite."""
+    state, jlat = _box(masked)
+    h = JAdaptation(spacing=DX, dim=3).h
+    n = len(state["Position"])
+    js = dict(_jax_state(state), Mass=jnp.full(n, 1100.0))
+    ref = np.asarray(jsl.decomposed_integration_1st_half_lattice(
+        js, jlat, JNeoHookean(**MATERIAL), DT, h)["Force"])
+    mat, lat = TNeoHookean(**MATERIAL), _port_lattice()
+    pos_f, _, _, jm2d, S_f = tsl.decomposed_stress(
+        _torch_state(state), mat, torch.tensor(DT, dtype=torch.float64), h)
+    args = (pos_f, S_f, jm2d, torch.as_tensor(state["LatticeValid"]),
+            lat.shape, lat.taps, DX ** 3,
+            tsl.CORRECTION_FACTOR * mat.shear_modulus)
+    got = ls.lattice_force_plain(*args).numpy()
+    valid = state["LatticeValid"]
+    _close(got[valid], ref[valid], 1e-12)
+    assert np.isfinite(got).all()
+    # on CPU tensors the wrapper runs the plain version and counts nothing
+    ls.reset_launch_counts()
+    assert np.array_equal(ls.lattice_force(*args).numpy(), got)
+    assert ls.LAUNCHES == {"lattice_force": 0, "lattice_dfdt": 0}
+
+
+@MASKS
+def test_lattice_force_plain_ignores_invalid_sites(masked):
+    """L1's plain version reads nothing of an invalid site: NaN there, or
+    other finite values, give the same sums everywhere, and valid sites'
+    sums equal a direct pair loop over valid in-box neighbours."""
+    state, _ = _box(masked)
+    lat = _port_lattice()
+    pos, S, jm2d = _stress_inputs(state)
+    valid = torch.as_tensor(state["LatticeValid"])
+    args = (lat.shape, lat.taps, DX ** 3, 4.2e6)
+    got = ls.lattice_force_plain(torch.as_tensor(pos), torch.as_tensor(S),
+                                 torch.as_tensor(jm2d), valid, *args).numpy()
+    assert np.isfinite(got).all()
+    bad = ~state["LatticeValid"]
+    pos2, S2, j2 = pos.copy(), S.copy(), jm2d.copy()
+    pos2[bad], S2[bad], j2[bad] = 3.0, 7.0, 0.5
+    got2 = ls.lattice_force_plain(torch.as_tensor(pos2), torch.as_tensor(S2),
+                                  torch.as_tensor(j2), valid, *args).numpy()
+    np.testing.assert_array_equal(got2, got)
+    # a direct loop over the pairs of a few sites, invalid i included
+    grid = np.arange(len(pos)).reshape(SHAPE)
+    v = state["LatticeValid"]
+    for i in (0, 100, 200, 300, 431, len(pos) - 1):
+        ix, iy, iz = np.unravel_index(i, SHAPE)
+        xi = pos[i] if v[i] else np.zeros(3)
+        si = S[i] if v[i] else np.zeros((3, 3))
+        ji = jm2d[i] if v[i] else 0.0
+        f = np.zeros(3)
+        for o, r0, e0, W0, dW0 in lat.taps:
+            jx, jy, jz = ix + o[0], iy + o[1], iz + o[2]
+            if not (0 <= jx < SHAPE[0] and 0 <= jy < SHAPE[1] and 0 <= jz < SHAPE[2]):
+                continue
+            j = grid[jx, jy, jz]
+            if not v[j]:
+                continue
+            e = -np.asarray(e0)
+            f += dW0 * DX ** 3 * (4.2e6 / r0 * (ji + jm2d[j]) * (xi - pos[j])
+                                  + (si + S[j]) @ e)
+        np.testing.assert_allclose(got[i], f, rtol=0,
+                                   atol=1e-12 * np.abs(got).max())
+
+
+@MASKS
+def test_lattice_dfdt_plain_matches_jax_tap_sum(masked):
+    """L2's plain version against JAX's second-half tap sum, recovered from
+    its DeformationRate with B = I: every site, invalid ones included
+    (their v_i is selected to 0, their valid neighbours still count)."""
+    state, jlat = _box(masked)
+    n = len(state["Position"])
+    js = dict(_jax_state(state))
+    js["LinearGradientCorrectionMatrix"] = jnp.broadcast_to(jnp.eye(3), (n, 3, 3))
+    ref = np.asarray(jsl.integration_2nd_half_lattice(js, jlat, DT)["DeformationRate"])
+    lat = _port_lattice()
+    vel = torch.as_tensor(state["Velocity"])
+    valid = torch.as_tensor(state["LatticeValid"])
+    got = ls.lattice_dfdt_plain(vel, valid, lat.shape, lat.taps, DX ** 3)
+    _close(got.numpy(), ref, 1e-12)
+    assert np.isfinite(got.numpy()).all()
+    if masked:   # invalid sites next to the body get non-zero sums
+        assert np.abs(got.numpy()[~state["LatticeValid"]]).max() > 0.0
+    ls.reset_launch_counts()
+    assert torch.equal(ls.lattice_dfdt(vel, valid, lat.shape, lat.taps, DX ** 3),
+                       got)
+    assert ls.LAUNCHES["lattice_dfdt"] == 0
+
+
+def test_material_time_step_constraint_and_state_match_jax():
+    jm, tm = JNeoHookean(**MATERIAL), TNeoHookean(**MATERIAL)
+    for k in ("shear_modulus", "bulk_modulus", "lambda0", "sound_speed",
+              "shear_wave_speed", "rho0"):
+        assert getattr(tm, k) == pytest.approx(getattr(jm, k), rel=1e-14), k
+    J = np.random.default_rng(3).uniform(0.8, 1.2, size=100)
+    np.testing.assert_allclose(tm.volumetric_kirchhoff(torch.as_tensor(J)).numpy(),
+                               np.asarray(jm.volumetric_kirchhoff(jnp.asarray(J))),
+                               rtol=1e-14)
+
+    state, _ = _box(False)
+    pos = state["InitialPosition"]
+    js = jsd.make_elastic_solid_state(pos, DX ** 3, jm, dtype=jnp.float64)
+    ts = tsd.make_elastic_solid_state(pos, DX ** 3, tm, torch.float64, "cpu")
+    assert set(ts) == set(js)
+    assert ts["NReal"] == int(js["NReal"])
+    for k in ts:
+        if k != "NReal":
+            np.testing.assert_array_equal(ts[k].numpy(), np.asarray(js[k]), k)
+
+    rng = np.random.default_rng(5)
+    n = len(pos)
+    for k, shape in (("Velocity", (n, 3)), ("Force", (n, 3)),
+                     ("ForcePrior", (n, 3))):
+        v = rng.normal(size=shape) * 10.0
+        js[k], ts[k] = jnp.asarray(v), torch.as_tensor(v)
+    dt_j = jsd.solid_acoustic_time_step(js, jm.sound_speed, 0.13, cfl=0.5)
+    dt_t = tsd.solid_acoustic_time_step(ts, tm.sound_speed, 0.13, cfl=0.5)
+    assert float(dt_t) == pytest.approx(float(dt_j), rel=1e-14)
+
+    mask = pos[:, 0] < 0.25
+    js["Position"] = js["Position"] + 0.01
+    ts["Position"] = ts["Position"] + 0.01
+    jf = jsd.fix_constraint(js, jnp.asarray(mask))
+    tf = tsd.fix_constraint(ts, torch.as_tensor(mask))
+    for k in ("Position", "Velocity"):
+        np.testing.assert_array_equal(tf[k].numpy(), np.asarray(jf[k]), k)
+
+
+# ---------------------------------------------------------------------------
+# the slice as a whole: the twisting column at dx = 0.1
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def columns():
+    jcase, jcol = jtc.build_case(dx=DX, dtype=jnp.float64, engine="lattice")
+    tcase, tcol = ttc.build_case(dx=DX, dtype=torch.float64, engine="lattice",
+                                 device="cpu")
+    return jcase, jcol, tcase, tcol
+
+
+def test_twisting_column_build_matches_jax(columns):
+    jcase, jcol, tcase, tcol = columns
+    assert tcase.n_column == jcase.n_column == 6100
+    assert tcase.lat.shape == jcase.lat.shape
+    assert set(tcol) == set(jcol)
+    assert tcol["NReal"] == int(jcol["NReal"])
+    for k in tcol:
+        if k == "NReal":
+            continue
+        if k == "LinearGradientCorrectionMatrix":
+            _close(tcol[k].numpy(), jcol[k], 1e-12, k)
+        else:
+            np.testing.assert_array_equal(tcol[k].numpy(), np.asarray(jcol[k]), k)
+    np.testing.assert_array_equal(tcase.holder_mask.numpy(),
+                                  np.asarray(jcase.holder_mask))
+    ji, jw = jtc.tip_observer(jcase, jcol)
+    ti, tw = ttc.tip_observer(tcase, tcol)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(tw.numpy(), np.asarray(jw), rtol=1e-15, atol=0)
+
+
+def test_twisting_column_run_matches_jax(columns):
+    """To t = 0.004 (29 steps) through make_run_chunk: equal step counts
+    and times, positions and the tip within 1e-10."""
+    jcase, jcol, tcase, tcol = columns
+    js = jtc.make_run_chunk(jcase)(jtc.init_sim(jcase, jcol),
+                                   jnp.asarray(0.004, jnp.float64))
+    ts = ttc.make_run_chunk(tcase)(ttc.init_sim(tcase, tcol), 0.004)
+    assert ts.n_steps == int(js.n_steps) == 29
+    assert float(ts.time) == pytest.approx(float(js.time), rel=1e-12)
+    dp = np.abs(ts.column["Position"].numpy() - np.asarray(js.column["Position"]))
+    assert dp.max() < 1e-10
+    for k in ("Velocity", "DeformationGradient", "DeformationRate"):
+        _close(ts.column[k].numpy(), js.column[k], 1e-10, k)
+    tip_t = ttc.observe_tip(ts, *ttc.tip_observer(tcase, tcol))
+    tip_j = jtc.observe_tip(js, *jtc.tip_observer(jcase, jcol))
+    assert np.abs(tip_t - tip_j).max() < 1e-10
+
+
+def test_gather_engine_raises_after_the_device_check():
+    with pytest.raises(NotImplementedError, match="A4"):
+        ttc.build_case(dx=DX, device="cpu")
+    with pytest.raises(ValueError):
+        ls.lattice_dfdt(torch.zeros((1, 3), device="meta"),
+                        torch.ones(1, dtype=torch.bool, device="meta"),
+                        (1, 1, 1), (), 1.0)
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_golden_tip_curve_span():
+    """What chip_smoke.py's golden check rests on.  The committed tip curve
+    (tests/golden/refdb/twisting_column_3d, 142 snapshots every 20 steps to
+    t = 0.5) is not what the JAX package computes today: its own lattice
+    engine in float32 on the CPU, sampled the same way, ends after 140
+    snapshots and leaves the curve by more than 0.1 (one dx) at snapshot
+    GOLDEN_HELD, having stayed within 0.1 before it.  The card's run is
+    held to the curve over that span."""
+    import jax
+
+    cs = _chip_smoke()
+    gold = np.asarray(cs.golden_tip_x())
+    case, col = jtc.build_case(dx=DX, dtype=jnp.float32, engine="lattice")
+    s = jtc.init_sim(case, col)
+    idx, w = jtc.tip_observer(case, col)
+
+    @jax.jit
+    def run_until(st, n_target):
+        return jax.lax.while_loop(lambda q: q.n_steps < n_target,
+                                  lambda q: jtc._step(case, q), st)
+
+    xs = [float(jtc.observe_tip(s, idx, w)[0])]
+    while float(s.time) < 0.5:
+        s = run_until(s, jnp.asarray(int(s.n_steps) + 20, jnp.int32))
+        xs.append(float(jtc.observe_tip(s, idx, w)[0]))
+    assert (len(xs), len(gold)) == (140, 142)
+    dev = np.abs(np.asarray(xs) - gold[:len(xs)])
+    held = cs.GOLDEN_HELD
+    assert dev[:held].max() <= 0.1 < dev[held]
