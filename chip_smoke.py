@@ -82,9 +82,15 @@ Phases:
      step by part, one profiled step and pair_interaction_updates_per_sec
      counted as bench.py:239-242 counts it; L1 and L2 against their plain
      versions on that state and on it notched with NaN planted in the
-     notch, timed and bounded; the dx=0.1 column through the kernels
-     against the plain versions to t=0.02 (equal step counts, positions
-     within 5e-5 of max|x|) and to t=0.5 against JAX's committed tip curve.
+     notch, timed and bounded beside each design's occupancy, L2 also
+     beside its library yardstick (one grouped conv3d, never called by
+     the port); L1 and L2 where their staged bricks could break: a ragged
+     37 x 13 x 11 lattice with a notch and scattered NaN sites, lattices
+     one site thick in x, y and z, a brick all invalid next to valid ones;
+     the dx=0.1 column through the kernels against the plain versions to
+     t=0.02 (equal step counts, positions within 5e-5 of max|x|) and to
+     t=0.5 against the JAX package's own float32 tip curve (every one of
+     its 140 snapshots) and the committed one (its first 99).
 
 Every kernel and plain-version time is taken by
 sphinxsys_tpu_torch.benchmarks.median_ms, the layout drivers' timer.  Its last two lines are a JSON object of per-kernel
@@ -158,6 +164,11 @@ SOLID_GOLDEN = ("tests/golden/refdb/twisting_column_3d/"
 # after 140 snapshots where the curve has 142
 # (tests/test_torch_solid_lattice.py::test_golden_tip_curve_span)
 GOLDEN_HELD = 99
+# the JAX package's own float32 lattice run on the CPU, written by
+# tests/test_torch_solid_lattice.py (140 snapshots), and how far the card's
+# run may stray from it over all of them (measured gaps: PERF.md section 6)
+JAX_CURVE = "tests/golden_torch/twisting_column_3d/tip_x.json"
+JAX_CURVE_BOUND = 0.05
 DEVICE = "cuda"
 DAMBREAK_KERNELS = ("density_sweep", "ac1_sweep", "ac2_sweep")
 CONFIGS = {  # the bench configs (bench.py:311-318), Taylor–Green at 1M
@@ -1335,21 +1346,6 @@ def packed_phase(torch, results):
 # 8. the lattice solid: the twisting column on L1 / L2
 # ---------------------------------------------------------------------------
 
-def lattice_args(torch, case, col, dt):
-    """L1's and L2's arguments on a column state, as the step builds them
-    (L1 from the first half's prelude at `dt`)."""
-    from sphinxsys_tpu_torch.physics import solid_lattice as sl
-
-    lat, mat = case.lat, case.material
-    pos_f, _, _, jm2d, S_f = sl.decomposed_stress(col, mat, dt, case.adaptation.h)
-    vol0 = lat.dx ** 3
-    return {"lattice_force": (pos_f, S_f, jm2d, col["LatticeValid"], lat.shape,
-                              lat.taps, vol0,
-                              sl.CORRECTION_FACTOR * mat.shear_modulus),
-            "lattice_dfdt": (col["Velocity"], col["LatticeValid"], lat.shape,
-                             lat.taps, vol0)}
-
-
 def lattice_pairs(torch, lat, valid):
     """Real pairs per tap: sites i (every one is computed) whose j = i + o
     lies in the box and is valid, from this run's mask."""
@@ -1364,9 +1360,10 @@ def lattice_bound(torch, name, lat, args, out):
     """The least time the card could take for one L1 / L2 call (ms): the
     larger of its bytes (each input once, the output once) over the HBM
     rate and its real pairs' flops over the float32 rate.  Flops per real
-    pair of tap o, counted from csrc/lattice_sweeps.cu (add, mul, sub one
-    each; e_b = 0 terms skipped): L1 14 + 9 nnz(e_o), L2 3 + 6 nnz(e_o).
-    Returns (ms, by, real pairs, flops, bytes)."""
+    pair of tap o, counted from the tap sums (add, mul, sub one each; e_b
+    = 0 terms skipped; the kernels' multiply by w_j, which stands for the
+    skip of an invalid j, is not counted): L1 14 + 9 nnz(e_o), L2 3 + 6
+    nnz(e_o).  Returns (ms, by, real pairs, flops, bytes)."""
     pairs = lattice_pairs(torch, lat, args[3] if name == "lattice_force"
                           else args[1])
     nnz = [sum(1 for c in e0 if c != 0.0) for o, r0, e0, W0, dW0 in lat.taps]
@@ -1397,20 +1394,6 @@ def lattice_hold(torch, what, name, args):
     return got, hold(torch, f"{what} {name}", *flat, real)
 
 
-def notched(torch, col, lat):
-    """The column with a notch cut out (x in (2, 2.5), y > 0: LatticeValid
-    False) and NaN planted in every per-site field of the notch."""
-    x, y = col["InitialPosition"][:, 0], col["InitialPosition"][:, 1]
-    cut = (x > 2.0) & (x < 2.5) & (y > 0.0)
-    out = dict(col, LatticeValid=col["LatticeValid"] & ~cut)
-    for k in ("Position", "Velocity", "DeformationGradient", "DeformationRate",
-              "LinearGradientCorrectionMatrix"):
-        t = out[k].clone()
-        t[cut] = float("nan")
-        out[k] = t
-    return out, int(cut.sum())
-
-
 def golden_tip_x():
     """Tip x of the JAX twisting-column curve (snapshot order)."""
     import xml.etree.ElementTree as ET
@@ -1419,6 +1402,11 @@ def golden_tip_x():
         "Result_Element/Particle_0")
     snaps = sorted(part.attrib.items(), key=lambda kv: int(kv[0].split("_")[1]))
     return [json.loads(v.lstrip("~"))[0] for _, v in snaps]
+
+
+def jax_tip_x():
+    """Tip x of the port-owned JAX curve (JAX_CURVE), snapshot order."""
+    return json.loads((ROOT / JAX_CURVE).read_text())["tip_x"]
 
 
 def solid_plain_path(torch, case, col, results):
@@ -1449,6 +1437,7 @@ def solid_main_path(torch, results):
     build_case -> init_sim -> make_run_chunk for >= SOLID_STEPS steps, L1 and
     L2 once a step; then the step by part, one profiled step, and the
     pair-update rate counted as bench.py counts it."""
+    from sphinxsys_tpu_torch.benchmarks import lattice_inputs
     from sphinxsys_tpu_torch.cases import twisting_column_3d as tc
     from sphinxsys_tpu_torch.ops import lattice_sweeps as ls
     from sphinxsys_tpu_torch.physics import solid as sd
@@ -1495,7 +1484,7 @@ def solid_main_path(torch, results):
     # the steady step by part (host wall clock, synchronised)
     dt = sd.solid_acoustic_time_step(c, case.material.sound_speed,
                                      case.adaptation.h, cfl=0.5)
-    args = lattice_args(torch, case, c, dt)
+    args = lattice_inputs(case, c, dt)
     half1 = sl.decomposed_integration_1st_half_lattice(
         c, lat, case.material, dt, case.adaptation.h)
     fixed = sd.fix_constraint(half1, case.holder_mask)
@@ -1532,42 +1521,153 @@ def solid_main_path(torch, results):
 
 def solid_kernel_checks(torch, case, s, results):
     """L1 and L2 against their plain versions on the 1.13M state after the
-    main path, timed and bounded; then on the same state notched, with NaN
-    planted in the notch."""
-    from sphinxsys_tpu_torch.benchmarks import median_ms
+    main path, timed and bounded, each beside its design's occupancy (L2
+    also beside its library yardstick, `dfdt_conv3d`); then on the same
+    state notched, with NaN planted in the notch."""
+    from sphinxsys_tpu_torch.benchmarks import lattice_inputs, median_ms, notched
     from sphinxsys_tpu_torch.ops import lattice_sweeps as ls
     from sphinxsys_tpu_torch.physics import solid as sd
 
     c = s.column
     dt = sd.solid_acoustic_time_step(c, case.material.sound_speed,
                                      case.adaptation.h, cfl=0.5)
-    for name, args in lattice_args(torch, case, c, dt).items():
+    for name, args in lattice_inputs(case, c, dt).items():
         wrapper, plain = getattr(ls, name), getattr(ls, name + "_plain")
         got, max_abs = lattice_hold(torch, "tc1m", name, args)
         ms = median_ms(lambda: wrapper(*args), 20, DEVICE)
         plain_ms = median_ms(lambda: plain(*args), 3, DEVICE)
         bound_ms, bound_by, pairs, flops, nbytes = lattice_bound(
             torch, name, case.lat, args, got)
-        log(f"tc1m {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        occ = ls.occupancy(name)
+        library_ms = dfdt_conv3d(torch, args) if name == "lattice_dfdt" \
+            else None
+        log(f"tc1m {name}: kernel {ms:.4f} ms ({occ['blocks_per_sm']} blocks "
+            f"an SM of {occ['threads']} threads, {occ['smem_bytes']} B of "
+            f"shared memory a block), plain {plain_ms:.4f} ms, bound "
             f"{bound_ms:.4f} ms ({bound_by}: {pairs} real pairs, {flops:.4e} "
-            f"flop, {nbytes} B), max_abs_err {max_abs:.3e}")
+            f"flop, {nbytes} B), library {library_ms} ms, max_abs_err "
+            f"{max_abs:.3e}")
         results[f"{name}[tc1m]"].update(
             max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, real_pairs=pairs)
-    cut_col, n_cut = notched(torch, c, case.lat)
-    for name, args in lattice_args(torch, case, cut_col, dt).items():
+            bound_by=bound_by, real_pairs=pairs, library_ms=library_ms,
+            occupancy=occ)
+    cut_col, n_cut = notched(c)
+    for name, args in lattice_inputs(case, cut_col, dt).items():
         got, _ = lattice_hold(torch, f"tc1m notched ({n_cut} NaN sites)", name,
                               args)
+
+
+def dfdt_conv3d(torch, args):
+    """L2's library yardstick: one grouped torch.nn.functional.conv3d of the
+    channels [sel(valid, v_x), sel(valid, v_y), sel(valid, v_z), valid]
+    (padding 2, groups 4) with the weights g_b,o = dW0 V0 e_b,o at o + 2,
+    which gives Gv_ab = sum_o g_b,o w_j v_a,j and Gw_b = sum_o g_b,o w_j;
+    then dFdt_ab = Gv_ab - v_a,i Gw_b.  The port never calls it.  Timed
+    (the conv3d call alone) with cuDNN's TF32 off, set and then restored,
+    and held to the float64 plain version: the expanded form cancels
+    across |v| / |v_i - v_j|, so its float32 error is bounded by the
+    rounding of the expansion itself, 2e-5 max|v| max_b sum_o |g_b,o|
+    (~125 terms at 6e-8 each), not by the result's own size.  Returns ms."""
+    from sphinxsys_tpu_torch.benchmarks import median_ms
+    from sphinxsys_tpu_torch.ops import lattice_sweeps as ls
+
+    vel, valid, shape, taps, vol0 = args
+    off, rows, _ = ls._dfdt_table(taps, float(vol0))
+    m = ls._halo(off)
+    k = 2 * m + 1
+    weight = torch.zeros((4, 3, k, k, k), dtype=torch.float64)
+    for (ox, oy, oz), g in zip(off.tolist(), rows):
+        for b in range(3):
+            weight[:, b, ox + m, oy + m, oz + m] = g[b]
+    weight = weight.reshape(12, 1, k, k, k).to(vel.device, torch.float32)
+    v = torch.where(valid[:, None], vel, 0.0)
+    x = torch.cat([v, valid[:, None].to(vel.dtype)], dim=1).T.reshape(
+        1, 4, *shape).contiguous()
+    conv = torch.nn.functional.conv3d
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        ms = median_ms(lambda: conv(x, weight, padding=m, groups=4), 20, DEVICE)
+        y = conv(x, weight, padding=m, groups=4).reshape(4, 3, -1)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    got = y[:3].permute(2, 0, 1) - v[:, :, None] * y[3].T[:, None, :]
+    ref = ls.lattice_dfdt_plain(vel.double(), valid, shape, taps, vol0)
+    err = float((got.double() - ref).abs().max())
+    gsum = max(sum(abs(g[b]) for g in rows) for b in range(3))
+    limit = 2e-5 * float(v.abs().max()) * gsum
+    log(f"L2 library yardstick (conv3d, groups 4, TF32 off): {ms:.4f} ms, "
+        f"|conv - p64| {err:.3e} (bound {limit:.3e}, max|ref| "
+        f"{float(ref.abs().max()):.3e})")
+    check(err <= limit, f"L2 conv3d yardstick off by {err:.3e} > {limit:.3e}")
+    return ms
+
+
+def edge_lattice(torch, shape, cut, seed):
+    """L1's and L2's arguments on a synthetic lattice of `shape` (dx = 0.1,
+    h = 1.3 dx): positions on the lattice with seeded noise, S ~ 1e5 N(0, 1),
+    J ~ 1 + 0.01 N(0, 1), v ~ N(0, 1); the sites of `cut` (a function of
+    the site indices (ix, iy, iz)) invalid with NaN planted in every field.
+    Returns (inputs by wrapper name, sites cut)."""
+    from sphinxsys_tpu_torch.core.adaptation import SPHAdaptation
+    from sphinxsys_tpu_torch.physics import solid_lattice as sl
+
+    dx = 0.1
+    lat = sl.make_lattice(SPHAdaptation(spacing=dx, dim=3).kernel, dx, shape)
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    idx = torch.stack(torch.meshgrid(
+        *[torch.arange(n, device=DEVICE) for n in shape], indexing="ij"),
+        dim=-1).reshape(-1, 3)
+    n = idx.shape[0]
+    rand = lambda *sz: torch.randn(*sz, generator=g, device=DEVICE)
+    pos = idx.float() * dx + 0.01 * dx * rand(n, 3)
+    S, J, vel = 1e5 * rand(n, 3, 3), 1.0 + 0.01 * rand(n), rand(n, 3)
+    valid = ~cut(idx[:, 0], idx[:, 1], idx[:, 2])
+    for t in (pos, S, J, vel):
+        t[~valid] = float("nan")
+    return ({"lattice_force": (pos, S, J, valid, shape, lat.taps, dx ** 3,
+                               4.2e6),
+             "lattice_dfdt": (vel, valid, shape, lat.taps, dx ** 3)},
+            int((~valid).sum()))
+
+
+def solid_edge_checks(torch):
+    """Where the staged design could break, L1 and L2 against their plain
+    versions at every site: a ragged lattice smaller than a brick in y and
+    z (37 x 13 x 11) with a notch and 5% of its sites scattered invalid,
+    NaN planted in them; lattices one site thick in x, y and z; a lattice
+    whose first brick of each kernel (x < 8, y < 8, z < 32) is all invalid,
+    NaN inside, next to valid ones."""
+    none = lambda ix, iy, iz: torch.zeros_like(ix, dtype=torch.bool)
+    g = torch.Generator(device=DEVICE).manual_seed(17)
+
+    def notch_and_scatter(ix, iy, iz):
+        r = torch.rand(ix.shape, generator=g, device=DEVICE)
+        return ((ix > 10) & (ix < 16) & (iy > 6)) | (r < 0.05)
+
+    cases = (
+        ("ragged 37x13x11, notch and scatter", (37, 13, 11), notch_and_scatter),
+        ("one thick in x 1x13x40", (1, 13, 40), none),
+        ("one thick in y 13x1x40", (13, 1, 40), none),
+        ("one thick in z 13x40x1", (13, 40, 1), none),
+        ("dead brick 20x14x40", (20, 14, 40),
+         lambda ix, iy, iz: (ix < 8) & (iy < 8) & (iz < 32)),
+    )
+    for k, (tag, shape, cut) in enumerate(cases):
+        inputs, n_cut = edge_lattice(torch, shape, cut, 100 + k)
+        for name, args in inputs.items():
+            lattice_hold(torch, f"{tag} ({n_cut} NaN sites)", name, args)
 
 
 def solid_golden_check(torch):
     """The twisting column at dx = 0.1 through the kernels to t = 0.5, the
     tip sampled every 20 steps as benchmarks/run_refdb_parity.py:544-553
-    did, against JAX's float32 curve (SOLID_GOLDEN): the envelope of
-    tests/test_twisting_column.py:33-34, and the tip x within 0.1 (one dx)
-    at each of the GOLDEN_HELD leading snapshots, the span over which the
-    JAX package's own float32 run reproduces the curve; beyond it only
-    the largest gap is printed."""
+    did: the envelope of tests/test_twisting_column.py:33-34; the tip x
+    within JAX_CURVE_BOUND of the JAX package's own float32 run
+    (JAX_CURVE) at every one of its 140 snapshots; and within 0.1 (one dx)
+    of the committed curve (SOLID_GOLDEN) at each of the GOLDEN_HELD
+    leading snapshots, the span over which the JAX package's own run
+    reproduces it; beyond it only the largest gap is printed."""
     from sphinxsys_tpu_torch.cases import twisting_column_3d as tc
 
     case, col = tc.build_case(dx=0.1, engine="lattice", device=DEVICE)
@@ -1583,17 +1683,25 @@ def solid_golden_check(torch):
     gold = golden_tip_x()
     gaps = [abs(a - b) for a, b in zip(xs, gold)]
     held = max(gaps[:GOLDEN_HELD])
+    own = jax_tip_x()
+    own_gap = max(abs(a - b) for a, b in zip(xs, own))
     log(f"tc golden: dx=0.1 {s.n_steps} steps to t={float(s.time):.6f} in "
         f"{run_s:.2f} s, {len(xs)} snapshots (the curve {len(gold)}), tip x "
         f"in [{min(xs):.4f}, {max(xs):.4f}] (the curve [{min(gold):.4f}, "
         f"{max(gold):.4f}]), max |x - curve| {held:.4e} over the first "
-        f"{GOLDEN_HELD} snapshots, {max(gaps):.4e} over all {len(gaps)}")
+        f"{GOLDEN_HELD} snapshots, {max(gaps):.4e} over all {len(gaps)}; "
+        f"max |x - JAX curve| {own_gap:.4e} over its {len(own)} snapshots "
+        f"(bound {JAX_CURVE_BOUND})")
     check(9.0 < max(xs) < 10.2 and 2.8 < min(xs) < 3.8,
           f"tc golden: tip envelope [{min(xs)}, {max(xs)}]")
     check(len(xs) >= GOLDEN_HELD, f"tc golden: only {len(xs)} snapshots")
     check(held <= 0.1, f"tc golden: tip x off the curve by {held:.4e}")
+    check(len(xs) == len(own),
+          f"tc golden: {len(xs)} snapshots, the JAX curve {len(own)}")
+    check(own_gap <= JAX_CURVE_BOUND,
+          f"tc golden: tip x off the JAX curve by {own_gap:.4e}")
     return dict(snapshots=len(xs), max_gap_held=held, max_gap=max(gaps),
-                tip_min=min(xs), tip_max=max(xs))
+                max_gap_jax_curve=own_gap, tip_min=min(xs), tip_max=max(xs))
 
 
 def solid_small_reference(torch, t_end=0.02):
@@ -1623,6 +1731,7 @@ def solid_phase(torch, results):
     case, s = solid_main_path(torch, results)
     solid_kernel_checks(torch, case, s, results)
     del case, s
+    solid_edge_checks(torch)
     torch.cuda.empty_cache()
     solid_small_reference(torch)
     results["_tc1m_main"]["golden"] = solid_golden_check(torch)
@@ -1710,7 +1819,8 @@ def main() -> int:
                             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                             "plain_ms": r["plain_ms"],
                             "bound_ms": r["bound_ms"],
-                            "bound_by": r["bound_by"], "library_ms": None})
+                            "bound_by": r["bound_by"],
+                            "library_ms": r.get("library_ms")})
     main_paths = {tag: results[f"_{tag}_main"]
                   for tag in (*CONFIGS, "2d16", "2d16_b2b3", "layout",
                               "tc1m", "tc1m_plain")}

@@ -14,13 +14,13 @@ device is the card; the CPU is asked for explicitly and runs every
 sweep's plain version.
 
 `ab_sweeps` times the kernels of several builds of one source
-(csrc/block_sweeps.cu, csrc/packed_sweeps.cu or csrc/layout_sweeps.cu)
-against each other on the same inputs:
+(csrc/block_sweeps.cu, packed_sweeps.cu, layout_sweeps.cu or
+lattice_sweeps.cu) against each other on the same inputs:
 
     python -m sphinxsys_tpu_torch.benchmarks.ab_sweeps A.cu B.cu [...]
 
-This module holds what they share: the states, the block and packed
-sweeps' inputs (also chip_smoke.py's), the timer, the cross-check.
+This module holds what they share: the states, the block, packed and
+lattice sweeps' inputs (also chip_smoke.py's), the timer, the cross-check.
 """
 
 from __future__ import annotations
@@ -159,6 +159,36 @@ def packed_inputs(scene, sim, wall_b=None, riemann2=None) -> dict:
         "ac1_wall_sweep": ((pk1_i, fbops.pack_wall_ac1(wall_b), nbr_w), c1),
         "ac2_wall_sweep": ((pk2_i, fbops.pack_wall_ac2(wall_b), nbr_w), c2),
     }
+
+
+def lattice_inputs(case, col, dt) -> dict:
+    """L1's and L2's arguments by wrapper name on a twisting-column state,
+    as the step builds them (L1 from the first half's prelude at `dt`)."""
+    from sphinxsys_tpu_torch.physics import solid_lattice as sl
+
+    lat, mat = case.lat, case.material
+    pos_f, _, _, jm2d, S_f = sl.decomposed_stress(col, mat, dt, case.adaptation.h)
+    vol0 = lat.dx ** 3
+    return {"lattice_force": (pos_f, S_f, jm2d, col["LatticeValid"], lat.shape,
+                              lat.taps, vol0,
+                              sl.CORRECTION_FACTOR * mat.shear_modulus),
+            "lattice_dfdt": (col["Velocity"], col["LatticeValid"], lat.shape,
+                             lat.taps, vol0)}
+
+
+def notched(col: dict):
+    """The column state with the notch x in (2, 2.5), y > 0 made invalid and
+    NaN planted in every per-site field there.  Returns (state, number of
+    sites cut)."""
+    x, y = col["InitialPosition"][:, 0], col["InitialPosition"][:, 1]
+    cut = (x > 2.0) & (x < 2.5) & (y > 0.0)
+    out = dict(col, LatticeValid=col["LatticeValid"] & ~cut)
+    for k in ("Position", "Velocity", "DeformationGradient", "DeformationRate",
+              "LinearGradientCorrectionMatrix"):
+        t = out[k].clone()
+        t[cut] = float("nan")
+        out[k] = t
+    return out, int(cut.sum())
 
 
 def median_ms(fn, k: int, device) -> float:

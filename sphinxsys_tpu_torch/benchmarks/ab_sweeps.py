@@ -4,11 +4,11 @@ each other on the same inputs, in turns:
     python -m sphinxsys_tpu_torch.benchmarks.ab_sweeps A.cu B.cu [...]
 
 e.g. A.cu a parent commit's sphinxsys_tpu_torch/csrc/block_sweeps.cu,
-packed_sweeps.cu or layout_sweeps.cu (from `git archive`) and B.cu the
-working tree's.  nvcc compiles each source with the port's flags
-(ops/_build.py) into build/ab/, all at once, finding a quoted include
-(lane_groups.cuh) beside the source, and the launchers each library exports
-are bound by ctypes.  On the states chip_smoke.py measures, each after one
+packed_sweeps.cu, layout_sweeps.cu or lattice_sweeps.cu (from `git
+archive`) and B.cu the working tree's.  nvcc compiles each source with
+the port's flags (ops/_build.py) into build/ab/, all at once, finding a
+quoted include (lane_groups.cuh) beside the source, and the launchers
+each library exports are bound by ctypes.  On the states chip_smoke.py measures, each after one
 advection step, every build runs each sweep that all builds export on the
 same inputs:
 
@@ -19,13 +19,20 @@ same inputs:
     dx=0.0025 with cap 16, on the inputs the packed halves build;
   * the layout sweeps B6 and B7 (layout_sweeps.cu): the same 2d16 state
     packed as the layout drivers take it (`pack_layout_state`), B7 on
-    `prep_t`'s pre-gathered input.
+    `prep_t`'s pre-gathered input;
+  * the lattice sweeps L1 and L2 (lattice_sweeps.cu): tc1m, the twisting
+    column at dx=0.0175 (349 x 57 x 57 sites) after LATTICE_STEPS steps,
+    on the arguments `lattice_inputs` forms, and the same state notched
+    with NaN planted in the notch (`notched`).
 
-Each build's ptxas lines (registers, spills) are printed.  A sweep's
-outputs are compared with the first build's on the real slots (max |diff|
-/ max |first|, which must stay within 1e-5; 0.0 is bit for bit), and it is
-timed with `median_ms` (20 runs) in four turns: in order, reversed, in
-order, reversed.  Needs the card; exits 1 on a disagreement.
+Each build's ptxas lines (registers, spills) are printed, and for the
+lattice sweeps each build's occupancy on the card where it exports
+`lattice_occupancy`.  A sweep's
+outputs are compared with the first build's on the real slots (the
+lattice sweeps: on every site; max |diff| / max |first|, which must stay
+within 1e-5; 0.0 is bit for bit), and it is timed with `median_ms` (20
+runs) in four turns: in order, reversed, in order, reversed.  Needs the
+card; exits 1 on a disagreement.
 """
 
 from __future__ import annotations
@@ -40,10 +47,12 @@ from pathlib import Path
 import torch
 
 from sphinxsys_tpu_torch.benchmarks import (
-    median_ms, pack_layout_state, packed_inputs, perturbed, sweep_inputs,
+    lattice_inputs, median_ms, notched, pack_layout_state, packed_inputs,
+    perturbed, sweep_inputs,
 )
 from sphinxsys_tpu_torch.ops import _build
 from sphinxsys_tpu_torch.ops import block_sweeps as bs
+from sphinxsys_tpu_torch.ops import lattice_sweeps as lat
 from sphinxsys_tpu_torch.ops import layout_sweeps as ls
 from sphinxsys_tpu_torch.ops import packed_sweeps as ps
 
@@ -60,6 +69,9 @@ STATES = (  # tag, case module, dx, build_block_case options, seeded noise,
     ("tg", "taylor_green_2d", 0.001, {}, True, ALL),
     ("2d16", "dambreak_2d", 0.0025, {"cap": ps.CAP}, False, PACKED + LAYOUT),
 )
+LATTICE = ("lattice_force", "lattice_dfdt")
+LATTICE_DX = 0.0175         # tc1m, the bench's lattice solid
+LATTICE_STEPS = 3
 AGREE = 1e-5
 
 
@@ -67,6 +79,24 @@ def launcher(name) -> str:
     """A sweep's C launcher (ops/_build.py ARGTYPES)."""
     return name.replace("_sweep", "_launch") if name in PACKED + LAYOUT \
         else f"{name}_launch"
+
+
+def launch_lattice(lib, name, args, out):
+    """L1 or L2 of one build on its wrapper's arguments, into `out`, as
+    ops/lattice_sweeps.py passes them to the launcher."""
+    ptr = bs._ptr
+    if name == "lattice_force":
+        pos, S, jm2d, valid, shape, taps, vol0, cfg = args
+        off, _, coef = lat._force_table(taps, float(vol0), float(cfg))
+        head = (ptr(pos), ptr(S), ptr(jm2d), ptr(valid))
+    else:
+        vel, valid, shape, taps, vol0 = args
+        off, _, coef = lat._dfdt_table(taps, float(vol0))
+        head = (ptr(vel), ptr(valid))
+    err = getattr(lib, launcher(name))(
+        *head, *shape, off.ctypes.data, coef.ctypes.data, len(off), ptr(out),
+        torch.cuda.current_stream().cuda_stream)
+    bs._raise_on(err, name)
 
 
 def build(sources) -> list:
@@ -145,6 +175,9 @@ def launch(lib, name, args, kw, out):
     if name in LAYOUT:
         launch_layout(lib, name, args, kw, out)
         return
+    if name in LATTICE:
+        launch_lattice(lib, name, args, out)
+        return
     dim = args[0].shape[-1]
     box = bs._box3(kw["box"], dim)
     stream = torch.cuda.current_stream().cuda_stream
@@ -193,7 +226,10 @@ def launch_args(name, args) -> tuple:
 
 def out_shape(name, args) -> tuple:
     """A sweep's output shape from its arguments: (C, cap, k); B6's
-    (3, C, 16) and B7's (3, 16, C)."""
+    (3, C, 16), B7's (3, 16, C), L1's (N, 3) and L2's (N, 3, 3)."""
+    if name in LATTICE:
+        n = args[0].shape[0]
+        return (n, 3) if name == "lattice_force" else (n, 3, 3)
     if name in PACKED:
         return (args[-1].shape[0], ps.CAP, 3)
     if name == "ac1_flat_sweep":
@@ -231,6 +267,64 @@ def state_inputs(scene, sim, sweeps) -> dict:
     return out
 
 
+def compare_and_time(libs, names, tag, name, args, kw, real, k) -> bool:
+    """One sweep of every build on the same inputs: each build's output
+    against the first build's on the rows `real` selects, then its time in
+    four turns.  Prints one line; True if every build agrees."""
+    outs = [torch.empty(out_shape(name, args), device="cuda") for _ in libs]
+    for lib, out in zip(libs, outs):
+        launch(lib, name, args, kw, out)
+    torch.cuda.synchronize()
+    first = per_slot(name, outs[0])[real]
+    scale = float(first.abs().max())
+    diffs = [float((per_slot(name, o)[real] - first).abs().max()) / scale
+             for o in outs]
+    order = list(range(len(libs)))
+    times = [[] for _ in libs]
+    for turn in (order, order[::-1], order, order[::-1]):
+        for i in turn:
+            times[i].append(median_ms(
+                lambda: launch(libs[i], name, args, kw, outs[i]), k, "cuda"))
+    print(f"{tag} {name}: " + ", ".join(
+        f"{n} {min(t):.4f}..{max(t):.4f} ms (diff {d:.1e})"
+        for n, t, d in zip(names, times, diffs)), flush=True)
+    return all(d <= AGREE for d in diffs)
+
+
+def lattice_states():
+    """tc1m after LATTICE_STEPS steps, then notched: (tag, L1/L2 inputs)."""
+    from sphinxsys_tpu_torch.cases import twisting_column_3d as tc
+    from sphinxsys_tpu_torch.physics import solid as sd
+
+    case, col = tc.build_case(dx=LATTICE_DX, engine="lattice", device="cuda")
+    s = tc.init_sim(case, col)
+    for _ in range(LATTICE_STEPS):
+        s = tc._step(case, s)
+    c = s.column
+    dt = sd.solid_acoustic_time_step(c, case.material.sound_speed,
+                                     case.adaptation.h, cfl=0.5)
+    yield "tc1m", lattice_inputs(case, c, dt)
+    cut, n_cut = notched(c)
+    yield f"tc1m notched ({n_cut} NaN sites)", lattice_inputs(case, cut, dt)
+
+
+def print_occupancy(libs, names, name) -> None:
+    """One line: each build's design for L1 or L2 on this card, from its
+    `lattice_occupancy` (blocks an SM, threads and shared memory a block);
+    "-" for a build that does not export it (an older source)."""
+    which = 0 if name == "lattice_force" else 1
+    parts = []
+    for n, lib in zip(names, libs):
+        if not hasattr(lib, "lattice_occupancy"):
+            parts.append(f"{n} -")
+            continue
+        res = (ctypes.c_int * 3)()
+        bs._raise_on(lib.lattice_occupancy(which, res), f"{name} occupancy")
+        parts.append(f"{n} {res[0]} blocks/SM x {res[1]} threads, "
+                     f"{res[2]} B smem")
+    print(f"{name} occupancy: " + "; ".join(parts), flush=True)
+
+
 def run(sources, k: int = 20) -> bool:
     """Prints, per state and kernel, each build's time range over the four
     turns and its disagreement with the first build; True if all agree."""
@@ -258,29 +352,19 @@ def run(sources, k: int = 20) -> bool:
         inputs = state_inputs(scene, sim, sweeps)
         for name in sweeps:
             args, kw = inputs[name]
-            args = launch_args(name, args)
-            outs = [torch.empty(out_shape(name, args), device="cuda")
-                    for _ in libs]
-            for lib, out in zip(libs, outs):
-                launch(lib, name, args, kw, out)
-            torch.cuda.synchronize()
-            first = per_slot(name, outs[0])[real]
-            scale = float(first.abs().max())
-            diffs = [float((per_slot(name, o)[real] - first).abs().max())
-                     / scale for o in outs]
-            agree &= all(d <= AGREE for d in diffs)
-            order = list(range(len(libs)))
-            times = [[] for _ in libs]
-            for turn in (order, order[::-1], order, order[::-1]):
-                for i in turn:
-                    times[i].append(median_ms(
-                        lambda: launch(libs[i], name, args, kw, outs[i]), k,
-                        "cuda"))
-            print(f"{tag} {name}: " + ", ".join(
-                f"{n} {min(t):.4f}..{max(t):.4f} ms (diff {d:.1e})"
-                for n, t, d in zip(names, times, diffs)), flush=True)
+            agree &= compare_and_time(libs, names, tag, name,
+                                      launch_args(name, args), kw, real, k)
         del scene, fluid, sim, inputs
         torch.cuda.empty_cache()
+    if all(exported(lib, n) for lib in libs for n in LATTICE):
+        for name in LATTICE:
+            print_occupancy(libs, names, name)
+        for tag, inputs in lattice_states():
+            n = inputs["lattice_force"][0].shape[0]
+            every = torch.ones(n, dtype=torch.bool, device="cuda")
+            for name in LATTICE:
+                agree &= compare_and_time(libs, names, tag, name, inputs[name],
+                                          {}, every, k)
     return agree
 
 

@@ -54,6 +54,7 @@ ARGTYPES = {
     # lattice_sweeps.cu
     "lattice_force_launch": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P, _P],
     "lattice_dfdt_launch": [_P, _P, _I, _I, _I, _P, _P, _I, _P, _P],
+    "lattice_occupancy": [_I, _P],
 }
 
 

@@ -16,6 +16,20 @@ Dispatch as in ops/block_sweeps.py: a CPU tensor runs the plain version; a
 CUDA float32 tensor launches the kernel (or raises); anything else raises.
 `LAUNCHES` counts kernel launches (plain runs do not count).
 
+The kernels stage a brick of sites (6 x 32 of a (y, z) plane for L1, 4 x
+32 for L2) with its halo of two sites once in shared memory, a ring of
+five planes as the block marches along x, every value selected by
+validity as it is staged (an invalid or out-of-box site stages zeros and
+w = 0), and read each of the 80 taps there at a compile-time offset, its
+in-box and valid_j tests replaced by JAX's multiply by w_j.  L1 reads
+11.75 shared-memory wavefronts a pair and is held to 12 warps an SM by
+its staged planes and registers; L2 reads one float4 a pair.
+`occupancy` reports each design on the card.  Being compiled for the 80
+offsets 0 < |o|^2 <= 6 (h = 1.3 dx, cutoff 2.6 dx, every caller of the
+port), the wrappers take only that table (`KERNEL_OFFSETS`) and raise
+ValueError on any other, on every device; the plain versions take any
+table.
+
 Inputs are flat (N, ...) per-site fields in C order of the lattice `shape`
 (nx, ny, nz), with `valid` (N,) bool.  `taps` is a LatticeSolid's tap
 table, ((ox, oy, oz), r0, e0, W0, dW0) per offset, and `vol0` = dx^3.
@@ -34,6 +48,7 @@ site's sum is computed, invalid ones too, as JAX does.
 from __future__ import annotations
 
 import functools
+import itertools
 
 import numpy as np
 import torch
@@ -44,7 +59,10 @@ from sphinxsys_tpu_torch.ops.block_sweeps import (
 )
 
 LAUNCHES = {"lattice_force": 0, "lattice_dfdt": 0}
-MAX_TAPS = 96   # csrc/lattice_sweeps.cu kMaxTaps
+# the taps the kernels are compiled for (csrc/lattice_sweeps.cu kM, kR2):
+# the offsets 0 < |o|^2 <= 6 of the 5^3 box in lattice_offsets' order
+KERNEL_OFFSETS = tuple(o for o in itertools.product(range(-2, 3), repeat=3)
+                       if 0 < sum(c * c for c in o) <= 6)
 
 
 def reset_launch_counts() -> None:
@@ -74,8 +92,6 @@ def _dfdt_table(taps, vol0: float):
 
 
 def _offsets(taps):
-    if len(taps) > MAX_TAPS:
-        raise ValueError(f"{len(taps)} taps; the kernels take at most {MAX_TAPS}")
     off = np.asarray([o for o, *_ in taps], np.int32).reshape(-1, 3)
     if off.shape[1] != 3:
         raise ValueError("the lattice sweeps are 3D")
@@ -105,7 +121,7 @@ def _sanitize(v, a):
 
 def lattice_force_plain(pos, S, jm2d, valid, shape, taps, vol0: float,
                         cfg: float):
-    off, rows, _ = _force_table(taps, vol0, cfg)
+    off, rows, _ = _force_table(tuple(taps), vol0, cfg)
     shape = tuple(shape)
     m, dim = _halo(off), 3
     v = valid.reshape(shape)
@@ -133,7 +149,7 @@ def lattice_force_plain(pos, S, jm2d, valid, shape, taps, vol0: float,
 
 
 def lattice_dfdt_plain(vel, valid, shape, taps, vol0: float):
-    off, rows, _ = _dfdt_table(taps, vol0)
+    off, rows, _ = _dfdt_table(tuple(taps), vol0)
     shape = tuple(shape)
     m, dim = _halo(off), 3
     v = valid.reshape(shape)
@@ -159,6 +175,18 @@ def lattice_dfdt_plain(vel, valid, shape, taps, vol0: float):
 # dispatching wrappers
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=16)
+def _check_taps(taps) -> None:
+    """Raise ValueError unless `taps` is the table the kernels are compiled
+    for (KERNEL_OFFSETS, in that order)."""
+    got = tuple(tuple(int(c) for c in o) for o, *_ in taps)
+    if got != KERNEL_OFFSETS:
+        raise ValueError(
+            f"a table of {len(got)} taps: the lattice kernels take only the "
+            f"{len(KERNEL_OFFSETS)} offsets 0 < |o|^2 <= 6 (h = 1.3 dx) in "
+            "lattice_offsets' order")
+
+
 def _check_sites(pos, valid, shape):
     n = int(np.prod(shape))
     if len(shape) != 3:
@@ -169,7 +197,10 @@ def _check_sites(pos, valid, shape):
 
 def lattice_force(pos, S, jm2d, valid, shape, taps, vol0: float, cfg: float):
     """L1.  Returns (N, 3)."""
-    if not _use_kernel(pos):
+    kernel = _use_kernel(pos)
+    taps = tuple(taps)      # hashable for the cached checks and tables
+    _check_taps(taps)
+    if not kernel:
         return lattice_force_plain(pos, S, jm2d, valid, shape, taps, vol0, cfg)
     from sphinxsys_tpu_torch.ops._build import library
 
@@ -191,7 +222,10 @@ def lattice_force(pos, S, jm2d, valid, shape, taps, vol0: float, cfg: float):
 
 def lattice_dfdt(vel, valid, shape, taps, vol0: float):
     """L2.  Returns (N, 3, 3)."""
-    if not _use_kernel(vel):
+    kernel = _use_kernel(vel)
+    taps = tuple(taps)      # hashable for the cached checks and tables
+    _check_taps(taps)
+    if not kernel:
         return lattice_dfdt_plain(vel, valid, shape, taps, vol0)
     from sphinxsys_tpu_torch.ops._build import library
 
@@ -206,3 +240,17 @@ def lattice_dfdt(vel, valid, shape, taps, vol0: float):
     _raise_on(err, "lattice_dfdt")
     LAUNCHES["lattice_dfdt"] += 1
     return out
+
+
+def occupancy(name: str) -> dict:
+    """The kernel's design on this card: blocks an SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), threads a block and
+    shared memory a block (bytes)."""
+    import ctypes
+
+    from sphinxsys_tpu_torch.ops._build import library
+
+    res = (ctypes.c_int * 3)()
+    err = library().lattice_occupancy(0 if name == "lattice_force" else 1, res)
+    _raise_on(err, f"{name} occupancy")
+    return {"blocks_per_sm": res[0], "threads": res[1], "smem_bytes": res[2]}

@@ -5,12 +5,18 @@ cases/twisting_column_3d.py) with the JAX package, on the CPU in float64.
 Inputs: the 14 x 6 x 6 box of tests/test_solid_lattice.py at dx = 0.1
 (a smooth velocity, pre-strain and strain rate), full and with its notch
 (`test_pk2_first_half_matches[masked]`), the notch's sites poisoned with
-NaN in every per-site input the sweeps must not read; and the twisting
-column at dx = 0.1 (6,100 sites).  Tolerances: the tap table 1e-15
+NaN in every per-site input the sweeps must not read; for the tap sums
+also a ragged 13 x 7 x 11 box and a slab one site thick (77 x 13 x 1), both
+notched, whose B is the identity (the sums do not read it); and the
+twisting column at dx = 0.1 (6,100 sites).  Tolerances: the tap table 1e-15
 relative (its constants are formed in float64 on both sides); everything
 else 1e-12 relative to max|.|, which is float64 roundoff after the ~80-tap
 sums and the closed-form 3x3 cofactors (JAX: LU); the 30-step column
 1e-10."""
+
+import json
+import platform
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -34,6 +40,16 @@ torch.set_num_threads(1)
 
 SHAPE = (14, 6, 6)
 DX = 0.1
+# the port-owned tip curve of the JAX package (written by running this file:
+# see write_jax_curve) and how far a run of the same code may stray from it
+JAX_CURVE = (Path(__file__).resolve().parent / "golden_torch"
+             / "twisting_column_3d" / "tip_x.json")
+# Two runs on one CPU give the same curve bit for bit; another CPU may sum
+# in another float32 order.  The JAX gather and lattice engines, whose f32
+# sums differ only in order, stay within 0.0015 of each other over the
+# 140 snapshots (ROADMAP.md section C), so 0.005 admits a reordering and
+# still flags a change of the physics 20x below one dx.
+JAX_CURVE_TOL = 5e-3
 DT = 1e-5
 MATERIAL = dict(rho0=1100.0, youngs_modulus=1.7e7, poisson_ratio=0.45)
 
@@ -54,9 +70,9 @@ def _close(got, ref, tol, what=""):
     assert err <= tol * max(scale, 1e-300), f"{what}: {err:.3e} vs {scale:.3e}"
 
 
-def _box(masked):
+def _box(masked, shape=SHAPE):
     """The box state (numpy arrays) and its JAX lattice."""
-    xs, ys, zs = (np.arange(n) * DX for n in SHAPE)
+    xs, ys, zs = (np.arange(n) * DX for n in shape)
     pos = np.stack(np.meshgrid(xs, ys, zs, indexing="ij"), -1).reshape(-1, 3)
     valid = _notch(pos) if masked else np.ones(len(pos), bool)
     n = len(pos)
@@ -66,9 +82,13 @@ def _box(masked):
     F0 = (np.eye(3)[None] + 0.02 * np.stack(
         [np.sin(pos * 1.7), np.cos(pos * 1.1), np.sin(pos * 0.7 + 1.0)], -2))
     dF = 0.01 * np.sin(pos)[..., None] * np.eye(3)
-    jlat = jsl.make_lattice(JAdaptation(spacing=DX, dim=3).kernel, DX, SHAPE)
-    B = np.asarray(jsl.lattice_correction_matrix(jlat, jnp.asarray(valid),
-                                                 dtype=jnp.float64))
+    jlat = jsl.make_lattice(JAdaptation(spacing=DX, dim=3).kernel, DX, shape)
+    if shape == SHAPE:
+        B = np.asarray(jsl.lattice_correction_matrix(jlat, jnp.asarray(valid),
+                                                     dtype=jnp.float64))
+    else:   # only the tap sums take other boxes, and they never read B:
+        # the identity spares JAX compiling B for each shape (~8 s a box)
+        B = np.tile(np.eye(3), (n, 1, 1))
     poison = ~valid
     state = {
         "Position": pos.copy(), "Velocity": vel, "DeformationGradient": F0,
@@ -100,11 +120,18 @@ def _torch_state(state):
     return out
 
 
-def _port_lattice():
-    return tsl.make_lattice(TAdaptation(spacing=DX, dim=3).kernel, DX, SHAPE)
+def _port_lattice(shape=SHAPE):
+    return tsl.make_lattice(TAdaptation(spacing=DX, dim=3).kernel, DX, shape)
 
 
 MASKS = pytest.mark.parametrize("masked", [False, True], ids=["full", "notch"])
+# the tap sums also on lattices smaller than the kernels' bricks (32 sites
+# along z, 6 or 4 along y) in some direction, one of them one site thick;
+# both hold 1,001 sites, so that JAX compiles its per-site ops once for the
+# two: id -> (shape, notched)
+BOXES = {"full": (SHAPE, False), "notch": (SHAPE, True),
+         "ragged": ((13, 7, 11), True), "slab": ((77, 13, 1), True)}
+TAP_SUM_BOXES = pytest.mark.parametrize("box", list(BOXES))
 
 
 def test_tap_table_matches_jax():
@@ -169,20 +196,21 @@ def _stress_inputs(state):
     return state["Position"], S, jm2d
 
 
-@MASKS
-def test_lattice_force_plain_matches_jax_tap_sum(masked):
+@TAP_SUM_BOXES
+def test_lattice_force_plain_matches_jax_tap_sum(box):
     """L1's plain version, on the inputs the port's first half hands to L1
     (`decomposed_stress`), against JAX's first-half tap sum, recovered
     from its Force with Mass = rho0 (so Force = sum * valid): the valid
     sites; the invalid ones' sums (JAX multiplies them by 0) are held
     finite."""
-    state, jlat = _box(masked)
+    shape, masked = BOXES[box]
+    state, jlat = _box(masked, shape)
     h = JAdaptation(spacing=DX, dim=3).h
     n = len(state["Position"])
     js = dict(_jax_state(state), Mass=jnp.full(n, 1100.0))
     ref = np.asarray(jsl.decomposed_integration_1st_half_lattice(
         js, jlat, JNeoHookean(**MATERIAL), DT, h)["Force"])
-    mat, lat = TNeoHookean(**MATERIAL), _port_lattice()
+    mat, lat = TNeoHookean(**MATERIAL), _port_lattice(shape)
     pos_f, _, _, jm2d, S_f = tsl.decomposed_stress(
         _torch_state(state), mat, torch.tensor(DT, dtype=torch.float64), h)
     args = (pos_f, S_f, jm2d, torch.as_tensor(state["LatticeValid"]),
@@ -190,6 +218,7 @@ def test_lattice_force_plain_matches_jax_tap_sum(masked):
             tsl.CORRECTION_FACTOR * mat.shear_modulus)
     got = ls.lattice_force_plain(*args).numpy()
     valid = state["LatticeValid"]
+    assert masked == (not valid.all())
     _close(got[valid], ref[valid], 1e-12)
     assert np.isfinite(got).all()
     # on CPU tensors the wrapper runs the plain version and counts nothing
@@ -240,17 +269,18 @@ def test_lattice_force_plain_ignores_invalid_sites(masked):
                                    atol=1e-12 * np.abs(got).max())
 
 
-@MASKS
-def test_lattice_dfdt_plain_matches_jax_tap_sum(masked):
+@TAP_SUM_BOXES
+def test_lattice_dfdt_plain_matches_jax_tap_sum(box):
     """L2's plain version against JAX's second-half tap sum, recovered from
     its DeformationRate with B = I: every site, invalid ones included
     (their v_i is selected to 0, their valid neighbours still count)."""
-    state, jlat = _box(masked)
+    shape, masked = BOXES[box]
+    state, jlat = _box(masked, shape)
     n = len(state["Position"])
     js = dict(_jax_state(state))
     js["LinearGradientCorrectionMatrix"] = jnp.broadcast_to(jnp.eye(3), (n, 3, 3))
     ref = np.asarray(jsl.integration_2nd_half_lattice(js, jlat, DT)["DeformationRate"])
-    lat = _port_lattice()
+    lat = _port_lattice(shape)
     vel = torch.as_tensor(state["Velocity"])
     valid = torch.as_tensor(state["LatticeValid"])
     got = ls.lattice_dfdt_plain(vel, valid, lat.shape, lat.taps, DX ** 3)
@@ -262,6 +292,44 @@ def test_lattice_dfdt_plain_matches_jax_tap_sum(masked):
     assert torch.equal(ls.lattice_dfdt(vel, valid, lat.shape, lat.taps, DX ** 3),
                        got)
     assert ls.LAUNCHES["lattice_dfdt"] == 0
+
+
+def test_wrappers_take_only_the_kernels_tap_table():
+    """The kernels are compiled for the 80 offsets 0 < |o|^2 <= 6 in
+    lattice_offsets' order (h = 1.3 dx, the table of every case), so the
+    wrappers refuse any other table on the CPU as on the card, and judge a
+    list (lattice_offsets' own output) as the tuple; the plain versions
+    take any table and still match JAX there (h = 1.5 dx, whose cutoff
+    3 dx adds the offsets of |o|^2 = 7, 8), in float64 at 1e-12."""
+    assert ls.KERNEL_OFFSETS == tuple(tuple(o) for o, *_ in _port_lattice().taps)
+    state, _ = _box(True)
+    n = len(state["Position"])
+    vel = torch.as_tensor(state["Velocity"])
+    valid = torch.as_tensor(state["LatticeValid"])
+    pos, S, jm2d = (torch.as_tensor(a) for a in _stress_inputs(state))
+    wide = tsl.make_lattice(
+        TAdaptation(spacing=DX, dim=3, h_spacing_ratio=1.5).kernel, DX, SHAPE)
+    taps = _port_lattice().taps
+    assert len(wide.taps) > len(taps)
+    refused = {"h = 1.5 dx": wide.taps, "reordered": taps[::-1],
+               "one tap short": taps[:-1], "as a list": list(wide.taps)}
+    for what, table in refused.items():
+        with pytest.raises(ValueError, match="80 offsets"):
+            ls.lattice_dfdt(vel, valid, SHAPE, table, DX ** 3)
+        with pytest.raises(ValueError, match="80 offsets"):
+            ls.lattice_force(pos, S, jm2d, valid, SHAPE, table, DX ** 3, 4.2e6)
+    # the kernels' table as lattice_offsets gives it, a list, is taken
+    np.testing.assert_array_equal(
+        ls.lattice_dfdt(vel, valid, SHAPE, list(taps), DX ** 3),
+        ls.lattice_dfdt(vel, valid, SHAPE, taps, DX ** 3))
+
+    jlat = jsl.make_lattice(
+        JAdaptation(spacing=DX, dim=3, h_spacing_ratio=1.5).kernel, DX, SHAPE)
+    js = dict(_jax_state(state))
+    js["LinearGradientCorrectionMatrix"] = jnp.broadcast_to(jnp.eye(3), (n, 3, 3))
+    ref = np.asarray(jsl.integration_2nd_half_lattice(js, jlat, DT)["DeformationRate"])
+    got = ls.lattice_dfdt_plain(vel, valid, SHAPE, wide.taps, DX ** 3)
+    _close(got.numpy(), ref, 1e-12)
 
 
 def test_material_time_step_constraint_and_state_match_jax():
@@ -374,18 +442,12 @@ def _chip_smoke():
     return mod
 
 
-def test_golden_tip_curve_span():
-    """What chip_smoke.py's golden check rests on.  The committed tip curve
-    (tests/golden/refdb/twisting_column_3d, 142 snapshots every 20 steps to
-    t = 0.5) is not what the JAX package computes today: its own lattice
-    engine in float32 on the CPU, sampled the same way, ends after 140
-    snapshots and leaves the curve by more than 0.1 (one dx) at snapshot
-    GOLDEN_HELD, having stayed within 0.1 before it.  The card's run is
-    held to the curve over that span."""
+def jax_tip_curve():
+    """Tip x of the JAX package's twisting column at dx = 0.1 on its
+    lattice engine in float32 on the CPU, sampled every 20 steps to t = 0.5
+    as benchmarks/run_refdb_parity.py:544-553 samples it: 140 snapshots."""
     import jax
 
-    cs = _chip_smoke()
-    gold = np.asarray(cs.golden_tip_x())
     case, col = jtc.build_case(dx=DX, dtype=jnp.float32, engine="lattice")
     s = jtc.init_sim(case, col)
     idx, w = jtc.tip_observer(case, col)
@@ -399,7 +461,59 @@ def test_golden_tip_curve_span():
     while float(s.time) < 0.5:
         s = run_until(s, jnp.asarray(int(s.n_steps) + 20, jnp.int32))
         xs.append(float(jtc.observe_tip(s, idx, w)[0]))
+    return xs
+
+
+def test_golden_tip_curve_span():
+    """What chip_smoke.py's golden checks rest on.  The committed tip curve
+    (tests/golden/refdb/twisting_column_3d, 142 snapshots every 20 steps to
+    t = 0.5) is not what the JAX package computes today: its own lattice
+    engine in float32 on the CPU, sampled the same way, ends after 140
+    snapshots and leaves the curve by more than 0.1 (one dx) at snapshot
+    GOLDEN_HELD, having stayed within 0.1 before it.  The card's run is
+    held to the curve over that span, and over all 140 snapshots to the
+    port-owned curve JAX_CURVE, which this same run reproduces within
+    JAX_CURVE_TOL."""
+    cs = _chip_smoke()
+    gold = np.asarray(cs.golden_tip_x())
+    xs = jax_tip_curve()
     assert (len(xs), len(gold)) == (140, 142)
     dev = np.abs(np.asarray(xs) - gold[:len(xs)])
     held = cs.GOLDEN_HELD
     assert dev[:held].max() <= 0.1 < dev[held]
+
+    own = json.loads(JAX_CURVE.read_text())
+    assert (own["dx"], own["dtype"], own["t_end"], own["every_steps"]) == \
+        (DX, "float32", 0.5, 20)
+    assert own["tip_x"] == cs.jax_tip_x()
+    assert len(own["tip_x"]) == len(xs)
+    assert np.abs(np.asarray(xs) - np.asarray(own["tip_x"])).max() \
+        <= JAX_CURVE_TOL
+
+
+def write_jax_curve():
+    """Write JAX_CURVE from jax_tip_curve(), with the settings the tests
+    run under (tests/conftest.py: the CPU, x64 on; the case in float32)."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    xs = jax_tip_curve()
+    JAX_CURVE.parent.mkdir(parents=True, exist_ok=True)
+    JAX_CURVE.write_text(json.dumps({
+        "what": "tip x of the twisting column (sphinxsys_tpu.cases."
+                "twisting_column_3d, engine='lattice') at the observer "
+                "(6, 0, 0), every 20 steps from t = 0 to t >= 0.5",
+        "command": "JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_solid_lattice.py",
+        "jax_version": jax.__version__,
+        "platform": f"{jax.devices()[0].platform} ({platform.machine()}, "
+                    f"{platform.processor() or 'unknown processor'})",
+        "x64": bool(jax.config.jax_enable_x64),
+        "dtype": "float32", "dx": DX, "t_end": 0.5, "every_steps": 20,
+        "tip_x": xs,
+    }, indent=1) + "\n")
+    print(f"wrote {len(xs)} snapshots to {JAX_CURVE}")
+
+
+if __name__ == "__main__":
+    write_jax_curve()
