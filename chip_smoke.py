@@ -16,7 +16,12 @@ cell-block engine — at full size:
     benchmarks/micro_sweep.py composed them;
   * tc1m: the twisting column on the lattice-stencil solid at dx=0.0175
     (bench.py:330): 349 x 57 x 57 = 1,133,901 sites, 80 taps, its two tap
-    sums through L1 / L2 (csrc/lattice_sweeps.cu).
+    sums through L1 / L2 (csrc/lattice_sweeps.cu), and on the gather
+    engine (frozen neighbour lists, torch ops);
+  * fsi2 at its reference resolution dx=0.1: 5,180 fluid, 1,104 wall and
+    150 solid particles, the wall and the elastic beam one moving
+    wall-type body on an x-periodic grid, through B1-B4's moving-wall,
+    periodic variants.
 
 Phases:
 
@@ -90,7 +95,22 @@ Phases:
      the dx=0.1 column through the kernels against the plain versions to
      t=0.02 (equal step counts, positions within 5e-5 of max|x|) and to
      t=0.5 against the JAX package's own float32 tip curve (every one of
-     its 140 snapshots) and the committed one (its first 99).
+     its 140 snapshots) and the committed one (its first 99);
+  9. fsi2 (between phases 5 and 6): B1-B4 against their plain versions on
+     the state at t=0.5 (also with holes, padding near the real slots and
+     coincident particles), timed and bounded; the kernels and the block
+     forms on the card to t=0.1 (equal counts, states within
+     FSI2_SHORT_TOL); the main path to t=5 (build_block_case ->
+     init_block_sim -> make_run_chunk, counts reset just before it, the
+     host reads of device values counted) held to the spread of the JAX
+     package's own float32 runs (`fsi2_gates`: sub-step counts, tip
+     excursion); the step by part and profiled, with the torch-op FSI
+     couplings and solid sub-step on their own;
+ 10. gather solid (inside phase 8): at dx=0.0175 the frozen topology
+     built on the card (time, peak memory), GATHER_STEPS steps from the
+     lattice main path's state against that path's (positions within
+     GATHER_POS_TOL of max|x|), its step profiled; the dx=0.1 column on
+     the gather engine to t=0.5 against the JAX curve.
 
 Every kernel and plain-version time is taken by
 sphinxsys_tpu_torch.benchmarks.median_ms, the layout drivers' timer.  Its last two lines are a JSON object of per-kernel
@@ -169,6 +189,26 @@ GOLDEN_HELD = 99
 # run may stray from it over all of them (measured gaps: PERF.md section 6)
 JAX_CURVE = "tests/golden_torch/twisting_column_3d/tip_x.json"
 JAX_CURVE_BOUND = 0.05
+# the gather solid at the bench's dx (phase 10): steps from the lattice main
+# path's state, and how far its positions may stray from that path's, of
+# max|x| (float32 sums in other orders, B formed in float32 where the
+# lattice forms it in float64 and rounds it)
+GATHER_STEPS = 5
+GATHER_POS_TOL = 1e-5
+# fsi2 (phase 9) at its reference resolution: B1-B4 held on the state at
+# FSI2_MID; the kernel and block-form routes to FSI2_SHORT, held to
+# FSI2_SHORT_TOL (absolute, in positions and velocities: float32 sums in
+# other orders, measured 3.1e-6 in velocity on the CPU); the kernels to
+# FSI2_T_END, held to the spread of the JAX package's own float32 runs
+# (FSI2_JAX_RUNS, `fsi2_gates`)
+FSI2_DX = 0.1
+FSI2_MID = 0.5
+FSI2_SHORT = 0.1
+FSI2_SHORT_TOL = 5e-5
+FSI2_T_END = 5.0
+FSI2_SAMPLE = 0.05
+FSI2_JAX_RUNS = "tests/golden_torch/fsi2/jax_f32_runs.json"
+FSI2_COUNT_BAND = 0.2
 DEVICE = "cuda"
 DAMBREAK_KERNELS = ("density_sweep", "ac1_sweep", "ac2_sweep")
 CONFIGS = {  # the bench configs (bench.py:311-318), Taylor–Green at 1M
@@ -297,7 +337,9 @@ def bound(torch, name, args, out, scene, sim):
     the bytes it must move (`read_bytes`) over the HBM rate and the flops
     of the real pairs it evaluates over the float32 rate.  Returns (ms,
     "bytes"|"operations", real pairs, flops, bytes)."""
-    eng, wb = scene.eng, scene.wall_b
+    from sphinxsys_tpu_torch.benchmarks import wall_blocks
+
+    eng, wb = scene.eng, wall_blocks(scene, sim)
     nbytes = read_bytes(torch, name, args, out)
     inner, wall = real_pairs(
         torch, args[0], sim.fluid_b["SlotMask"], sim.nbr_inner, eng.box,
@@ -489,10 +531,10 @@ def padding_checks(torch, tag, scene, sim, g):
     every padding position moved into the support of its row's first slot
     (jitter up to h/2), VOL and mask kept 0, whose real slots must stay
     within 1e-6 max|out| of the run without the move."""
-    from sphinxsys_tpu_torch.benchmarks import sweep_inputs
+    from sphinxsys_tpu_torch.benchmarks import sweep_inputs, wall_blocks
     from sphinxsys_tpu_torch.ops import block_sweeps as bs
 
-    wb, fb = scene.wall_b, sim.fluid_b
+    wb, fb = wall_blocks(scene, sim), sim.fluid_b
     c = sim.nbr_inner.shape[0]
     real = fb["SlotMask"][:c]
     h = scene.eng.kernel.h
@@ -502,7 +544,7 @@ def padding_checks(torch, tag, scene, sim, g):
     inputs = sweep_inputs(scene, sim, tuple(KERNELS))
     cases = (("density_sweep", "", None, None),
              ("ac1_sweep", "", 8, wacc), ("ac2_sweep", "", 6, wvel),
-             ("visc_tvc_sweep", " static-wall", None, None),
+             ("visc_tvc_sweep", " static-wall", 6, None),
              ("visc_tvc_sweep", " moving-wall", 6, wvel))
     for name, wall_kind, slot, extra in cases:
         args, kw = inputs[name]
@@ -645,7 +687,7 @@ def run_main_path(torch, tag, cfg, results):
         "advection_dt": wall_s(torch, lambda: eng_mod.advection_dt(eng, fb), 5),
         "prep": wall_s(torch, lambda: eng_mod.advection_prep(eng, fb, nbr, wc), 5),
         "acoustic_substep": wall_s(torch, acoustic_substep, 5),
-        "reslot": wall_s(torch, lambda: sc._slot(scene, flat, valid), 5),
+        "reslot": wall_s(torch, lambda: sc._slot(scene, flat, valid, sim.aux), 5),
     }
     log(f"{tag} step parts (ms, wall clock): "
         + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in parts.items()))
@@ -1659,18 +1701,19 @@ def solid_edge_checks(torch):
             lattice_hold(torch, f"{tag} ({n_cut} NaN sites)", name, args)
 
 
-def solid_golden_check(torch):
-    """The twisting column at dx = 0.1 through the kernels to t = 0.5, the
-    tip sampled every 20 steps as benchmarks/run_refdb_parity.py:544-553
-    did: the envelope of tests/test_twisting_column.py:33-34; the tip x
-    within JAX_CURVE_BOUND of the JAX package's own float32 run
-    (JAX_CURVE) at every one of its 140 snapshots; and within 0.1 (one dx)
-    of the committed curve (SOLID_GOLDEN) at each of the GOLDEN_HELD
-    leading snapshots, the span over which the JAX package's own run
-    reproduces it; beyond it only the largest gap is printed."""
+def solid_golden_check(torch, engine="lattice"):
+    """The twisting column at dx = 0.1 on `engine` (the lattice one through
+    the kernels) to t = 0.5, the tip sampled every 20 steps as
+    benchmarks/run_refdb_parity.py:544-553 did: the envelope of
+    tests/test_twisting_column.py:33-34; the tip x within JAX_CURVE_BOUND
+    of the JAX package's own float32 run (JAX_CURVE) at every one of its
+    140 snapshots; and within 0.1 (one dx) of the committed curve
+    (SOLID_GOLDEN) at each of the GOLDEN_HELD leading snapshots, the span
+    over which the JAX package's own run reproduces it; beyond it only the
+    largest gap is printed."""
     from sphinxsys_tpu_torch.cases import twisting_column_3d as tc
 
-    case, col = tc.build_case(dx=0.1, engine="lattice", device=DEVICE)
+    case, col = tc.build_case(dx=0.1, engine=engine, device=DEVICE)
     s = tc.init_sim(case, col)
     idx, w = tc.tip_observer(case, col)
     xs = [float(tc.observe_tip(s, idx, w)[0])]
@@ -1685,7 +1728,7 @@ def solid_golden_check(torch):
     held = max(gaps[:GOLDEN_HELD])
     own = jax_tip_x()
     own_gap = max(abs(a - b) for a, b in zip(xs, own))
-    log(f"tc golden: dx=0.1 {s.n_steps} steps to t={float(s.time):.6f} in "
+    log(f"tc golden ({engine}): dx=0.1 {s.n_steps} steps to t={float(s.time):.6f} in "
         f"{run_s:.2f} s, {len(xs)} snapshots (the curve {len(gold)}), tip x "
         f"in [{min(xs):.4f}, {max(xs):.4f}] (the curve [{min(gold):.4f}, "
         f"{max(gold):.4f}]), max |x - curve| {held:.4e} over the first "
@@ -1725,17 +1768,326 @@ def solid_small_reference(torch, t_end=0.02):
           f"tc small reference: positions differ by {err:.3e}")
 
 
+def gather_solid_check(torch, lcase, ls_state, results):
+    """Phase 10, at the bench's dx: the gather engine's frozen topology
+    (cell table, row-chunked neighbour lists, frozen pairs, B) built on the
+    card, timed, with its peak device memory; then, from the lattice main
+    path's state, GATHER_STEPS steps of each engine (the lattice one
+    through L1 / L2): equal step counts and positions within
+    GATHER_POS_TOL of max|x|.  The gather engine's pair sums are torch ops
+    over the frozen (N, K) lists, no hand kernel: an independent oracle for
+    L1 / L2 at full size."""
+    from sphinxsys_tpu_torch.cases import twisting_column_3d as tc
+    from sphinxsys_tpu_torch.physics import solid as sd
+
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gcase, gcol = tc.build_case(dx=SOLID_DX, engine="gather", device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    rp = gcase.rp
+    pairs = int(rp.mask.sum())
+    rp_bytes = sum(t.numel() * t.element_size() for t in rp)
+    log(f"tc1m gather: topology of {gcase.n_column} sites, K={rp.idx.shape[1]}, "
+        f"{pairs} frozen pairs ({rp_bytes / 1e9:.3f} GB frozen) built in "
+        f"{build_s:.2f} s, peak device memory {peak / 1e9:.3f} GB over the "
+        f"{base_mem / 1e9:.3f} GB already held")
+    check(pairs == results["_tc1m_main"]["pairs_per_sweep"],
+          f"tc1m gather: {pairs} frozen pairs, the lattice sweeps "
+          f"{results['_tc1m_main']['pairs_per_sweep']}")
+
+    start = {k: v for k, v in ls_state.column.items() if k != "LatticeValid"}
+    start["LinearGradientCorrectionMatrix"] = gcol["LinearGradientCorrectionMatrix"]
+    g = tc.SimState(column=start, time=ls_state.time, n_steps=0)
+    lat = tc.SimState(column=ls_state.column, time=ls_state.time, n_steps=0)
+    for _ in range(GATHER_STEPS):
+        g, lat = tc._step(gcase, g), tc._step(lcase, lat)
+    err = float((g.column["Position"] - lat.column["Position"]).abs().max())
+    scale = float(lat.column["Position"].abs().max())
+    dt_gap = abs(float(g.time) - float(lat.time))
+    log(f"tc1m gather vs lattice: {GATHER_STEPS} steps from the main path's "
+        f"state, max |dpos| {err:.3e} (max|x| {scale:.3f}), |dt sum gap| "
+        f"{dt_gap:.3e}")
+    for k in ("Position", "Velocity", "DeformationGradient"):
+        check(bool(torch.isfinite(g.column[k]).all()), f"tc1m gather: non-finite {k}")
+    check(err <= GATHER_POS_TOL * scale,
+          f"tc1m gather: positions off the lattice path's by {err:.3e}")
+
+    step_ms = wall_s(torch, lambda: tc._step(gcase, g), 3) * 1e3
+    dev_us, wall_us, _, launches = profile_step(
+        torch, "tc1m_gather", lambda: tc._step(gcase, g), "gather step")
+    peak_step = torch.cuda.max_memory_allocated() - base_mem
+    log(f"tc1m gather path: steady step {step_ms:.3f} ms (wall clock, median "
+        f"of 3; the lattice path's {results['_tc1m_main']['parts_ms']['step']:.3f}"
+        f" ms), {launches} device launches a step, device busy "
+        f"{dev_us / 1e3:.3f} ms; peak device memory with a step "
+        f"{peak_step / 1e9:.3f} GB")
+    results["_tc_gather"] = dict(
+        build_s=build_s, build_peak_gb=peak / 1e9, frozen_gb=rp_bytes / 1e9,
+        step_peak_gb=peak_step / 1e9, ms_per_step=step_ms,
+        launches_per_step=launches, device_busy_ms=dev_us / 1e3,
+        pos_gap=err, steps=GATHER_STEPS)
+    del gcase, gcol, g, lat, rp, start
+
+
 def solid_phase(torch, results):
-    """Phase 8: the lattice solid."""
+    """Phases 8 and 10: the lattice solid, then the gather solid."""
     t0 = time.perf_counter()
     case, s = solid_main_path(torch, results)
     solid_kernel_checks(torch, case, s, results)
+    gather_solid_check(torch, case, s, results)
     del case, s
-    solid_edge_checks(torch)
     torch.cuda.empty_cache()
+    solid_edge_checks(torch)
     solid_small_reference(torch)
     results["_tc1m_main"]["golden"] = solid_golden_check(torch)
-    log(f"lattice solid phase: {time.perf_counter() - t0:.1f} s")
+    results["_tc_gather"]["golden"] = solid_golden_check(torch, "gather")
+    log(f"solid phases: {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# 9. fsi2: the moving-wall, x-periodic path through B1-B4
+# ---------------------------------------------------------------------------
+
+def fsi2_gates():
+    """What the card's fsi2 run to FSI2_T_END is held to, from the JAX
+    package's own float32 runs at dx = 0.1 (FSI2_JAX_RUNS: its block and
+    gather routes, x64 on and off, to t = 5; tests/test_torch_fsi2.py
+    writes them).  Counts: the acoustic (n_ac) and solid (n_s) sub-steps
+    within FSI2_COUNT_BAND of the block route's with x64 on (790 / 1,580;
+    the four runs span 785-815 / 1,570-1,629, and their advection counts
+    283-322, so a 20% band holds them all and a broken coupling, which
+    shrinks the time steps, still falls out).  Tip: the beam tip's
+    displacement from its start, |d| at every sample, within the largest
+    any of the four runs reaches (0.548, the block route with x64 off, at
+    t < 1: the start-up pressure pulse at the tip, which the float32 runs
+    resolve each their own way)."""
+    runs = json.loads((ROOT / FSI2_JAX_RUNS).read_text())["runs"]
+    ref = next(r for r in runs if r["route"] == "block" and r["x64"])
+    n_ac, n_s = ref["rows"][-1][2:4]
+    band = lambda n: ((1 - FSI2_COUNT_BAND) * n, (1 + FSI2_COUNT_BAND) * n)
+    radius = max(math.hypot(row[4], row[5]) for r in runs for row in r["rows"])
+    return dict(n_ac=band(n_ac), n_s=band(n_s), tip_radius=radius)
+
+
+def coincident_check(torch, tag, scene, sim):
+    """B1-B4 with coincident particles: in every row whose first two slots
+    are real, slot 1 moved onto slot 0 (r = 0 within the cell), each
+    against its plain version on the same inputs."""
+    from sphinxsys_tpu_torch.benchmarks import sweep_inputs
+
+    c = sim.nbr_inner.shape[0]
+    real = sim.fluid_b["SlotMask"][:c]
+    both = sim.fluid_b["SlotMask"][:, 0] & sim.fluid_b["SlotMask"][:, 1]
+    for name, (args, kw) in sweep_inputs(scene, sim, tuple(KERNELS)).items():
+        args = list(args)
+        pos = args[0].clone()
+        pos[both, 1] = pos[both, 0]
+        args[0] = pos
+        compare(torch, f"{tag} coincident", name, args, kw, real)
+        log(f"{tag} coincident {name}: agrees with its plain version "
+            f"({int(both.sum())} rows)")
+
+
+class SyncCounter:
+    """Counts the host reads of device values (`bool`, `float`, `int`,
+    `item` of a tensor) inside a `with` block."""
+
+    NAMES = ("__bool__", "__float__", "__int__", "item")
+
+    def __init__(self, torch):
+        self.cls, self.n = torch.Tensor, 0
+        self.device = torch.device(DEVICE).type
+
+    def __enter__(self):
+        self.saved = {k: getattr(self.cls, k) for k in self.NAMES}
+
+        def counted(fn):
+            def wrapper(t, *a):
+                if t.device.type == self.device:
+                    self.n += 1
+                return fn(t, *a)
+            return wrapper
+
+        for k, fn in self.saved.items():
+            setattr(self.cls, k, counted(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.saved.items():
+            setattr(self.cls, k, fn)
+
+
+def fsi2_short_check(torch):
+    """fsi2 on the card to FSI2_SHORT through the kernels and through the
+    block forms (`use_kernels=False`: torch ops, no hand kernel): equal
+    counts, the fluid's positions and velocities by particle and the
+    solid's positions within FSI2_SHORT_TOL."""
+    from sphinxsys_tpu_torch.cases import fsi2 as fc
+    from sphinxsys_tpu_torch.engine import scene as sc
+
+    runs = {}
+    for use_kernels in (True, False):
+        scene, fluid, solid = fc.build_block_case(dx=FSI2_DX, device=DEVICE,
+                                                  use_kernels=use_kernels)
+        sim = sc.make_run_chunk(scene)(fc.init_block_sim(scene, fluid, solid),
+                                       FSI2_SHORT)
+        runs[use_kernels] = (sim, sc.blocks_to_particles(scene, sim))
+    (k, pk), (b, pb) = runs[True], runs[False]
+    counts = lambda s: (s.n_adv, s.n_ac, s.aux["n_s"])
+    gaps = {f: float((pk[f] - pb[f]).abs().max()) for f in ("Position", "Velocity")}
+    gaps["solid"] = float((k.aux["solid"]["Position"]
+                           - b.aux["solid"]["Position"]).abs().max())
+    log(f"fsi2 short: to t={FSI2_SHORT} kernels {counts(k)}, block forms "
+        f"{counts(b)}; max gaps {gaps} (tolerance {FSI2_SHORT_TOL}; max|v| "
+        f"{float(pb['Velocity'].abs().max()):.4e})")
+    check(counts(k) == counts(b), "fsi2 short: the two routes' counts differ")
+    check(not bool(k.overflow) and not bool(b.overflow), "fsi2 short: overflow")
+    for f, gap in gaps.items():
+        check(gap <= FSI2_SHORT_TOL, f"fsi2 short: {f} differ by {gap:.3e}")
+
+
+def fsi2_phase(torch, results):
+    """Phase 9: fsi2 at dx = 0.1 (5,180 fluid, 1,104 wall, 150 solid
+    particles; the wall and the solid one moving wall-type body, x-periodic)
+    on the card: B1-B4 against their plain versions on the state at
+    FSI2_MID (also with holes, padding near the real slots and coincident
+    particles), timed and bounded; the short two-route check; then the main
+    path to FSI2_T_END through build_block_case -> init_block_sim ->
+    make_run_chunk, launch counts reset just before it, the host reads of
+    device values counted, the tip sampled every FSI2_SAMPLE and held to
+    `fsi2_gates`; the step by part and profiled (the advection step, and
+    the torch-op FSI couplings and solid sub-step on their own)."""
+    from sphinxsys_tpu_torch.cases import fsi2 as fc
+    from sphinxsys_tpu_torch.engine import block_fluid as eng_mod
+    from sphinxsys_tpu_torch.engine import scene as sc
+    from sphinxsys_tpu_torch.ops import block_sweeps as bs
+    from sphinxsys_tpu_torch.physics import fsi, fsi_blocks as fsb
+    from sphinxsys_tpu_torch.physics import solid as sd
+
+    t0 = time.perf_counter()
+    scene, fluid, solid = fc.build_block_case(dx=FSI2_DX, device=DEVICE)
+    base, eng = scene.base, scene.eng
+    run = sc.make_run_chunk(scene)
+    mid = run(fc.init_block_sim(scene, fluid, solid), FSI2_MID)
+    log(f"fsi2: n_fluid={base.n_fluid} n_wall={base.n_wall} "
+        f"n_solid={base.n_solid} grid={eng.grid.shape} c_max={eng.c_max} "
+        f"cap={eng.cap}; the state at t={float(mid.time):.4f} (n_adv "
+        f"{mid.n_adv}) in {time.perf_counter() - t0:.1f} s")
+    compare_kernels(torch, "fsi2", dict(kernels=tuple(KERNELS)), scene, mid,
+                    results)
+    padding_checks(torch, "fsi2", scene, mid,
+                   torch.Generator(device=DEVICE).manual_seed(19))
+    coincident_check(torch, "fsi2", scene, mid)
+    fsi2_short_check(torch)
+
+    gates = fsi2_gates()
+    sim = fc.init_block_sim(scene, fluid, solid)
+    idx, w = fc.tip_observer(base, solid)
+    tip0 = fc.observe_tip(solid, idx, w)
+    tip_max, samples = 0.0, 0
+    bs.reset_launch_counts()
+    t1 = time.perf_counter()
+    with SyncCounter(torch) as syncs:
+        while float(sim.time) < FSI2_T_END:
+            samples += 1
+            sim = run(sim, samples * FSI2_SAMPLE)
+            d = fc.observe_tip(sim.aux["solid"], idx, w) - tip0
+            tip_max = max(tip_max, float(torch.linalg.vector_norm(d)))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t1
+    counts = dict(bs.LAUNCHES)
+    so = sim.aux["solid"]
+    n_adv, n_ac, n_s = sim.n_adv, sim.n_ac, sim.aux["n_s"]
+    part = sc.blocks_to_particles(scene, sim)
+    n_sync = syncs.n - 2 * samples - 1   # the loop's own time tests, tip reads
+    log(f"fsi2 main path: to t={float(sim.time):.6f} n_adv={n_adv} n_ac={n_ac} "
+        f"n_s={n_s} (band n_ac {gates['n_ac']}, n_s {gates['n_s']}) in "
+        f"{elapsed:.2f} s: {elapsed / n_adv * 1e3:.3f} ms an advection step "
+        f"(wall clock, mean), launches {counts}, {n_sync} host reads of device "
+        f"values ({n_sync / n_adv:.2f} an advection step); tip max|d| "
+        f"{tip_max:.4f} (bound {gates['tip_radius']:.4f}), d at the end "
+        f"{(fc.observe_tip(so, idx, w) - tip0).tolist()}")
+    check(not bool(sim.overflow), "fsi2: block capacity overflow")
+    for k in ("Position", "Velocity", "Density", "Pressure"):
+        check(bool(torch.isfinite(part[k]).all()), f"fsi2: non-finite fluid {k}")
+    for k in ("Position", "Velocity", "DeformationGradient"):
+        check(bool(torch.isfinite(so[k]).all()), f"fsi2: non-finite solid {k}")
+    check(counts["density"] == counts["visc_tvc"] == n_adv
+          and counts["ac1"] == counts["ac2"] == n_ac,
+          f"fsi2: launches {counts} for {n_adv} steps and {n_ac} sub-steps")
+    check(gates["n_ac"][0] <= n_ac <= gates["n_ac"][1]
+          and gates["n_s"][0] <= n_s <= gates["n_s"][1],
+          f"fsi2: counts {n_ac} / {n_s} off the band")
+    check(tip_max <= gates["tip_radius"],
+          f"fsi2: tip displaced {tip_max:.4f} > {gates['tip_radius']:.4f}")
+    for name, (_, key) in KERNELS.items():
+        results[f"{name}[fsi2]"]["launches"] = counts[key]
+
+    # the step by part (host wall clock, synchronised) and profiled
+    h, kern, w0 = base.adaptation.h, base.kernel, base.kernel.w0(2)
+    fb, aux = sim.fluid_b, sim.aux
+    c0s = base.material_s.sound_speed
+    hooks = scene.hooks
+    wc = eng_mod.WallCtx(eng_mod.refresh_wall_blocks(
+        sim.wall_bm, scene.wall_state_fn(aux), sim.wall_b0), sim.nbr_wall)
+    dt = eng_mod.acoustic_dt(eng, fb, eng_mod.advection_dt(eng, fb))
+    dt_s = torch.minimum(sd.solid_acoustic_time_step(so, c0s, h), dt)
+
+    def acoustic_substep():
+        w_ = eng_mod.WallCtx(eng_mod.refresh_wall_blocks(
+            sim.wall_bm, scene.wall_state_fn(aux), sim.wall_b0), sim.nbr_wall)
+        f = eng_mod.acoustic_first_half(eng, fb, sim.nbr_inner, w_, dt)
+        f, a = hooks.after_first_half(f, aux, dt, sim.time)
+        f = eng_mod.acoustic_second_half(eng, f, sim.nbr_inner, w_, dt)
+        hooks.post_acoustic(f, a, dt, sim.time + dt)
+
+    def solid_substep():
+        d = torch.minimum(sd.solid_acoustic_time_step(so, c0s, h), dt)
+        x = sd.integration_1st_half_pk2(so, base.rp, base.material_s, d, h, w0)
+        sd.integration_2nd_half(sd.fix_constraint(x, base.base_mask), base.rp, d)
+
+    pressure = lambda: fsb.pressure_force_from_fluid_b(
+        so, fb, aux["sol_win"], kern, 2, base.riemann, box=eng.box)
+    viscous = lambda: fsi.update_elastic_normal_direction(
+        fsb.viscous_force_from_fluid_b(so, fb, aux["sol_win"], kern, 2,
+                                       fc.MU_F, h, box=eng.box))
+    step = sc.make_advection_step(scene)
+    flat = {k: fb[k].reshape((-1,) + tuple(fb[k].shape[2:])) for k in scene.fields}
+    parts = {
+        "advection_step": wall_s(torch, lambda: step(sim), 3),
+        "prep": wall_s(torch, lambda: eng_mod.advection_prep(
+            eng, fb, sim.nbr_inner, wc), 5),
+        "acoustic_substep": wall_s(torch, acoustic_substep, 5),
+        "fluid_halves": wall_s(torch, lambda: eng_mod.acoustic_second_half(
+            eng, eng_mod.acoustic_first_half(eng, fb, sim.nbr_inner, wc, dt),
+            sim.nbr_inner, wc, dt), 5),
+        "solid_substep": wall_s(torch, solid_substep, 5),
+        "pressure_force": wall_s(torch, pressure, 5),
+        "viscous_force": wall_s(torch, viscous, 5),
+        "reslot": wall_s(torch, lambda: sc._slot(scene, flat, fb["SlotMask"].reshape(-1),
+                                                 aux), 5),
+    }
+    parts = {k: v * 1e3 for k, v in parts.items()}
+    log("fsi2 step parts (ms, wall clock): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()))
+    dev_us, wall_us, plain_us, launches = profile_step(torch, "fsi2",
+                                                       lambda: step(sim))
+    coupling = {}
+    for tag, fn in (("solid_substep", solid_substep),
+                    ("pressure_force", pressure), ("viscous_force", viscous)):
+        c_us, _, _, c_n = profile_step(torch, f"fsi2_{tag}", fn, tag)
+        coupling[tag] = dict(device_ms=c_us / 1e3, launches=c_n)
+    results["_fsi2_main"] = dict(
+        t_end=float(sim.time), n_adv=n_adv, n_ac=n_ac, n_s=n_s,
+        ms_per_adv=elapsed / n_adv * 1e3, host_reads_per_adv=n_sync / n_adv,
+        parts_ms=parts, device_busy_ms=dev_us / 1e3,
+        launches_per_adv=launches, idle_share_est=1 - dev_us / plain_us,
+        tip_max=tip_max, coupling=coupling)
+    log(f"fsi2 phase: {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -1795,12 +2147,14 @@ def main() -> int:
         profile_step(torch, tag, lambda: step(sim))
         del scene, sim, step
         torch.cuda.empty_cache()
+    fsi2_phase(torch, results)
     packed_phase(torch, results)
     solid_phase(torch, results)
 
     kernels = []
-    for tag, cfg in CONFIGS.items():
-        for name in cfg["kernels"]:
+    for tag, names in [*((t, c["kernels"]) for t, c in CONFIGS.items()),
+                       ("fsi2", tuple(KERNELS))]:
+        for name in names:
             r = results[f"{name}[{tag}]"]
             kernels.append({"name": f"{name}[{tag}]", "route": "cuda",
                             "source": SOURCE, "replaces": KERNELS[name][0],
@@ -1822,8 +2176,9 @@ def main() -> int:
                             "bound_by": r["bound_by"],
                             "library_ms": r.get("library_ms")})
     main_paths = {tag: results[f"_{tag}_main"]
-                  for tag in (*CONFIGS, "2d16", "2d16_b2b3", "layout",
+                  for tag in (*CONFIGS, "fsi2", "2d16", "2d16_b2b3", "layout",
                               "tc1m", "tc1m_plain")}
+    main_paths["tc_gather"] = results["_tc_gather"]
     log("main paths: " + json.dumps(main_paths))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

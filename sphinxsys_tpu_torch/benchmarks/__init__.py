@@ -93,10 +93,23 @@ def perturbed(fluid: dict, dx: float, seed: int = 11) -> dict:
                 Velocity=vel + 0.1 * kick)
 
 
+def wall_blocks(scene, sim):
+    """The wall block state the sweeps read at the next sub-step: the
+    scene's static wall, or its moving wall refreshed in the slots of the
+    current advection step from the sim's aux state (None: no wall)."""
+    if scene.wall_state_fn is None:
+        return scene.wall_b
+    from sphinxsys_tpu_torch.engine import block_fluid as eng_mod
+
+    return eng_mod.refresh_wall_blocks(sim.wall_bm, scene.wall_state_fn(sim.aux),
+                                       sim.wall_b0)
+
+
 def sweep_inputs(scene, sim, kernels) -> dict:
     """The block sweeps' (args, kwargs) by wrapper name, as the *_p2 forms
     build them from the current block state (the acoustic ones at the next
-    sub-step's dt)."""
+    sub-step's dt); a moving wall (an engine with wall_static off) with its
+    velocity and acceleration channels."""
     from sphinxsys_tpu_torch.engine import block_fluid as eng_mod
     from sphinxsys_tpu_torch.physics import fluid_blocks as fbops
 
@@ -104,9 +117,11 @@ def sweep_inputs(scene, sim, kernels) -> dict:
     kern, dim = eng.kernel, eng.dim
     inv_h = 1.0 / kern.h
     dw_scale = kern._factor_w(dim) * inv_h * 0.625
-    wb, nw = scene.wall_b, sim.nbr_wall
+    wb, nw = wall_blocks(scene, sim), sim.nbr_wall
     wall = (lambda *k: (None,) * len(k)) if wb is None \
         else (lambda *k: tuple(wb[x] for x in k))
+    moving = (lambda k: wb[k]) if wb is not None and not eng.wall_static \
+        else (lambda k: None)
     dt = eng_mod.acoustic_dt(eng, fb)
     rho, p, pos = fbops._half_step_fields(fb, eng.eos, dt)
     acc = fb["ForcePrior"] / torch.clamp(fb["Mass"], min=fbops.TINY)[..., None]
@@ -119,18 +134,20 @@ def sweep_inputs(scene, sim, kernels) -> dict:
             dict(inv_h=inv_h, factor_w=kern._factor_w(dim), box=box)),
         "ac1_sweep": (
             (pos, p, rho, acc, fb["VolumetricMeasure"], sim.nbr_inner,
-             *wall("Position", "VolumetricMeasure"), None, nw),
+             *wall("Position", "VolumetricMeasure"),
+             moving("AverageAcceleration"), nw),
             dict(inv_h=inv_h, dw_scale=dw_scale,
                  inv_rho0c0=eng.riemann1.inv_rho0c0_ave, box=box)),
         "ac2_sweep": (
             (pos, fb["Velocity"], fb["VolumetricMeasure"], sim.nbr_inner,
-             *wall("Position", "VolumetricMeasure"), None,
+             *wall("Position", "VolumetricMeasure"), moving("AverageVelocity"),
              *wall("NormalDirection"), nw),
             dict(inv_h=inv_h, dw_scale=dw_scale, rho0c0_geo=geo,
                  lim_scale=lim_scale, box=box)),
         "visc_tvc_sweep": (
             (fb["Position"], fb["Velocity"], fb["VolumetricMeasure"],
-             sim.nbr_inner, *wall("Position", "VolumetricMeasure"), None, nw),
+             sim.nbr_inner, *wall("Position", "VolumetricMeasure"),
+             moving("AverageVelocity"), nw),
             dict(inv_h=inv_h, dw_scale=dw_scale, eps_r=0.01 * eng.h, box=box)),
     }
     return {k: out[k] for k in kernels}

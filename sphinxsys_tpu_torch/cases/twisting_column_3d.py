@@ -1,4 +1,4 @@
-"""3D twisting column on the lattice-stencil solid (counterpart of
+"""3D twisting column, a total-Lagrangian solid (counterpart of
 sphinxsys_tpu/cases/twisting_column_3d.py; reference
 tests/3d_examples/test_3d_twisting_column/twisting_column.cpp): a 6x1x1
 Neo-Hookean column (rho0 = 1100, E = 1.7e7, nu = 0.45), clamped by a
@@ -6,12 +6,17 @@ one-layer holder at x < 0, given an initial twist (angular velocity
 -400 sin(pi x / 2L) about the x axis) and left to oscillate; the tip swings
 axially between x ~ 3.2 and ~ 9.6 by t = 0.5.
 
-    case, column = build_case(dx=0.0175, engine="lattice")   # 1,117,656 sites
+    case, column = build_case(dx=0.0175, engine="lattice")   # 1,133,901 sites
     sim = make_run_chunk(case)(init_sim(case, column), 0.02)
 
+Two engines, the same physics:
+  * "gather" (JAX's default): frozen (N, K) neighbour lists of the
+    initial lattice (neighbors/neighbor_list.py, physics/solid.py), the
+    pair sums torch ops over the gathered slots;
+  * "lattice": the stencil path (physics/solid_lattice.py), whose two tap
+    sums are the hand kernels L1 / L2.
 Each step: the acoustic time step (one host sync a step, in the loop's
-time test), the decomposed first half (L1), the holder, the second half
-(L2).  The gather engine (frozen neighbour lists) is not ported yet.
+time test), the decomposed first half, the holder, the second half.
 """
 
 from __future__ import annotations
@@ -26,6 +31,9 @@ import torch
 from sphinxsys_tpu_torch.core.adaptation import SPHAdaptation
 from sphinxsys_tpu_torch.core.materials import NeoHookeanSolid
 from sphinxsys_tpu_torch.device import PRODUCTION_DTYPE, resolve_device
+from sphinxsys_tpu_torch.neighbors.cell_list import (build_cell_table,
+                                                    grid_from_bounds)
+from sphinxsys_tpu_torch.neighbors.neighbor_list import build_neighbor_list
 from sphinxsys_tpu_torch.physics import solid as sd
 from sphinxsys_tpu_torch.physics import solid_lattice as sl
 
@@ -51,26 +59,30 @@ class TwistingCase:
     material: NeoHookeanSolid
     holder_mask: torch.Tensor
     n_column: int
-    lat: sl.LatticeSolid
+    rp: Any = None                  # sd.ReferencePairs (gather engine)
+    lat: Any = None                 # sl.LatticeSolid (lattice engine)
     use_kernels: bool = True
 
     @property
     def kernel(self):
         return self.adaptation.kernel
 
+    @property
+    def engine(self) -> str:
+        return "lattice" if self.lat is not None else "gather"
+
 
 def build_case(dx: float = DX, dtype=PRODUCTION_DTYPE, cell_cap: int = 36,
                k_inner: int = 96, engine: str = "gather", device="cuda",
                use_kernels: bool = True):
-    """engine="lattice": the stencil path (physics/solid_lattice.py), the
-    only one ported; "gather" (JAX's default, with its `cell_cap` and
-    `k_inner`) raises.  `use_kernels=False` takes the tap sums through
-    their plain versions on any device.  Returns (case, column state)."""
+    """engine="gather": frozen (N, K) pair lists (`cell_cap` and `k_inner`
+    size the cell table and the lists; an overflow raises, since the frozen
+    pairs must be exact); engine="lattice": the stencil path, whose tap
+    sums `use_kernels=False` takes through their plain versions on any
+    device.  Returns (case, column state)."""
     device = resolve_device(device)
-    if engine != "lattice":
-        raise NotImplementedError(
-            f"engine={engine!r}: the gather engine (ROADMAP A4) is not ported;"
-            " use engine='lattice'")
+    if engine not in ("gather", "lattice"):
+        raise ValueError(f"engine={engine!r}: 'gather' or 'lattice'")
     adaptation = SPHAdaptation(spacing=dx, dim=3)
     material = NeoHookeanSolid(rho0=RHO0, youngs_modulus=YOUNGS,
                                poisson_ratio=POISSON)
@@ -93,16 +105,33 @@ def build_case(dx: float = DX, dtype=PRODUCTION_DTYPE, cell_cap: int = 36,
     vel[:, 1] = np.where(active, omega * radius * np.cos(ang), 0.0)
     vel[:, 2] = np.where(active, -omega * radius * np.sin(ang), 0.0)
     column["Velocity"] = torch.as_tensor(vel, dtype=dtype, device=device)
+    holder_mask = torch.as_tensor(x < 0.0, device=device)
 
-    lat = sl.make_lattice(adaptation.kernel, dx, lat_shape)
-    column["LatticeValid"] = torch.ones(len(pos), dtype=torch.bool,
-                                        device=device)
-    column["LinearGradientCorrectionMatrix"] = sl.lattice_correction_matrix(
-        lat, column["LatticeValid"], dtype=torch.float64).to(dtype)
-    case = TwistingCase(dx=dx, adaptation=adaptation, material=material,
-                        holder_mask=torch.as_tensor(x < 0.0, device=device),
-                        n_column=len(pos), lat=lat, use_kernels=use_kernels)
-    return case, column
+    if engine == "lattice":
+        lat = sl.make_lattice(adaptation.kernel, dx, lat_shape)
+        column["LatticeValid"] = torch.ones(len(pos), dtype=torch.bool,
+                                            device=device)
+        column["LinearGradientCorrectionMatrix"] = sl.lattice_correction_matrix(
+            lat, column["LatticeValid"], dtype=torch.float64).to(dtype)
+        return TwistingCase(dx=dx, adaptation=adaptation, material=material,
+                            holder_mask=holder_mask, n_column=len(pos),
+                            lat=lat, use_kernels=use_kernels), column
+
+    grid = grid_from_bounds((-SL - 4 * dx, -PH, -PW), (PL + 4 * dx, PH, PW),
+                            adaptation.cutoff)
+    p0, n = column["Position"], column["NReal"]
+    table = build_cell_table(p0, n, grid, cell_cap)
+    nl = build_neighbor_list(p0, n, p0, n, table, grid, adaptation.cutoff,
+                             k_max=k_inner, include_self=False)
+    if bool(nl.overflow):
+        raise ValueError(f"k_inner={k_inner} / cell_cap={cell_cap} overflow: "
+                         "the frozen pairs must be exact")
+    rp = sd.freeze_reference_pairs(p0, nl, adaptation.kernel, 3)
+    column["LinearGradientCorrectionMatrix"] = \
+        sd.linear_gradient_correction_matrix(rp, column["VolumetricMeasure"])
+    return TwistingCase(dx=dx, adaptation=adaptation, material=material,
+                        holder_mask=holder_mask, n_column=len(pos), rp=rp,
+                        use_kernels=use_kernels), column
 
 
 def init_sim(case: TwistingCase, column: dict) -> SimState:
@@ -114,12 +143,18 @@ def _step(case: TwistingCase, s: SimState) -> SimState:
     col = s.column
     dt = sd.solid_acoustic_time_step(col, case.material.sound_speed,
                                      case.adaptation.h, cfl=0.5)
-    col = sl.decomposed_integration_1st_half_lattice(
-        col, case.lat, case.material, dt, case.adaptation.h,
-        use_kernels=case.use_kernels)
-    col = sd.fix_constraint(col, case.holder_mask)
-    col = sl.integration_2nd_half_lattice(col, case.lat, dt,
-                                          use_kernels=case.use_kernels)
+    if case.lat is not None:
+        col = sl.decomposed_integration_1st_half_lattice(
+            col, case.lat, case.material, dt, case.adaptation.h,
+            use_kernels=case.use_kernels)
+        col = sd.fix_constraint(col, case.holder_mask)
+        col = sl.integration_2nd_half_lattice(col, case.lat, dt,
+                                              use_kernels=case.use_kernels)
+    else:
+        col = sd.decomposed_integration_1st_half(
+            col, case.rp, case.material, dt, case.adaptation.h)
+        col = sd.fix_constraint(col, case.holder_mask)
+        col = sd.integration_2nd_half(col, case.rp, dt)
     return SimState(column=col, time=s.time + dt, n_steps=s.n_steps + 1)
 
 

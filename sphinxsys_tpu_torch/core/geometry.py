@@ -1,6 +1,7 @@
 """Geometry: shapes as signed-distance functions with CSG composition
-(counterpart of sphinxsys_tpu/core/geometry.py; only what the dambreak
-scenes need: `Transform`, `Box`, `ComplexShape`, `make_complex`).
+(counterpart of sphinxsys_tpu/core/geometry.py; what the dambreak and
+fsi2 scenes need: `Transform`, `Box`, `Ball`, `ComplexShape`,
+`make_complex`).
 
 Positions are (..., dim) tensors.  `signed_distance` is negative inside.
 `find_normal_direction` is the unit gradient of the SDF, taken with
@@ -67,6 +68,26 @@ class Box(Shape):
         dmax = torch.amax(d, dim=-1)
         inside = torch.minimum(dmax, torch.zeros_like(dmax))
         return outside + inside
+
+
+@dataclasses.dataclass(frozen=True)
+class Ball(Shape):
+    """Sphere / circle (GeometricShapeBall)."""
+
+    center: Tuple[float, ...]
+    radius: float
+
+    def signed_distance(self, pos):
+        c = torch.as_tensor(self.center, dtype=pos.dtype, device=pos.device)
+        d = pos - c
+        sq = torch.sum(d * d, dim=-1)
+        # safe sqrt: both wheres, or the gradient at the exact centre is
+        # 0 * inf = NaN (autograd differentiates the untaken branch too)
+        pos_sq = sq > 0
+        r = torch.where(pos_sq,
+                        torch.sqrt(torch.where(pos_sq, sq, torch.ones_like(sq))),
+                        torch.zeros_like(sq))
+        return r - self.radius
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,10 +1,13 @@
 """Materials (counterpart of sphinxsys_tpu/core/materials.py): the
-weakly-compressible fluid and the Neo-Hookean elastic solid."""
+weakly-compressible fluid and the linear, Neo-Hookean and St.
+Venant-Kirchhoff elastic solids."""
 
 from __future__ import annotations
 
 import dataclasses
 import math
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,3 +76,21 @@ class NeoHookeanSolid(ElasticSolid):
     def volumetric_kirchhoff(self, J):
         """elastic_solid.cpp:129: 0.5 K (J^2 - 1)."""
         return 0.5 * self.bulk_modulus * (J * J - 1.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class SaintVenantKirchhoffSolid(ElasticSolid):
+    """St. Venant-Kirchhoff: S = lambda tr(E) I + 2 G E (finite strain)."""
+
+    def stress_PK2(self, F):
+        """Second Piola-Kirchhoff stress of (..., d, d) deformation
+        gradients: linear elasticity on the Green-Lagrange strain,
+        S = lambda tr(E) I + 2 G E, E = (F^T F - I)/2 (the product a
+        broadcast sum, as in physics/solid.py)."""
+        dim = F.shape[-1]
+        eye = torch.eye(dim, dtype=F.dtype, device=F.device)
+        FtF = (F.transpose(-1, -2)[..., :, :, None] * F[..., None, :, :]).sum(-2)
+        E = 0.5 * (FtF - eye)
+        tr = torch.diagonal(E, dim1=-2, dim2=-1).sum(-1)
+        return self.lambda0 * tr[..., None, None] * eye \
+            + 2.0 * self.shear_modulus * E

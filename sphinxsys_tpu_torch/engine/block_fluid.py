@@ -3,7 +3,10 @@ sphinxsys_tpu/engine/block_fluid.py):
 
   * `BlockEngine` — the static configuration;
   * `slot_fluid` — (re-)slot flat particle fields into fresh cell blocks;
-  * `build_wall_blocks` / `wall_windows` — a static wall-type contact body;
+  * `build_wall_blocks` / `wall_windows` — a wall-type contact body: a
+    static wall, slotted once, or a moving one (an FSI solid seen as a
+    wall), slotted every advection step and refreshed in its fixed slots
+    (`refresh_wall_blocks`) every acoustic sub-step;
   * `advection_prep` — density summation (+ viscous force + transport-
     velocity correction, as configured);
   * `acoustic_first_half` / `acoustic_second_half` — the two half-step
@@ -14,8 +17,10 @@ ops/block_sweeps.py (the CUDA kernels on the card, their plain versions on
 the CPU); False runs the `*_b` block forms, the float64 oracle.  The
 grid's periodic axes give the sweeps their minimum-image box.  The JAX
 engine's TPU workarounds (tile_c, window and wall chunking, wall
-compaction, roll_y) have no counterpart: the kernels read neighbour blocks
-through the window maps directly.
+compaction, roll_y, the packed wall tensor of `make_wall_ctx`) have no
+counterpart: the kernels read neighbour blocks through the window maps
+directly, so the wall context is the wall's block state and its window
+map, static or moving alike.
 """
 
 from __future__ import annotations
@@ -113,16 +118,34 @@ def slot_fluid(eng: BlockEngine, flat: dict, valid, n_max: int | None = None):
     return fb, bm
 
 
-def build_wall_blocks(eng: BlockEngine, wall_state: dict, c_max_wall: int):
+def build_wall_blocks(eng: BlockEngine, wall_state: dict, c_max_wall: int,
+                      valid=None):
     """Slot a wall-type contact body into blocks on the engine grid.
-    Returns (wall_b, bm_wall, dense_map)."""
-    bm = build_block_map(wall_state["Position"], int(wall_state["NReal"]),
-                         eng.grid, cap=eng.cap, c_max=c_max_wall)
+    `valid`: a (N,) bool mask of the rows to slot (default: the first
+    NReal).  Returns (wall_b, bm_wall, dense_map).  A moving wall-type
+    body is slotted once per advection step, then refreshed in those
+    slots by `refresh_wall_blocks` every acoustic sub-step."""
+    if valid is None:
+        valid = int(wall_state["NReal"])
+    bm = build_block_map(wall_state["Position"], valid, eng.grid,
+                         cap=eng.cap, c_max=c_max_wall)
     wall_b = {k: to_blocks(bm, wall_state[k], fill=BASE_FILLS.get(k, 0.0))
               for k in WALL_FIELDS}
     wall_b["SlotMask"] = _slot_mask_2d(bm)
     dm = dense_cell_map(bm.occ_cells, eng.grid.ncells, bm.c_max)
     return wall_b, bm, dm
+
+
+def refresh_wall_blocks(bm_wall, wall_state: dict, wall_b: dict):
+    """Re-gather a moving wall's changing channels (position, averaged
+    kinematics, normals) into the fixed slots of its block map: the slots
+    freeze per advection step, the kinematics change per acoustic
+    sub-step."""
+    out = dict(wall_b)
+    for k in ("Position", "AverageVelocity", "AverageAcceleration",
+              "NormalDirection"):
+        out[k] = to_blocks(bm_wall, wall_state[k], fill=BASE_FILLS.get(k, 0.0))
+    return out
 
 
 def wall_windows(eng: BlockEngine, bm_fluid, bm_wall, wall_dense_map):

@@ -1,7 +1,12 @@
 """The generic block-engine runner (counterpart of
-sphinxsys_tpu/engine/scene.py) for static-wall free-surface scenes
-(dambreak 2D/3D) and wall-less periodic scenes with viscosity and
-transport-velocity correction (Taylor–Green).
+sphinxsys_tpu/engine/scene.py), for
+  * static-wall free-surface scenes (dambreak 2D/3D),
+  * wall-less periodic scenes with viscosity and transport-velocity
+    correction (Taylor–Green),
+  * moving-wall FSI scenes with solid sub-cycling (fsi2), through `Hooks`
+    and a `wall_state_fn`: the wall-type contact body is derived from the
+    case's `aux` state, re-slotted every advection step and refreshed in
+    its slots every acoustic sub-step.
 
 The dual-criteria loop (SURVEY.md §3.2, reference Dambreak.cpp:166-220):
 an outer advection step (advection dt, density summation + the viscous
@@ -17,7 +22,7 @@ follow the same float arithmetic as the JAX loops.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable, NamedTuple
 
 import torch
 
@@ -25,6 +30,31 @@ from sphinxsys_tpu_torch.device import resolve_device
 from sphinxsys_tpu_torch.engine import block_fluid as eng_mod
 from sphinxsys_tpu_torch.engine.block_fluid import BlockEngine, WallCtx
 from sphinxsys_tpu_torch.neighbors.cell_list import wrap_positions
+
+
+class Hooks(NamedTuple):
+    """Case-specific extension points of the loop, each optional:
+
+    post_prep(fb, aux, time) -> (fb, aux)
+        after the density / viscous / transport-velocity prep, once per
+        advection step (fsi2: the viscous force on the solid, its normals).
+    after_first_half(fb, aux, dt, t_now) -> (fb, aux)
+        between the acoustic halves (fsi2: the pressure force on the
+        solid, from the mid-step fluid).
+    post_acoustic(fb, aux, dt, t_next) -> (fb, aux)
+        after the 2nd half, once per acoustic sub-step (fsi2: the solid
+        sub-cycling and the inflow).
+    post_advection(flat, aux, time) -> (flat, aux)
+        on the flat particle arrays just before the re-slot; a "_Valid"
+        entry it adds replaces the slot mask.
+    rebuild_aux(bm_f, aux) -> aux
+        after each re-slot (fsi2: the solid's fluid block windows)."""
+
+    post_prep: Callable | None = None
+    after_first_half: Callable | None = None
+    post_acoustic: Callable | None = None
+    post_advection: Callable | None = None
+    rebuild_aux: Callable | None = None
 
 
 @dataclasses.dataclass
@@ -36,11 +66,15 @@ class BlockSim:
     n_adv: int
     n_ac: int
     overflow: torch.Tensor
+    wall_bm: Any = None    # moving-wall scenes: the slots frozen this step
+    wall_b0: Any = None    # moving-wall scenes: the wall blocks at the slot
+    aux: Any = None        # the case's own state (coupled solid, counters)
 
 
 @dataclasses.dataclass(frozen=True)
 class BlockScene:
-    """Scene -> block-engine binding, built by `standard_scene`."""
+    """Scene -> block-engine binding, built by `standard_scene` (static or
+    no wall) or `moving_wall_scene` (FSI)."""
 
     base: Any                 # the case (geometry, materials, wall state)
     eng: BlockEngine
@@ -49,6 +83,12 @@ class BlockScene:
     wall_b: Any = None        # static wall blocks (built once)
     bm_wall: Any = None
     wall_dense_map: Any = None
+    # moving wall, re-slotted every advection step from the aux state
+    wall_state_fn: Callable | None = None    # aux -> wall state dict
+    wall_valid: Any = None                   # (N_wall,) bool rows to slot
+    c_max_wall: int = 0
+    hooks: Hooks = Hooks()
+    wrap: bool = False        # wrap positions into the periodic box on slot
 
     @property
     def fields(self):
@@ -70,7 +110,8 @@ def standard_scene(base, *, rho0: float, speed_ref: float, device,
     `cap_ac_dt` caps the acoustic dt by the advection dt.  `c_max_multiple`
     rounds c_max as the JAX package rounds it to its tile width (256 in 2D,
     128 in 3D), so block shapes — and the integer maps — agree with it;
-    the wall's c_max rounds to 32."""
+    the wall's c_max rounds to 32.  Where the grid has periodic axes the
+    positions are wrapped into the box at each re-slot."""
     device = resolve_device(device)
     if c_max is None:
         # a free-surface flow occupies a fraction of the domain cells
@@ -97,26 +138,54 @@ def standard_scene(base, *, rho0: float, speed_ref: float, device,
                 for k, v in wall.items()}
         wall_b, bm_wall, dm_w = eng_mod.build_wall_blocks(eng, wall, cmw)
     return BlockScene(base=base, eng=eng, n_fluid=base.n_fluid, device=device,
-                      wall_b=wall_b, bm_wall=bm_wall, wall_dense_map=dm_w)
+                      wall_b=wall_b, bm_wall=bm_wall, wall_dense_map=dm_w,
+                      wrap=any(base.grid.periodic or ()))
 
 
-def _slot(scene: BlockScene, flat: dict, valid):
-    """Re-slot the fluid (wrapped into the box first on its periodic axes)
-    and rebuild the window maps."""
+def moving_wall_scene(base, *, eng: BlockEngine, device, wall_state_fn,
+                      wall_valid, c_max_wall: int, hooks: Hooks,
+                      wrap: bool = False) -> BlockScene:
+    """FSI-style scenes: the wall-type contact body is derived from the aux
+    state by `wall_state_fn` (static strips + moving solid), slotted every
+    advection step (its rows `wall_valid`) and refreshed every acoustic
+    sub-step."""
+    device = resolve_device(device)
+    return BlockScene(base=base, eng=eng, n_fluid=base.n_fluid, device=device,
+                      wall_state_fn=wall_state_fn,
+                      wall_valid=wall_valid.to(device), c_max_wall=c_max_wall,
+                      hooks=hooks, wrap=wrap)
+
+
+def _slot(scene: BlockScene, flat: dict, valid, aux):
+    """Re-slot the fluid (wrapped into the box first where the scene wraps)
+    and the moving wall, and rebuild the window maps.  Returns (fb, bm_f,
+    nbr_wall, wall_bm, wall_b0, aux, overflow)."""
     eng = scene.eng
-    flat = dict(flat, Position=wrap_positions(flat["Position"], eng.grid))
+    if scene.wrap:
+        flat = dict(flat, Position=wrap_positions(flat["Position"], eng.grid))
     fb, bm_f = eng_mod.slot_fluid(eng, flat, valid, n_max=scene.n_fluid)
-    nbr_wall = None
-    if scene.wall_b is not None:
+    overflow = bm_f.overflow
+    nbr_wall = wall_bm = wall_b0 = None
+    if scene.wall_state_fn is not None:
+        wall_b0, wall_bm, dm_w = eng_mod.build_wall_blocks(
+            eng, scene.wall_state_fn(aux), scene.c_max_wall,
+            valid=scene.wall_valid)
+        nbr_wall = eng_mod.wall_windows(eng, bm_f, wall_bm, dm_w)
+        overflow = overflow | wall_bm.overflow
+    elif scene.wall_b is not None:
         nbr_wall = eng_mod.wall_windows(eng, bm_f, scene.bm_wall,
                                         scene.wall_dense_map)
-    return fb, bm_f, nbr_wall, bm_f.overflow
+    if scene.hooks.rebuild_aux is not None:
+        aux = scene.hooks.rebuild_aux(bm_f, aux)
+    return fb, bm_f, nbr_wall, wall_bm, wall_b0, aux, overflow
 
 
-def init_sim(scene: BlockScene, fluid: dict, device=None) -> BlockSim:
+def init_sim(scene: BlockScene, fluid: dict, device=None,
+             aux=None) -> BlockSim:
     """Slot the initial fluid state (a zero ViscousForcePrev is seeded
-    where the engine is viscous and the state has none).  `device` defaults
-    to the device the scene was built on; another one raises."""
+    where the engine is viscous and the state has none) and the moving
+    wall from `aux`, the case's own state.  `device` defaults to the
+    device the scene was built on; another one raises."""
     device = scene.device if device is None else resolve_device(device)
     if device != scene.device:
         raise ValueError(f"scene lives on {scene.device}, not {device}")
@@ -128,41 +197,63 @@ def init_sim(scene: BlockScene, fluid: dict, device=None) -> BlockSim:
         flat["ViscousForcePrev"] = torch.zeros_like(flat["Velocity"])
     flat["OriginalID"] = torch.arange(n, dtype=torch.int32, device=device)
     valid = torch.arange(n, device=device) < int(fluid["NReal"])
-    fb, bm_f, nbr_wall, ovf = _slot(scene, flat, valid)
+    fb, bm_f, nbr_wall, wall_bm, wall_b0, aux, ovf = _slot(scene, flat, valid,
+                                                           aux)
     dtype = fluid["Position"].dtype
     return BlockSim(fluid_b=fb, nbr_inner=bm_f.nbr_block, nbr_wall=nbr_wall,
                     time=torch.zeros((), dtype=dtype, device=device),
-                    n_adv=0, n_ac=0, overflow=ovf)
+                    n_adv=0, n_ac=0, overflow=ovf, wall_bm=wall_bm,
+                    wall_b0=wall_b0, aux=aux)
 
 
-def _wall_ctx(scene: BlockScene, s: BlockSim) -> WallCtx:
+def _wall_ctx0(scene: BlockScene, s: BlockSim) -> WallCtx:
+    """The wall as the advection step's prep sees it: the static wall, or
+    the moving wall's blocks as slotted."""
+    if scene.wall_state_fn is not None:
+        return WallCtx(s.wall_b0, s.nbr_wall)
     return WallCtx(scene.wall_b, s.nbr_wall)
 
 
 def _advection_step(scene: BlockScene, s: BlockSim) -> BlockSim:
-    eng = scene.eng
-    fb = s.fluid_b
-    wc = _wall_ctx(scene, s)
+    eng, hooks = scene.eng, scene.hooks
+    fb, aux = s.fluid_b, s.aux
+    wc0 = _wall_ctx0(scene, s)
 
     dt_adv = eng_mod.advection_dt(eng, fb)
-    fb = eng_mod.advection_prep(eng, fb, s.nbr_inner, wc)
+    fb = eng_mod.advection_prep(eng, fb, s.nbr_inner, wc0)
+    if hooks.post_prep is not None:
+        fb, aux = hooks.post_prep(fb, aux, s.time)
 
     relax_t = torch.zeros_like(dt_adv)
     n_ac = 0
     while bool(relax_t < dt_adv):          # one host sync per sub-step
+        t_now = s.time + relax_t
+        wc = wc0
+        if scene.wall_state_fn is not None:
+            wc = WallCtx(eng_mod.refresh_wall_blocks(
+                s.wall_bm, scene.wall_state_fn(aux), s.wall_b0), s.nbr_wall)
         dt = eng_mod.acoustic_dt(eng, fb, dt_adv)
         fb = eng_mod.acoustic_first_half(eng, fb, s.nbr_inner, wc, dt)
+        if hooks.after_first_half is not None:
+            fb, aux = hooks.after_first_half(fb, aux, dt, t_now)
         fb = eng_mod.acoustic_second_half(eng, fb, s.nbr_inner, wc, dt)
+        if hooks.post_acoustic is not None:
+            fb, aux = hooks.post_acoustic(fb, aux, dt, t_now + dt)
         relax_t = relax_t + dt
         n_ac += 1
 
     flat = {k: fb[k].reshape((-1,) + tuple(fb[k].shape[2:]))
             for k in scene.fields}
     valid = fb["SlotMask"].reshape(-1)
-    fb2, bm_f, nbr_wall, ovf = _slot(scene, flat, valid)
+    if hooks.post_advection is not None:
+        flat, aux = hooks.post_advection(flat, aux, s.time + relax_t)
+        valid = flat.pop("_Valid", valid)
+    fb2, bm_f, nbr_wall, wall_bm, wall_b0, aux, ovf = _slot(scene, flat,
+                                                           valid, aux)
     return BlockSim(fluid_b=fb2, nbr_inner=bm_f.nbr_block, nbr_wall=nbr_wall,
                     time=s.time + relax_t, n_adv=s.n_adv + 1,
-                    n_ac=s.n_ac + n_ac, overflow=s.overflow | ovf)
+                    n_ac=s.n_ac + n_ac, overflow=s.overflow | ovf,
+                    wall_bm=wall_bm, wall_b0=wall_b0, aux=aux)
 
 
 def make_run_chunk(scene: BlockScene):

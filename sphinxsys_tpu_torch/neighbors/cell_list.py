@@ -1,11 +1,12 @@
-"""Background cell grid (counterpart of sphinxsys_tpu/neighbors/cell_list.py:
-`CellGrid`, `grid_from_bounds`, `cell_coords`, `cell_id`,
-`wrap_positions`)."""
+"""Background cell grid and the dense cell table (counterpart of
+sphinxsys_tpu/neighbors/cell_list.py: `CellGrid`, `grid_from_bounds`,
+`cell_coords`, `cell_id`, `wrap_positions`, `CellTable`,
+`build_cell_table`; `min_image`, which JAX keeps in physics/pair.py)."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -90,6 +91,25 @@ def wrap_positions(pos: torch.Tensor, grid: CellGrid) -> torch.Tensor:
     return torch.where(pmask, lo + torch.remainder(pos - lo, length), pos)
 
 
+def min_image(disp: torch.Tensor, box) -> torch.Tensor:
+    """Minimum-image displacement on the periodic axes; `box` gives the
+    per-axis periodic lengths (0: the axis does not wrap), e.g.
+    grid.periodic_lengths.  disp - L round(disp / L), torch.round rounding
+    half to even as jnp.round does."""
+    length = torch.as_tensor(box, dtype=disp.dtype, device=disp.device)
+    safe = torch.where(length > 0, length, torch.ones_like(length))
+    return torch.where(length > 0, disp - length * torch.round(disp / safe),
+                       disp)
+
+
+def valid_rows(n_real, n: int, device) -> torch.Tensor:
+    """(n,) bool rows to use: `n_real` an int (the first n_real rows) or
+    already a (n,) bool mask."""
+    if isinstance(n_real, torch.Tensor) and n_real.dim() == 1:
+        return n_real
+    return torch.arange(n, device=device) < int(n_real)
+
+
 def grid_from_bounds(lower, upper, cutoff: float, buffer_cells: int = 1,
                      periodic=None) -> CellGrid:
     """Grid covering [lower, upper]: non-periodic axes get cell size =
@@ -114,3 +134,45 @@ def grid_from_bounds(lower, upper, cutoff: float, buffer_cells: int = 1,
             spacing.append(float(cutoff))
     return CellGrid(lower=tuple(lo), spacing=tuple(spacing), shape=tuple(shape),
                     periodic=periodic if any(periodic) else None)
+
+
+class CellTable(NamedTuple):
+    """Dense per-cell particle table.
+
+    table:    (ncells + 1, cap) int32 particle indices, padded with the
+              sentinel N; row `ncells` is the target of out-of-grid window
+              lookups.  As in the JAX package, it also receives the invalid
+              rows (cell id `ncells`) up to `cap` of them.
+    counts:   (ncells,) int32 particles in each cell.
+    overflow: () bool, a cell held more than `cap` (its extra particles
+              were dropped; rebuild with a larger cap)."""
+
+    table: torch.Tensor
+    counts: torch.Tensor
+    overflow: torch.Tensor
+
+
+def build_cell_table(pos: torch.Tensor, n_real, grid: CellGrid,
+                     cap: int) -> CellTable:
+    """Count-sort the particles into the dense cell table: a stable sort by
+    cell id (index order kept inside a cell), run offsets by searchsorted,
+    each particle scattered to its in-cell rank (ranks >= cap dropped).
+
+    pos:    (N, dim) positions (rows past the real ones may be anything)
+    n_real: an int (rows >= n_real ignored) or a (N,) bool validity mask."""
+    n = pos.shape[0]
+    dev = pos.device
+    ncells = grid.ncells
+    cid = torch.where(valid_rows(n_real, n, dev), grid.cell_id(pos),
+                      torch.full((n,), ncells, dtype=torch.int32, device=dev))
+    sorted_cid, order = torch.sort(cid, stable=True)
+    offsets = torch.searchsorted(
+        sorted_cid, torch.arange(ncells + 1, dtype=torch.int32, device=dev))
+    rank = torch.arange(n, device=dev) - offsets[
+        torch.clamp(sorted_cid, max=ncells).long()]
+    table = torch.full((ncells + 1, cap), n, dtype=torch.int32, device=dev)
+    keep = rank < cap
+    table[sorted_cid[keep].long(), rank[keep]] = order[keep].to(torch.int32)
+    counts = (offsets[1:] - offsets[:-1]).to(torch.int32)
+    return CellTable(table=table, counts=counts,
+                     overflow=torch.max(counts) > cap)

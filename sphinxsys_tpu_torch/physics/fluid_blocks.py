@@ -32,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from sphinxsys_tpu_torch.neighbors.cell_blocks import occupied_rows, window_offsets
+from sphinxsys_tpu_torch.neighbors.cell_list import min_image
 from sphinxsys_tpu_torch.ops import block_sweeps as sweeps
 from sphinxsys_tpu_torch.ops import packed_sweeps as packed
 from sphinxsys_tpu_torch.physics.riemann import (
@@ -50,10 +51,13 @@ def _min_image(disp, box):
     axis does not wrap)."""
     if box is None or not any(b > 0 for b in box):
         return disp
-    length = torch.as_tensor(box, dtype=disp.dtype, device=disp.device)
-    safe = torch.where(length > 0, length, torch.ones_like(length))
-    return torch.where(length > 0, disp - length * torch.round(disp / safe),
-                       disp)
+    return min_image(disp, box)
+
+
+def pack_channels(*arrays):
+    """Pack (C+1, cap) / (C+1, cap, d) arrays into one (C+1, cap, ch)."""
+    return torch.cat([a if a.dim() == 3 else a[..., None] for a in arrays],
+                     dim=-1)
 
 
 def _pair_geom(pos_i, mask_i, pos_j, mask_j, w, dim, exclude_self, box=None):

@@ -63,5 +63,7 @@ def normal_direction_from_shape(state: State, shape) -> State:
     n, phi = normals_and_distance(shape, pos.cpu().numpy(), pos.dtype)
     n, phi = n.to(pos.device), phi.to(pos.device)
     out["NormalDirection"] = n
+    out["InitialNormalDirection"] = n
     out["SignedDistance"] = phi
+    out["InitialSignedDistance"] = phi
     return out

@@ -14,13 +14,13 @@ sums are ops/lattice_sweeps.py's L1 and L2 (CUDA kernels on the card,
 JAX's tap loop in torch ops on the CPU, or anywhere with
 `use_kernels=False`).
 
-Determinants and inverses of the 3x3 deformation gradients are closed-form
-cofactor expansions: torch.linalg.inv on the card checks for singular
-input and waits for the host, and the step allows one host sync.  At
-F ~ I they agree with JAX's LU forms to float64 roundoff.  Products of
-per-site 3x3 matrices are a broadcast product and a sum (`_mm`): as a
-batched matmul, cuBLAS splits a million-site batch into ~18 launches of
-~0.12 ms each (one H100, the plain path's profile).
+The per-site prelude (`decomposed_stress`) and the 3x3 algebra are
+physics/solid.py's, shared with the gather engine: closed-form cofactor
+determinants and inverses (torch.linalg.inv on the card checks for
+singular input and waits for the host, and the step allows one host
+sync) and products as a broadcast product and a sum (as a batched
+matmul, cuBLAS splits a million-site batch into ~18 launches of ~0.12 ms
+each: one H100, the plain path's profile).
 
 Ported: the decomposed first half and the second half, which the
 twisting column runs.  `integration_1st_half_pk2_lattice` waits (no caller
@@ -35,11 +35,9 @@ import numpy as np
 import torch
 
 from sphinxsys_tpu_torch.ops import lattice_sweeps as ls
-
-TINY = 1.0e-15
-# the decomposed integration's shear correction (reference
-# DecomposedIntegration1stHalf, elastic_dynamics.cpp)
-CORRECTION_FACTOR = 1.07
+from sphinxsys_tpu_torch.physics.solid import (
+    CORRECTION_FACTOR, TINY, cofactors, decomposed_stress, det, mm,
+)
 
 
 def lattice_offsets(kernel, dx: float, dim: int):
@@ -93,59 +91,6 @@ def make_lattice(kernel, dx: float, shape, dim: int | None = None) -> LatticeSol
                         taps=taps, w0=kernel.w0(dim))
 
 
-def _cofactors(M):
-    """Cofactor matrices of (..., 3, 3): inv(M) = C^T / det(M)."""
-    a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
-    d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
-    g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
-    return torch.stack([
-        torch.stack([e * i - f * h, f * g - d * i, d * h - e * g], dim=-1),
-        torch.stack([c * h - b * i, a * i - c * g, b * g - a * h], dim=-1),
-        torch.stack([b * f - c * e, c * d - a * f, a * e - b * d], dim=-1),
-    ], dim=-2)
-
-
-def _mm(A, B):
-    """Per-site matrix products of (..., 3, 3) stacks."""
-    return (A[..., :, :, None] * B[..., None, :, :]).sum(dim=-2)
-
-
-def _det(M, C):
-    """det(M) from its cofactors (expansion along the first row)."""
-    return (M[..., 0, 0] * C[..., 0, 0] + M[..., 0, 1] * C[..., 0, 1]
-            + M[..., 0, 2] * C[..., 0, 2])
-
-
-def decomposed_stress(solid: dict, material, dt, smoothing_length: float,
-                      correction_factor: float = CORRECTION_FACTOR):
-    """The first half's per-site prelude (reference
-    DecomposedIntegration1stHalf initialization): position and F to the
-    half step, J, J^(-2/dim) and the Kirchhoff-decomposed stress with its
-    numerical damping.  Returns (pos_f, F_f, J, Jm2d_f, S_f): pos_f, S_f
-    and Jm2d_f are L1's inputs."""
-    dim = solid["Position"].shape[1]
-    rho0 = material.rho0
-    G = material.shear_modulus
-
-    pos_f = solid["Position"] + solid["Velocity"] * (0.5 * dt)
-    F_f = solid["DeformationGradient"] + solid["DeformationRate"] * (0.5 * dt)
-    dF = solid["DeformationRate"]
-    C = _cofactors(F_f)
-    J = _det(F_f, C)
-    Jm2d_f = (1.0 / (J * J)) ** (1.0 / dim)
-    invFT = C / J[:, None, None]
-    trFFT = (F_f * F_f).sum(dim=(-2, -1))
-    scalar = (material.volumetric_kirchhoff(J)
-              - correction_factor * G * Jm2d_f * trFFT / dim)
-    sr = 0.5 * (_mm(dF, F_f.transpose(-1, -2))
-                + _mm(F_f, dF.transpose(-1, -2)))
-    diag = torch.eye(dim, dtype=F_f.dtype, device=F_f.device) * sr
-    damp = 0.5 * rho0 * (material.shear_wave_speed * (sr - diag)
-                         + material.sound_speed * diag) * smoothing_length
-    S_f = scalar[:, None, None] * invFT + _mm(damp, invFT)
-    return pos_f, F_f, J, Jm2d_f, S_f
-
-
 def decomposed_integration_1st_half_lattice(
         solid: dict, lat: LatticeSolid, material, dt, smoothing_length: float,
         correction_factor: float = CORRECTION_FACTOR,
@@ -185,7 +130,7 @@ def integration_2nd_half_lattice(solid: dict, lat: LatticeSolid, dt,
     sweep = ls.lattice_dfdt if use_kernels else ls.lattice_dfdt_plain
     dFdt = sweep(solid["Velocity"], solid["LatticeValid"], lat.shape, lat.taps,
                  lat.dx ** lat.dim)
-    dFdt_f = _mm(dFdt, solid["LinearGradientCorrectionMatrix"])
+    dFdt_f = mm(dFdt, solid["LinearGradientCorrectionMatrix"])
     F_new = solid["DeformationGradient"] + dFdt_f * (0.5 * dt)
     out.update({"Position": pos_f, "DeformationRate": dFdt_f,
                 "DeformationGradient": F_new})
@@ -214,13 +159,13 @@ def lattice_correction_matrix(lat: LatticeSolid, valid: torch.Tensor,
                                 device=dev)
         A = A + wj[..., None, None] * outer
     A = A.reshape(-1, dim, dim)
-    det = _det(A, _cofactors(A))
+    det_a = det(A)
     eye = torch.eye(dim, dtype=dtype, device=dev)
     At = A.transpose(-1, -2)
-    M = _mm(At, A) + eps * eye
-    CM = _cofactors(M)
-    inv = _mm(CM.transpose(-1, -2) / _det(M, CM)[:, None, None], At)
-    det_sqr = torch.clamp(alpha - det, min=0.0)
-    w1 = det / (det + det_sqr)
-    w2 = det_sqr / (det + det_sqr)
+    M = mm(At, A) + eps * eye
+    CM = cofactors(M)
+    inv = mm(CM.transpose(-1, -2) / det(M, CM)[:, None, None], At)
+    det_sqr = torch.clamp(alpha - det_a, min=0.0)
+    w1 = det_a / (det_a + det_sqr)
+    w2 = det_sqr / (det_a + det_sqr)
     return w1[..., None, None] * inv + w2[..., None, None] * eye

@@ -38,7 +38,9 @@ def test_port_has_modules():
                  "sphinxsys_tpu_torch/engine/scene.py",
                  "sphinxsys_tpu_torch/cases/dambreak_2d.py",
                  "sphinxsys_tpu_torch/cases/dambreak_3d.py",
-                 "sphinxsys_tpu_torch/cases/taylor_green_2d.py"):
+                 "sphinxsys_tpu_torch/cases/taylor_green_2d.py",
+                 "sphinxsys_tpu_torch/cases/fsi2.py",
+                 "sphinxsys_tpu_torch/neighbors/neighbor_list.py"):
         assert must in names
 
 

@@ -423,8 +423,17 @@ def test_twisting_column_run_matches_jax(columns):
 
 
 def test_gather_engine_raises_after_the_device_check():
-    with pytest.raises(NotImplementedError, match="A4"):
-        ttc.build_case(dx=DX, device="cpu")
+    """The device is checked first: with no card, "cuda" raises for either
+    engine before anything is built; an unknown engine raises after it."""
+    if not torch.cuda.is_available():
+        for engine in ("gather", "lattice"):
+            with pytest.raises(RuntimeError, match="cuda"):
+                ttc.build_case(dx=DX, engine=engine, device="cuda")
+    with pytest.raises(ValueError, match="engine"):
+        ttc.build_case(dx=DX, engine="stencil", device="cpu")
+
+
+def test_lattice_dfdt_rejects_a_meta_device():
     with pytest.raises(ValueError):
         ls.lattice_dfdt(torch.zeros((1, 3), device="meta"),
                         torch.ones(1, dtype=torch.bool, device="meta"),
