@@ -21,7 +21,9 @@ cell-block engine — at full size:
   * fsi2 at its reference resolution dx=0.1: 5,180 fluid, 1,104 wall and
     150 solid particles, the wall and the elastic beam one moving
     wall-type body on an x-periodic grid, through B1-B4's moving-wall,
-    periodic variants.
+    periodic variants;
+  * the gather fluid routes (neighbour lists, torch ops): the 2D and 3D
+    dambreaks at the widths above, Taylor–Green and fsi2.
 
 Phases:
 
@@ -110,7 +112,28 @@ Phases:
      built on the card (time, peak memory), GATHER_STEPS steps from the
      lattice main path's state against that path's (positions within
      GATHER_POS_TOL of max|x|), its step profiled; the dx=0.1 column on
-     the gather engine to t=0.5 against the JAX curve.
+     the gather engine to t=0.5 against the JAX curve;
+ 11. gather fluid (last): the neighbour-list routes (`init_sim` /
+     `make_run_chunk` of the dambreaks, Taylor–Green and fsi2: lists
+     rebuilt every advection step, the pair sums torch ops over them, no
+     hand kernel): the dambreak (dx=0.1, to t=0.08) and Taylor–Green
+     (dx=0.05) on the card against the CPU; the third oracle, the gather
+     route against the block route's kernels on the scenes of
+     tests/test_scene_engines.py (equal counts, positions within 2e-3 of
+     max|x|); Taylor–Green at dx=0.01 to t=0.1 against the analytic
+     decay; the 2D dambreak at dx=0.0025 (5 advection steps, the Morton
+     resort every 2nd) and the 3D one at dx=0.01 (the case's capacities,
+     2 steps) through solver.run_simulation, the block kernels' launch
+     counts reset just before and read just after (the route launches
+     none), no overflow, finite fields, energy drift < 1%, then the step
+     by part (rebuild, density summation, acoustic sub-step, resort) with
+     each part's peak device memory, one profiled step, each part
+     profiled alone (its device time and launches: the pair sums against
+     the rebuild) and the run's peak memory, beside phase 5's block-route
+     figures; fsi2's gather route to t=0.1 against the CPU and to
+     FSI2_T_END, held to the JAX gather runs' count band and the tip
+     envelope (`fsi2_gather_gates`), its step by part and profiled, and
+     each part profiled alone.
 
 Every kernel and plain-version time is taken by
 sphinxsys_tpu_torch.benchmarks.median_ms, the layout drivers' timer.  Its last two lines are a JSON object of per-kernel
@@ -120,6 +143,7 @@ non-zero before printing them.  Imports no JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
 import json
 import math
@@ -209,6 +233,18 @@ FSI2_T_END = 5.0
 FSI2_SAMPLE = 0.05
 FSI2_JAX_RUNS = "tests/golden_torch/fsi2/jax_f32_runs.json"
 FSI2_COUNT_BAND = 0.2
+# the gather fluid (phase 11): the dambreaks at the block route's widths,
+# the 2D one resorted every 2nd advection step; the third oracle's scenes
+# (tests/test_scene_engines.py)
+GATHER_CONFIGS = {
+    "2d": dict(module="dambreak_2d", dx=0.0025, min_adv=5, sort_every=2),
+    "3d": dict(module="dambreak_3d", dx=0.01, min_adv=2, sort_every=None),
+}
+GATHER_ORACLE_SCENES = (
+    ("dambreak_2d", 0.1, 0.30, dict(cap=16)),
+    ("dambreak_3d", 0.2, 0.20, dict(cap=48)),
+    ("taylor_green_2d", 0.05, 0.05, {}),
+)
 DEVICE = "cuda"
 DAMBREAK_KERNELS = ("density_sweep", "ac1_sweep", "ac2_sweep")
 CONFIGS = {  # the bench configs (bench.py:311-318), Taylor–Green at 1M
@@ -2090,6 +2126,386 @@ def fsi2_phase(torch, results):
     log(f"fsi2 phase: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# 11. gather fluid: the neighbour-list WCSPH routes (torch ops, no kernel)
+# ---------------------------------------------------------------------------
+
+def gather_small_reference(torch, module, dx, t_end):
+    """A gather route at a small size on the card against the same run on
+    the CPU, both float32: equal step counts, positions by particle within
+    5e-5 (sums over the same slots in other orders)."""
+    case_mod = importlib.import_module(f"sphinxsys_tpu_torch.cases.{module}")
+    runs = {}
+    for dev in (DEVICE, "cpu"):
+        case, fluid = case_mod.build_case(dx=dx, device=dev)
+        sim = case_mod.make_run_chunk(case)(case_mod.init_sim(case, fluid),
+                                            t_end)
+        runs[dev] = (sim, sim.fluid["Position"].cpu())
+    (gs, gp), (cs, cp) = runs[DEVICE], runs["cpu"]
+    err = float((gp - cp).abs().max())
+    log(f"gather small reference: {module} dx={dx} to t={t_end} card "
+        f"n_adv={gs.n_adv} n_ac={gs.n_ac}, cpu n_adv={cs.n_adv} "
+        f"n_ac={cs.n_ac}, max |dpos| {err:.3e}")
+    check((gs.n_adv, gs.n_ac) == (cs.n_adv, cs.n_ac),
+          f"gather small reference {module}: step counts differ")
+    check(not bool(gs.overflow), f"gather small reference {module}: overflow")
+    check(err <= 5e-5, f"gather small reference {module}: positions differ "
+          f"by {err:.3e}")
+
+
+def gather_block_oracle(torch):
+    """The third oracle on the card: the gather route against the block
+    route through the CUDA kernels, on the scenes of
+    tests/test_scene_engines.py: equal counts, positions within 2e-3 of
+    max|x| (minimum image where the box wraps)."""
+    from sphinxsys_tpu_torch.engine import scene as sc
+
+    for module, dx, t_end, block_kw in GATHER_ORACLE_SCENES:
+        cm = importlib.import_module(f"sphinxsys_tpu_torch.cases.{module}")
+        case, fluid = cm.build_case(dx=dx, device=DEVICE)
+        g = cm.make_run_chunk(case)(cm.init_sim(case, fluid), t_end)
+        scene, fluid_b = cm.build_block_case(dx=dx, device=DEVICE, **block_kw)
+        b = sc.make_run_chunk(scene)(sc.init_sim(scene, fluid_b), t_end)
+        n = scene.n_fluid
+        d = g.fluid["Position"][:n] - sc.blocks_to_particles(scene, b)["Position"][:n]
+        if scene.wrap:
+            from sphinxsys_tpu_torch.neighbors.cell_list import min_image
+            d = min_image(d, case.grid.periodic_lengths)
+        err = float(d.abs().max())
+        scale = float(g.fluid["Position"][:n].abs().max())
+        log(f"gather vs block: {module} dx={dx} to t={t_end}: gather "
+            f"{g.n_adv}/{g.n_ac}, block (kernels) {b.n_adv}/{b.n_ac}, max "
+            f"|dpos| {err:.3e} (bound {2e-3 * scale:.3e})")
+        check(not bool(g.overflow) and not bool(b.overflow),
+              f"gather vs block {module}: overflow")
+        check((g.n_adv, g.n_ac) == (b.n_adv, b.n_ac),
+              f"gather vs block {module}: step counts differ")
+        check(err < 2e-3 * scale, f"gather vs block {module}: positions "
+              f"differ by {err:.3e}")
+
+
+def peak_gb(torch):
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def profile_parts(torch, tag, fns):
+    """Each part of a step (name -> fn) profiled alone, as `profile_step`
+    profiles a step: {name: device busy ms, device launches, unprofiled
+    wall ms and the estimated idle share of that wall}."""
+    out = {}
+    for name, fn in fns.items():
+        dev_us, _, plain_us, n = profile_step(torch, f"{tag}_{name}", fn, name)
+        out[name] = dict(device_ms=dev_us / 1e3, launches=n,
+                         wall_ms=plain_us / 1e3,
+                         idle_share_est=1 - dev_us / plain_us)
+    return out
+
+
+def gather_main_path(torch, tag, cfg, results):
+    """The gather dambreak at full width through build_case -> init_sim ->
+    make_run_chunk -> solver.run_simulation, the block kernels' launch
+    counts reset just before and read just after (the route launches
+    none); then the step by part, one profiled step, each part profiled
+    alone and the peak device memory, beside the block route's figures for
+    the same config from phase 5 of this run."""
+    from sphinxsys_tpu_torch import solver
+    from sphinxsys_tpu_torch.neighbors.cell_list import morton_resort
+    from sphinxsys_tpu_torch.ops import block_sweeps as bs
+    from sphinxsys_tpu_torch.physics import fluid as fd
+    from sphinxsys_tpu_torch.physics import general as gd
+
+    db = importlib.import_module(f"sphinxsys_tpu_torch.cases.{cfg['module']}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    case, fluid = db.build_case(dx=cfg["dx"], device=DEVICE)
+    if cfg["sort_every"]:
+        case = dataclasses.replace(case, sort_every=cfg["sort_every"])
+    sim = db.init_sim(case, fluid)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    e0 = float(gd.total_mechanical_energy(sim.fluid, case.gravity))
+    h = case.adaptation.h
+    dt0 = float(fd.advection_time_step(sim.fluid, h, db.U_REF))
+    end_time = (cfg["min_adv"] + 0.5) * dt0
+    bs.reset_launch_counts()
+    sim, timer = solver.run_simulation(db.make_run_chunk(case), sim, end_time,
+                                       end_time, verbose=False)
+    counts = dict(bs.LAUNCHES)
+    torch.cuda.synchronize()
+    peak_run = peak_gb(torch)
+    e1 = float(gd.total_mechanical_energy(sim.fluid, case.gravity))
+    drift = abs(e1 - e0) / abs(e0)
+    sorts = sim.n_adv // case.sort_every if case.sort_every else 0
+    integ = timer.totals["integrate"]
+    log(f"gather {tag} main path: n_fluid={case.n_fluid} n_wall={case.n_wall} "
+        f"grid={case.grid.shape} cell_cap={case.cell_cap} K={case.k_inner}/"
+        f"{case.k_wall} sort_every={case.sort_every}; setup {setup_s:.2f} s; "
+        f"n_adv={sim.n_adv} n_ac={sim.n_ac} ({sorts} resorts) energy "
+        f"{e0:.9e} -> {e1:.9e} (change {drift:.3e}); {integ / sim.n_adv * 1e3:.3f}"
+        f" ms an advection step (wall clock, mean, the first included); block "
+        f"kernel launches {counts}; peak device memory {peak_run:.3f} GB")
+    check(sim.n_adv >= cfg["min_adv"], f"gather {tag}: only {sim.n_adv} steps")
+    check(cfg["sort_every"] is None or sorts >= 2,
+          f"gather {tag}: the resort ran {sorts} times")
+    check(not bool(sim.overflow), f"gather {tag}: neighbour-list overflow")
+    for k in ("Position", "Velocity", "Density", "Pressure"):
+        check(bool(torch.isfinite(sim.fluid[k]).all()),
+              f"gather {tag}: non-finite {k}")
+    check(drift < 0.01, f"gather {tag}: energy drift {drift:.3e} >= 1%")
+    check(not any(counts.values()), f"gather {tag}: the route launched a "
+          f"block kernel {counts}")
+
+    # the step by part (host wall clock, synchronised), peak memory of each
+    step = db.make_advection_step(case)
+    f = sim.fluid
+    parts, peaks = {}, {}
+    timed = [
+        ("advection_step", lambda: step(sim), 3),
+        ("rebuild", lambda: db.rebuild_relations(case, f), 5),
+        ("density", lambda: fd.density_summation(
+            f, sim.nl_inner, case.kernel, case.dim, db.RHO0_F,
+            case.adaptation.sigma0,
+            contacts=[(case.wall, sim.nl_wall, db.RHO0_F)]), 5),
+        ("acoustic_substep", lambda: db.acoustic_substep(case, sim, f), 5)]
+    if case.sort_every:
+        timed.append(("resort", lambda: morton_resort(f, case.grid), 5))
+    for name, fn, reps in timed:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        parts[name] = wall_s(torch, fn, reps) * 1e3
+        peaks[name] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    dt_adv = fd.advection_time_step(f, h, db.U_REF)
+    dt_ac = fd.acoustic_time_step(f, case.eos, h)
+    substeps = float(dt_adv / dt_ac)
+    block = results.get(f"_{tag}_main", {})
+    log(f"gather {tag} step parts (ms, wall clock): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+        + f"; ~{substeps:.2f} acoustic sub-steps a step; the block route's "
+        f"(phase 5): {json.dumps(block.get('parts_ms'))}")
+    log(f"gather {tag} peak device memory above the state, by part (GB): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in peaks.items()))
+    dev_us, wall_us, plain_us, launches = profile_step(
+        torch, f"gather_{tag}", lambda: step(sim))
+    # the device time of each part, which decides what the step needs
+    # first: the pair sums (the density and the run's sub-steps a step)
+    # against the rebuild
+    prof = profile_parts(torch, f"gather_{tag}",
+                         {k: fn for k, fn, _ in timed if k != "advection_step"})
+    per_adv = sim.n_ac / sim.n_adv
+    pair_ms = (prof["density"]["device_ms"]
+               + per_adv * prof["acoustic_substep"]["device_ms"])
+    log(f"gather {tag} device ms by part (each profiled alone): "
+        + ", ".join(f"{k} {v['device_ms']:.3f} in {v['launches']} launches "
+                    f"(idle share {v['idle_share_est']:.3f})"
+                    for k, v in prof.items())
+        + f"; pair sums a step (density + {per_adv:.2f} sub-steps) "
+        f"{pair_ms:.3f} against the rebuild's "
+        f"{prof['rebuild']['device_ms']:.3f}, of the step's device busy "
+        f"{dev_us / 1e3:.3f}")
+    results[f"_gather_{tag}"] = dict(
+        n_fluid=case.n_fluid, n_adv=sim.n_adv, n_ac=sim.n_ac, resorts=sorts,
+        ms_per_adv=integ / sim.n_adv * 1e3, parts_ms=parts,
+        part_device=prof, pair_sum_device_ms=pair_ms,
+        part_peak_gb=peaks, run_peak_gb=peak_run, device_busy_ms=dev_us / 1e3,
+        launches_per_adv=launches, idle_share_est=1 - dev_us / plain_us,
+        energy_change=drift, block_ms_per_adv=block.get("ms_per_adv"))
+    del case, fluid, sim, f, step
+    torch.cuda.empty_cache()
+
+
+def gather_tg_decay(torch, results):
+    """Taylor–Green on the gather route at dx=0.01 to t=0.1: the kinetic
+    energy within 8% of KE0 exp(-16 pi^2 nu t), as `tg_decay_check`
+    holds the block route; then its step by part, one profiled step and
+    each part profiled alone."""
+    from sphinxsys_tpu_torch.cases import taylor_green_2d as tg
+    from sphinxsys_tpu_torch.physics import fluid as fd
+    from sphinxsys_tpu_torch.physics import general as gd
+
+    torch.cuda.reset_peak_memory_stats()
+    case, fluid = tg.build_case(dx=0.01, device=DEVICE)
+    sim = tg.init_sim(case, fluid)
+    ke0 = float(gd.total_kinetic_energy(sim.fluid))
+    t0 = time.perf_counter()
+    sim = tg.make_run_chunk(case)(sim, 0.1)
+    elapsed = time.perf_counter() - t0
+    ke = float(gd.total_kinetic_energy(sim.fluid))
+    nu = tg.MU_F / tg.RHO0_F
+    expected = ke0 * math.exp(-16.0 * math.pi ** 2 * nu * float(sim.time))
+    rel = abs(ke - expected) / expected
+    log(f"gather tg decay: dx=0.01 t={float(sim.time):.6f} n_adv={sim.n_adv} "
+        f"n_ac={sim.n_ac} KE0={ke0:.9f} KE={ke:.9f} analytic {expected:.9f} "
+        f"(rel {rel:.4f}); {elapsed / sim.n_adv * 1e3:.3f} ms an advection "
+        f"step (wall clock, mean)")
+    check(not bool(sim.overflow), "gather tg decay: overflow")
+    check(rel < 0.08, f"gather tg decay: KE off the analytic decay by {rel:.4f}")
+
+    step = tg.make_advection_step(case)
+    f = sim.fluid
+    dt_adv = fd.advection_viscous_time_step(f, case.adaptation.h, tg.U_F,
+                                            tg.RHO0_F, tg.MU_F)
+    fns = {"rebuild": lambda: tg.rebuild_inner(case, f),
+           "prep": lambda: tg.advection_prep(case, sim, f),
+           "acoustic_substep": lambda: tg.acoustic_substep(case, sim, f,
+                                                           dt_adv)}
+    parts = {"advection_step": wall_s(torch, lambda: step(sim), 3) * 1e3}
+    parts.update({k: wall_s(torch, fn, 5) * 1e3 for k, fn in fns.items()})
+    log("gather tg step parts (ms, wall clock): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()))
+    dev_us, _, plain_us, launches = profile_step(torch, "gather_tg",
+                                                 lambda: step(sim))
+    prof = profile_parts(torch, "gather_tg", fns)
+    results["_gather_tg"] = dict(
+        n_fluid=case.n_fluid, n_adv=sim.n_adv, n_ac=sim.n_ac,
+        ms_per_adv=elapsed / sim.n_adv * 1e3, parts_ms=parts, part_device=prof,
+        device_busy_ms=dev_us / 1e3, launches_per_adv=launches,
+        idle_share_est=1 - dev_us / plain_us, ke_rel=rel,
+        run_peak_gb=peak_gb(torch))
+
+
+def fsi2_gather_gates():
+    """What the card's fsi2 gather run to FSI2_T_END is held to: the
+    acoustic and solid sub-step counts within FSI2_COUNT_BAND of the JAX
+    package's float32 gather runs (x64 on: 815 / 1,629; off: 785 / 1,570),
+    outside the span of both widened by the band; the tip's excursion
+    within the largest of all four JAX float32 runs (`fsi2_gates`: the
+    start-up pulse, which each float32 run resolves its own way)."""
+    runs = json.loads((ROOT / FSI2_JAX_RUNS).read_text())["runs"]
+    gather = [r for r in runs if r["route"] == "gather"]
+    n_ac = [r["rows"][-1][2] for r in gather]
+    n_s = [r["rows"][-1][3] for r in gather]
+    band = lambda ns: ((1 - FSI2_COUNT_BAND) * min(ns),
+                       (1 + FSI2_COUNT_BAND) * max(ns))
+    gather_tip = max(math.hypot(row[4], row[5]) for r in gather
+                     for row in r["rows"])
+    return dict(n_ac=band(n_ac), n_s=band(n_s),
+                tip_radius=fsi2_gates()["tip_radius"], gather_tip=gather_tip)
+
+
+def fsi2_gather_path(torch, results):
+    """fsi2's gather route on the card: to FSI2_SHORT against the same run
+    on the CPU (float32: equal counts, the fluid's positions within
+    FSI2_SHORT_TOL); then to FSI2_T_END through build_case -> init_sim ->
+    make_run_chunk, the tip sampled every FSI2_SAMPLE and the host reads of
+    device values counted, held to `fsi2_gather_gates`; its step by part,
+    one profiled step, and each part (the couplings over the insert's
+    list among them) profiled alone."""
+    from sphinxsys_tpu_torch.cases import fsi2 as fc
+    from sphinxsys_tpu_torch.ops import block_sweeps as bs
+    from sphinxsys_tpu_torch.physics import fluid as fd
+    from sphinxsys_tpu_torch.physics import fsi
+
+    runs = {}
+    for dev in (DEVICE, "cpu"):
+        case, fluid, solid = fc.build_case(dx=FSI2_DX, device=dev)
+        s = fc.make_run_chunk(case)(fc.init_sim(case, fluid, solid), FSI2_SHORT)
+        runs[dev] = (s.n_adv, s.n_ac, s.n_s), s.fluid["Position"].cpu(), \
+            s.solid["Position"].cpu()
+    (kc, pc, so_c), (kh, ph, so_h) = runs[DEVICE], runs["cpu"]
+    gap = float((pc - ph).abs().max())
+    gap_s = float((so_c - so_h).abs().max())
+    log(f"fsi2 gather short: to t={FSI2_SHORT} card {kc}, cpu {kh}; max "
+        f"|dpos| fluid {gap:.3e}, solid {gap_s:.3e} (tolerance {FSI2_SHORT_TOL})")
+    check(kc == kh, "fsi2 gather short: counts differ")
+    check(gap <= FSI2_SHORT_TOL and gap_s <= FSI2_SHORT_TOL,
+          "fsi2 gather short: positions differ")
+
+    gates = fsi2_gather_gates()
+    torch.cuda.reset_peak_memory_stats()
+    case, fluid, solid = fc.build_case(dx=FSI2_DX, device=DEVICE)
+    run = fc.make_run_chunk(case)
+    sim = fc.init_sim(case, fluid, solid)
+    idx, w = fc.tip_observer(case, solid)
+    tip0 = fc.observe_tip(solid, idx, w)
+    tip_max, samples = 0.0, 0
+    bs.reset_launch_counts()
+    t1 = time.perf_counter()
+    with SyncCounter(torch) as syncs:
+        while float(sim.time) < FSI2_T_END:
+            samples += 1
+            sim = run(sim, samples * FSI2_SAMPLE)
+            d = fc.observe_tip(sim.solid, idx, w) - tip0
+            tip_max = max(tip_max, float(torch.linalg.vector_norm(d)))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t1
+    counts = dict(bs.LAUNCHES)
+    n_sync = syncs.n - 2 * samples - 1
+    log(f"fsi2 gather main path: to t={float(sim.time):.6f} n_adv={sim.n_adv} "
+        f"n_ac={sim.n_ac} n_s={sim.n_s} (band n_ac {gates['n_ac']}, n_s "
+        f"{gates['n_s']}) in {elapsed:.2f} s: {elapsed / sim.n_adv * 1e3:.3f} "
+        f"ms an advection step (wall clock, mean), {n_sync} host reads of "
+        f"device values ({n_sync / sim.n_adv:.2f} an advection step); tip "
+        f"max|d| {tip_max:.4f} (bound {gates['tip_radius']:.4f}; JAX's gather "
+        f"runs reach {gates['gather_tip']:.4f}); block kernel launches "
+        f"{counts}; peak device memory {peak_gb(torch):.3f} GB")
+    check(not bool(sim.overflow), "fsi2 gather: neighbour-list overflow")
+    for k in ("Position", "Velocity", "Density", "Pressure"):
+        check(bool(torch.isfinite(sim.fluid[k]).all()),
+              f"fsi2 gather: non-finite fluid {k}")
+    for k in ("Position", "Velocity", "DeformationGradient"):
+        check(bool(torch.isfinite(sim.solid[k]).all()),
+              f"fsi2 gather: non-finite solid {k}")
+    check(gates["n_ac"][0] <= sim.n_ac <= gates["n_ac"][1]
+          and gates["n_s"][0] <= sim.n_s <= gates["n_s"][1],
+          f"fsi2 gather: counts {sim.n_ac} / {sim.n_s} off the band")
+    check(tip_max <= gates["tip_radius"],
+          f"fsi2 gather: tip displaced {tip_max:.4f} > {gates['tip_radius']:.4f}")
+    check(not any(counts.values()), f"fsi2 gather: a block kernel ran {counts}")
+
+    step = fc.make_advection_step(case)
+    h, kern = case.adaptation.h, case.kernel
+    dt_adv = fd.advection_viscous_time_step(sim.fluid, h, fc.U_F, fc.RHO0_F,
+                                            fc.MU_F)
+    dt = torch.minimum(fd.acoustic_time_step(sim.fluid, case.eos, h), dt_adv)
+    pressure = lambda: fsi.pressure_force_from_fluid(
+        sim.solid, sim.fluid, sim.nl_sf, kern, 2, case.riemann, box=case.box)
+    viscous = lambda: fsi.update_elastic_normal_direction(
+        fsi.viscous_force_from_fluid(sim.solid, sim.fluid, sim.nl_sf, kern, 2,
+                                     fc.MU_F, h, box=case.box))
+    fns = {"rebuild": lambda: fc.rebuild_relations(case, sim.fluid, sim.solid),
+           "prep": lambda: fc.advection_prep(case, sim),
+           "acoustic_substep": lambda: fc.acoustic_substep(
+               case, sim, sim.fluid, sim.solid, dt_adv, sim.time),
+           "solid_substeps": lambda: fc.solid_substeps(case, sim.solid, dt),
+           "pressure_force": pressure, "viscous_force": viscous}
+    parts = {"advection_step": wall_s(torch, lambda: step(sim), 3) * 1e3}
+    parts.update({k: wall_s(torch, fn, 5) * 1e3 for k, fn in fns.items()})
+    log("fsi2 gather step parts (ms, wall clock): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+        + f"; the block route's (phase 9): "
+        f"{json.dumps(results.get('_fsi2_main', {}).get('parts_ms'))}")
+    dev_us, _, plain_us, launches = profile_step(torch, "fsi2_gather",
+                                                 lambda: step(sim))
+    prof = profile_parts(torch, "fsi2_gather", fns)
+    results["_gather_fsi2"] = dict(
+        t_end=float(sim.time), n_adv=sim.n_adv, n_ac=sim.n_ac, n_s=sim.n_s,
+        ms_per_adv=elapsed / sim.n_adv * 1e3,
+        host_reads_per_adv=n_sync / sim.n_adv, parts_ms=parts,
+        device_busy_ms=dev_us / 1e3, launches_per_adv=launches,
+        idle_share_est=1 - dev_us / plain_us, tip_max=tip_max,
+        part_device=prof)
+
+
+def gather_phase(torch, results):
+    """Phase 11: the gather fluid routes (neighbour lists rebuilt every
+    advection step, the pair sums as torch ops over them, no hand kernel)
+    on the card: small references against the CPU, the third oracle
+    against the block route's kernels, the 2D and 3D dambreaks at full
+    width (the 2D one with the Morton resort), Taylor–Green's decay, and
+    fsi2 to FSI2_T_END."""
+    t0 = time.perf_counter()
+    gather_small_reference(torch, "dambreak_2d", 0.1, 0.08)
+    gather_small_reference(torch, "taylor_green_2d", 0.05, 0.08)
+    gather_block_oracle(torch)
+    gather_tg_decay(torch, results)
+    for tag, cfg in GATHER_CONFIGS.items():
+        gather_main_path(torch, tag, cfg, results)
+    fsi2_gather_path(torch, results)
+    log(f"gather phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not (ROOT / "sphinxsys_tpu_torch").is_dir():
         log("FAIL: the sphinxsys_tpu_torch package is not beside this script")
@@ -2150,6 +2566,7 @@ def main() -> int:
     fsi2_phase(torch, results)
     packed_phase(torch, results)
     solid_phase(torch, results)
+    gather_phase(torch, results)
 
     kernels = []
     for tag, names in [*((t, c["kernels"]) for t, c in CONFIGS.items()),
@@ -2179,6 +2596,8 @@ def main() -> int:
                   for tag in (*CONFIGS, "fsi2", "2d16", "2d16_b2b3", "layout",
                               "tc1m", "tc1m_plain")}
     main_paths["tc_gather"] = results["_tc_gather"]
+    for tag in (*GATHER_CONFIGS, "tg", "fsi2"):
+        main_paths[f"gather_{tag}"] = results[f"_gather_{tag}"]
     log("main paths: " + json.dumps(main_paths))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -30,6 +30,7 @@ from sphinxsys_tpu_torch.device import resolve_device
 from sphinxsys_tpu_torch.engine import block_fluid as eng_mod
 from sphinxsys_tpu_torch.engine.block_fluid import BlockEngine, WallCtx
 from sphinxsys_tpu_torch.neighbors.cell_list import wrap_positions
+from sphinxsys_tpu_torch.solver import chunk_runner
 
 
 class Hooks(NamedTuple):
@@ -259,14 +260,7 @@ def _advection_step(scene: BlockScene, s: BlockSim) -> BlockSim:
 def make_run_chunk(scene: BlockScene):
     """run_chunk(sim, t_target): advance by advection steps until
     sim.time >= t_target (compared in the time's dtype)."""
-    def run_chunk(s: BlockSim, t_target) -> BlockSim:
-        target = torch.as_tensor(t_target, dtype=s.time.dtype,
-                                 device=s.time.device)
-        while bool(s.time < target):
-            s = _advection_step(scene, s)
-        return s
-
-    return run_chunk
+    return chunk_runner(lambda s: _advection_step(scene, s))
 
 
 def make_advection_step(scene: BlockScene):

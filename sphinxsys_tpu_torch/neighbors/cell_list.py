@@ -1,7 +1,8 @@
 """Background cell grid and the dense cell table (counterpart of
 sphinxsys_tpu/neighbors/cell_list.py: `CellGrid`, `grid_from_bounds`,
 `cell_coords`, `cell_id`, `wrap_positions`, `CellTable`,
-`build_cell_table`; `min_image`, which JAX keeps in physics/pair.py)."""
+`build_cell_table`, the Morton keys and `spatial_sort_permutation`;
+`min_image`, which JAX keeps in physics/pair.py)."""
 
 from __future__ import annotations
 
@@ -176,3 +177,68 @@ def build_cell_table(pos: torch.Tensor, n_real, grid: CellGrid,
     counts = (offsets[1:] - offsets[:-1]).to(torch.int32)
     return CellTable(table=table, counts=counts,
                      overflow=torch.max(counts) > cap)
+
+
+# ---------------------------------------------------------------------------
+# Morton (Z-order) keys for the spatial resort.  torch has no general
+# uint32 arithmetic: the bits are interleaved in int64 and masked to 32.
+# ---------------------------------------------------------------------------
+
+def _part1by1(x: torch.Tensor) -> torch.Tensor:
+    """Spread the low 16 bits of x to the even bit positions."""
+    x = x & 0xFFFF
+    x = (x | (x << 8)) & 0x00FF00FF
+    x = (x | (x << 4)) & 0x0F0F0F0F
+    x = (x | (x << 2)) & 0x33333333
+    return (x | (x << 1)) & 0x55555555
+
+
+def _part1by2(x: torch.Tensor) -> torch.Tensor:
+    """Spread the low 10 bits of x to every third bit position."""
+    x = x & 0x3FF
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    return (x | (x << 2)) & 0x09249249
+
+
+def morton_key(coords: torch.Tensor) -> torch.Tensor:
+    """(..., dim) non-negative int cell coords -> (...,) int64 Morton code
+    in [0, 2^32) (meshes/base_mesh.h:85-104 MortonCode): the JAX package's
+    uint32 key, bit for bit."""
+    c = coords.to(torch.int64) & 0xFFFFFFFF
+    dim = coords.shape[-1]
+    if dim == 1:
+        return c[..., 0]
+    if dim == 2:
+        return _part1by1(c[..., 0]) | (_part1by1(c[..., 1]) << 1)
+    if dim == 3:
+        return (_part1by2(c[..., 0]) | (_part1by2(c[..., 1]) << 1)
+                | (_part1by2(c[..., 2]) << 2))
+    raise ValueError(f"dim must be 1/2/3, got {dim}")
+
+
+def spatial_sort_permutation(pos: torch.Tensor, n_real,
+                             grid: CellGrid) -> torch.Tensor:
+    """Permutation placing the real particles in Morton order of their
+    cells, padding rows (key 0xFFFFFFFF) at the tail; a stable sort, so
+    particles of one cell keep their index order and the permutation
+    equals the JAX package's (`jnp.argsort`) index for index.  Applying it
+    to every per-particle field is ParticleSortCK
+    (particle_sort_ck.hpp:64-105)."""
+    n = pos.shape[0]
+    key = torch.where(valid_rows(n_real, n, pos.device),
+                      morton_key(grid.cell_coords(pos)),
+                      torch.full((n,), 0xFFFFFFFF, dtype=torch.int64,
+                                 device=pos.device))
+    return torch.argsort(key, stable=True)
+
+
+def morton_resort(state: dict, grid: CellGrid) -> dict:
+    """Every per-particle field of a state (a tensor whose leading
+    dimension is N) in the Morton order of `spatial_sort_permutation`;
+    NReal and the other fields as they are."""
+    perm = spatial_sort_permutation(state["Position"], state["NReal"], grid)
+    n = perm.shape[0]
+    return {k: v[perm] if torch.is_tensor(v) and v.dim() >= 1
+            and v.shape[0] == n else v for k, v in state.items()}

@@ -1,6 +1,7 @@
 """Solver loop (counterpart of sphinxsys_tpu/solver.py: `PhaseTimer`,
 `run_simulation`): when to stop, when to fire outputs, and wall-clock
-accounting per phase."""
+accounting per phase; `chunk_runner`, every route's loop of advection
+steps up to a target time."""
 
 from __future__ import annotations
 
@@ -40,11 +41,25 @@ class PhaseTimer:
         return "\n".join(lines)
 
 
+def chunk_runner(advection_step: Callable):
+    """run_chunk(sim, t_target) from a route's advection step: advance until
+    sim.time >= t_target, compared in the time's dtype, one host read of
+    the time a step."""
+    def run_chunk(s, t_target):
+        target = torch.as_tensor(t_target, dtype=s.time.dtype,
+                                 device=s.time.device)
+        while bool(s.time < target):
+            s = advection_step(s)
+        return s
+
+    return run_chunk
+
+
 def run_simulation(run_chunk, sim, end_time: float, output_interval: float,
                    on_output: Callable | None = None, verbose: bool = True):
     """Drive run_chunk to end_time, firing `on_output(sim)` every output
-    interval.  Returns (sim, PhaseTimer).  A block capacity overflow raises
-    (its results are invalid)."""
+    interval.  Returns (sim, PhaseTimer).  A capacity overflow (block slots
+    or neighbour lists) raises: its results are invalid."""
     timer = PhaseTimer()
     t = float(sim.time)
     n_out = int(t / output_interval)
@@ -55,7 +70,8 @@ def run_simulation(run_chunk, sim, end_time: float, output_interval: float,
             t = float(sim.time)
         n_out += 1
         if bool(sim.overflow):
-            raise RuntimeError("block capacity overflow — raise cap/c_max")
+            raise RuntimeError("capacity overflow — raise cap / c_max (block "
+                               "route) or cell_cap / k_* (gather route)")
         with timer.phase("output"):
             if on_output is not None:
                 on_output(sim)

@@ -108,7 +108,8 @@ def test_adaptation_and_riemann_match_jax(scenes, dim):
 @pytest.mark.parametrize("case,entry", [
     (case, entry) for case in ("dambreak_2d", "dambreak_3d", "taylor_green_2d")
     for entry in ("build_case", "build_block_case")
-] + [("twisting_column_3d", "build_case"), ("fsi2", "build_block_case")])
+] + [("twisting_column_3d", "build_case"), ("fsi2", "build_case"),
+      ("fsi2", "build_block_case")])
 def test_entry_points_default_to_the_card(case, entry):
     """The case entry points run on the card unless asked for the CPU:
     with no device given they ask for "cuda", and raise where there is

@@ -236,9 +236,42 @@ def test_run_matches_jax(jax_case, port_case, use_kernels):
     assert np.abs(tf.observe_tip(so_t, idx, w).numpy() - tip_j).max() < 1e-10
 
 
-def test_relax_insert_raises_naming_relax():
-    with pytest.raises(NotImplementedError, match="relax"):
-        tf.build_case(dx=DX, relax_insert=10, device="cpu")
+def test_relax_insert_builds_and_runs():
+    """build_case(relax_insert=20) on the CPU: the insert's relaxation
+    residual (with the surface correction) falls from the jittered,
+    bounded lattice it starts from, every insert particle stays inside its
+    shape, the frozen topology is built on the relaxed positions, and the
+    gather route takes an advection step without overflow."""
+    from sphinxsys_tpu_torch.neighbors.cell_list import build_cell_table
+    from sphinxsys_tpu_torch.neighbors.neighbor_list import build_neighbor_list
+    from sphinxsys_tpu_torch.physics import relax as rx
+
+    case, fluid, solid = tf.build_case(dx=DX, dtype=torch.float64,
+                                       device="cpu", relax_insert=20)
+    _, _, lattice = tf.build_case(dx=DX, dtype=torch.float64, device="cpu")
+    shape = tf.insert_shape()
+    ad = case.adaptation
+    table_L = rx.half_space_gradient_table(ad.kernel, 2)
+    n = case.n_solid
+    vol = torch.full((n,), DX * DX, dtype=torch.float64)
+
+    def residual(pos):
+        nl = build_neighbor_list(pos, n, pos, n, build_cell_table(
+            pos, n, case.grid_s, 24), case.grid_s, ad.cutoff, 64, False)
+        res = rx.relaxation_residual(pos, vol, nl, ad.kernel, 2) \
+            + rx.surface_residual_correction(pos, shape, table_L)
+        return float(torch.linalg.vector_norm(res, dim=-1).max())
+
+    pos = solid["Position"]
+    start = rx.surface_bounding(rx.randomize_positions(lattice["Position"],
+                                                       DX, 0), shape, DX)
+    assert residual(pos) < residual(start)
+    assert float(shape.signed_distance(pos).max()) < 0.0
+    assert float((pos - lattice["Position"]).abs().max()) > 1e-3
+    torch.testing.assert_close(solid["InitialPosition"], pos, rtol=0, atol=0)
+    sim = tf.make_advection_step(case)(tf.init_sim(case, fluid, solid))
+    assert (sim.n_adv, sim.n_ac) == (1, 5) and not bool(sim.overflow)
+    assert bool(torch.isfinite(sim.solid["Position"]).all())
 
 
 def test_jax_f32_runs_hold_chip_smoke_gates():
@@ -264,6 +297,14 @@ def test_jax_f32_runs_hold_chip_smoke_gates():
         assert np.hypot(dx, dy).max() <= gates["tip_radius"]
     block64 = next(r for r in runs if r["route"] == "block" and r["x64"])
     assert block64["rows"][-1][2:4] == [790, 1580]
+    gather = cs.fsi2_gather_gates()          # the gather route's (phase 11)
+    assert gather["tip_radius"] == gates["tip_radius"]
+    for r in runs:
+        if r["route"] == "gather":
+            _, _, n_ac, n_s, dx, dy = np.asarray(r["rows"]).T
+            assert gather["n_ac"][0] <= n_ac[-1] <= gather["n_ac"][1]
+            assert gather["n_s"][0] <= n_s[-1] <= gather["n_s"][1]
+            assert np.hypot(dx, dy).max() <= gather["gather_tip"]
 
 
 def _jax_run(route: str, x64: bool, t_end: float = 5.0, every: float = 0.05):

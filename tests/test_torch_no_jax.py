@@ -40,7 +40,11 @@ def test_port_has_modules():
                  "sphinxsys_tpu_torch/cases/dambreak_3d.py",
                  "sphinxsys_tpu_torch/cases/taylor_green_2d.py",
                  "sphinxsys_tpu_torch/cases/fsi2.py",
-                 "sphinxsys_tpu_torch/neighbors/neighbor_list.py"):
+                 "sphinxsys_tpu_torch/neighbors/neighbor_list.py",
+                 "sphinxsys_tpu_torch/neighbors/cell_list.py",
+                 "sphinxsys_tpu_torch/physics/fluid.py",
+                 "sphinxsys_tpu_torch/physics/fsi.py",
+                 "sphinxsys_tpu_torch/physics/relax.py"):
         assert must in names
 
 
