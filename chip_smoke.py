@@ -23,7 +23,11 @@ cell-block engine — at full size:
     wall-type body on an x-periodic grid, through B1-B4's moving-wall,
     periodic variants;
   * the gather fluid routes (neighbour lists, torch ops): the 2D and 3D
-    dambreaks at the widths above, Taylor–Green and fsi2.
+    dambreaks at the widths above, Taylor–Green and fsi2;
+  * the entry point, `python -m sphinxsys_tpu_torch.run`, at the widths
+    above (the 3D dambreak's block route and the 1.13M column), with its
+    VTP output; the ball–shell collision at dx=0.05 (4,224 ball and 6,120
+    shell particles).
 
 Phases:
 
@@ -113,7 +117,7 @@ Phases:
      lattice main path's state against that path's (positions within
      GATHER_POS_TOL of max|x|), its step profiled; the dx=0.1 column on
      the gather engine to t=0.5 against the JAX curve;
- 11. gather fluid (last): the neighbour-list routes (`init_sim` /
+ 11. gather fluid: the neighbour-list routes (`init_sim` /
      `make_run_chunk` of the dambreaks, Taylor–Green and fsi2: lists
      rebuilt every advection step, the pair sums torch ops over them, no
      hand kernel): the dambreak (dx=0.1, to t=0.08) and Taylor–Green
@@ -133,7 +137,25 @@ Phases:
      figures; fsi2's gather route to t=0.1 against the CPU and to
      FSI2_T_END, held to the JAX gather runs' count band and the tip
      envelope (`fsi2_gather_gates`), its step by part and profiled, and
-     each part profiled alone.
+     each part profiled alone;
+ 12. entry point and IO (last): the CLI as a subprocess at full width,
+     `dambreak_3d_block` (dx=0.01, cap 32, c_max 125,056, 1,000,000 fluid
+     particles, B1-B3) and `twisting_column_3d` with engine=lattice
+     (dx=0.0175, 1,133,901 sites, L1/L2), two frames each: exit code 0,
+     each kernel of the path launched, no chunk's state overflowed (the
+     block route's flag false after each chunk; the lattice has none),
+     each VTP well-formed with
+     NumberOfPoints = NReal and its arrays finite and equal to the run's
+     state at %.7g (the whole text, and sampled rows by Python's format),
+     each frame's write time and size; then, in process, the ball–shell
+     collision to t=2 held by the port's DTWRegressionTest to
+     tests/golden/ball_shell_collision_3d (no particle past r = 2 + dx/2,
+     no overflow; the step profiled, contact and solid parts alone), the
+     2D gather dambreak at dx=0.05 to t=3.6 (its energy and wall-pressure
+     probe held to tests/golden/dambreak_2d), a restart written at t=1.2,
+     read back and continued to t=2.4 against the uninterrupted run, and
+     a planted velocity violation that must dump one VTP a body and make
+     solver.run_simulation raise.
 
 Every kernel and plain-version time is taken by
 sphinxsys_tpu_torch.benchmarks.median_ms, the layout drivers' timer.  Its last two lines are a JSON object of per-kernel
@@ -147,6 +169,7 @@ import dataclasses
 import importlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -2506,6 +2529,462 @@ def gather_phase(torch, results):
     log(f"gather phase: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the entry point and its IO
+# ---------------------------------------------------------------------------
+
+# The CLI (`python -m sphinxsys_tpu_torch.run`) run as a subprocess at the
+# bench's widths, depth cut to a few steps, two output frames each, through
+# its hand kernels (the counters' keys); the real rows each body's VTP must
+# hold (JAX's dambreak_3d_block entry writes the fluid only).  The
+# frames go to build/io_phase/ (ASCII VTP of 2.2M points runs to
+# hundreds of MB) and are deleted after the checks.
+IO_CLI_RUNS = {
+    "3d": dict(case="dambreak_3d_block",
+               sets=("dx=0.01", "cap=32", "c_max=125056", "t_end=0.008",
+                     "n_output=2"),
+               kernels=("density", "ac1", "ac2"),
+               n_real={"WaterBody": 1_000_000}, overflow_flag=True),
+    "tc1m": dict(case="twisting_column_3d",
+                 sets=("dx=0.0175", "engine=lattice", "t_end=0.0002",
+                       "n_output=2"),
+                 kernels=("lattice_force", "lattice_dfdt"),
+                 # the lattice has no capacity, so no overflow flag
+                 n_real={"Column": 1_133_901}, overflow_flag=False),
+}
+IO_DIR = ROOT / "build" / "io_phase"
+IO_SAMPLE = 2000            # rows of each array held against Python's "%.7g"
+# the subprocess: `python -m sphinxsys_tpu_torch.run` (runpy, as -m runs it)
+# with the VTP writer wrapped to time each body's write and keep the arrays
+# it was handed, each chunk's `overflow` flag kept (None where the route has
+# none), and the kernels' launch counts read after the run
+CLI_WRAPPER = r"""
+import importlib, json, os, runpy, sys, time
+import numpy as np
+from sphinxsys_tpu_torch.engine import scene
+from sphinxsys_tpu_torch.io import vtk
+from sphinxsys_tpu_torch.ops import block_sweeps, lattice_sweeps
+args = json.loads(sys.argv[1])
+overflows = []
+def watch(mod):
+    make_run_chunk = mod.make_run_chunk
+    def watched_make_run_chunk(*a, **k):
+        run = make_run_chunk(*a, **k)
+        def watched(s, t):
+            s = run(s, t)
+            flag = getattr(s, "overflow", None)
+            overflows.append(None if flag is None else bool(flag))
+            return s
+        return watched
+    mod.make_run_chunk = watched_make_run_chunk
+watch(scene)
+watch(importlib.import_module(
+    "sphinxsys_tpu_torch.cases." + args[0].removesuffix("_block")))
+writes = []
+write_vtp = vtk.write_vtp
+def timed_write_vtp(path, state, variables=(), native=True):
+    t0 = time.perf_counter()
+    write_vtp(path, state, variables, native)
+    secs = time.perf_counter() - t0
+    n = int(state["NReal"])
+    for k in ("Position", *variables):
+        np.save(f"{path}.{k}.npy", vtk.host_rows(state[k], n))
+    writes.append(dict(path=path, s=secs, bytes=os.path.getsize(path),
+                       n_real=n, variables=list(variables)))
+vtk.write_vtp = timed_write_vtp
+block_sweeps.reset_launch_counts()
+lattice_sweeps.reset_launch_counts()
+sys.argv = ["run", *args]
+try:
+    runpy.run_module("sphinxsys_tpu_torch.run", run_name="__main__",
+                     alter_sys=True)
+    rc = 0
+except SystemExit as exc:
+    rc = exc.code
+print("CLI_RESULT " + json.dumps(dict(
+    rc=rc, writes=writes, overflow=overflows,
+    launches={**block_sweeps.LAUNCHES, **lattice_sweeps.LAUNCHES})),
+    flush=True)
+sys.exit(rc)
+"""
+BALL_DX = 0.05              # the JAX case's default (4,224 + 6,120 particles)
+BALL_T_END = 2.0
+BALL_SAMPLE = 0.1
+DAMBREAK_GOLDEN_DX = 0.05   # tests/test_golden_regression.py:20-34, :98-131
+RESTART_T = (1.2, 2.4)      # the restart written at t1, continued to t2
+PLANTED_BOUND = 10.0
+
+
+def vtp_data_arrays(text):
+    """{array name ("Points" for the positions): its text} of a VTP."""
+    out, pos = {}, 0
+    while True:
+        i = text.find("<DataArray", pos)
+        if i < 0:
+            return out
+        j = text.find(">", i)
+        k = text.find("</DataArray>", j)
+        name = re.search(r'Name="([^"]+)"', text[i:j])
+        out[name.group(1) if name else "Points"] = text[j + 1:k]
+        pos = k
+
+
+def vtp_check(path, n_expected):
+    """A frame's VTP against the arrays the writer was handed (saved
+    beside it): well-formed XML, NumberOfPoints = NReal = the body's real
+    rows, every array finite and its text the "%.7g" rows of those values
+    (the whole text through the native formatter, IO_SAMPLE rows through
+    Python's format, independent of it).  Returns the arrays' names."""
+    from xml.parsers import expat
+
+    import numpy as np
+    from sphinxsys_tpu_torch.io import vtk
+
+    text = Path(path).read_text()
+    expat.ParserCreate().Parse(text, True)
+    n = int(re.search(r'NumberOfPoints="(\d+)"', text).group(1))
+    check(n == n_expected, f"{path}: NumberOfPoints {n}, NReal {n_expected}")
+    blocks = vtp_data_arrays(text)
+    rng = np.random.default_rng(n)
+    for name, block in blocks.items():
+        key = "Position" if name == "Points" else name
+        ref = np.load(f"{path}.{key}.npy")
+        check(ref.shape[0] == n and bool(np.isfinite(ref).all()),
+              f"{path}: {key} rows {ref.shape[0]} or not finite")
+        rows = ref[:, None] if ref.ndim == 1 else vtk._as3d(ref)
+        full = vtk._format_rows(rows, True)
+        want = full.replace("\n", " ") if ref.ndim == 1 else full
+        check(block.strip() == want.strip(),
+              f"{path}: {name} is not its state's %.7g text")
+        lines = block.strip().split("\n") if ref.ndim > 1 else None
+        tokens = block.split() if ref.ndim == 1 else None
+        for r in rng.choice(n, size=min(n, IO_SAMPLE), replace=False):
+            got = lines[r].split(" ") if lines is not None else [tokens[r]]
+            check(got == [f"{float(x):.7g}" for x in np.atleast_1d(rows[r])],
+                  f"{path}: {name} row {r} {got} is not Python's %.7g")
+    return sorted(blocks)
+
+
+def cli_run(torch, tag, cfg):
+    """The CLI on `cfg` as a subprocess: exit code 0, every kernel of its
+    path launched, no chunk's state overflowed, each frame's VTP checked (`vtp_check`), the seconds each
+    frame took to write and its bytes on disk; the files are deleted."""
+    import shutil
+
+    out = IO_DIR / tag
+    shutil.rmtree(out, ignore_errors=True)
+    argv = [cfg["case"], *(x for kv in cfg["sets"] for x in ("--set", kv)),
+            "--output_dir", str(out)]
+    if DEVICE != "cuda":
+        argv += ["--set", f"device={DEVICE}"]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", CLI_WRAPPER, json.dumps(argv)],
+                          cwd=ROOT, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    for line in proc.stderr.splitlines()[-20:]:
+        log(f"cli {tag}: {line}")
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("CLI_RESULT ")]
+    check(proc.returncode == 0 and lines,
+          f"cli {tag}: exit code {proc.returncode}\n{proc.stdout[-2000:]}")
+    res = json.loads(lines[-1][len("CLI_RESULT "):])
+    log(f"cli {tag}: `python -m sphinxsys_tpu_torch.run {' '.join(argv)}` "
+        f"exit {res['rc']} in {wall:.1f} s (process start, build of the case, "
+        f"run and writes); kernel launches {res['launches']}")
+    for k in cfg["kernels"]:
+        check(res["launches"][k] > 0, f"cli {tag}: kernel {k} never launched")
+    want = [False, False] if cfg["overflow_flag"] else [None, None]
+    log(f"cli {tag}: overflow after each chunk {res['overflow']} (limit: "
+        f"{want}{'' if cfg['overflow_flag'] else ', the route has no flag'})")
+    check(res["overflow"] == want,
+          f"cli {tag}: overflow after each chunk {res['overflow']}")
+    frames = {}
+    for w in res["writes"]:
+        body, step = Path(w["path"]).stem.rsplit("_", 1)
+        t1 = time.perf_counter()
+        names = vtp_check(w["path"], cfg["n_real"][body])
+        log(f"cli {tag}: {Path(w['path']).name}: well-formed, NumberOfPoints "
+            f"{w['n_real']} = NReal {cfg['n_real'][body]} (limit: equal), "
+            f"{names} finite and equal to the state at %.7g (limit: the whole "
+            f"text byte-equal, {IO_SAMPLE} rows by Python's format); written in "
+            f"{w['s']:.3f} s, {w['bytes'] / 1e6:.1f} MB; checked in "
+            f"{time.perf_counter() - t1:.1f} s")
+        f = frames.setdefault(int(step), dict(s=0.0, bytes=0, points=0))
+        f["s"] += w["s"]
+        f["bytes"] += w["bytes"]
+        f["points"] += w["n_real"]
+    check(sorted(frames) == [1, 2], f"cli {tag}: frames {sorted(frames)}")
+    check(len(res["writes"]) == 2 * len(cfg["n_real"]),
+          f"cli {tag}: {len(res['writes'])} files")
+    shutil.rmtree(out)
+    log(f"cli {tag}: frames (s to write, MB, points): " + ", ".join(
+        f"{k}: {v['s']:.3f} s, {v['bytes'] / 1e6:.1f} MB, {v['points']}"
+        for k, v in sorted(frames.items())))
+    return dict(case=cfg["case"], sets=list(cfg["sets"]), wall_s=wall,
+                launches=res["launches"], frames=frames)
+
+
+def ball_com_z(s):
+    m = s.ball["Mass"].double()
+    return float((m * s.ball["Position"][:, 2].double()).sum() / m.sum())
+
+
+def ball_shell_phase(torch, results):
+    """The ball–shell collision at BALL_DX to BALL_T_END on the card: its
+    mass-weighted centre-of-mass z every BALL_SAMPLE held by the port's
+    DTWRegressionTest to tests/golden/ball_shell_collision_3d, no ball
+    particle past r = 2 + dx/2 (JAX's test_no_penetration_through_shell),
+    no contact-list overflow; the step's wall time and host reads, one
+    profiled step and its contact and solid parts profiled alone."""
+    import numpy as np
+    from sphinxsys_tpu_torch.cases import ball_shell_collision_3d as bs
+    from sphinxsys_tpu_torch.io.regression import DTWRegressionTest
+    from sphinxsys_tpu_torch.physics import contact as ct
+    from sphinxsys_tpu_torch.physics import solid as sd
+
+    case, ball = bs.build_case(dx=BALL_DX, device=DEVICE)
+    s = bs.init_sim(case, ball)
+    run = bs.make_run_chunk(case)
+    zs, rmax, reads, run_s = [ball_com_z(s)], [bs.max_radial_extent(s)], 0, 0.0
+    n_samples = round(BALL_T_END / BALL_SAMPLE)
+    for i in range(1, n_samples + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with SyncCounter(torch) as sync:
+            s = run(s, i * BALL_SAMPLE)
+        torch.cuda.synchronize()
+        run_s += time.perf_counter() - t0
+        reads += sync.n
+        zs.append(ball_com_z(s))
+        rmax.append(bs.max_radial_extent(s))
+    limit = 2.0 + case.dx / 2
+    ok, report = DTWRegressionTest(
+        str(ROOT / "tests" / "golden" / "ball_shell_collision_3d"), "BallBody",
+        "CenterOfMassZ").test(np.asarray(zs))
+    log(f"ball-shell: dx={case.dx} n_ball={case.n_ball} n_shell="
+        f"{case.shell['NReal']} {s.n_steps} steps to t={float(s.time):.6f} "
+        f"(JAX on the CPU: 631), {run_s / s.n_steps * 1e3:.3f} ms a step (wall, "
+        f"mean), {reads / s.n_steps:.2f} host reads a step; CoM z "
+        f"{zs[0]:.6f} -> min {min(zs):.6f} -> {zs[-1]:.6f}")
+    log(f"ball-shell: CoM z against the golden curve by DTW: {report}")
+    log(f"ball-shell: max radial extent {max(rmax):.6f} (limit < {limit}); "
+        f"overflow {bool(s.overflow)} (limit: False)")
+    check(ok, f"ball-shell: CoM z off the golden curve:\n{report}")
+    check(max(rmax) < limit, f"ball-shell: a particle at r = {max(rmax):.6f}")
+    check(not bool(s.overflow), "ball-shell: contact-list overflow")
+
+    b, nl = s.ball, s.nl_contact
+    h, k = case.adaptation.h, case.kernel
+    dt = sd.solid_acoustic_time_step(b, case.material.sound_speed, h, cfl=0.45)
+
+    def contact():
+        nl2 = bs.contact_list(case, b)
+        f = ct.shell_contact_factor(b, case.shell, nl2, k, 3, case.dx)
+        b2 = ct.repulsion_force_wall(b, case.shell, nl2, k, 3, f,
+                                     ct.contact_stiffness(case.material))
+        return ct.pairwise_friction_from_wall(b2, case.shell, nl2, k, 3,
+                                              bs.PHYSICAL_VISCOSITY, dt)
+
+    def solid():
+        b1 = sd.integration_1st_half_pk2(b, case.rp, case.material, dt, h,
+                                         k.w0(3))
+        return sd.integration_2nd_half(b1, case.rp, dt)
+
+    dev_us, _, plain_us, launches = profile_step(
+        torch, "ball_shell", lambda: bs._step(case, s), "ball-shell step")
+    prof = profile_parts(torch, "ball_shell", {
+        "contact": contact, "contact_list": lambda: bs.contact_list(case, b),
+        "solid": solid})
+    pairs = int(nl.count.sum())
+    log(f"ball-shell device ms by part (each profiled alone): "
+        + ", ".join(f"{n} {v['device_ms']:.3f} in {v['launches']} launches "
+                    f"(idle share {v['idle_share_est']:.3f})"
+                    for n, v in prof.items())
+        + f"; the step {dev_us / 1e3:.3f} in {launches}; {pairs} contact pairs")
+    results["_ball_shell"] = dict(
+        n_ball=case.n_ball, n_shell=case.shell["NReal"], n_steps=s.n_steps,
+        ms_per_step=run_s / s.n_steps * 1e3, host_reads_per_step=reads / s.n_steps,
+        device_busy_ms=dev_us / 1e3, launches_per_step=launches,
+        idle_share_est=1 - dev_us / plain_us, part_device=prof,
+        contact_pairs=pairs, dtw=report, max_radial=max(rmax))
+
+
+def dambreak_golden_phase(torch, results):
+    """The 2D gather dambreak at DAMBREAK_GOLDEN_DX on the card, one run to
+    t = 3.6: its mechanical energy every 0.1 to t = 2.5 and its wall
+    pressure probe at (DL - dx/2, 0.2) (observe_quantity) every 0.12,
+    each held by DTW to tests/golden/dambreak_2d; a restart written at
+    RESTART_T[0] (write_restart), read back (read_restart) and continued
+    to RESTART_T[1] against the uninterrupted run (equal counts,
+    positions)."""
+    import shutil
+
+    import numpy as np
+    from sphinxsys_tpu_torch.cases import dambreak_2d as db
+    from sphinxsys_tpu_torch.io import restart as rst
+    from sphinxsys_tpu_torch.io.observation import observe_quantity
+    from sphinxsys_tpu_torch.io.regression import DTWRegressionTest
+    from sphinxsys_tpu_torch.neighbors.cell_list import build_cell_table
+    from sphinxsys_tpu_torch.neighbors.neighbor_list import build_neighbor_list
+    from sphinxsys_tpu_torch.physics import general as gd
+
+    case, fluid = db.build_case(dx=DAMBREAK_GOLDEN_DX, device=DEVICE)
+    s = db.init_sim(case, fluid)
+    run = db.make_run_chunk(case)
+    obs = torch.tensor([[db.DL - 0.5 * case.dx, 0.2]],
+                       dtype=fluid["Position"].dtype, device=DEVICE)
+
+    def probe(f):
+        table = build_cell_table(f["Position"], f["NReal"], case.grid,
+                                 case.cell_cap)
+        nl = build_neighbor_list(obs, 1, f["Position"], f["NReal"], table,
+                                 case.grid, case.adaptation.cutoff, k_max=64,
+                                 include_self=True)
+        return float(observe_quantity(obs, f, "Pressure", nl, case.kernel,
+                                      2)[0])
+
+    def energy(f):
+        return float(gd.total_mechanical_energy(f, case.gravity))
+
+    events = sorted([(i * 0.1, "energy") for i in range(1, 26)]
+                    + [(j * 0.12, "probe") for j in range(1, 31)]
+                    + [(RESTART_T[0], "write"), (RESTART_T[1], "hold")])
+    energies, pressures = [energy(s.fluid)], [probe(s.fluid)]
+    rdir = IO_DIR / "restart"
+    shutil.rmtree(rdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    for t, what in events:
+        s = run(s, t)
+        if what == "energy":
+            energies.append(energy(s.fluid))
+        elif what == "probe":
+            pressures.append(probe(s.fluid))
+        elif what == "write":
+            rst.write_restart(str(rdir), s.n_adv, {"WaterBody": s.fluid},
+                              physical_time=float(s.time), n_adv=s.n_adv,
+                              n_ac=s.n_ac)
+            written, template = s.n_adv, s.fluid
+        else:
+            held = s
+    run_s = time.perf_counter() - t0
+    golden = str(ROOT / "tests" / "golden" / "dambreak_2d")
+    e_ok, e_rep = DTWRegressionTest(golden, "WaterBody",
+                                    "TotalMechanicalEnergy").test(
+        np.asarray(energies))
+    p_ok, p_rep = DTWRegressionTest(golden, "FluidObserver", "Pressure").test(
+        np.asarray(pressures))
+    log(f"dambreak golden: dx={case.dx} n_fluid={case.n_fluid} to "
+        f"t={float(s.time):.6f} in {s.n_adv} / {s.n_ac} steps, {run_s:.1f} s "
+        f"with the samples; overflow {bool(s.overflow)} (limit: False)")
+    log(f"dambreak golden: mechanical energy ({len(energies)} samples) "
+        f"against the golden curve by DTW: {e_rep}")
+    log(f"dambreak golden: wall pressure probe ({len(pressures)} samples, "
+        f"max {max(pressures):.4f}) against the golden curve by DTW: {p_rep}")
+    check(not bool(s.overflow), "dambreak golden: neighbour-list overflow")
+    check(e_ok, f"dambreak golden: energy off the golden curve:\n{e_rep}")
+    check(p_ok, f"dambreak golden: probe off the golden curve:\n{p_rep}")
+
+    loaded, meta = rst.read_restart(str(rdir), written, {"WaterBody": template})
+    fluid_b = loaded["WaterBody"]
+    check(all(torch.equal(fluid_b[k], template[k]) for k in template
+              if torch.is_tensor(template[k])),
+          "restart: the snapshot read back differs from the state written")
+    nl_inner, nl_wall = db.rebuild_relations(case, fluid_b)
+    resumed = db.SimState(
+        fluid=fluid_b, nl_inner=nl_inner, nl_wall=nl_wall,
+        time=torch.as_tensor(meta["physical_time"], dtype=s.time.dtype,
+                             device=s.time.device),
+        n_adv=meta["n_adv"], n_ac=meta["n_ac"],
+        overflow=nl_inner.overflow | nl_wall.overflow)
+    resumed = run(resumed, RESTART_T[1])
+    dpos = float((resumed.fluid["Position"] - held.fluid["Position"]).abs().max())
+    scale = float(held.fluid["Position"].abs().max())
+    bitwise = all(torch.equal(resumed.fluid[k], held.fluid[k])
+                  for k in ("Position", "Velocity", "Density", "Pressure"))
+    log(f"restart: written at step {written} (t={meta['physical_time']:.6f}), "
+        f"read back and continued to t={float(resumed.time):.6f}: counts "
+        f"{resumed.n_adv} / {resumed.n_ac} against the uninterrupted "
+        f"{held.n_adv} / {held.n_ac} (limit: equal); max|dpos| {dpos:.3e} of "
+        f"max|x| {scale:.3f} (limit {1e-6 * scale:.3e}); bitwise {bitwise}")
+    check((resumed.n_adv, resumed.n_ac) == (held.n_adv, held.n_ac),
+          "restart: the continuation's counts differ")
+    check(dpos <= 1e-6 * scale, f"restart: positions differ by {dpos:.3e}")
+    shutil.rmtree(rdir)
+    results["_dambreak_golden"] = dict(
+        n_fluid=case.n_fluid, n_adv=s.n_adv, n_ac=s.n_ac, run_s=run_s,
+        energy_dtw=e_rep, probe_dtw=p_rep, restart_bitwise=bitwise,
+        restart_dpos=dpos)
+    return case, fluid
+
+
+def planted_violation_check(torch, case, fluid):
+    """A velocity beyond the bound planted in the dambreak's state after
+    the first output chunk: WriteToVtpIfVelocityOutOfBound dumps one VTP a
+    body and solver.run_simulation raises."""
+    import shutil
+    from xml.parsers import expat
+
+    from sphinxsys_tpu_torch import solver
+    from sphinxsys_tpu_torch.cases import dambreak_2d as db
+    from sphinxsys_tpu_torch.io.failure import WriteToVtpIfVelocityOutOfBound
+
+    out = IO_DIR / "failure"
+    shutil.rmtree(out, ignore_errors=True)
+    bound_check = WriteToVtpIfVelocityOutOfBound(str(out), PLANTED_BOUND)
+    run = db.make_run_chunk(case)
+
+    def planted(s, t):
+        s = run(s, t)
+        s.fluid["Velocity"][7, 1] = 2.5 * PLANTED_BOUND
+        return s
+
+    try:
+        solver.run_simulation(
+            planted, db.init_sim(case, fluid), 0.3, 0.1, verbose=False,
+            failure_check=lambda s: bound_check(
+                {"WaterBody": s.fluid, "Wall": case.wall}, float(s.time)))
+        raised = None
+    except RuntimeError as exc:
+        raised = str(exc)
+    files = sorted(p.name for p in out.glob("*.vtp"))
+    log(f"planted violation: |v| = {2.5 * PLANTED_BOUND} against the bound "
+        f"{PLANTED_BOUND}: run_simulation raised {raised!r} (limit: raises); "
+        f"dumped {files} (limit: one VTP a body)")
+    check(raised is not None and "failure check fired" in raised,
+          "planted violation: run_simulation did not raise")
+    check(len(files) == 2 and files[0].startswith("Wall_velocity_out_of_bound_")
+          and files[1].startswith("WaterBody_velocity_out_of_bound_"),
+          f"planted violation: dumped {files}")
+    for name, n in zip(files, (case.n_wall, case.n_fluid)):
+        text = (out / name).read_text()
+        expat.ParserCreate().Parse(text, True)
+        check(f'NumberOfPoints="{n}"' in text, f"planted violation: {name}")
+    check(f" {2.5 * PLANTED_BOUND:g} " in (out / files[1]).read_text(),
+          "planted violation: the planted velocity is not in the dump")
+    shutil.rmtree(out)
+
+
+def io_phase(torch, results):
+    """Phase 12: the entry point and its IO — the CLI at full width as a
+    subprocess (`cli_run`), the ball–shell collision and the 2D dambreak
+    held to their golden curves, the restart round trip and the planted
+    velocity violation.  The native VTP formatter is built first, so that
+    no frame's time holds its build."""
+    from sphinxsys_tpu_torch.io import vtk
+
+    t0 = time.perf_counter()
+    built = vtk.library_path().exists()
+    vtk.fastio()
+    log(f"build: {vtk.library_path().name} (g++) "
+        + ("cached" if built else f"in {time.perf_counter() - t0:.1f} s"))
+    cli = {tag: cli_run(torch, tag, cfg) for tag, cfg in IO_CLI_RUNS.items()}
+    ball_shell_phase(torch, results)
+    case, fluid = dambreak_golden_phase(torch, results)
+    planted_violation_check(torch, case, fluid)
+    results["_io"] = cli
+    log(f"io phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not (ROOT / "sphinxsys_tpu_torch").is_dir():
         log("FAIL: the sphinxsys_tpu_torch package is not beside this script")
@@ -2567,6 +3046,7 @@ def main() -> int:
     packed_phase(torch, results)
     solid_phase(torch, results)
     gather_phase(torch, results)
+    io_phase(torch, results)
 
     kernels = []
     for tag, names in [*((t, c["kernels"]) for t, c in CONFIGS.items()),
@@ -2598,6 +3078,8 @@ def main() -> int:
     main_paths["tc_gather"] = results["_tc_gather"]
     for tag in (*GATHER_CONFIGS, "tg", "fsi2"):
         main_paths[f"gather_{tag}"] = results[f"_gather_{tag}"]
+    for tag in ("io", "ball_shell", "dambreak_golden"):
+        main_paths[tag] = results[f"_{tag}"]
     log("main paths: " + json.dumps(main_paths))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

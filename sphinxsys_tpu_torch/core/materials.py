@@ -73,6 +73,25 @@ class ElasticSolid:
 class NeoHookeanSolid(ElasticSolid):
     """Compressible Neo-Hookean solid (elastic_solid.h NeoHookeanSolid)."""
 
+    def stress_PK2(self, F):
+        """S = G J^(-2/3) (I - tr(C)/dim C^-1) + K J (J - 1) C^-1 with
+        C = F^T F and J = det(F), of (..., d, d) deformation gradients;
+        the determinant, inverse and product closed-form, as physics/solid.py
+        takes them."""
+        from sphinxsys_tpu_torch.physics.solid import det, inv, mm
+
+        dim = F.shape[-1]
+        eye = torch.eye(dim, dtype=F.dtype, device=F.device)
+        C = mm(F.transpose(-1, -2), F)
+        J = det(F)
+        Cinv = inv(C)
+        trC = torch.diagonal(C, dim1=-2, dim2=-1).sum(-1)
+        G, K = self.shear_modulus, self.bulk_modulus
+        Jm23 = J ** (-2.0 / 3.0)
+        dev = Jm23[..., None, None] * (eye - (trC / dim)[..., None, None] * Cinv)
+        vol = (K * J * (J - 1.0))[..., None, None] * Cinv
+        return G * dev + vol
+
     def volumetric_kirchhoff(self, J):
         """elastic_solid.cpp:129: 0.5 K (J^2 - 1)."""
         return 0.5 * self.bulk_modulus * (J * J - 1.0)

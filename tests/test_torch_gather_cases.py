@@ -15,7 +15,7 @@ solver.run_simulation) held to the JAX package's, on the CPU:
 * the dambreak's mechanical energy at dx = 0.05 to t = 2.5 in float32,
   sampled every 0.1 through solver.run_simulation, against the committed
   golden curve (tests/golden/dambreak_2d, the JAX gather engine's) by the
-  reference's DTW criterion.
+  reference's DTW criterion, through the port's own io/regression.py.
 """
 
 import dataclasses
@@ -29,11 +29,11 @@ import jax.numpy as jnp
 
 from sphinxsys_tpu.cases import dambreak_2d as jdb, dambreak_3d as jdb3, \
     fsi2 as jf, taylor_green_2d as jtg
-from sphinxsys_tpu.io.regression import DTWRegressionTest
 from sphinxsys_tpu_torch import solver
 from sphinxsys_tpu_torch.cases import dambreak_2d as tdb, dambreak_3d as tdb3, \
     fsi2 as tf, taylor_green_2d as ttg
 from sphinxsys_tpu_torch.engine import scene as tsc
+from sphinxsys_tpu_torch.io.regression import DTWRegressionTest
 from sphinxsys_tpu_torch.physics import general as tgd
 
 torch.set_num_threads(1)

@@ -44,7 +44,17 @@ def test_port_has_modules():
                  "sphinxsys_tpu_torch/neighbors/cell_list.py",
                  "sphinxsys_tpu_torch/physics/fluid.py",
                  "sphinxsys_tpu_torch/physics/fsi.py",
-                 "sphinxsys_tpu_torch/physics/relax.py"):
+                 "sphinxsys_tpu_torch/physics/relax.py",
+                 "sphinxsys_tpu_torch/physics/contact.py",
+                 "sphinxsys_tpu_torch/cases/ball_shell_collision_3d.py",
+                 "sphinxsys_tpu_torch/io/regression.py",
+                 "sphinxsys_tpu_torch/io/vtk.py",
+                 "sphinxsys_tpu_torch/io/observation.py",
+                 "sphinxsys_tpu_torch/io/restart.py",
+                 "sphinxsys_tpu_torch/io/failure.py",
+                 "sphinxsys_tpu_torch/utils/config.py",
+                 "sphinxsys_tpu_torch/solver.py",
+                 "sphinxsys_tpu_torch/run.py"):
         assert must in names
 
 
