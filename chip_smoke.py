@@ -28,6 +28,10 @@ cell-block engine — at full size:
     above (the 3D dambreak's block route and the 1.13M column), with its
     VTP output; the ball–shell collision at dx=0.05 (4,224 ball and 6,120
     shell particles).
+  * open boundaries, the free stream and the active-strain fish:
+    fish_fsi_2d at the reference's dx=0.0025 (53,714 water particles in
+    59,085 rows, 686 fish particles) and the T-pipe (1,460 in 2,190 rows)
+    through the neighbour-list routes (torch ops, no hand kernel).
 
 Phases:
 
@@ -156,6 +160,23 @@ Phases:
      read back and continued to t=2.4 against the uninterrupted run, and
      a planted velocity violation that must dump one VTP a body and make
      solver.run_simulation raise.
+ 13. open boundaries and the fish (last): the T-pipe to t=1 (past the
+     emitter's first clones), the fish in vacuum at dx=0.01 for 200
+     steps and the fish FSI at dx=0.01 to t=0.02, float64, on the card
+     against the CPU (equal counts, identical Alive and Indicator masks,
+     positions within 1e-9 of max|x|); then, float32, through build_case -> init_sim ->
+     make_run_chunk -> solver.run_simulation, every launch count reset
+     just before and read just after (the routes launch no hand kernel):
+     fish_fsi_2d at dx=0.0025 to t=0.05 (no overflow, finite fields, the
+     fish inside the channel, the outlet columns deleted, the counts
+     within 20% of the JAX package's own float32 counts,
+     tests/golden_torch/fish_fsi/jax_f32_counts.json) and the T-pipe to
+     t=2 (the emitter injected, no overflow); each step and each part
+     (rebuild, surface indication, density, acoustic sub-step, solid
+     sub-step, emitter and disposer) timed, profiled alone, its host
+     reads counted and its bound computed from the run's lists and
+     fields (`list_bound`, as for the torch-op pair sums of phases 11
+     and 12).
 
 Every kernel and plain-version time is taken by
 sphinxsys_tpu_torch.benchmarks.median_ms, the layout drivers' timer.  Its last two lines are a JSON object of per-kernel
@@ -1879,6 +1900,9 @@ def gather_solid_check(torch, lcase, ls_state, results):
     dev_us, wall_us, _, launches = profile_step(
         torch, "tc1m_gather", lambda: tc._step(gcase, g), "gather step")
     peak_step = torch.cuda.max_memory_allocated() - base_mem
+    bound = frozen_bound(torch, rp, g.column)
+    log(f"tc1m gather step bound (its frozen pairs and fields): "
+        f"{bound[0]:.4f} ms ({bound[1]}, {bound[2]} pairs)")
     log(f"tc1m gather path: steady step {step_ms:.3f} ms (wall clock, median "
         f"of 3; the lattice path's {results['_tc1m_main']['parts_ms']['step']:.3f}"
         f" ms), {launches} device launches a step, device busy "
@@ -1888,7 +1912,7 @@ def gather_solid_check(torch, lcase, ls_state, results):
         build_s=build_s, build_peak_gb=peak / 1e9, frozen_gb=rp_bytes / 1e9,
         step_peak_gb=peak_step / 1e9, ms_per_step=step_ms,
         launches_per_step=launches, device_busy_ms=dev_us / 1e3,
-        pos_gap=err, steps=GATHER_STEPS)
+        pos_gap=err, steps=GATHER_STEPS, bound=bound)
     del gcase, gcol, g, lat, rp, start
 
 
@@ -2224,6 +2248,68 @@ def profile_parts(torch, tag, fns):
     return out
 
 
+# float32 operations a real pair costs in the torch-op pair sums over
+# neighbour lists, counted from their formulas (2D; 3D adds ~20%): the
+# pair geometry (displacement, r, e, the kernel's polynomial) ~20, then
+# the sum's own terms
+LIST_PAIR_FLOPS = {
+    "density": 22,            # W and its sum (+ the contact's m / rho0)
+    "surface_indication": 26,  # dW V r, the neighbours' flags
+    "acoustic_substep": 75,   # both halves: p, u jumps, Riemann, forces
+    "coupling": 40,           # the FSI pressure or viscous force a pair
+    "contact": 60,            # the shell factor, repulsion and friction
+    "solid_substep": 60,      # the frozen pairs' stress and dF/dt sums
+}
+
+
+def list_bound(torch, part, lists, reads, writes):
+    """The least time (ms) the card could take for one torch-op pass over
+    (N, K) neighbour lists, from this run's tensors: each list's index
+    table and each per-particle array in `reads` read once, each array in
+    `writes` written once, over 3.35 TB/s; the real pairs (the lists'
+    counts, at most K a row) times LIST_PAIR_FLOPS[part] over 67 TFLOP/s.
+    Returns (ms, "bytes"|"operations", real pairs)."""
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (*(nl.idx for nl in lists), *reads, *writes))
+    pairs = sum(int(torch.clamp(nl.count, max=nl.idx.shape[1]).sum())
+                for nl in lists)
+    ms, by = bytes_or_flops(nbytes, pairs * LIST_PAIR_FLOPS.get(part, 0))
+    return ms, by, pairs
+
+
+def fields(state, *names):
+    return [state[k] for k in names if k in state]
+
+
+FLUID_AC_READS = ("Position", "Velocity", "Density", "VolumetricMeasure",
+                  "Mass", "Force", "ForcePrior", "DensityChangeRate")
+FLUID_AC_WRITES = ("Position", "Velocity", "Density", "Pressure", "Force",
+                   "DensityChangeRate")
+WALL_READS = ("Position", "VolumetricMeasure", "NormalDirection",
+              "AverageVelocity", "AverageAcceleration")
+# a total-Lagrangian solid step's per-particle arrays (those a state lacks
+# are skipped: the fish's composite fields, the column's holder)
+SOLID_READS = ("Position", "Velocity", "DeformationGradient",
+               "DeformationRate", "LinearGradientCorrectionMatrix",
+               "VolumetricMeasure", "Mass", "ForcePrior", "InitialPosition",
+               "MaterialID", "Lambda0", "ShearModulus")
+SOLID_WRITES = ("Position", "Velocity", "DeformationGradient",
+                "DeformationRate", "Density", "StressPK1OnParticle", "Force",
+                "ActiveStrain")
+
+
+def frozen_bound(torch, rp, solid):
+    """`list_bound` of one solid step (both halves) over the frozen pairs
+    `rp`: their index table, W, dW, r, e and mask read once."""
+    import types
+
+    frozen = types.SimpleNamespace(idx=rp.idx, count=rp.mask.sum(1))
+    return list_bound(torch, "solid_substep", [frozen],
+                      [rp.W, rp.dW, rp.r, rp.e, rp.mask]
+                      + fields(solid, *SOLID_READS),
+                      fields(solid, *SOLID_WRITES))
+
+
 def gather_main_path(torch, tag, cfg, results):
     """The gather dambreak at full width through build_case -> init_sim ->
     make_run_chunk -> solver.run_simulation, the block kernels' launch
@@ -2319,6 +2405,20 @@ def gather_main_path(torch, tag, cfg, results):
     per_adv = sim.n_ac / sim.n_adv
     pair_ms = (prof["density"]["device_ms"]
                + per_adv * prof["acoustic_substep"]["device_ms"])
+    bound_den = list_bound(
+        torch, "density", [sim.nl_inner, sim.nl_wall],
+        fields(f, "Position", "Mass") + fields(case.wall, "Position", "Mass"),
+        fields(f, "DensitySummation", "Density"))
+    bound_ac = list_bound(
+        torch, "acoustic_substep", [sim.nl_inner, sim.nl_wall],
+        fields(f, *FLUID_AC_READS) + fields(case.wall, *WALL_READS),
+        fields(f, *FLUID_AC_WRITES))
+    pair_bound = bound_den[0] + per_adv * bound_ac[0]
+    log(f"gather {tag} bounds (from this run's lists and fields): density "
+        f"{bound_den[0]:.4f} ms ({bound_den[1]}), an acoustic sub-step "
+        f"{bound_ac[0]:.4f} ms ({bound_ac[1]}), {bound_den[2]} real pairs a "
+        f"pass; the pair sums a step {pair_bound:.4f} ms against their "
+        f"device {pair_ms:.3f}")
     log(f"gather {tag} device ms by part (each profiled alone): "
         + ", ".join(f"{k} {v['device_ms']:.3f} in {v['launches']} launches "
                     f"(idle share {v['idle_share_est']:.3f})"
@@ -2331,6 +2431,8 @@ def gather_main_path(torch, tag, cfg, results):
         n_fluid=case.n_fluid, n_adv=sim.n_adv, n_ac=sim.n_ac, resorts=sorts,
         ms_per_adv=integ / sim.n_adv * 1e3, parts_ms=parts,
         part_device=prof, pair_sum_device_ms=pair_ms,
+        pair_sum_bound_ms=pair_bound, density_bound=bound_den,
+        substep_bound=bound_ac,
         part_peak_gb=peaks, run_peak_gb=peak_run, device_busy_ms=dev_us / 1e3,
         launches_per_adv=launches, idle_share_est=1 - dev_us / plain_us,
         energy_change=drift, block_ms_per_adv=block.get("ms_per_adv"))
@@ -2502,7 +2604,28 @@ def fsi2_gather_path(torch, results):
     dev_us, _, plain_us, launches = profile_step(torch, "fsi2_gather",
                                                  lambda: step(sim))
     prof = profile_parts(torch, "fsi2_gather", fns)
+    so, fl = sim.solid, sim.fluid
+    bounds = {
+        "pressure_force": list_bound(
+            torch, "coupling", [sim.nl_sf],
+            fields(so, "Position", "VolumetricMeasure", "NormalDirection",
+                   "AverageVelocity", "ForcePrior")
+            + fields(fl, "Position", "Pressure", "Density",
+                     "VolumetricMeasure", "Velocity"),
+            fields(so, "PressureForceFromFluid", "ForcePrior")),
+        "viscous_force": list_bound(
+            torch, "coupling", [sim.nl_sf],
+            fields(so, "Position", "VolumetricMeasure", "AverageVelocity",
+                   "ForcePrior")
+            + fields(fl, "Position", "VolumetricMeasure", "Velocity"),
+            fields(so, "ViscousForceFromFluid", "ForcePrior"))}
+    bounds["solid_substep"] = frozen_bound(torch, case.rp, so)
+    log("fsi2 gather coupling and solid sub-step bounds (this run's lists "
+        "and fields): "
+        + ", ".join(f"{k} {v[0]:.5f} ms ({v[1]}, {v[2]} pairs)"
+                    for k, v in bounds.items()))
     results["_gather_fsi2"] = dict(
+        coupling_bounds=bounds,
         t_end=float(sim.time), n_adv=sim.n_adv, n_ac=sim.n_ac, n_s=sim.n_s,
         ms_per_adv=elapsed / sim.n_adv * 1e3,
         host_reads_per_adv=n_sync / sim.n_adv, parts_ms=parts,
@@ -2796,6 +2919,16 @@ def ball_shell_phase(torch, results):
         "contact": contact, "contact_list": lambda: bs.contact_list(case, b),
         "solid": solid})
     pairs = int(nl.count.sum())
+    contact_bound = list_bound(
+        torch, "contact", [nl],
+        fields(b, "Position", "Velocity", "VolumetricMeasure", "Mass",
+               "ForcePrior")
+        + fields(case.shell, "Position", "VolumetricMeasure",
+                 "NormalDirection", "Velocity"),
+        fields(b, "ForcePrior", "Velocity"))
+    log(f"ball-shell contact bound (this run's list and fields): "
+        f"{contact_bound[0]:.5f} ms ({contact_bound[1]}), against its "
+        f"{prof['contact']['device_ms']:.3f} device ms")
     log(f"ball-shell device ms by part (each profiled alone): "
         + ", ".join(f"{n} {v['device_ms']:.3f} in {v['launches']} launches "
                     f"(idle share {v['idle_share_est']:.3f})"
@@ -2806,7 +2939,8 @@ def ball_shell_phase(torch, results):
         ms_per_step=run_s / s.n_steps * 1e3, host_reads_per_step=reads / s.n_steps,
         device_busy_ms=dev_us / 1e3, launches_per_step=launches,
         idle_share_est=1 - dev_us / plain_us, part_device=prof,
-        contact_pairs=pairs, dtw=report, max_radial=max(rmax))
+        contact_pairs=pairs, contact_bound=contact_bound, dtw=report,
+        max_radial=max(rmax))
 
 
 def dambreak_golden_phase(torch, results):
@@ -2985,7 +3119,374 @@ def io_phase(torch, results):
     log(f"io phase: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: open boundaries, the free stream and the self-propelled fish
+# ---------------------------------------------------------------------------
+
+# the float64 card-against-CPU references: (case, dx, end); fish_undulation
+# runs to the time at which its dx = 0.01 run takes exactly 200 steps
+OB_REFS = (("t_pipe_2d", None, 1.0), ("fish_undulation_2d", 0.01, 0.0088508),
+           ("fish_fsi_2d", 0.01, 0.02))
+OB_POS_TOL = 1e-9
+OB_FISH_DX = 0.0025         # the reference's (53,714 + 686 particles)
+OB_FISH_T_END = 0.05
+OB_FISH_SAMPLE = 0.01
+OB_PIPE_T_END = 2.0
+OB_PIPE_SAMPLE = 0.5
+# JAX's own float32 counts at the same widths and times
+# (`python tests/test_torch_fish.py`); the card's within OB_COUNT_BAND
+OB_JAX_COUNTS = "tests/golden_torch/fish_fsi/jax_f32_counts.json"
+OB_COUNT_BAND = 0.2
+
+
+def reset_all_launch_counts():
+    from sphinxsys_tpu_torch.ops import (block_sweeps, lattice_sweeps,
+                                         layout_sweeps, packed_sweeps)
+
+    mods = (block_sweeps, lattice_sweeps, layout_sweeps, packed_sweeps)
+    for m in mods:
+        m.reset_launch_counts()
+    return lambda: {k: v for m in mods for k, v in m.LAUNCHES.items()}
+
+
+def ob_reference_run(torch, name, dx, t_end, device):
+    """One float64 reference run: (counts, fluid or None, solid)."""
+    cm = importlib.import_module(f"sphinxsys_tpu_torch.cases.{name}")
+    kw = dict(dtype=torch.float64, device=device)
+    if dx is not None:
+        kw["dx"] = dx
+    if name == "fish_undulation_2d":
+        case, s = cm.build_case(**kw)
+        s = cm.make_run_chunk(case)(s, t_end)
+        return (s.n_steps,), None, s.fish
+    if name == "t_pipe_2d":
+        case, fluid = cm.build_case(**kw)
+        s = cm.make_run_chunk(case)(cm.init_sim(case, fluid), t_end)
+        return (s.n_adv, s.n_ac), s.fluid, None
+    case, fluid, fish = cm.build_case(**kw)
+    s = cm.make_run_chunk(case)(cm.init_sim(case, fluid, fish), t_end)
+    return (s.n_adv, s.n_ac, s.n_s), s.fluid, s.fish
+
+
+def ob_small_references(torch):
+    """The three cases at small sizes in float64 on the card against the
+    CPU: equal counts, identical Alive and Indicator, positions (live
+    rows; the dead ones equal) within OB_POS_TOL of max|x|.  float64,
+    because the emitter's and the indicator's integer decisions would flip
+    at float32 roundoff: a mismatch here is a fault, not noise."""
+    for name, dx, t_end in OB_REFS:
+        (kc, fc, sc_), (kh, fh, sh) = (ob_reference_run(torch, name, dx,
+                                                        t_end, dev)
+                                       for dev in (DEVICE, "cpu"))
+        errs = {}
+        if fc is not None:
+            for k in ("Alive", "Indicator"):
+                check(torch.equal(fc[k].cpu(), fh[k]),
+                      f"ob reference {name}: {k} differs")
+            alive = fh["Alive"]
+            pc, ph = fc["Position"].cpu(), fh["Position"]
+            check(torch.equal(pc[~alive], ph[~alive]),
+                  f"ob reference {name}: dead rows differ")
+            errs["fluid"] = (float((pc - ph)[alive].abs().max()),
+                             float(ph[alive].abs().max()))
+        if sh is not None:
+            errs["solid"] = (float((sc_["Position"].cpu()
+                                    - sh["Position"]).abs().max()),
+                             float(sh["Position"].abs().max()))
+        log(f"ob reference {name} (float64, dx={dx}, to t={t_end}): card "
+            f"counts {kc}, cpu {kh}; max |dpos| / max|x| "
+            + ", ".join(f"{b} {e:.3e} / {m:.3f}" for b, (e, m) in errs.items())
+            + (f"; alive {int(fh['Alive'].sum())}" if fh is not None else ""))
+        check(kc == kh, f"ob reference {name}: counts {kc} != {kh}")
+        for b, (e, m) in errs.items():
+            check(e <= OB_POS_TOL * m,
+                  f"ob reference {name}: {b} positions differ by {e:.3e}")
+
+
+def ob_parts(torch, tag, fns, step, bounds):
+    """The step and each part alone: wall ms (synchronised median), host
+    reads of device values in one call, device busy ms and launches
+    (profiled), the idle share of the unprofiled wall, and the part's
+    bound where `bounds` has one (ms, by, real pairs: `list_bound`)."""
+    table = {}
+    for name, fn in {"advection_step": step, **fns}.items():
+        with SyncCounter(torch) as reads:
+            fn()
+        torch.cuda.synchronize()
+        dev_us, _, plain_us, launches = profile_step(torch, f"{tag}_{name}",
+                                                     fn, name)
+        table[name] = dict(wall_ms=plain_us / 1e3, device_ms=dev_us / 1e3,
+                           launches=launches, host_reads=reads.n,
+                           idle_share_est=1 - dev_us / plain_us)
+        if name in bounds:
+            table[name].update(bound_ms=bounds[name][0],
+                               bound_by=bounds[name][1],
+                               pairs=bounds[name][2])
+    log(f"{tag} parts: " + "; ".join(
+        f"{k} wall {v['wall_ms']:.3f} ms, device {v['device_ms']:.3f} ms in "
+        f"{v['launches']} launches, {v['host_reads']} host reads, idle share "
+        f"{v['idle_share_est']:.3f}"
+        + (f", bound {v['bound_ms']:.5f} ms ({v['bound_by']}, {v['pairs']} "
+           f"pairs)" if "bound_ms" in v else "")
+        for k, v in table.items()))
+    return table
+
+
+def ob_main_run(torch, tag, build, t_end, sample):
+    """build() -> (case, module, sim); the case through init_sim ->
+    make_run_chunk -> solver.run_simulation to t_end, every launch count
+    reset just before and read just after (the route has no hand kernel),
+    the host reads of device values counted.  Returns (case, sim, record)."""
+    from sphinxsys_tpu_torch import solver
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    case, mod, sim = build()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    outputs = []
+    read_counts = reset_all_launch_counts()
+    with SyncCounter(torch) as syncs:
+        t1 = time.perf_counter()
+        sim, _ = solver.run_simulation(mod.make_run_chunk(case), sim, t_end,
+                                       sample, verbose=False,
+                                       on_output=outputs.append)
+        elapsed = time.perf_counter() - t1
+    counts = read_counts()
+    # run_simulation's own reads: the start time, then the time and the
+    # overflow flag after each chunk
+    reads = syncs.n - (1 + 2 * len(outputs))
+    rec = dict(setup_s=setup_s, run_s=elapsed, t_end=float(sim.time),
+               ms_per_adv=elapsed / sim.n_adv * 1e3,
+               host_reads_per_adv=reads / sim.n_adv,
+               peak_gb=peak_gb(torch), kernel_launches=counts)
+    check(not any(counts.values()), f"{tag}: a hand kernel ran {counts}")
+    return case, sim, rec
+
+
+def ob_open_boundary_bound(torch, f):
+    """The emitter and disposer's least time: the Alive mask, the positions
+    before the step and the hinted fields read once, each written once."""
+    from sphinxsys_tpu_torch.physics.boundary import _PARTICLE_FIELDS_HINT
+
+    hinted = fields(f, *_PARTICLE_FIELDS_HINT)
+    return list_bound(torch, None, [], [f["Alive"], f["Position"], *hinted],
+                      [f["Alive"], *hinted])
+
+
+def ob_fish_bounds(torch, case, sim, f, fi):
+    """Each part's least time from this run's lists and fields
+    (`list_bound`); the acoustic sub-step's holds its fluid halves, the
+    pressure force and its solid sub-steps (their mean count)."""
+    lists = [sim.nl_ff, sim.nl_fs]
+    solid = frozen_bound(torch, case.rp, fi)
+    fluid = list_bound(torch, "acoustic_substep", lists,
+                       fields(f, *FLUID_AC_READS) + fields(fi, *WALL_READS),
+                       fields(f, *FLUID_AC_WRITES))
+    coupling = list_bound(
+        torch, "coupling", [sim.nl_sf],
+        fields(fi, "Position", "VolumetricMeasure", "NormalDirection",
+               "AverageVelocity", "ForcePrior")
+        + fields(f, "Position", "Pressure", "Density", "VolumetricMeasure",
+                 "Velocity"),
+        fields(fi, "PressureForceFromFluid", "ForcePrior"))
+    per_ac = sim.n_s / sim.n_ac
+    ac_ms = fluid[0] + coupling[0] + per_ac * solid[0]
+    return {
+        "surface_indication": list_bound(
+            torch, "surface_indication", lists,
+            fields(f, "Position", "VolumetricMeasure",
+                   "PreviousSurfaceIndicator") + fields(fi, "Position",
+                                                        "VolumetricMeasure"),
+            fields(f, "Indicator", "PositionDivergence",
+                   "PreviousSurfaceIndicator")),
+        "density": list_bound(
+            torch, "density", lists,
+            fields(f, "Position", "Mass", "Density", "Indicator")
+            + fields(fi, "Position", "Mass"),
+            fields(f, "DensitySummation", "Density", "VolumetricMeasure")),
+        "acoustic_substep": (ac_ms, fluid[1], fluid[2] + coupling[2]
+                             + round(per_ac * solid[2])),
+        "solid_substep": solid,
+        "emitter_disposer": ob_open_boundary_bound(torch, f)}
+
+
+def ob_fish_path(torch, results):
+    """fish_fsi_2d at the reference's dx through the public entry points
+    to OB_FISH_T_END, float32: no overflow, finite fields, the fish inside
+    the channel, the outlet columns deleted, the counts within
+    OB_COUNT_BAND of JAX's own float32 counts; then the step by part."""
+    from sphinxsys_tpu_torch.cases import fish_fsi_2d as ff
+    from sphinxsys_tpu_torch.physics import fluid as fd
+    from sphinxsys_tpu_torch.physics import solid as sd
+
+    def build():
+        case, fluid, fish = ff.build_case(dx=OB_FISH_DX, device=DEVICE)
+        return case, ff, ff.init_sim(case, fluid, fish)
+
+    case, sim, rec = ob_main_run(torch, "ob fish", build, OB_FISH_T_END,
+                                 OB_FISH_SAMPLE)
+    f, fi = sim.fluid, sim.fish
+    alive = f["Alive"]
+    jax_rows = json.loads((ROOT / OB_JAX_COUNTS).read_text())["fish_fsi"]
+    jrow = min(jax_rows["rows"], key=lambda r: abs(r[0] - float(sim.time)))
+    n0 = jax_rows["n_alive0"]
+    pos0 = f["Position"]
+    dl_sponge = case.dl_sponge
+    outlet_cols = n0 - int(alive.sum())    # net of the (few) clones
+    ps = fi["Position"]
+    inside = bool(((ps[:, 0] > -dl_sponge) & (ps[:, 0] < ff.DL)
+                   & (ps[:, 1] > 0.0) & (ps[:, 1] < ff.DH)).all())
+    in_disposer = int((case.disposer.contains(pos0) & alive).sum())
+    counts = (sim.n_adv, sim.n_ac, sim.n_s)
+    band = [((1 - OB_COUNT_BAND) * j, (1 + OB_COUNT_BAND) * j)
+            for j in jrow[1:4]]
+    log(f"ob fish main path: n_fluid={case.n_fluid} rows ({n0} alive at "
+        f"t=0) n_fish={case.n_fish}; setup {rec['setup_s']:.2f} s; to "
+        f"t={float(sim.time):.6f} counts (n_adv, n_ac, n_s) {counts} against "
+        f"JAX's float32 {tuple(jrow[1:4])} at t={jrow[0]:.6f} (band "
+        f"{OB_COUNT_BAND}); alive {int(alive.sum())} (JAX {jrow[4]}), "
+        f"deleted {outlet_cols}; {rec['run_s']:.2f} s: {rec['ms_per_adv']:.3f} "
+        f"ms an advection step (wall clock, mean), "
+        f"{rec['host_reads_per_adv']:.1f} host reads an advection step; "
+        f"peak device memory {rec['peak_gb']:.3f} GB")
+    for k in ("Position", "Velocity", "Density", "Pressure"):
+        v = f[k][alive]
+        check(bool(torch.isfinite(v).all()), f"ob fish: non-finite fluid {k}")
+    for k in ("Position", "Velocity", "DeformationGradient"):
+        check(bool(torch.isfinite(fi[k]).all()), f"ob fish: non-finite fish {k}")
+    check(inside, "ob fish: a fish particle left the channel")
+    check(in_disposer == 0 and outlet_cols >= 4 * int(ff.DH / OB_FISH_DX),
+          f"ob fish: the disposer left {in_disposer} alive in its region, "
+          f"deleted {outlet_cols}")
+    for name, c, (lo, hi) in zip(("n_adv", "n_ac", "n_s"), counts, band):
+        check(lo <= c <= hi, f"ob fish: {name} {c} off JAX's band "
+              f"[{lo:.1f}, {hi:.1f}]")
+
+    kernel, h = case.kernel, case.adaptation.h
+    dt_adv = fd.advection_viscous_time_step(f, h, ff.U_F, ff.RHO0_F, ff.MU_F)
+    dt = torch.minimum(fd.acoustic_time_step(f, case.eos, h), dt_adv)
+    dt_s = torch.minimum(sd.solid_acoustic_time_step(
+        fi, case.material_s.sound_speed, h), dt)
+    step = ff.make_advection_step(case)
+    fns = {
+        "rebuild": lambda: ff.rebuild_relations(case, f, fi),
+        "surface_indication": lambda: fd.free_surface_indication(
+            f, sim.nl_ff, kernel, 2, contacts=[(fi, sim.nl_fs, None)],
+            spatial_temporal=True),
+        "density": lambda: fd.density_summation_freestream(
+            f, sim.nl_ff, kernel, 2, ff.RHO0_F, case.adaptation.sigma0,
+            contacts=[(fi, sim.nl_fs, 1050.0)]),
+        "acoustic_substep": lambda: ff.acoustic_substep(
+            case, sim, f, fi, dt_adv, sim.time),
+        "solid_substep": lambda: ff.solid_substep(case, fi, dt_s, sim.time),
+        "emitter_disposer": lambda: ff.open_boundaries(case, f, pos0),
+    }
+    bounds = ob_fish_bounds(torch, case, sim, f, fi)
+    parts = ob_parts(torch, "ob_fish", fns, lambda: step(sim), bounds)
+    per_ac = sim.n_s / sim.n_ac
+    log(f"ob fish: {sim.n_ac / sim.n_adv:.2f} acoustic sub-steps an "
+        f"advection step, {per_ac:.2f} solid sub-steps an acoustic one; the "
+        f"solid sub-steps of one acoustic sub-step {per_ac:.2f} x "
+        f"{parts['solid_substep']['wall_ms']:.3f} ms wall against its "
+        f"{parts['acoustic_substep']['wall_ms']:.3f} ms")
+    results["_ob_fish"] = dict(rec, n_fluid=case.n_fluid, n_fish=case.n_fish,
+                               n_adv=sim.n_adv, n_ac=sim.n_ac, n_s=sim.n_s,
+                               jax_f32=jrow, alive=int(alive.sum()),
+                               outlet_deleted=outlet_cols, parts=parts)
+    del case, sim, f, fi, step
+    torch.cuda.empty_cache()
+
+
+def ob_pipe_path(torch, results):
+    """t_pipe_2d through the public entry points to OB_PIPE_T_END, float32:
+    the emitter injected (the live count rose above its start), no
+    overflow (the lists' and the emitter's), finite fields; the step by
+    part."""
+    from sphinxsys_tpu_torch.cases import t_pipe_2d as tp
+    from sphinxsys_tpu_torch.physics import fluid as fd
+
+    def build():
+        case, fluid = tp.build_case(device=DEVICE)
+        return case, tp, tp.init_sim(case, fluid)
+
+    case, sim, rec = ob_main_run(torch, "ob t_pipe", build, OB_PIPE_T_END,
+                                 OB_PIPE_SAMPLE)
+    f = sim.fluid
+    n1 = tp.n_alive(sim)
+    jrow = json.loads((ROOT / OB_JAX_COUNTS).read_text())["t_pipe"]["rows"][-1]
+    log(f"ob t_pipe main path: {case.n_fluid} alive at t=0 in "
+        f"{f['Position'].shape[0]} rows; to t={float(sim.time):.6f} n_adv="
+        f"{sim.n_adv} n_ac={sim.n_ac} alive {n1} (JAX float32 at "
+        f"t={jrow[0]:.6f}: n_adv {jrow[1]}, alive {jrow[2]}); "
+        f"{rec['ms_per_adv']:.3f} ms an advection step (wall clock, mean), "
+        f"{rec['host_reads_per_adv']:.1f} host reads an advection step")
+    check(n1 > case.n_fluid, f"ob t_pipe: no injection ({n1} alive)")
+    check(not bool(sim.overflow), "ob t_pipe: overflow")
+    for k in ("Position", "Velocity", "Density", "Pressure"):
+        check(bool(torch.isfinite(f[k][f["Alive"]]).all()),
+              f"ob t_pipe: non-finite {k}")
+    kernel = case.kernel
+    dt_adv = fd.advection_viscous_time_step(f, case.adaptation.h, tp.U_F,
+                                            tp.RHO0_F, tp.MU_F)
+    step = tp.make_advection_step(case)
+    fns = {
+        "rebuild": lambda: tp.rebuild_relations(case, f),
+        "surface_indication": lambda: fd.free_surface_indication(
+            f, sim.nl_inner, kernel, 2,
+            contacts=[(case.wall, sim.nl_wall, None)], spatial_temporal=True),
+        "density": lambda: fd.density_summation_freestream(
+            f, sim.nl_inner, kernel, 2, tp.RHO0_F, case.adaptation.sigma0,
+            contacts=[(case.wall, sim.nl_wall, tp.RHO0_F)]),
+        "acoustic_substep": lambda: tp.acoustic_substep(case, sim, f, dt_adv,
+                                                        sim.time),
+        "emitter_disposer": lambda: tp.open_boundaries(case, f,
+                                                       f["Position"]),
+    }
+    w = case.wall
+    lists = [sim.nl_inner, sim.nl_wall]
+    ac = list_bound(torch, "acoustic_substep", lists,
+                    fields(f, *FLUID_AC_READS) + fields(w, *WALL_READS),
+                    fields(f, *FLUID_AC_WRITES))
+    bounds = {
+        "surface_indication": list_bound(
+            torch, "surface_indication", lists,
+            fields(f, "Position", "VolumetricMeasure",
+                   "PreviousSurfaceIndicator") + fields(w, "Position",
+                                                        "VolumetricMeasure"),
+            fields(f, "Indicator", "PositionDivergence",
+                   "PreviousSurfaceIndicator")),
+        "density": list_bound(
+            torch, "density", lists,
+            fields(f, "Position", "Mass", "Density", "Indicator")
+            + fields(w, "Position", "Mass"),
+            fields(f, "DensitySummation", "Density", "VolumetricMeasure")),
+        "acoustic_substep": ac,
+        "emitter_disposer": ob_open_boundary_bound(torch, f)}
+    parts = ob_parts(torch, "ob_t_pipe", fns, lambda: step(sim), bounds)
+    results["_ob_t_pipe"] = dict(rec, n_alive0=case.n_fluid, alive=n1,
+                                 n_adv=sim.n_adv, n_ac=sim.n_ac, jax_f32=jrow,
+                                 parts=parts)
+
+
+def open_boundary_phase(torch, results):
+    """Phase 13: the T-pipe, the fish in vacuum and the fish in the channel
+    (open boundaries, the free stream, the active-strain solid; neighbour
+    lists and torch ops, no hand kernel): the float64 references against
+    the CPU, then the fish at the reference's width and the T-pipe through
+    the public entry points, each step by part."""
+    t0 = time.perf_counter()
+    ob_small_references(torch)
+    t1 = time.perf_counter()
+    ob_fish_path(torch, results)
+    ob_pipe_path(torch, results)
+    log(f"open boundary phase: {time.perf_counter() - t0:.1f} s (references "
+        f"{t1 - t0:.1f} s)")
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not (ROOT / "sphinxsys_tpu_torch").is_dir():
         log("FAIL: the sphinxsys_tpu_torch package is not beside this script")
         return 1
@@ -3047,6 +3548,7 @@ def main() -> int:
     solid_phase(torch, results)
     gather_phase(torch, results)
     io_phase(torch, results)
+    open_boundary_phase(torch, results)
 
     kernels = []
     for tag, names in [*((t, c["kernels"]) for t, c in CONFIGS.items()),
@@ -3078,9 +3580,12 @@ def main() -> int:
     main_paths["tc_gather"] = results["_tc_gather"]
     for tag in (*GATHER_CONFIGS, "tg", "fsi2"):
         main_paths[f"gather_{tag}"] = results[f"_gather_{tag}"]
-    for tag in ("io", "ball_shell", "dambreak_golden"):
+    for tag in ("io", "ball_shell", "dambreak_golden", "ob_fish",
+                "ob_t_pipe"):
         main_paths[tag] = results[f"_{tag}"]
     log("main paths: " + json.dumps(main_paths))
+    log(f"all phases: {time.perf_counter() - t_start:.1f} s, the build "
+        f"{build_s:.1f} s of it")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

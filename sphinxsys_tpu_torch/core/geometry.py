@@ -1,7 +1,8 @@
 """Geometry: shapes as signed-distance functions with CSG composition
 (counterpart of sphinxsys_tpu/core/geometry.py; what the dambreak and
 fsi2 scenes need: `Transform`, `Box`, `Ball`, `ComplexShape`,
-`make_complex`).
+`make_complex`; the fish and the T-pipe need `Polygon` and
+`make_multi_polygon`).
 
 Positions are (..., dim) tensors.  `signed_distance` is negative inside.
 `find_normal_direction` is the unit gradient of the SDF, taken with
@@ -113,10 +114,52 @@ class ComplexShape(Shape):
         return sd
 
 
+@dataclasses.dataclass(frozen=True)
+class Polygon(Shape):
+    """2D simple polygon by its vertex list (MultiPolygonShape,
+    for_2D_build/geometries/multi_polygon_shape.h): the distance to the
+    nearest edge, negative where the crossing number is odd.
+
+    Ties decide the normals: a lattice point nearest a vertex is equally
+    near two edges, and one that projects onto an edge's end clips t at
+    0 or 1.  `torch.amin` and `torch.maximum` / `torch.minimum` split the
+    gradient evenly among tied operands, as `jnp.min` and `jnp.clip` do
+    (`torch.min(dim=)` and `torch.clamp` would not).  The edge distance is
+    sqrt(sum d^2), whose gradient at d = 0 is NaN, as `jnp.linalg.norm`'s
+    is."""
+
+    vertices: Tuple[Tuple[float, float], ...]
+
+    def signed_distance(self, pos):
+        v = torch.as_tensor(self.vertices, dtype=pos.dtype, device=pos.device)
+        w = torch.roll(v, -1, dims=0)                  # the next vertex
+        p = pos[..., None, :]                          # (..., 1, 2)
+        e = w - v                                      # (M, 2)
+        t = torch.sum((p - v) * e, dim=-1) / (torch.sum(e * e, dim=-1) + 1e-30)
+        t = torch.minimum(torch.maximum(t, torch.zeros_like(t)),
+                          torch.ones_like(t))
+        q = p - (v + t[..., None] * e)
+        d = torch.amin(torch.sqrt(torch.sum(q * q, dim=-1)), dim=-1)
+        # crossing-number parity
+        x, y = pos[..., 0:1], pos[..., 1:2]
+        cond = (v[:, 1] <= y) != (w[:, 1] <= y)
+        ey = torch.where(e[:, 1] == 0, torch.full_like(e[:, 1], 1e-30), e[:, 1])
+        xcross = v[:, 0] + (y - v[:, 1]) * e[:, 0] / ey
+        inside = torch.sum(cond & (x < xcross), dim=-1) % 2 == 1
+        return torch.where(inside, -d, d)
+
+
 def make_complex(*parts: Tuple[str, Shape]) -> ComplexShape:
     """ComplexShape from ("add"|"sub", shape) pairs."""
     return ComplexShape(tuple(s for _, s in parts),
                         tuple(+1 if op == "add" else -1 for op, _ in parts))
+
+
+def make_multi_polygon(*parts) -> ComplexShape:
+    """MultiPolygonShape: a CSG chain of polygons from ("add"|"sub",
+    vertex list) pairs (the reference's addAPolygon sequence)."""
+    return make_complex(*[(op, Polygon(vertices=tuple(map(tuple, v))))
+                          for op, v in parts])
 
 
 def normals_and_distance(shape: Shape, pos: np.ndarray, dtype):

@@ -16,6 +16,16 @@ import torch
 PRODUCTION_DTYPE = torch.float32
 
 
+def resolve_dtype(dtype) -> torch.dtype:
+    """A torch.dtype or its name ("float32", "float64": the CLI's
+    `--set dtype=float64`)."""
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype, None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise TypeError(f"not a floating dtype: {dtype!r}")
+    return dtype
+
+
 def resolve_device(device) -> torch.device:
     """`"cpu"`, `"cuda"`, `"cuda:N"` or a torch.device -> torch.device.
     Raises RuntimeError for CUDA when no card is visible."""

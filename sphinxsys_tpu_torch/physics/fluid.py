@@ -40,7 +40,7 @@ from typing import Sequence
 
 import torch
 
-from sphinxsys_tpu_torch.core.state import State, valid_mask
+from sphinxsys_tpu_torch.core.state import State, nreal_mask
 from sphinxsys_tpu_torch.neighbors.neighbor_list import NeighborList, gather
 from sphinxsys_tpu_torch.physics.pair import pair_geometry
 
@@ -54,7 +54,6 @@ _NEEDS = {
     "contacts": "the multi-phase cases (the fluid-fluid contact terms)",
     "correction": "the kernel-corrected cases (kernel_correction_matrix)",
     "extra_force": "physics/oldroyd.py",
-    "scope_mask": "the free-surface TVC cases (free_surface_indication)",
     "surface_projection": "the cohesive-soil cases",
 }
 
@@ -246,24 +245,28 @@ def acoustic_step_2nd_half(fluid: State, nl_inner: NeighborList, kernel,
 # ---------------------------------------------------------------------------
 
 def acoustic_time_step(fluid: State, eos, h_min: float, cfl: float = 0.6):
-    """dt = CFL h / max(c + |v|) over the real particles
-    (fluid_time_step.cpp:21-32), a 0-d tensor."""
+    """dt = CFL h / max(c + |v|) over the rows below NReal
+    (fluid_time_step.cpp:21-32), a 0-d tensor.  Like the JAX package's,
+    it masks by NReal even where the state carries Alive: dead slots below
+    NReal keep their last velocity and still count, clones above it do
+    not."""
     c = eos.sound_speed(fluid["Pressure"], fluid["Density"])
     speed = torch.linalg.vector_norm(fluid["Velocity"], dim=-1)
     v = c + speed
-    reduced = torch.max(torch.where(valid_mask(fluid), v, torch.zeros_like(v)))
+    reduced = torch.max(torch.where(nreal_mask(fluid), v, torch.zeros_like(v)))
     return cfl * h_min / (reduced + TINY)
 
 
 def advection_time_step(fluid: State, h_min: float, speed_ref: float,
                         cfl: float = 0.25):
     """dt = CFL h / max(speed_max, U_ref), the acceleration scale folded
-    into speed_max (fluid_time_step.cpp:44-66)."""
+    into speed_max (fluid_time_step.cpp:44-66); over the rows below NReal,
+    as `acoustic_time_step`."""
     accel_scale = 4.0 * h_min * torch.linalg.vector_norm(
         fluid["Force"] + fluid["ForcePrior"], dim=-1) / fluid["Mass"]
     v2 = torch.sum(fluid["Velocity"] ** 2, dim=-1)
     v = torch.maximum(v2, accel_scale)
-    reduced = torch.max(torch.where(valid_mask(fluid), v, torch.zeros_like(v)))
+    reduced = torch.max(torch.where(nreal_mask(fluid), v, torch.zeros_like(v)))
     speed_max = torch.sqrt(reduced)
     return cfl * h_min / (torch.clamp(speed_max, min=speed_ref) + TINY)
 
@@ -341,9 +344,9 @@ def transport_velocity_correction(fluid: State, nl_inner: NeighborList,
         I_i  = -sum_j 2 dW_ij V_j e_ij      (+ the wall terms)
         x_i += coef h^2 limiter(h^2 |I|^2) I_i
     limiter: min(slope x, 1) (TruncatedLinear), or 1 when `limiter_slope`
-    is None (NoLimiter)."""
-    _unported(shell_walls=shell_walls, scope_mask=scope_mask is not None,
-              surface_projection=surface_projection)
+    is None (NoLimiter).  `scope_mask`: only these rows shift (the
+    free-stream cases' bulk particles, Indicator == 0)."""
+    _unported(shell_walls=shell_walls, surface_projection=surface_projection)
     pos, vol = fluid["Position"], fluid["VolumetricMeasure"]
     pg = pair_geometry(pos, pos, nl_inner, kernel, dim, need_W=False, box=box)
     vol_j, _ = gather(vol, nl_inner.idx)
@@ -360,6 +363,8 @@ def transport_velocity_correction(fluid: State, nl_inner: NeighborList,
         sq = torch.sum(inconsistency ** 2, dim=-1)
         lim = torch.clamp(limiter_slope * h2 * sq, max=1.0)
         shift = coefficient * h2 * lim[..., None] * inconsistency
+    if scope_mask is not None:
+        shift = torch.where(scope_mask[:, None], shift, torch.zeros_like(shift))
     out = dict(fluid)
     out["Position"] = pos + shift
     return out
@@ -380,9 +385,88 @@ def _not_ported(name: str, case: str):
 
 kernel_correction_matrix = _not_ported(
     "kernel_correction_matrix", "the kernel-corrected fluid cases")
-free_surface_indication = _not_ported(
-    "free_surface_indication", "the free-stream and free-surface TVC cases")
-density_summation_freestream = _not_ported(
-    "density_summation_freestream", "the free-stream cases")
-free_stream_velocity_correction = _not_ported(
-    "free_stream_velocity_correction", "the free-stream cases")
+
+
+# ---------------------------------------------------------------------------
+# Free-surface indication and the free stream (surface_indication.cpp,
+# fluid_boundary.h:123-166, density_summation.h:141-183)
+# ---------------------------------------------------------------------------
+
+def free_surface_indication(fluid: State, nl_inner: NeighborList, kernel,
+                            dim: int, contacts: Sequence[tuple] = (),
+                            spatial_temporal: bool = False, box=None,
+                            shell_walls: Sequence[tuple] = ()) -> State:
+    """FreeSurfaceIndication(SpatialTemporal): Indicator = 1 where the
+    position divergence -sum_j dW_ij V_j r_ij (inner and `contacts`,
+    (state, list, unused) triples) falls below 0.75 dim, and where a
+    neighbour within h is such a particle.  The SpatialTemporal variant
+    keeps a would-be surface particle in the bulk when it was bulk last
+    step and no neighbour was surface then (surface_indication.cpp:57-90).
+    Writes Indicator (int32), PositionDivergence and
+    PreviousSurfaceIndicator."""
+    _unported(shell_walls=shell_walls)
+    pos = fluid["Position"]
+    threshold = 0.75 * dim
+    pg = pair_geometry(pos, pos, nl_inner, kernel, dim, need_W=False, box=box)
+    vol_j, _ = gather(fluid["VolumetricMeasure"], nl_inner.idx)
+    pos_div = -torch.sum(pg.dW * vol_j * pg.r, dim=1)
+    for c_state, nl_c, _rho0 in contacts:
+        pgc = pair_geometry(pos, c_state["Position"], nl_c, kernel, dim,
+                            need_W=False, box=box)
+        vol_k, _ = gather(c_state["VolumetricMeasure"], nl_c.idx)
+        pos_div = pos_div - torch.sum(pgc.dW * vol_k * pgc.r, dim=1)
+
+    if spatial_temporal and "PreviousSurfaceIndicator" in fluid:
+        prev = fluid["PreviousSurfaceIndicator"]
+        prev_j, mj = gather(prev, nl_inner.idx)
+        near_prev_surface = torch.any((prev_j == 1) & mj, dim=1)
+        suppress = (pos_div < threshold) & (prev != 1) & ~near_prev_surface
+        pos_div = torch.where(suppress, torch.full_like(pos_div, 2 * threshold),
+                              pos_div)
+
+    is_surface = pos_div < threshold
+    surf_j, mj = gather(is_surface, nl_inner.idx)
+    near_surface = torch.any(surf_j & mj & (pg.r < kernel.h), dim=1)
+    indicator = (is_surface | near_surface).to(torch.int32)
+    out = dict(fluid)
+    out["Indicator"] = indicator
+    out["PositionDivergence"] = pos_div
+    out["PreviousSurfaceIndicator"] = indicator
+    return out
+
+
+def density_summation_freestream(fluid: State, nl_inner: NeighborList, kernel,
+                                 dim: int, rho0: float, sigma0: float,
+                                 contacts: Sequence[tuple] = (), box=None,
+                                 shell_contacts: Sequence[tuple] = ()) -> State:
+    """DensitySummationFreeStreamComplex: the plain summation for the bulk;
+    a particle with a surface-indicated neighbour takes the NearFreeStream
+    blend rho_sum + (rho - rho_sum) rho0 / rho where rho_sum < rho
+    (density_summation.h:141-147); Vol = m / rho."""
+    out = density_summation(fluid, nl_inner, kernel, dim, rho0, sigma0,
+                            contacts=contacts, free_surface=False, box=box,
+                            shell_contacts=shell_contacts)
+    rho_sum = out["DensitySummation"]
+    rho_old = fluid["Density"]
+    ind_j, mj = gather(fluid["Indicator"], nl_inner.idx)
+    near_surface = torch.any((ind_j == 1) & mj, dim=1)
+    blended = torch.where(rho_sum < rho_old,
+                          rho_sum + (rho_old - rho_sum) * rho0 / rho_old,
+                          rho_sum)
+    rho = torch.where(near_surface, blended, rho_sum)
+    out["Density"] = rho
+    out["VolumetricMeasure"] = fluid["Mass"] / torch.clamp(rho, min=TINY)
+    return out
+
+
+def free_stream_velocity_correction(fluid: State, u_target, t,
+                                    rho0: float) -> State:
+    """FreeStreamVelocityCorrection (fluid_boundary.h:129-166): a
+    surface-indicated particle blends its streamwise velocity toward the
+    target u_target(pos, vel, t), weighted by min(rho_sum, rho0) / rho0."""
+    vel = fluid["Velocity"]
+    u_free = u_target(fluid["Position"], vel, t)
+    w = torch.clamp(fluid["DensitySummation"], max=rho0) / rho0
+    vx = u_free + (vel[:, 0] - u_free) * w
+    vx = torch.where(fluid["Indicator"] == 1, vx, vel[:, 0])
+    return dict(fluid, Velocity=torch.cat([vx[:, None], vel[:, 1:]], dim=-1))

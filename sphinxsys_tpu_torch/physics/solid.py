@@ -32,7 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from sphinxsys_tpu_torch.core.state import State, make_base_state, valid_mask
+from sphinxsys_tpu_torch.core.state import State, make_base_state, nreal_mask
 from sphinxsys_tpu_torch.neighbors.neighbor_list import NeighborList, gather
 from sphinxsys_tpu_torch.physics.pair import pair_geometry
 
@@ -74,6 +74,23 @@ def det(M: torch.Tensor, C: torch.Tensor | None = None) -> torch.Tensor:
 def inv(M: torch.Tensor) -> torch.Tensor:
     C = cofactors(M)
     return C.transpose(-1, -2) / det(M, C)[..., None, None]
+
+
+def cholesky(M: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of symmetric positive-definite (..., 2, 2) in
+    closed form, l11 = sqrt(a11), l21 = a21 / l11, l22 = sqrt(a22 - l21^2),
+    from the symmetrised input as `jnp.linalg.cholesky` takes it:
+    torch.linalg.cholesky on the card checks its info flag, a host read
+    at every call (the fish's solid sub-steps call it ~120,000 times)."""
+    if M.shape[-1] != 2:
+        raise NotImplementedError("cholesky: 2 x 2 only (the fish's law); "
+                                  "a 3D active-strain case has none yet")
+    S = 0.5 * (M + M.transpose(-1, -2))
+    l11 = torch.sqrt(S[..., 0, 0])
+    l21 = S[..., 1, 0] / l11
+    l22 = torch.sqrt(S[..., 1, 1] - l21 * l21)
+    return torch.stack([torch.stack([l11, torch.zeros_like(l11)], dim=-1),
+                        torch.stack([l21, l22], dim=-1)], dim=-2)
 
 
 def mm(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
@@ -145,12 +162,14 @@ def integration_1st_half_pk2(solid: State, rp: ReferencePairs, material,
     """Integration1stHalfPK2 (elastic_dynamics.cpp): the PK2 stress of the
     material, corrected by B, plus the pair numerical damping
     0.5 rho0 c0 h (dim/r)^2 (x_i - x_j).(v_i - v_j) weighted by W/w0.
-    The active-stress and PK1 hooks of the JAX package (muscle and fish
-    cases) are not ported: passing one raises."""
-    if active_stress_fn is not None or pk1_fn is not None:
+    `pk1_fn(solid, F) -> PK1` replaces the material's stress (a composite
+    body's per-particle law, the fish's `active_model_pk1`).  The
+    active-stress hook is not ported (its first caller is
+    muscle_activation_3d): passing one raises."""
+    if active_stress_fn is not None:
         raise NotImplementedError(
-            "active_stress_fn / pk1_fn (active muscle and composite solids) "
-            "are not ported")
+            "active_stress_fn is not ported: its first caller is "
+            "muscle_activation_3d")
     out = dict(solid)
     dim = solid["Position"].shape[1]
     rho0 = material.rho0
@@ -160,7 +179,9 @@ def integration_1st_half_pk2(solid: State, rp: ReferencePairs, material,
     F = solid["DeformationGradient"] + solid["DeformationRate"] * (0.5 * dt)
     rho = rho0 / det(F)
     B = solid["LinearGradientCorrectionMatrix"]
-    S = mm(mm(F, material.stress_PK2(F)), B.transpose(-1, -2))
+    P = pk1_fn(solid, F) if pk1_fn is not None \
+        else mm(F, material.stress_PK2(F))
+    S = mm(P, B.transpose(-1, -2))
 
     vel = solid["Velocity"]
     vol_j, _ = gather(solid["VolumetricMeasure"], rp.idx)
@@ -272,16 +293,40 @@ def integration_2nd_half(solid: State, rp: ReferencePairs, dt) -> State:
 # time step, constraint, state
 # ---------------------------------------------------------------------------
 
+def active_model_pk1(F, active_strain, lambda0, G0) -> torch.Tensor:
+    """ActiveModelSolid::StressPK1 (the fish's active-strain law,
+    test_2d_flow_stream_around_fish/active_model.cpp:21-34): F = F_e F0
+    with F0 = chol(2 E_a + I); the StVK stress of the elastic strain
+    E_e = E - E_a, pushed forward by F0* = det(F0) F0^-T:
+        P = F F0^-1 (lambda0 tr(E_e) I + 2 G0 E_e) F0*.
+    lambda0 / G0: numbers or (N,) per-particle tensors."""
+    d = F.shape[-1]
+    eye = torch.eye(d, dtype=F.dtype, device=F.device)
+    F0 = cholesky(2.0 * active_strain + eye)
+    F0_inv = inv(F0)
+    F0_star = det(F0)[..., None, None] * F0_inv.transpose(-1, -2)
+    E_e = 0.5 * (mm(F.transpose(-1, -2), F) - eye) - active_strain
+    lam = torch.as_tensor(lambda0, dtype=F.dtype, device=F.device)
+    G = torch.as_tensor(G0, dtype=F.dtype, device=F.device)
+    if lam.dim() == 1:
+        lam = lam[:, None, None]
+    if G.dim() == 1:
+        G = G[:, None, None]
+    tr = torch.diagonal(E_e, dim1=-2, dim2=-1).sum(-1)[..., None, None]
+    passive = lam * tr * eye + 2.0 * G * E_e
+    return mm(mm(mm(F, F0_inv), passive), F0_star)
+
+
 def solid_acoustic_time_step(solid: State, c0: float, h_min: float,
                              cfl: float = 0.6) -> torch.Tensor:
     """AcousticTimeStep (elastic_dynamics.cpp): per-particle
-    CFL * min(sqrt(h/|a|), h/(c0 + |v|)), reduced by min over the real
-    particles.  A 0-d tensor on the state's device (no host sync)."""
+    CFL * min(sqrt(h/|a|), h/(c0 + |v|)), reduced by min over the rows
+    below NReal (as the JAX package's).  A 0-d tensor on the state's device (no host sync)."""
     accel = torch.linalg.vector_norm(
         (solid["Force"] + solid["ForcePrior"]) / solid["Mass"][:, None], dim=-1)
     v = torch.linalg.vector_norm(solid["Velocity"], dim=-1)
     per = torch.minimum(torch.sqrt(h_min / (accel + TINY)), h_min / (c0 + v))
-    per = torch.where(valid_mask(solid), per, torch.full_like(per, torch.inf))
+    per = torch.where(nreal_mask(solid), per, torch.full_like(per, torch.inf))
     return cfl * torch.min(per)
 
 

@@ -9,6 +9,12 @@ overrides (--set dx=0.05 --set t_end=2).
     python -m sphinxsys_tpu_torch.run dambreak_3d_block --set dx=0.01 \\
         --set cap=32 --set c_max=125056 --set t_end=0.01 --set n_output=2
     python -m sphinxsys_tpu_torch.run twisting_column_3d --set engine=lattice
+    python -m sphinxsys_tpu_torch.run fish_fsi_2d --set dx=0.01 --set t_end=0.1
+
+The VTP writer writes a body's first NReal rows, as the JAX package's
+does: for an open-boundary fluid these include dead slots parked at
+FAR_AWAY (and, where NReal is below the capacity, leave out clones past
+it).
 
 A case runs on the card unless `--set device=cpu` asks for the CPU (the
 case's own `device` argument).  The exit codes and log lines are the JAX
@@ -51,7 +57,10 @@ def _run_single_fluid(module_name: str, bodies_of, t_end: float):
         end = float(p.pop("t_end", t_end))
         n_out = int(p.pop("n_output", 20))
         case, *states = mod.build_case(**p)
-        s = mod.init_sim(case, *states)
+        if hasattr(mod, "init_sim"):
+            s = mod.init_sim(case, *states)
+        else:       # the solids that build their sim themselves
+            (s,) = states
         run = mod.make_run_chunk(case)
         for i in range(1, n_out + 1):
             t0 = time.time()
@@ -120,6 +129,15 @@ CASES = {
         t_end=2.0),
     "twisting_column_3d": _run_single_fluid(
         "twisting_column_3d", lambda c, s: {"Column": s.column}, t_end=0.5),
+    "fish_undulation_2d": _run_single_fluid(
+        "fish_undulation_2d", lambda c, s: {"FishBody": s.fish}, t_end=1.0),
+    "fish_fsi_2d": _run_single_fluid(
+        "fish_fsi_2d",
+        lambda c, s: {"WaterBody": s.fluid, "FishBody": s.fish}, t_end=1.7),
+    "t_pipe_2d": _run_single_fluid(
+        "t_pipe_2d",
+        lambda c, s: {"WaterBody": s.fluid, "WallBoundary": c.wall},
+        t_end=100.0),
     "dambreak_2d_block": _run_block(
         "dambreak_2d", lambda sc_, s: {"Wall": sc_.base.wall}, t_end=20.0),
     "dambreak_3d_block": _run_block("dambreak_3d", t_end=6.0),

@@ -141,6 +141,10 @@ def chunk_runner(advection_step: Callable):
     return run_chunk
 
 
+# the step counters a sim may carry, printed by run_simulation
+_COUNTS = ("n_adv", "n_ac", "n_s", "n_steps")
+
+
 def run_simulation(run_chunk, sim, end_time: float, output_interval: float,
                    on_output: Callable | None = None,
                    verbose: bool = True,
@@ -180,8 +184,9 @@ def run_simulation(run_chunk, sim, end_time: float, output_interval: float,
                 if on_output is not None:
                     on_output(sim)
             if verbose:
-                print(f"t = {t:.4f} / {end_time}  (adv {sim.n_adv}, "
-                      f"ac {sim.n_ac})", flush=True)
+                counts = ", ".join(f"{k} {getattr(sim, k)}" for k in _COUNTS
+                                   if hasattr(sim, k))
+                print(f"t = {t:.4f} / {end_time}  ({counts})", flush=True)
         if sim.time.device.type == "cuda":
             torch.cuda.synchronize(sim.time.device)
     return sim, timer

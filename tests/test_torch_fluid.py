@@ -389,7 +389,6 @@ RAISES = [
     ("viscous_force", dict(contacts=[1]), "multi-phase"),
     ("viscous_force", dict(shell_walls=[1]), "shell_fluid"),
     ("transport_velocity_correction", dict(shell_walls=[1]), "shell_fluid"),
-    ("transport_velocity_correction", dict(scope_mask=1), "free_surface"),
     ("transport_velocity_correction", dict(surface_projection=True),
      "cohesive-soil"),
 ]
@@ -413,10 +412,7 @@ def test_unported_arguments_raise(scenes, fn, kw, needs):
         getattr(tfd, fn)(*args, **kw)
 
 
-@pytest.mark.parametrize("fn", ["kernel_correction_matrix",
-                                "free_surface_indication",
-                                "density_summation_freestream",
-                                "free_stream_velocity_correction"])
+@pytest.mark.parametrize("fn", ["kernel_correction_matrix"])
 def test_functions_off_the_routes_raise(fn):
     with pytest.raises(NotImplementedError, match="not ported"):
         getattr(tfd, fn)({}, None)

@@ -54,7 +54,12 @@ def test_port_has_modules():
                  "sphinxsys_tpu_torch/io/failure.py",
                  "sphinxsys_tpu_torch/utils/config.py",
                  "sphinxsys_tpu_torch/solver.py",
-                 "sphinxsys_tpu_torch/run.py"):
+                 "sphinxsys_tpu_torch/run.py",
+                 "sphinxsys_tpu_torch/physics/boundary.py",
+                 "sphinxsys_tpu_torch/cases/t_pipe_2d.py",
+                 "sphinxsys_tpu_torch/cases/fish_undulation_2d.py",
+                 "sphinxsys_tpu_torch/cases/fish_fsi_2d.py",
+                 "sphinxsys_tpu_torch/benchmarks/open_boundary_long.py"):
         assert must in names
 
 

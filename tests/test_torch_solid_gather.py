@@ -153,12 +153,26 @@ def test_second_half_matches(body):
 
 
 def test_pk2_hooks_are_not_ported(body):
+    """The active-stress hook is not ported (its first caller is
+    muscle_activation_3d) and raises; the PK1 hook is (the fish's
+    composite law, tests/test_torch_fish.py): with P(F) = F (1 + |F|^2)
+    it matches JAX's."""
     dim, jrp, trp, js, ts, jk, tk = body
-    for hook in ("active_stress_fn", "pk1_fn"):
-        with pytest.raises(NotImplementedError):
-            tsd.integration_1st_half_pk2(
-                dict(ts), trp, tmat.SaintVenantKirchhoffSolid(**SVK), DT,
-                1.3 * DX, tk.w0(dim), **{hook: lambda s, F: F})
+    h = 1.3 * DX
+    with pytest.raises(NotImplementedError, match="muscle_activation_3d"):
+        tsd.integration_1st_half_pk2(
+            dict(ts), trp, tmat.SaintVenantKirchhoffSolid(**SVK), DT, h,
+            tk.w0(dim), active_stress_fn=lambda s, F: F)
+    tout = tsd.integration_1st_half_pk2(
+        dict(ts), trp, tmat.SaintVenantKirchhoffSolid(**SVK), DT, h,
+        tk.w0(dim), pk1_fn=lambda s, F: F * (1 + (F * F).sum((-2, -1)))[
+            :, None, None])
+    jout = jsd.integration_1st_half_pk2(
+        dict(js), jrp, jmat.SaintVenantKirchhoffSolid(**SVK), DT, h,
+        jk.w0(dim), pk1_fn=lambda s, F: F * (1 + (F * F).sum((-2, -1)))[
+            :, None, None])
+    _hold(tout, jout, ("Position", "StressPK1OnParticle", "Force",
+                       "Velocity"))
 
 
 @pytest.fixture(scope="module")
