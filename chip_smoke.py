@@ -32,6 +32,12 @@ cell-block engine — at full size:
     fish_fsi_2d at the reference's dx=0.0025 (53,714 water particles in
     59,085 rows, 686 fish particles) and the T-pipe (1,460 in 2,190 rows)
     through the neighbour-list routes (torch ops, no hand kernel).
+  * the articulated multibody: the tethered fish at its default dx =
+    3.738 / 100 (65,282 water particles in 76,058 rows, 1,057 fish, the
+    head a Planar mobilizer), play_simbody's triple pendulum; and the
+    four fluid cases of ROADMAP A item 3a at their JAX default widths
+    (stlw 2,400; the filling tank's 14,000 rows; the elastic gate 2,240 +
+    480; the cylinder 4,546 + 172), through the neighbour-list routes.
 
 Phases:
 
@@ -177,6 +183,22 @@ Phases:
      reads counted and its bound computed from the run's lists and
      fields (`list_bound`, as for the torch-op pair sums of phases 11
      and 12).
+ 14. articulated and 3a (last): each new case at a small size in float32
+     on the card against the port's float64 CPU run from the same build
+     (equal counts after a fixed number of advection steps, positions
+     within 1e-5 of max|x|, the tethered fish's (q, u) within 1e-3 of
+     their max), and the filling tank through its injections in float64
+     on both (1e-9); play_simbody in float64 (its final q and u on the
+     closed-form motions within 1e-12, the restart from step 5 bit for
+     bit, one RK4 sub-step profiled); then, every launch count reset just
+     before and read just after, the tethered fish at full width and the
+     3a cases at their default widths through build_case -> init_sim ->
+     make_run_chunk -> solver.run_simulation (no overflow, finite fields,
+     the fish in the channel, the tank injecting), and one advection step
+     and each part alone (the fish: rebuild, indication and density,
+     acoustic sub-step, solid sub-step, one articulated RK4 step, emitter
+     and disposer; the 3a cases: an acoustic sub-step) timed, profiled,
+     its host reads counted and its bound computed (`list_bound`).
 
 Every kernel and plain-version time is taken by
 sphinxsys_tpu_torch.benchmarks.median_ms, the layout drivers' timer.  Its last two lines are a JSON object of per-kernel
@@ -823,27 +845,33 @@ def tg_decay_check(torch):
     check(rel < 0.08, f"tg decay: KE off the analytic decay by {rel:.4f}")
 
 
-def profile_step(torch, tag, step, what="advection step"):
+def profile_step(torch, tag, step, what="advection step", trace=True):
     """One step (`step()`) under torch.profiler: device time by kernel, the
     sweeps' share and the device idle share of the profiled step's wall
     time.  The profiler slows the host side, so the same step is also
     timed unprofiled (median of 3) and an idle-share estimate is printed
     that divides the profiled device busy by that wall time — two different
-    executions, labelled as such.  Writes a Chrome trace to build/traces/.
-    Returns (device busy us, profiled wall us, unprofiled wall us, device
-    launches: kernels, copies and sets)."""
+    executions, labelled as such.  Writes a Chrome trace to build/traces/
+    unless `trace` is False; then only the device is traced (phase 14:
+    steps of ~10^4-10^5 launches, whose host ops take tens of seconds to
+    record and sum).  Returns (device busy us, profiled wall us,
+    unprofiled wall us, device launches: kernels, copies and sets)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     plain_wall_us = wall_s(torch, step, 3) * 1e6
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if trace or not torch.cuda.is_available():   # a CPU rehearsal: host ops
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    out = ROOT / "build" / "traces"
-    out.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(out / f"trace_{tag}_step.json"))
+    if trace:
+        out = ROOT / "build" / "traces"
+        out.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(out / f"trace_{tag}_step.json"))
     # device-side events only (kernels, copies); the aten ops that launched
     # them report the same time again
     kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -3203,18 +3231,19 @@ def ob_small_references(torch):
                   f"ob reference {name}: {b} positions differ by {e:.3e}")
 
 
-def ob_parts(torch, tag, fns, step, bounds):
+def ob_parts(torch, tag, fns, step, bounds, trace=True):
     """The step and each part alone: wall ms (synchronised median), host
     reads of device values in one call, device busy ms and launches
-    (profiled), the idle share of the unprofiled wall, and the part's
-    bound where `bounds` has one (ms, by, real pairs: `list_bound`)."""
+    (profiled; `trace` as `profile_step`'s), the idle share of the
+    unprofiled wall, and the part's bound where `bounds` has one (ms, by,
+    real pairs: `list_bound`)."""
     table = {}
     for name, fn in {"advection_step": step, **fns}.items():
         with SyncCounter(torch) as reads:
             fn()
         torch.cuda.synchronize()
         dev_us, _, plain_us, launches = profile_step(torch, f"{tag}_{name}",
-                                                     fn, name)
+                                                     fn, name, trace)
         table[name] = dict(wall_ms=plain_us / 1e3, device_ms=dev_us / 1e3,
                            launches=launches, host_reads=reads.n,
                            idle_share_est=1 - dev_us / plain_us)
@@ -3485,6 +3514,408 @@ def open_boundary_phase(torch, results):
         f"{t1 - t0:.1f} s)")
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the articulated multibody (the tethered fish, play_simbody) and
+# the four fluid cases of ROADMAP A item 3a (neighbour lists, torch ops)
+# ---------------------------------------------------------------------------
+
+# the float32 card-against-float64 CPU references: (case, build keywords,
+# advection steps); the filling tank's stop before its first injection
+A7_REFS = (("tethered_fish_2d", dict(dx=0.15), 3),
+           ("stlw_2d", dict(dx=0.1), 5),
+           ("filling_tank_2d", dict(dx=0.05), 2),
+           ("elastic_gate_2d", dict(dx=5.0), 3),
+           ("flow_around_cylinder_2d", dict(dx=0.4, relax_cyl=0), 4))
+# float32 against float64: positions within this share of max|x|; the
+# tethered fish's (q, u), small displacements of the head, within
+# A7_F32_Q_TOL of their own max
+A7_F32_TOL = 1e-5
+A7_F32_Q_TOL = 1e-3
+# the filling tank through its injections, float64 on both sides: its jet
+# parts float32 from float64 by 3e-4 of max|x| in three steps, the JAX
+# package's own runs alike (a clone's first step), so its emitter is held
+# in float64
+A7_F64_REF = ("filling_tank_2d", dict(dx=0.05), 8)
+A7_POS_TOL = 1e-9
+A7_TETHER_T_END = 0.02      # the full-width tethered fish's main path
+A7_TETHER_SAMPLE = 0.01
+A7_MAIN = {  # the 3a cases at their JAX default widths: (kw, t_end, sample)
+    "stlw_2d": (dict(), 0.1, 0.05),
+    "filling_tank_2d": (dict(), 0.1, 0.05),
+    "elastic_gate_2d": (dict(), 4.0, 2.0),
+    "flow_around_cylinder_2d": (dict(), 0.5, 0.25),
+}
+A7_BODIES = {"tethered_fish_2d": ("fluid", "fish"), "stlw_2d": ("fluid",),
+             "filling_tank_2d": ("fluid",),
+             "elastic_gate_2d": ("fluid", "gate"),
+             "flow_around_cylinder_2d": ("fluid", "cyl")}
+A7_COUNTS = ("n_adv", "n_ac", "n_s")
+
+
+def a7_steps(torch, name, kw, n_steps, device, dtype):
+    """`n_steps` advection steps of a case from its build: (counts, the
+    sim)."""
+    cm = importlib.import_module(f"sphinxsys_tpu_torch.cases.{name}")
+    case, *states = cm.build_case(dtype=dtype, device=device, **kw)
+    s = cm.init_sim(case, *states)
+    step = cm.make_advection_step(case)
+    for _ in range(n_steps):
+        s = step(s)
+    return tuple(getattr(s, k) for k in A7_COUNTS if hasattr(s, k)), s
+
+
+def a7_hold(torch, name, card, host, tol, what, q_tol=None):
+    """The card's sim against the host's: equal Alive masks, positions
+    (the live rows) within tol of max|x| for every body, the tethered
+    fish's (q, u) within q_tol (default tol) of their max.  Returns
+    {body: (err, max)}."""
+    errs = {}
+    for body in A7_BODIES[name]:
+        bc, bh = getattr(card, body), getattr(host, body)
+        rows = bh.get("Alive", torch.ones(bh["Position"].shape[0],
+                                          dtype=torch.bool))
+        if "Alive" in bh:
+            check(torch.equal(bc["Alive"].cpu(), rows),
+                  f"{what} {name}: Alive differs")
+        pc = bc["Position"].cpu().double()[rows]
+        ph = bh["Position"].double()[rows]
+        errs[body] = (float((pc - ph).abs().max()), float(ph.abs().max()))
+    if hasattr(host, "q"):
+        for k in ("q", "u"):
+            a, b = getattr(card, k).cpu().double(), getattr(host, k).double()
+            errs[k] = (float((a - b).abs().max()), float(b.abs().max()))
+    for b, (e, m) in errs.items():
+        t = q_tol if q_tol is not None and b in ("q", "u") else tol
+        check(e <= t * m, f"{what} {name}: {b} differs by {e:.3e} "
+              f"(max {m:.3e}, tolerance {t})")
+    return errs
+
+
+def a7_small_references(torch):
+    """Each new case at a small size: float32 on the card against the
+    port's float64 run on the CPU from the same build (equal counts,
+    positions within A7_F32_TOL of max|x|, the tethered fish's (q, u)
+    within A7_F32_Q_TOL); the filling tank through its injections in
+    float64 on both (A7_POS_TOL)."""
+    for name, kw, n in A7_REFS:
+        kc, sc_ = a7_steps(torch, name, kw, n, DEVICE, torch.float32)
+        kh, sh = a7_steps(torch, name, kw, n, "cpu", torch.float64)
+        check(kc == kh, f"a7 reference {name}: counts {kc} != {kh}")
+        errs = a7_hold(torch, name, sc_, sh, A7_F32_TOL, "a7 reference",
+                       A7_F32_Q_TOL)
+        log(f"a7 reference {name} (float32 card against float64 cpu, {kw}, "
+            f"{n} advection steps): counts {kc}; max |d| / max "
+            + ", ".join(f"{b} {e:.3e} / {m:.3e}" for b, (e, m) in errs.items())
+            + f" (tolerance {A7_F32_TOL}; q, u {A7_F32_Q_TOL})")
+    name, kw, n = A7_F64_REF
+    (kc, sc_), (kh, sh) = (a7_steps(torch, name, kw, n, dev, torch.float64)
+                           for dev in (DEVICE, "cpu"))
+    check(kc == kh, f"a7 reference {name} float64: counts {kc} != {kh}")
+    check(int(sh.fluid["Alive"].sum()) > 12,
+          f"a7 reference {name} float64: no injection")
+    errs = a7_hold(torch, name, sc_, sh, A7_POS_TOL, "a7 reference float64")
+    log(f"a7 reference {name} (float64 card against cpu, {n} steps, "
+        f"{int(sh.fluid['Alive'].sum())} alive): counts {kc}; max |d| / max "
+        + ", ".join(f"{b} {e:.3e} / {m:.3f}" for b, (e, m) in errs.items()))
+
+
+def a7_play_simbody(torch, results):
+    """play_simbody_3d's 10 steps on the card in float64: the final q and
+    u on the closed-form motions within 1e-12, the restart from step 5 bit
+    for bit; the RK4 sub-step's launches profiled."""
+    import shutil
+
+    from sphinxsys_tpu_torch.cases import play_simbody_3d as ps
+
+    out = ROOT / "build" / "a7_play_simbody"
+    shutil.rmtree(out, ignore_errors=True)
+    read_counts = reset_all_launch_counts()
+    with SyncCounter(torch) as syncs:
+        t0 = time.perf_counter()
+        s = ps.run_case(str(out), device=DEVICE)
+        run_s = time.perf_counter() - t0
+    counts = read_counts()
+    check(not any(counts.values()), f"a7 play_simbody: a hand kernel ran "
+          f"{counts}")
+    names = [f"multibody_state_{i:06d}.xml" for i in range(6, 11)]
+    first = [(out / n).read_bytes() for n in names]
+    r = ps.run_case(str(out), restart_step=5, device=DEVICE)
+    same = [(out / n).read_bytes() for n in names] == first
+    q, u, _ = ps.build_motions().q_u_udot(s.t, torch.float64)
+    eq = float((s.q - q).abs().max() / q.abs().max())
+    eu = float((s.u - u).abs().max() / u.abs().max())
+    from sphinxsys_tpu_torch.physics import articulated as art
+
+    step = art.make_articulated_step(ps.build_tree(device=DEVICE),
+                                     (0.0, 0.0, 0.0), ps.build_motions())
+    dt = torch.tensor(ps.DT, dtype=torch.float64, device=DEVICE)
+    dev_us, _, plain_us, launches = profile_step(
+        torch, "a7_play_simbody_rk4",
+        lambda: step(s.t, s.q, s.u, dt, torch.zeros_like(s.q)),
+        "RK4 sub-step", trace=False)
+    log(f"a7 play_simbody (float64, {ps.NUM_STEPS} steps of "
+        f"{round(1 / ps.DT)} RK4 sub-steps): {run_s:.2f} s, "
+        f"{syncs.n} host reads; final q {s.q.tolist()} u {s.u.tolist()}, "
+        f"relative error to the closed-form motions q {eq:.2e} u {eu:.2e} "
+        f"(bound 1e-12); restart from step 5 bit for bit: {same}; one RK4 "
+        f"sub-step {plain_us / 1e3:.3f} ms wall, {dev_us / 1e3:.3f} ms "
+        f"device in {launches} launches")
+    check(eq <= 1e-12 and eu <= 1e-12,
+          f"a7 play_simbody: off the closed form (q {eq:.2e}, u {eu:.2e})")
+    check(same and torch.equal(r.q, s.q) and torch.equal(r.u, s.u),
+          "a7 play_simbody: the restart differs")
+    results["_a7_play_simbody"] = dict(
+        run_s=run_s, host_reads=syncs.n, err_q=eq, err_u=eu, restart=same,
+        kernel_launches=counts, rk4_substep=dict(
+            wall_ms=plain_us / 1e3, device_ms=dev_us / 1e3,
+            launches=launches))
+
+
+def a7_tether_bounds(torch, case, sim, f, fi):
+    """Each part's least time from this run's lists and fields
+    (`list_bound`)."""
+    lists = [sim.nl_ff, sim.nl_fs, sim.nl_fw]
+    w = case.wall
+    solid = frozen_bound(torch, case.rp, fi)
+    articulated = list_bound(torch, None, [], fields(fi, "Position", "Force",
+                                                     "ForcePrior")
+                             + [case.head_mask, sim.q, sim.u],
+                             [sim.q, sim.u])
+    constrain = list_bound(torch, None, [], fields(fi, "Position", "Velocity")
+                           + [case.head_mask, case.head_station],
+                           fields(fi, "Position", "Velocity"))
+    fluid = list_bound(torch, "acoustic_substep", lists,
+                       fields(f, *FLUID_AC_READS) + fields(fi, *WALL_READS)
+                       + fields(w, *WALL_READS), fields(f, *FLUID_AC_WRITES))
+    coupling = list_bound(
+        torch, "coupling", [sim.nl_sf],
+        fields(fi, "Position", "VolumetricMeasure", "NormalDirection",
+               "AverageVelocity", "ForcePrior")
+        + fields(f, "Position", "Pressure", "Density", "VolumetricMeasure",
+                 "Velocity"),
+        fields(fi, "PressureForceFromFluid", "ForcePrior"))
+    sub = (solid[0] + articulated[0] + constrain[0], solid[1], solid[2])
+    per_ac = sim.n_s / sim.n_ac
+    return {
+        "indication_density": list_bound(
+            torch, "density", lists,
+            fields(f, "Position", "Mass", "Density", "VolumetricMeasure",
+                   "PreviousSurfaceIndicator")
+            + fields(fi, "Position", "Mass", "VolumetricMeasure")
+            + fields(w, "Position", "Mass", "VolumetricMeasure"),
+            fields(f, "Indicator", "PositionDivergence", "DensitySummation",
+                   "Density", "VolumetricMeasure")),
+        "acoustic_substep": (fluid[0] + coupling[0] + per_ac * sub[0],
+                             fluid[1], fluid[2] + coupling[2]
+                             + round(per_ac * sub[2])),
+        "solid_substep": sub,
+        "articulated_step": articulated,
+        "emitter_disposer": ob_open_boundary_bound(torch, f)}
+
+
+def a7_tether_path(torch, results):
+    """tethered_fish_2d at its full width (dx = FISH_L / 100) through the
+    public entry points to A7_TETHER_T_END, float32: no overflow, finite
+    fields, the fish inside the channel, (q, u) finite; then one advection
+    step and each part alone (`ob_parts`)."""
+    from sphinxsys_tpu_torch.cases import tethered_fish_2d as tf
+    from sphinxsys_tpu_torch.physics import fluid as fd
+    from sphinxsys_tpu_torch.physics import solid as sd
+
+    def build():
+        case, fluid, fish = tf.build_case(device=DEVICE)
+        return case, tf, tf.init_sim(case, fluid, fish)
+
+    case, sim, rec = ob_main_run(torch, "a7 tether", build, A7_TETHER_T_END,
+                                 A7_TETHER_SAMPLE)
+    f, fi = sim.fluid, sim.fish
+    alive = f["Alive"]
+    ps_ = fi["Position"]
+    inside = bool(((ps_[:, 0] > -case.dl_sponge) & (ps_[:, 0] < tf.DL)
+                   & (ps_[:, 1] > 0.0) & (ps_[:, 1] < tf.DH)).all())
+    log(f"a7 tether main path: n_fluid={case.n_fluid} rows "
+        f"({int(alive.sum())} alive) n_fish={case.n_fish} (head "
+        f"{int(case.head_mask.sum())}); setup {rec['setup_s']:.2f} s; to "
+        f"t={float(sim.time):.6f} counts (n_adv, n_ac, n_s) "
+        f"{(sim.n_adv, sim.n_ac, sim.n_s)}; q {sim.q.tolist()}, tension "
+        f"{tf.cable_tension(case, sim):.4f}; {rec['run_s']:.2f} s: "
+        f"{rec['ms_per_adv']:.3f} ms an advection step (wall clock, mean), "
+        f"{rec['host_reads_per_adv']:.1f} host reads an advection step; "
+        f"peak device memory {rec['peak_gb']:.3f} GB")
+    check(not bool(sim.overflow), "a7 tether: overflow")
+    for k in ("Position", "Velocity", "Density", "Pressure"):
+        check(bool(torch.isfinite(f[k][alive]).all()),
+              f"a7 tether: non-finite fluid {k}")
+    for k in ("Position", "Velocity", "DeformationGradient"):
+        check(bool(torch.isfinite(fi[k]).all()), f"a7 tether: non-finite fish {k}")
+    check(bool(torch.isfinite(sim.q).all() and torch.isfinite(sim.u).all()),
+          "a7 tether: non-finite (q, u)")
+    check(inside, "a7 tether: a fish particle left the channel")
+
+    kernel, h = case.kernel, case.adaptation.h
+    dt_adv = fd.advection_viscous_time_step(f, h, tf.U_F, tf.RHO0_F, tf.MU_F)
+    dt = torch.minimum(fd.acoustic_time_step(f, case.eos, h), dt_adv)
+    dt_s = torch.minimum(sd.solid_acoustic_time_step(
+        fi, case.material_s.sound_speed, h), dt)
+    pos0 = f["Position"]
+    q, u = sim.q, sim.u
+    step = tf.make_advection_step(case)
+
+    def indication_density():
+        g = fd.free_surface_indication(
+            f, sim.nl_ff, kernel, 2, contacts=[(fi, sim.nl_fs, None),
+                                               (case.wall, sim.nl_fw, None)],
+            spatial_temporal=True)
+        return fd.density_summation_freestream(
+            g, sim.nl_ff, kernel, 2, tf.RHO0_F, case.adaptation.sigma0,
+            contacts=[(fi, sim.nl_fs, tf.RHO0_S),
+                      (case.wall, sim.nl_fw, tf.RHO0_F)])
+
+    fns = {
+        "rebuild": lambda: tf.rebuild_relations(case, f, fi),
+        "indication_density": indication_density,
+        "acoustic_substep": lambda: tf.acoustic_substep(
+            case, sim, f, fi, q, u, dt_adv, sim.time),
+        "solid_substep": lambda: tf.solid_substep(case, fi, q, u, dt_s,
+                                                  sim.time),
+        "articulated_step": lambda: tf.articulated_step(case, fi, q, u, dt_s,
+                                                        sim.time),
+        "emitter_disposer": lambda: tf.open_boundaries(case, f, pos0),
+    }
+    bounds = a7_tether_bounds(torch, case, sim, f, fi)
+    parts = ob_parts(torch, "a7_tether", fns, lambda: step(sim), bounds,
+                     trace=False)
+    per_ac = sim.n_s / sim.n_ac
+    log(f"a7 tether: {sim.n_ac / sim.n_adv:.2f} acoustic sub-steps an "
+        f"advection step, {per_ac:.2f} solid sub-steps an acoustic one; the "
+        f"articulated RK4 step {parts['articulated_step']['wall_ms']:.3f} ms "
+        f"wall of the solid sub-step's "
+        f"{parts['solid_substep']['wall_ms']:.3f} ms")
+    results["_a7_tether"] = dict(rec, n_fluid=case.n_fluid,
+                                 n_fish=case.n_fish, n_adv=sim.n_adv,
+                                 n_ac=sim.n_ac, n_s=sim.n_s,
+                                 q=sim.q.tolist(), parts=parts)
+    del case, sim, f, fi, step
+    torch.cuda.empty_cache()
+
+
+def a7_case_bounds(torch, name, case, sim):
+    """(advection step, acoustic sub-step) least times of a 3a case from
+    this run's lists and fields: the step is its prep (the density
+    summation's pass, and the viscous force's and the transport
+    correction's where the case has them) plus its mean acoustic sub-steps
+    (and the gate's sub-steps)."""
+    f = sim.fluid
+    lists = [nl for nl in (getattr(sim, k, None) for k in
+                           ("nl_inner", "nl_wall", "nl_ff", "nl_fw", "nl_fg"))
+             if nl is not None]
+    walls = [b for b in (getattr(case, "wall", None), getattr(sim, "gate", None),
+                         getattr(sim, "cyl", None)) if b is not None]
+    wall_reads = [t for b in walls for t in fields(b, *WALL_READS)]
+    ac = list_bound(torch, "acoustic_substep", lists,
+                    fields(f, *FLUID_AC_READS) + wall_reads,
+                    fields(f, *FLUID_AC_WRITES))
+    prep = list_bound(torch, "density", lists,
+                      fields(f, "Position", "Mass", "Density") + wall_reads,
+                      fields(f, "DensitySummation", "Density",
+                             "VolumetricMeasure"))
+    extra = 0.0
+    if name in ("stlw_2d", "flow_around_cylinder_2d"):
+        visc = list_bound(torch, "coupling", lists,
+                          fields(f, "Position", "Velocity",
+                                 "VolumetricMeasure") + wall_reads,
+                          fields(f, "ViscousForce", "ForcePrior"))
+        extra += visc[0] * (2 if name == "flow_around_cylinder_2d" else 1)
+    per_ac = sim.n_ac / sim.n_adv
+    if name == "elastic_gate_2d":
+        solid = frozen_bound(torch, case.rp, sim.gate)
+        ac = (ac[0] + sim.n_s / sim.n_ac * solid[0], ac[1],
+              ac[2] + round(sim.n_s / sim.n_ac * solid[2]))
+    step = (prep[0] + extra + per_ac * ac[0], ac[1],
+            prep[2] + round(per_ac * ac[2]))
+    return {"acoustic_substep": ac}, step
+
+
+def a7_case_path(torch, name, results):
+    """A 3a case at its JAX default width through the public entry points
+    (A7_MAIN's end time), float32: no overflow, finite fields; then one
+    advection step and one acoustic sub-step alone (`ob_parts`)."""
+    from sphinxsys_tpu_torch.physics import fluid as fd
+
+    cm = importlib.import_module(f"sphinxsys_tpu_torch.cases.{name}")
+    kw, t_end, sample = A7_MAIN[name]
+
+    def build():
+        case, *states = cm.build_case(device=DEVICE, **kw)
+        return case, cm, cm.init_sim(case, *states)
+
+    case, sim, rec = ob_main_run(torch, f"a7 {name}", build, t_end, sample)
+    f = sim.fluid
+    rows = f.get("Alive", torch.ones(f["Position"].shape[0], dtype=torch.bool,
+                                     device=f["Position"].device))
+    check(not bool(sim.overflow), f"a7 {name}: overflow")
+    for body in A7_BODIES[name]:
+        b = getattr(sim, body)
+        r = rows if body == "fluid" else slice(None)
+        for k in ("Position", "Velocity"):
+            check(bool(torch.isfinite(b[k][r]).all()),
+                  f"a7 {name}: non-finite {body} {k}")
+    obs = {"stlw_2d": lambda: float(cm.free_surface_height(case, f)),
+           "filling_tank_2d": lambda: [cm.n_alive(sim),
+                                       cm.mechanical_energy(case, sim)],
+           "elastic_gate_2d": lambda: cm.tip_position(case, sim).tolist(),
+           "flow_around_cylinder_2d":
+               lambda: cm.total_viscous_force(sim).tolist()}[name]()
+    counts = tuple(getattr(sim, k) for k in A7_COUNTS if hasattr(sim, k))
+    n_rows = f["Position"].shape[0]
+    log(f"a7 {name} main path: {n_rows} fluid rows ({int(rows.sum())} real); "
+        f"setup {rec['setup_s']:.2f} s; to t={float(sim.time):.6f} counts "
+        f"{counts}; observable {obs}; {rec['ms_per_adv']:.3f} ms an "
+        f"advection step (wall clock, mean), {rec['host_reads_per_adv']:.1f} "
+        f"host reads an advection step")
+    if name == "filling_tank_2d":
+        check(cm.n_alive(sim) > case.n_seed, "a7 filling_tank: no injection")
+    h = case.adaptation.h
+    if name in ("filling_tank_2d", "elastic_gate_2d"):    # inviscid
+        dt_adv = fd.advection_time_step(f, h, cm.U_F)
+    else:
+        dt_adv = fd.advection_viscous_time_step(f, h, cm.U_F, cm.RHO0_F,
+                                                cm.MU_F)
+    ac = {"stlw_2d": lambda: cm.acoustic_substep(case, sim, f, dt_adv),
+          "filling_tank_2d": lambda: cm.acoustic_substep(case, sim, f,
+                                                         dt_adv),
+          "elastic_gate_2d": lambda: cm.acoustic_substep(case, sim, f,
+                                                         sim.gate, dt_adv),
+          "flow_around_cylinder_2d": lambda: cm.acoustic_substep(
+              case, sim, f, sim.cyl, dt_adv, sim.time)}[name]
+    bounds, step_bound = a7_case_bounds(torch, name, case, sim)
+    bounds["advection_step"] = step_bound
+    step = cm.make_advection_step(case)
+    parts = ob_parts(torch, f"a7_{name}", {"acoustic_substep": ac},
+                     lambda: step(sim), bounds, trace=False)
+    results[f"_a7_{name}"] = dict(rec, counts=counts, observable=obs,
+                                  n_rows=n_rows, parts=parts)
+    del case, sim, f, step
+    torch.cuda.empty_cache()
+
+
+def a7_phase(torch, results):
+    """Phase 14: the articulated multibody and the 3a fluid cases
+    (neighbour lists and torch ops, no hand kernel): the small references
+    (float32 card against float64 CPU), play_simbody in float64, the
+    tethered fish at full width and the four 3a cases at their default
+    widths through the public entry points, each step by part."""
+    t0 = time.perf_counter()
+    a7_small_references(torch)
+    t1 = time.perf_counter()
+    a7_play_simbody(torch, results)
+    a7_tether_path(torch, results)
+    for name in A7_MAIN:
+        a7_case_path(torch, name, results)
+    log(f"a7 phase: {time.perf_counter() - t0:.1f} s (references "
+        f"{t1 - t0:.1f} s)")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (ROOT / "sphinxsys_tpu_torch").is_dir():
@@ -3549,6 +3980,7 @@ def main() -> int:
     gather_phase(torch, results)
     io_phase(torch, results)
     open_boundary_phase(torch, results)
+    a7_phase(torch, results)
 
     kernels = []
     for tag, names in [*((t, c["kernels"]) for t, c in CONFIGS.items()),
@@ -3581,7 +4013,8 @@ def main() -> int:
     for tag in (*GATHER_CONFIGS, "tg", "fsi2"):
         main_paths[f"gather_{tag}"] = results[f"_gather_{tag}"]
     for tag in ("io", "ball_shell", "dambreak_golden", "ob_fish",
-                "ob_t_pipe"):
+                "ob_t_pipe", "a7_play_simbody", "a7_tether",
+                *(f"a7_{name}" for name in A7_MAIN)):
         main_paths[tag] = results[f"_{tag}"]
     log("main paths: " + json.dumps(main_paths))
     log(f"all phases: {time.perf_counter() - t_start:.1f} s, the build "

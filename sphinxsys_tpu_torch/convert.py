@@ -1,11 +1,17 @@
-"""State carried across from the JAX package: its state dicts and BlockSim
-arrays, handed over as numpy, become the port's CPU tensors, and back.
-The parity tests use these to feed both sides identical inputs."""
+"""State carried across from the JAX package: its state dicts, BlockSim
+arrays, neighbour lists, articulated trees and case sims, handed over as
+numpy, become the port's CPU tensors, and back.  The parity tests use
+these to feed both sides identical inputs."""
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
+
+from sphinxsys_tpu_torch.neighbors.neighbor_list import NeighborList
+from sphinxsys_tpu_torch.physics.articulated import ArticulatedTree
 
 
 def _tensor(a):
@@ -23,6 +29,46 @@ def block_state_from_numpy(fb: dict) -> dict:
     """Block state dict ((C+1, cap, ...) numpy arrays incl. SlotMask and
     OriginalID) -> tensors of the same dtypes."""
     return {k: _tensor(v) for k, v in fb.items()}
+
+
+def neighbor_list_from_numpy(nl) -> NeighborList:
+    """A neighbour list (idx, count, overflow as numpy) -> the port's."""
+    return NeighborList(idx=_tensor(nl.idx), count=_tensor(nl.count),
+                        overflow=_tensor(nl.overflow))
+
+
+def tree_from_numpy(tree) -> ArticulatedTree:
+    """An articulated tree (its arrays as numpy; parent and joint_type
+    static) -> the port's, its tensors in the arrays' dtype."""
+    return ArticulatedTree(
+        parent=np.asarray(tree.parent), axis=_tensor(tree.axis),
+        r_parent=_tensor(tree.r_parent), r_child=_tensor(tree.r_child),
+        mass=_tensor(tree.mass), inertia=_tensor(tree.inertia),
+        com=_tensor(tree.com), joint_type=tuple(tree.joint_type))
+
+
+_COUNTS = ("n_adv", "n_ac", "n_s", "n_steps")
+
+
+def sim_from_numpy(cls, sim):
+    """A case's sim (any object with the port sim dataclass `cls`'s field
+    names as attributes, numpy leaves) -> `cls`: its state dicts through
+    `state_from_numpy`, its neighbour lists through
+    `neighbor_list_from_numpy`, its step counts as ints (0 where the sim
+    has none), its other arrays as tensors."""
+    out = {}
+    for f in dataclasses.fields(cls):
+        v = getattr(sim, f.name, None)
+        if f.name in _COUNTS:
+            out[f.name] = 0 if v is None else int(np.asarray(v))
+        elif isinstance(v, dict):
+            out[f.name] = state_from_numpy({k: np.asarray(x)
+                                            for k, x in v.items()})
+        elif hasattr(v, "idx") and hasattr(v, "count"):
+            out[f.name] = neighbor_list_from_numpy(v)
+        else:
+            out[f.name] = _tensor(v)
+    return cls(**out)
 
 
 def to_numpy(x):

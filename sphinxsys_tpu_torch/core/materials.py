@@ -14,7 +14,8 @@ import torch
 class WeaklyCompressibleFluid:
     """Linear-EoS weakly-compressible fluid
     (materials/weakly_compressible_fluid.cpp:17-30):
-        p = rho0 c0^2 (rho/rho0 - 1),   c = c0."""
+        p = rho0 c0^2 (rho/rho0 - 1),   c = c0;
+    `density_from_pressure` is its inverse."""
 
     rho0: float = 1.0
     c0: float = 1.0
@@ -25,6 +26,9 @@ class WeaklyCompressibleFluid:
 
     def pressure(self, rho):
         return self.p0 * (rho / self.rho0 - 1.0)
+
+    def density_from_pressure(self, p):
+        return self.rho0 * (p / self.p0 + 1.0)
 
     def sound_speed(self, p=None, rho=None):
         return self.c0

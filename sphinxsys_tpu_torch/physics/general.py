@@ -24,12 +24,21 @@ class Gravity:
 
 
 def gravity_force(state: State, gravity: Gravity) -> State:
-    """ForcePrior = m g — the overwrite form, correct where gravity is the
-    only prior-force producer (the dambreak)."""
+    """GravityForce, a BaseForcePrior (force_prior.hpp): a state that
+    carries "GravityForcePrev" takes the delta form ForcePrior += m g -
+    prev, so that gravity coexists with the other prior forces; one
+    without it the overwrite form ForcePrior = m g, correct where gravity
+    is the only prior-force producer (the dambreak)."""
     out = dict(state)
     g = torch.as_tensor(gravity.acceleration, dtype=state["Position"].dtype,
                         device=state["Position"].device)
-    out["ForcePrior"] = state["Mass"][:, None] * g[None, :]
+    force = state["Mass"][:, None] * g[None, :]
+    prev = state.get("GravityForcePrev")
+    if prev is None:
+        out["ForcePrior"] = force
+    else:
+        out["ForcePrior"] = state["ForcePrior"] + force - prev
+        out["GravityForcePrev"] = force
     return out
 
 

@@ -10,6 +10,7 @@ overrides (--set dx=0.05 --set t_end=2).
         --set cap=32 --set c_max=125056 --set t_end=0.01 --set n_output=2
     python -m sphinxsys_tpu_torch.run twisting_column_3d --set engine=lattice
     python -m sphinxsys_tpu_torch.run fish_fsi_2d --set dx=0.01 --set t_end=0.1
+    python -m sphinxsys_tpu_torch.run play_simbody_3d --set restart_step=5
 
 The VTP writer writes a body's first NReal rows, as the JAX package's
 does: for an open-boundary fluid these include dead slots parked at
@@ -138,12 +139,47 @@ CASES = {
         "t_pipe_2d",
         lambda c, s: {"WaterBody": s.fluid, "WallBoundary": c.wall},
         t_end=100.0),
+    "tethered_fish_2d": _run_single_fluid(
+        "tethered_fish_2d",
+        lambda c, s: {"WaterBody": s.fluid, "FishBody": s.fish,
+                      "Wall": c.wall}, t_end=10.0),
+    "stlw_2d": _run_single_fluid(
+        "stlw_2d", lambda c, s: {"WaterBody": s.fluid, "Wall": c.wall},
+        t_end=10.0),
+    "filling_tank_2d": _run_single_fluid(
+        "filling_tank_2d",
+        lambda c, s: {"WaterBody": s.fluid, "Wall": c.wall}, t_end=30.0),
+    "elastic_gate_2d": _run_single_fluid(
+        "elastic_gate_2d",
+        lambda c, s: {"WaterBody": s.fluid, "Gate": s.gate, "Wall": c.wall},
+        t_end=400.0),
+    "flow_around_cylinder_2d": _run_single_fluid(
+        "flow_around_cylinder_2d",
+        lambda c, s: {"WaterBody": s.fluid, "Cylinder": s.cyl}, t_end=200.0),
     "dambreak_2d_block": _run_block(
         "dambreak_2d", lambda sc_, s: {"Wall": sc_.base.wall}, t_end=20.0),
     "dambreak_3d_block": _run_block("dambreak_3d", t_end=6.0),
     "taylor_green_2d_block": _run_block("taylor_green_2d", t_end=5.0),
     "fsi2_block": _run_block("fsi2", t_end=20.0, fsi=True),
 }
+
+
+def _run_play_simbody(cfg: RunConfig):
+    """The multibody-only case (no particles): the prescribed triple
+    pendulum, stepped and written as step-indexed XML state snapshots
+    (play_simbody.cpp:63-68); `--set restart_step=N` continues from the
+    snapshot of step N in the output directory."""
+    from sphinxsys_tpu_torch.cases import play_simbody_3d as ps
+
+    p = dict(cfg.parameters)
+    restart = int(p.pop("restart_step", 0))
+    s = ps.run_case(cfg.output_dir, restart_step=restart, **p)
+    log.info("t=%.4f  q=%s", float(s.t),
+             [round(float(x), 6) for x in s.q.cpu()])
+    return s
+
+
+CASES["play_simbody_3d"] = _run_play_simbody
 
 
 def main(argv=None):

@@ -59,7 +59,15 @@ def test_port_has_modules():
                  "sphinxsys_tpu_torch/cases/t_pipe_2d.py",
                  "sphinxsys_tpu_torch/cases/fish_undulation_2d.py",
                  "sphinxsys_tpu_torch/cases/fish_fsi_2d.py",
-                 "sphinxsys_tpu_torch/benchmarks/open_boundary_long.py"):
+                 "sphinxsys_tpu_torch/benchmarks/open_boundary_long.py",
+                 "sphinxsys_tpu_torch/physics/articulated.py",
+                 "sphinxsys_tpu_torch/cases/play_simbody_3d.py",
+                 "sphinxsys_tpu_torch/cases/tethered_fish_2d.py",
+                 "sphinxsys_tpu_torch/cases/stlw_2d.py",
+                 "sphinxsys_tpu_torch/cases/filling_tank_2d.py",
+                 "sphinxsys_tpu_torch/cases/elastic_gate_2d.py",
+                 "sphinxsys_tpu_torch/cases/flow_around_cylinder_2d.py",
+                 "sphinxsys_tpu_torch/benchmarks/a7_long.py"):
         assert must in names
 
 

@@ -133,7 +133,9 @@ def test_cli_lists_cases(capsys):
     out = capsys.readouterr().out
     for case in ("dambreak_2d", "dambreak_3d_block", "twisting_column_3d",
                  "ball_shell_collision_3d", "fsi2_block", "t_pipe_2d",
-                 "fish_undulation_2d", "fish_fsi_2d"):
+                 "fish_undulation_2d", "fish_fsi_2d", "play_simbody_3d",
+                 "tethered_fish_2d", "stlw_2d", "filling_tank_2d",
+                 "elastic_gate_2d", "flow_around_cylinder_2d"):
         assert case in out
 
 
@@ -141,7 +143,7 @@ def test_cli_cases_are_jax_entries():
     """Every entry is one of the JAX runner's, named alike; the ports of
     its other cases are listed in ROADMAP.md."""
     assert set(trun.CASES) <= set(jrun.CASES)
-    assert len(trun.CASES) == 13
+    assert len(trun.CASES) == 19
 
 
 @pytest.mark.parametrize("case", ["nope", "lid_driven_cavity_2d"])
