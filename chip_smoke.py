@@ -38,6 +38,13 @@ cell-block engine — at full size:
     four fluid cases of ROADMAP A item 3a at their JAX default widths
     (stlw 2,400; the filling tank's 14,000 rows; the elastic gate 2,240 +
     480; the cylinder 4,546 + 172), through the neighbour-list routes.
+  * the kernel-corrected fluid and the remaining solid laws (ROADMAP A
+    items 3b-3c) at their JAX default widths: the standing wave, the
+    Poiseuille channel, the impact and rotating patches (the correction
+    matrix and the corrected first half), the oscillating beams (PK2 and
+    Cauchy), the self-contacting beam, the passive cantilever and the
+    activated cube (the muscle and its active stress), the anisotropic
+    beam, on neighbour lists and frozen pairs.
 
 Phases:
 
@@ -166,7 +173,7 @@ Phases:
      read back and continued to t=2.4 against the uninterrupted run, and
      a planted velocity violation that must dump one VTP a body and make
      solver.run_simulation raise.
- 13. open boundaries and the fish (last): the T-pipe to t=1 (past the
+ 13. open boundaries and the fish: the T-pipe to t=1 (past the
      emitter's first clones), the fish in vacuum at dx=0.01 for 200
      steps and the fish FSI at dx=0.01 to t=0.02, float64, on the card
      against the CPU (equal counts, identical Alive and Indicator masks,
@@ -183,7 +190,7 @@ Phases:
      reads counted and its bound computed from the run's lists and
      fields (`list_bound`, as for the torch-op pair sums of phases 11
      and 12).
- 14. articulated and 3a (last): each new case at a small size in float32
+ 14. articulated and 3a: each new case at a small size in float32
      on the card against the port's float64 CPU run from the same build
      (equal counts after a fixed number of advection steps, positions
      within 1e-5 of max|x|, the tethered fish's (q, u) within 1e-3 of
@@ -199,6 +206,20 @@ Phases:
      acoustic sub-step, solid sub-step, one articulated RK4 step, emitter
      and disposer; the 3a cases: an acoustic sub-step) timed, profiled,
      its host reads counted and its bound computed (`list_bound`).
+ 15. the kernel-corrected fluid and the remaining solid laws (last): the
+     ten cases of ROADMAP A items 3b-3c (standing wave, Poiseuille, the
+     impact and rotating patches, the oscillating beams with the PK2 and
+     the Cauchy integrators, the self-contacting beam, the passive
+     cantilever, the activated muscle cube, the anisotropic beam), each at
+     its JAX default width: built in float64 on the card and the same
+     state cast to float32, a few steps on each (equal counts, positions
+     within 1e-5 of max|x|, the velocities' difference printed); then,
+     float32, through build_case -> init_sim -> make_run_chunk ->
+     solver.run_simulation with every launch count reset just before and
+     read just after (no overflow, finite fields, the case's observable
+     printed), and one step and, for the fluid, an acoustic sub-step, the
+     correction matrix and the corrected first half alone, each timed,
+     profiled, its host reads counted and its bound computed.
 
 Every kernel and plain-version time is taken by
 sphinxsys_tpu_torch.benchmarks.median_ms, the layout drivers' timer.  Its last two lines are a JSON object of per-kernel
@@ -2287,6 +2308,8 @@ LIST_PAIR_FLOPS = {
     "coupling": 40,           # the FSI pressure or viscous force a pair
     "contact": 60,            # the shell factor, repulsion and friction
     "solid_substep": 60,      # the frozen pairs' stress and dF/dt sums
+    "correction": 30,         # r e outer dW V e, both sums of A
+    "corrected_1st_half": 50,  # B_i e, B_j e, the pressure and Riemann terms
 }
 
 
@@ -2320,7 +2343,8 @@ WALL_READS = ("Position", "VolumetricMeasure", "NormalDirection",
 SOLID_READS = ("Position", "Velocity", "DeformationGradient",
                "DeformationRate", "LinearGradientCorrectionMatrix",
                "VolumetricMeasure", "Mass", "ForcePrior", "InitialPosition",
-               "MaterialID", "Lambda0", "ShearModulus")
+               "MaterialID", "Lambda0", "ShearModulus",
+               "ActiveContractionStress", "Fiber")
 SOLID_WRITES = ("Position", "Velocity", "DeformationGradient",
                 "DeformationRate", "Density", "StressPK1OnParticle", "Force",
                 "ActiveStrain")
@@ -3286,9 +3310,11 @@ def ob_main_run(torch, tag, build, t_end, sample):
     # run_simulation's own reads: the start time, then the time and the
     # overflow flag after each chunk
     reads = syncs.n - (1 + 2 * len(outputs))
+    # a solid case's steps stand for the advection steps
+    n_adv = getattr(sim, "n_adv", None) or sim.n_steps
     rec = dict(setup_s=setup_s, run_s=elapsed, t_end=float(sim.time),
-               ms_per_adv=elapsed / sim.n_adv * 1e3,
-               host_reads_per_adv=reads / sim.n_adv,
+               ms_per_adv=elapsed / n_adv * 1e3,
+               host_reads_per_adv=reads / n_adv,
                peak_gb=peak_gb(torch), kernel_launches=counts)
     check(not any(counts.values()), f"{tag}: a hand kernel ran {counts}")
     return case, sim, rec
@@ -3916,6 +3942,298 @@ def a7_phase(torch, results):
         f"{t1 - t0:.1f} s)")
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the kernel-corrected fluid and the remaining elastic-solid laws
+# (ROADMAP A items 3b-3c: neighbour lists and frozen pairs, torch ops)
+# ---------------------------------------------------------------------------
+
+# case -> (the main path's end time, its output interval), each at its JAX
+# default width
+A7BC_MAIN = {
+    "standing_wave_2d": (0.005, 0.0025),
+    "poiseuille_flow_2d": (0.03, 0.015),
+    "impact_patch_2d": (0.005, 0.0025),
+    "rotation_patch_2d": (0.01, 0.005),
+    "oscillating_beam_2d": (2e-4, 1e-4),
+    "oscillating_beam_cauchy_2d": (2e-4, 1e-4),
+    "self_contact_2d": (2e-4, 1e-4),
+    "passive_cantilever_3d": (2e-3, 1e-3),
+    "muscle_activation_3d": (0.01, 0.005),
+    "anisotropic_beam_2d": (2e-4, 1e-4),
+}
+A7BC_BODY = {"oscillating_beam_2d": "solid",
+             "oscillating_beam_cauchy_2d": "solid",
+             "anisotropic_beam_2d": "solid", "self_contact_2d": "beam",
+             "passive_cantilever_3d": "body", "muscle_activation_3d": "body"}
+# float32 against float64 from the same state: case -> (steps, tolerance of
+# the displacement x - x0, tolerance of the velocity), each a share of the
+# float64 run's max.  The steps are enough that the displacement stands at
+# least A7BC_F32_SEEN times above float32's rounding of the positions over
+# the run (steps * 2^-24 * max|x0|; the muscle cube starts at rest under a
+# ramp from Ta = 0 and needs ~100 steps).  Each tolerance is ten times the
+# larger reading of this check on the CPU (DEVICE = "cpu") and on an H100,
+# rounded up to one significant digit.  The standing wave starts at
+# rest, so its velocity is acoustic noise from the density's float32
+# rounding (~0.5% of max|v|).
+A7BC_F32 = {
+    "standing_wave_2d": (50, 2e-2, 6e-2),
+    "poiseuille_flow_2d": (20, 8e-4, 8e-4),
+    "impact_patch_2d": (20, 2e-4, 7e-5),
+    "rotation_patch_2d": (20, 3e-4, 3e-4),
+    "oscillating_beam_2d": (200, 3e-4, 2e-4),
+    "oscillating_beam_cauchy_2d": (200, 3e-4, 2e-4),
+    "self_contact_2d": (100, 4e-4, 5e-3),
+    "passive_cantilever_3d": (100, 3e-4, 2e-4),
+    "muscle_activation_3d": (100, 2e-3, 6e-4),
+    "anisotropic_beam_2d": (200, 3e-4, 2e-4),
+}
+A7BC_F32_SEEN = 100.0
+
+
+def minimum_image(torch, d, box):
+    """Differences of positions taken to their nearest periodic image on
+    the axes where `box` (the case's periodic lengths, 0 off them) is
+    positive; `d` as it is where the case has no box."""
+    if box is None:
+        return d
+    L = torch.as_tensor([float(b) for b in box], dtype=d.dtype,
+                        device=d.device)
+    safe = torch.where(L > 0, L, torch.ones_like(L))
+    return torch.where(L > 0, d - safe * torch.round(d / safe), d)
+
+
+def cast_tree(torch, obj, dtype):
+    """A sim or a case with every floating tensor cast to `dtype` (dicts,
+    named tuples and dataclasses walked; integer and bool tensors kept)."""
+    if torch.is_tensor(obj):
+        return obj.to(dtype) if obj.is_floating_point() else obj
+    if isinstance(obj, dict):
+        return {k: cast_tree(torch, v, dtype) for k, v in obj.items()}
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(cast_tree(torch, v, dtype) for v in obj))
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: cast_tree(torch, getattr(obj, f.name), dtype)
+            for f in dataclasses.fields(obj) if f.init})
+    return obj
+
+
+def a7bc_stepper(cm, case):
+    return (cm.make_advection_step(case) if hasattr(cm, "make_advection_step")
+            else cm.make_step(case))
+
+
+def a7bc_start(cm, case, states):
+    return cm.init_sim(case, *states) if hasattr(cm, "init_sim") \
+        else states[0]
+
+
+def a7bc_f32_check(torch, name):
+    """The case at its default width built in float64 on the card, and the
+    same state cast to float32: A7BC_F32's steps on each, equal counts, the
+    displacement x - x0 and the velocity each within its tolerance of its
+    float64 max, the displacement at least A7BC_F32_SEEN times float32's
+    rounding of the positions.  Returns the errors."""
+    cm = importlib.import_module(f"sphinxsys_tpu_torch.cases.{name}")
+    n, tol_d, tol_v = A7BC_F32[name]
+    case64, *states = cm.build_case(dtype=torch.float64, device=DEVICE)
+    s64 = a7bc_start(cm, case64, states)
+    case32, s32 = cast_tree(torch, case64, torch.float32), \
+        cast_tree(torch, s64, torch.float32)
+    body = A7BC_BODY.get(name, "fluid")
+    box = getattr(case64, "box", None)
+    runs, x0 = [], []
+    for case, s in ((case64, s64), (case32, s32)):
+        x0.append(getattr(s, body)["Position"].double())
+        step = a7bc_stepper(cm, case)
+        for _ in range(n):
+            s = step(s)
+        runs.append(s)
+    s64, s32 = runs
+    counts = [tuple(getattr(s, k) for k in ("n_adv", "n_ac", "n_steps")
+                    if hasattr(s, k)) for s in runs]
+    check(counts[0] == counts[1], f"a7bc {name}: float32 counts {counts[1]} "
+          f"!= float64 {counts[0]}")
+    b64, b32 = getattr(s64, body), getattr(s32, body)
+    for b in (b32, b64):
+        for k in ("Position", "Velocity"):
+            check(bool(torch.isfinite(b[k]).all()),
+                  f"a7bc {name}: non-finite {k}")
+    d64 = minimum_image(torch, b64["Position"] - x0[0], box)
+    d32 = minimum_image(torch, b32["Position"].double() - x0[1], box)
+    errs = {"displacement": (minimum_image(torch, d32 - d64, box), d64,
+                             tol_d),
+            "velocity": (b32["Velocity"].double() - b64["Velocity"],
+                         b64["Velocity"], tol_v)}
+    errs = {k: (float(e.abs().max()), float(r.abs().max()), tol)
+            for k, (e, r, tol) in errs.items()}
+    rounding = n * 2.0 ** -24 * float(x0[0].abs().max())
+    seen = errs["displacement"][1] / rounding
+    log(f"a7bc {name} float32 against float64 on the card (the same built "
+        f"state, {n} steps): counts {counts[0]}; max |d| / max, tolerance "
+        + ", ".join(f"{k} {e:.3e} / {m:.3e} = {e / m:.3e}, {tol:g}"
+                    for k, (e, m, tol) in errs.items())
+        + f"; displacement {seen:.1f} x float32's position rounding "
+        f"(at least {A7BC_F32_SEEN:g})")
+    check(seen >= A7BC_F32_SEEN, f"a7bc {name}: after {n} steps the "
+          f"displacement {errs['displacement'][1]:.3e} is only {seen:.1f} x "
+          f"float32's position rounding {rounding:.3e}")
+    for k, (e, m, tol) in errs.items():
+        check(e <= tol * m, f"a7bc {name}: float32 {k} off float64 by "
+              f"{e:.3e} (max {m:.3e}, tolerance {tol:g})")
+    del case64, case32, s64, s32, runs, b64, b32, d64, d32
+    return dict(counts=counts[0], **{k: e for k, (e, _, _) in errs.items()})
+
+
+def a7bc_observable(name, cm, case, sim, built):
+    if name == "standing_wave_2d":
+        return float(cm.free_surface_height(case, sim.fluid))
+    if name in ("poiseuille_flow_2d", "impact_patch_2d", "rotation_patch_2d"):
+        return cm.kinetic_energy(sim)
+    if name == "self_contact_2d":
+        return cm.observe_tip(sim, *cm.tip_observer(case, built)).tolist()
+    if name == "passive_cantilever_3d":
+        return cm.observe_corner(sim, *cm.corner_observer(case, built)
+                                 ).tolist()
+    if name == "muscle_activation_3d":
+        return cm.free_end_x(sim)
+    return cm.tip_displacement(case, sim)
+
+
+def a7bc_bounds(torch, name, cm, case, sim):
+    """Each profiled part's least time from this run's lists, frozen pairs
+    and fields (`list_bound`): a fluid step is its prep (density, the
+    correction matrix, and the indication, viscous force or transport
+    correction where the case has them) plus its mean acoustic sub-steps;
+    a solid step its frozen pairs' pass (plus the self-contact list's)."""
+    if name in A7BC_BODY:
+        body = getattr(sim, A7BC_BODY[name])
+        step = frozen_bound(torch, case.rp, body)
+        if name == "self_contact_2d":
+            nl, _ = cm.self_contact_list(case, body)
+            contact = list_bound(torch, "contact", [nl],
+                                 fields(body, "Position", "Velocity",
+                                        "VolumetricMeasure",
+                                        "InitialPosition"),
+                                 fields(body, "RepulsionForce", "ForcePrior"))
+            step = (step[0] + contact[0], step[1], step[2] + contact[2])
+        return {"advection_step": step}
+    f = sim.fluid
+    lists = [nl for nl in (sim.nl_inner, getattr(sim, "nl_wall", None))
+             if nl is not None]
+    wall = getattr(case, "wall", None)
+    wall_reads = fields(wall, *WALL_READS) if wall is not None else []
+    B = fields(f, "LinearGradientCorrectionMatrix")
+    ac = list_bound(torch, "acoustic_substep", lists,
+                    fields(f, *FLUID_AC_READS) + B + wall_reads,
+                    fields(f, *FLUID_AC_WRITES))
+    first = list_bound(torch, "corrected_1st_half", lists,
+                       fields(f, *FLUID_AC_READS) + B + wall_reads,
+                       fields(f, *FLUID_AC_WRITES))
+    corr = list_bound(torch, "correction", lists,
+                      fields(f, "Position", "VolumetricMeasure") + wall_reads,
+                      B)
+    prep = list_bound(torch, "density", lists,
+                      fields(f, "Position", "Mass", "Density") + wall_reads,
+                      fields(f, "DensitySummation", "Density",
+                             "VolumetricMeasure"))
+    extra = 0.0
+    if name == "poiseuille_flow_2d":          # viscous force, TVC
+        extra = 2 * list_bound(torch, "coupling", lists,
+                               fields(f, "Position", "Velocity",
+                                      "VolumetricMeasure") + wall_reads,
+                               fields(f, "ViscousForce", "ForcePrior"))[0]
+    elif name in ("impact_patch_2d", "rotation_patch_2d"):  # indication, TVC
+        extra = list_bound(torch, "surface_indication", lists,
+                           fields(f, "Position", "VolumetricMeasure",
+                                  "PreviousSurfaceIndicator"),
+                           fields(f, "Indicator", "PositionDivergence"))[0] \
+            + list_bound(torch, "coupling", lists,
+                         fields(f, "Position", "VolumetricMeasure"),
+                         fields(f, "Position"))[0]
+    per_ac = sim.n_ac / sim.n_adv
+    step = (prep[0] + corr[0] + extra + per_ac * ac[0], ac[1],
+            prep[2] + round(per_ac * ac[2]))
+    return {"advection_step": step, "acoustic_substep": ac,
+            "correction_matrix": corr, "corrected_1st_half": first}
+
+
+def a7bc_case_path(torch, name, results):
+    """A case at its JAX default width through build_case -> init_sim ->
+    make_run_chunk -> solver.run_simulation (A7BC_MAIN's end time),
+    float32, every launch count reset just before and read just after: no
+    overflow, finite fields; then one step (and, for the fluid, an
+    acoustic sub-step, the correction matrix and the corrected first half)
+    alone (`ob_parts`)."""
+    from sphinxsys_tpu_torch.physics import fluid as fd
+
+    cm = importlib.import_module(f"sphinxsys_tpu_torch.cases.{name}")
+    t_end, sample = A7BC_MAIN[name]
+    built = {}
+
+    def build():
+        case, *states = cm.build_case(device=DEVICE)
+        sim = a7bc_start(cm, case, states)
+        built["body"] = states[0] if isinstance(states[0], dict) \
+            else states[0].solid
+        return case, cm, sim
+
+    case, sim, rec = ob_main_run(torch, f"a7bc {name}", build, t_end, sample)
+    body = getattr(sim, A7BC_BODY.get(name, "fluid"))
+    check(not bool(getattr(sim, "overflow", False)), f"a7bc {name}: overflow")
+    for k in ("Position", "Velocity", "Density"):
+        check(bool(torch.isfinite(body[k]).all()),
+              f"a7bc {name}: non-finite {k}")
+    counts = tuple(getattr(sim, k) for k in ("n_adv", "n_ac", "n_steps")
+                   if hasattr(sim, k))
+    obs = a7bc_observable(name, cm, case, sim, built["body"])
+    log(f"a7bc {name} main path: {body['Position'].shape[0]} particles; "
+        f"setup {rec['setup_s']:.2f} s; to t={float(sim.time):.6f} counts "
+        f"{counts}; observable {obs}; {rec['ms_per_adv']:.3f} ms a step "
+        f"(wall clock, mean), {rec['host_reads_per_adv']:.1f} host reads a "
+        f"step; peak device memory {rec['peak_gb']:.3f} GB")
+    fns = {}
+    if name not in A7BC_BODY:
+        f, kernel, h = sim.fluid, case.kernel, case.adaptation.h
+        dt_adv = fd.advection_time_step(f, h, cm.U_MAX if hasattr(cm, "U_MAX")
+                                        else cm.U_REF)
+        wall_kw = dict(wall=case.wall, nl_wall=sim.nl_wall) \
+            if hasattr(case, "wall") else {}
+        box = getattr(case, "box", None)
+        dt = torch.minimum(fd.acoustic_time_step(f, case.eos, h), dt_adv)
+        args = (f, sim.nl_inner, kernel, 2)
+        # the standing wave's sub-step is not capped by the advection dt
+        ac_args = (case, sim, f) if name == "standing_wave_2d" \
+            else (case, sim, f, dt_adv)
+        fns = {"acoustic_substep": lambda: cm.acoustic_substep(*ac_args),
+               "correction_matrix": lambda: fd.kernel_correction_matrix(
+                   *args, alpha=0.5, box=box, **wall_kw),
+               "corrected_1st_half": lambda: fd.acoustic_step_1st_half(
+                   *args, case.eos, case.riemann, dt, box=box,
+                   correction=True, **wall_kw)}
+    parts = ob_parts(torch, f"a7bc_{name}", fns,
+                     lambda: a7bc_stepper(cm, case)(sim),
+                     a7bc_bounds(torch, name, cm, case, sim), trace=False)
+    results[f"_a7bc_{name}"] = dict(rec, counts=counts, observable=obs,
+                                    n_particles=body["Position"].shape[0],
+                                    parts=parts)
+    del case, sim, body, built, fns
+    torch.cuda.empty_cache()
+
+
+def a7bc_phase(torch, results):
+    """Phase 15: the ten cases of ROADMAP A items 3b-3c (no hand kernel),
+    each at its JAX default width: float32 against float64 on the card from
+    the same state, then through the public entry points, its step by
+    part."""
+    t0 = time.perf_counter()
+    for name in A7BC_MAIN:
+        f32 = a7bc_f32_check(torch, name)
+        a7bc_case_path(torch, name, results)
+        results[f"_a7bc_{name}"]["f32_vs_f64"] = f32
+    log(f"a7bc phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (ROOT / "sphinxsys_tpu_torch").is_dir():
@@ -3981,6 +4299,7 @@ def main() -> int:
     io_phase(torch, results)
     open_boundary_phase(torch, results)
     a7_phase(torch, results)
+    a7bc_phase(torch, results)
 
     kernels = []
     for tag, names in [*((t, c["kernels"]) for t, c in CONFIGS.items()),
@@ -4014,7 +4333,8 @@ def main() -> int:
         main_paths[f"gather_{tag}"] = results[f"_gather_{tag}"]
     for tag in ("io", "ball_shell", "dambreak_golden", "ob_fish",
                 "ob_t_pipe", "a7_play_simbody", "a7_tether",
-                *(f"a7_{name}" for name in A7_MAIN)):
+                *(f"a7_{name}" for name in A7_MAIN),
+                *(f"a7bc_{name}" for name in A7BC_MAIN)):
         main_paths[tag] = results[f"_{tag}"]
     log("main paths: " + json.dumps(main_paths))
     log(f"all phases: {time.perf_counter() - t_start:.1f} s, the build "

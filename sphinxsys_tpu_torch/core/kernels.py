@@ -1,8 +1,9 @@
 """Smoothing kernels (counterpart of sphinxsys_tpu/core/kernels.py).
 
-Only Wendland C2 — the reference default and the one the dambreak uses.
-``W(r)`` has units 1/len^dim, ``dW(r)`` = dW/dr (negative); the support
-radius is 2h (src/shared/kernels/kernel_wendland_c2.cpp).
+Wendland C2 — the reference default and the one the dambreak uses —
+and the anisotropic kernel over it.  ``W(r)`` has units 1/len^dim,
+``dW(r)`` = dW/dr (negative); the support radius is 2h
+(src/shared/kernels/kernel_wendland_c2.cpp).
 """
 
 from __future__ import annotations
@@ -59,6 +60,71 @@ class WendlandC2:
         factor = self._factor_w(dim) / self.h
         val = factor * self._dw(torch.clamp(q, max=self.kernel_size))
         return torch.where(inside, val, torch.zeros_like(val))
+
+
+@dataclasses.dataclass(frozen=True)
+class AnisotropicKernel:
+    """AnisotropicKernel<KernelType> (anisotropic_kernel.{h,hpp}): a
+    displacement d is mapped to an isotropic space by G = diag(1 / (h k_i))
+    (the per-axis stretch k_i), q = |G d|, and the value is scaled by
+    det(G), so the kernel integrates to one over the stretched support.
+
+    The API takes the displacement vector (x_i - x_j), not a radius: an
+    anisotropic support has none.  grad_W is the whole gradient
+    factor w'(q) G^T G d / q, which is dW(r) e_ij at k = (1, ..., 1).
+    (physics/pair.py's `pair_geometry` stays radial: the cases that use
+    this kernel freeze its pairs themselves.)"""
+
+    base: WendlandC2
+    kernel_vector: tuple
+
+    @property
+    def h(self) -> float:
+        return self.base.h
+
+    @property
+    def kernel_size(self) -> float:
+        return self.base.kernel_size
+
+    def _G_diag(self, like: torch.Tensor) -> torch.Tensor:
+        kv = torch.as_tensor(self.kernel_vector, dtype=like.dtype,
+                             device=like.device)
+        return 1.0 / (self.base.h * kv)
+
+    def _det_G(self) -> float:
+        out = 1.0
+        for k in self.kernel_vector:
+            out *= 1.0 / (self.base.h * k)
+        return out
+
+    def _factor(self, dim: int) -> float:
+        """The reference's getFactors(): the isotropic factor (which
+        carries 1/h^dim) times h^dim det(G)."""
+        return self.base._factor_w(dim) * self.base.h ** dim * self._det_G()
+
+    def transformed_q(self, displacement: torch.Tensor) -> torch.Tensor:
+        gd = self._G_diag(displacement) * displacement
+        return torch.sqrt(torch.sum(gd * gd, dim=-1))
+
+    def within_cutoff(self, displacement: torch.Tensor) -> torch.Tensor:
+        return self.transformed_q(displacement) < self.kernel_size
+
+    def W_disp(self, displacement: torch.Tensor, dim: int) -> torch.Tensor:
+        q = self.transformed_q(displacement)
+        val = self._factor(dim) * self.base._w(
+            torch.clamp(q, max=self.kernel_size))
+        return torch.where(q < self.kernel_size, val, torch.zeros_like(val))
+
+    def grad_W(self, displacement: torch.Tensor, dim: int) -> torch.Tensor:
+        g = self._G_diag(displacement)
+        gd = g * displacement
+        q = torch.sqrt(torch.sum(gd * gd, dim=-1))
+        dwdq = self._factor(dim) * self.base._dw(
+            torch.clamp(q, max=self.kernel_size))
+        coeff = torch.where(q < self.kernel_size,
+                            dwdq / torch.clamp(q, min=1e-15),
+                            torch.zeros_like(dwdq))
+        return coeff[..., None] * (g * gd)
 
 
 def lattice_number_density(kernel: WendlandC2, spacing: float, dim: int) -> float:

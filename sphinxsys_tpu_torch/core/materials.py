@@ -1,6 +1,8 @@
 """Materials (counterpart of sphinxsys_tpu/core/materials.py): the
-weakly-compressible fluid and the linear, Neo-Hookean and St.
-Venant-Kirchhoff elastic solids."""
+weakly-compressible fluid, the linear, Neo-Hookean and St.
+Venant-Kirchhoff elastic solids with their Cauchy stresses, and the
+Holzapfel-Ogden muscle.  Determinants, inverses and products of the
+per-particle matrices are the closed forms of core/linalg.py."""
 
 from __future__ import annotations
 
@@ -8,6 +10,8 @@ import dataclasses
 import math
 
 import torch
+
+from sphinxsys_tpu_torch.core.linalg import det, inv, mm, mv
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +76,72 @@ class ElasticSolid:
         volumetric split (elastic_solid.cpp:98): K J (J - 1)."""
         return self.bulk_modulus * J * (J - 1.0)
 
+    def stress_cauchy(self, almansi_strain):
+        """Cauchy stress of the Almansi strain (elastic_solid.cpp:93-96,
+        the linear form): sigma = lambda tr(eps) I + 2 G eps; read by the
+        Cauchy integrator through P = J sigma F^-T."""
+        dim = almansi_strain.shape[-1]
+        eye = torch.eye(dim, dtype=almansi_strain.dtype,
+                        device=almansi_strain.device)
+        tr = torch.diagonal(almansi_strain, dim1=-2, dim2=-1).sum(-1)
+        return self.lambda0 * tr[..., None, None] * eye \
+            + 2.0 * self.shear_modulus * almansi_strain
+
+
+@dataclasses.dataclass(frozen=True)
+class Muscle(ElasticSolid):
+    """Holzapfel-Ogden-type anisotropic muscle (elastic_solid.cpp
+    Muscle::StressPK2): an exponential isotropic term, fibre, sheet and
+    fibre-sheet invariant terms over the reference directions f0 / s0 (2-
+    or 3-vectors, the deformation's dimension), and a volumetric penalty
+    with lambda = bulk_modulus_param.  a0 / b0: (iso, fibre, sheet,
+    fibre-sheet)."""
+
+    bulk_modulus_param: float = 1.0
+    f0: tuple = (1.0, 0.0)
+    s0: tuple = (0.0, 1.0)
+    a0: tuple = (1.0, 0.0, 0.0, 0.0)
+    b0: tuple = (1.0, 0.0, 0.0, 0.0)
+
+    @property
+    def lambda0(self) -> float:
+        return self.bulk_modulus_param
+
+    @property
+    def sound_speed(self) -> float:
+        return math.sqrt(self.bulk_modulus_param / self.rho0)
+
+    def stress_PK2(self, F):
+        """S = a0 e^(b0 I_1) I + (lambda (J - 1) - a0) J C^-1
+        + 2 a1 I_ff e^(b1 I_ff^2) f0 f0 + 2 a2 I_ss e^(b2 I_ss^2) s0 s0
+        + a3 I_fs e^(b3 I_fs^2) (f0 s0 + s0 f0), with C = F^T F,
+        I_1 = tr C - dim, I_ff = f0.C f0 - 1, I_ss = s0.C s0 - 1,
+        I_fs = f0.C s0."""
+        dim = F.shape[-1]
+        eye = torch.eye(dim, dtype=F.dtype, device=F.device)
+        C = mm(F.transpose(-1, -2), F)
+        f0 = torch.as_tensor(self.f0, dtype=F.dtype, device=F.device)
+        s0 = torch.as_tensor(self.s0, dtype=F.dtype, device=F.device)
+        f0f0 = f0[:, None] * f0[None, :]
+        s0s0 = s0[:, None] * s0[None, :]
+        f0s0 = f0[:, None] * s0[None, :] + s0[:, None] * f0[None, :]
+        Cf, Cs = mv(C, f0), mv(C, s0)
+        I_ff = (Cf * f0).sum(-1) - 1.0
+        I_ss = (Cs * s0).sum(-1) - 1.0
+        I_fs = (Cs * f0).sum(-1)
+        I_1 = torch.diagonal(C, dim1=-2, dim2=-1).sum(-1) - dim
+        J = det(F)
+        Cinv = inv(C)
+        a, b = self.a0, self.b0
+        lam = self.lambda0
+        return (a[0] * torch.exp(b[0] * I_1))[..., None, None] * eye + \
+            ((lam * (J - 1.0) - a[0]) * J)[..., None, None] * Cinv + \
+            (2.0 * a[1] * I_ff * torch.exp(b[1] * I_ff * I_ff))[..., None, None] \
+            * f0f0 + \
+            (2.0 * a[2] * I_ss * torch.exp(b[2] * I_ss * I_ss))[..., None, None] \
+            * s0s0 + \
+            (a[3] * I_fs * torch.exp(b[3] * I_fs * I_fs))[..., None, None] * f0s0
+
 
 @dataclasses.dataclass(frozen=True)
 class NeoHookeanSolid(ElasticSolid):
@@ -79,11 +149,7 @@ class NeoHookeanSolid(ElasticSolid):
 
     def stress_PK2(self, F):
         """S = G J^(-2/3) (I - tr(C)/dim C^-1) + K J (J - 1) C^-1 with
-        C = F^T F and J = det(F), of (..., d, d) deformation gradients;
-        the determinant, inverse and product closed-form, as physics/solid.py
-        takes them."""
-        from sphinxsys_tpu_torch.physics.solid import det, inv, mm
-
+        C = F^T F and J = det(F), of (..., d, d) deformation gradients."""
         dim = F.shape[-1]
         eye = torch.eye(dim, dtype=F.dtype, device=F.device)
         C = mm(F.transpose(-1, -2), F)
@@ -100,6 +166,20 @@ class NeoHookeanSolid(ElasticSolid):
         """elastic_solid.cpp:129: 0.5 K (J^2 - 1)."""
         return 0.5 * self.bulk_modulus * (J * J - 1.0)
 
+    def stress_cauchy(self, almansi_strain):
+        """elastic_solid.cpp:119-126: with B = (I - 2 eps)^-1 and
+        J = sqrt(det B), sigma = K/2 (J - 1/J) I + G J^(-2/d - 1) dev(B)."""
+        dim = almansi_strain.shape[-1]
+        eye = torch.eye(dim, dtype=almansi_strain.dtype,
+                        device=almansi_strain.device)
+        B = inv(eye - 2.0 * almansi_strain)
+        J = torch.sqrt(det(B))
+        trB = torch.diagonal(B, dim1=-2, dim2=-1).sum(-1)
+        G, K = self.shear_modulus, self.bulk_modulus
+        dev = B - (trB / dim)[..., None, None] * eye
+        return (0.5 * K * (J - 1.0 / J))[..., None, None] * eye \
+            + G * (J ** (-2.0 / dim - 1.0))[..., None, None] * dev
+
 
 @dataclasses.dataclass(frozen=True)
 class SaintVenantKirchhoffSolid(ElasticSolid):
@@ -108,12 +188,10 @@ class SaintVenantKirchhoffSolid(ElasticSolid):
     def stress_PK2(self, F):
         """Second Piola-Kirchhoff stress of (..., d, d) deformation
         gradients: linear elasticity on the Green-Lagrange strain,
-        S = lambda tr(E) I + 2 G E, E = (F^T F - I)/2 (the product a
-        broadcast sum, as in physics/solid.py)."""
+        S = lambda tr(E) I + 2 G E, E = (F^T F - I)/2."""
         dim = F.shape[-1]
         eye = torch.eye(dim, dtype=F.dtype, device=F.device)
-        FtF = (F.transpose(-1, -2)[..., :, :, None] * F[..., None, :, :]).sum(-2)
-        E = 0.5 * (FtF - eye)
+        E = 0.5 * (mm(F.transpose(-1, -2), F) - eye)
         tr = torch.diagonal(E, dim1=-2, dim2=-1).sum(-1)
         return self.lambda0 * tr[..., None, None] * eye \
             + 2.0 * self.shear_modulus * E

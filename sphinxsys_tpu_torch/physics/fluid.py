@@ -40,6 +40,7 @@ from typing import Sequence
 
 import torch
 
+from sphinxsys_tpu_torch.core.linalg import det, inv, mv, outer_sum
 from sphinxsys_tpu_torch.core.state import State, nreal_mask
 from sphinxsys_tpu_torch.neighbors.neighbor_list import NeighborList, gather
 from sphinxsys_tpu_torch.physics.pair import pair_geometry
@@ -52,7 +53,6 @@ _NEEDS = {
     "shell_walls": "physics/shell_fluid.py",
     "levelsets": "meshes/levelset.py",
     "contacts": "the multi-phase cases (the fluid-fluid contact terms)",
-    "correction": "the kernel-corrected cases (kernel_correction_matrix)",
     "extra_force": "physics/oldroyd.py",
     "surface_projection": "the cohesive-soil cases",
 }
@@ -128,10 +128,13 @@ def acoustic_step_1st_half(fluid: State, nl_inner: NeighborList, kernel,
     """`walls`: wall-type contacts as (state, list) pairs (fsi2: the
     static strips and the elastic insert); `wall` / `nl_wall` is one more,
     kept for the JAX signature (the port's cases pass `walls`).
-    `wall_riemann` (default `riemann`) dissipates against the walls."""
-    _unported(contacts=contacts, correction=correction,
-              shell_walls=shell_walls, levelsets=levelsets,
-              extra_force=extra_force is not None)
+    `wall_riemann` (default `riemann`) dissipates against the walls.
+    `correction`: the reverse-kernel-gradient-corrected pressure force
+    -(p_i B_j + p_j B_i) e_ij dW_ij V_j, and -(p_i + p_w) B_i e_iw dW V_w
+    against a wall (fluid_integration.hpp:75, LinearGradientCorrection),
+    B read from fluid["LinearGradientCorrectionMatrix"]."""
+    _unported(contacts=contacts, shell_walls=shell_walls,
+              levelsets=levelsets, extra_force=extra_force is not None)
     # --- initialization -----------------------------------------------
     rho = fluid["Density"] + fluid["DensityChangeRate"] * (0.5 * dt)
     p = eos.pressure(rho)
@@ -143,7 +146,16 @@ def acoustic_step_1st_half(fluid: State, nl_inner: NeighborList, kernel,
     p_j, _ = gather(p, nl_inner.idx)
     vol_j, _ = gather(vol, nl_inner.idx)
     dWV = pg.dW * vol_j
-    force = -torch.sum(((p[:, None] + p_j) * dWV)[..., None] * pg.e, dim=1)
+    B = fluid["LinearGradientCorrectionMatrix"] if correction else None
+    if correction:
+        B_j, _ = gather(B, nl_inner.idx)
+        Be_i = mv(B[:, None], pg.e)
+        Be_j = mv(B_j, pg.e)
+        force = -torch.sum((p[:, None, None] * Be_j + p_j[..., None] * Be_i)
+                           * dWV[..., None], dim=1)
+    else:
+        force = -torch.sum(((p[:, None] + p_j) * dWV)[..., None] * pg.e,
+                           dim=1)
     rho_dissipation = torch.sum(
         riemann.dissipative_u_jump(p[:, None] - p_j) * dWV, dim=1)
     drho_dt = rho_dissipation * rho
@@ -163,8 +175,9 @@ def acoustic_step_1st_half(fluid: State, nl_inner: NeighborList, kernel,
                              dim=-1)
         p_in_wall = p[:, None] + rho[:, None] * pgw.r * torch.clamp(face_acc,
                                                                      min=0.0)
+        e_w = mv(B[:, None], pgw.e) if correction else pgw.e
         force_w = -torch.sum(((p[:, None] + p_in_wall) * dWV_w)[..., None]
-                             * pgw.e, dim=1)
+                             * e_w, dim=1)
         rho_diss_w = torch.sum(
             wr.dissipative_u_jump(p[:, None] - p_in_wall) * dWV_w, dim=1)
         force_total = force_total + force_w * vol[:, None]
@@ -371,20 +384,40 @@ def transport_velocity_correction(fluid: State, nl_inner: NeighborList,
 
 
 # ---------------------------------------------------------------------------
-# Functions with no caller on the ported routes
+# Kernel correction (kernel_correction.h, general_gradient.*)
 # ---------------------------------------------------------------------------
 
-def _not_ported(name: str, case: str):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(f"{name} is not ported: its first caller "
-                                  f"is {case}")
-    fn.__name__ = name
-    fn.__doc__ = f"Not ported (first needed by {case})."
-    return fn
-
-
-kernel_correction_matrix = _not_ported(
-    "kernel_correction_matrix", "the kernel-corrected fluid cases")
+def kernel_correction_matrix(fluid: State, nl_inner: NeighborList, kernel,
+                             dim: int, wall: State | None = None,
+                             nl_wall: NeighborList | None = None,
+                             alpha: float = 0.0, box=None) -> State:
+    """LinearGradientCorrectionMatrix[Complex]: the local configuration
+    A = -sum_j r_ji outer (dW_ij V_j e_ij) over the inner (and the wall's)
+    neighbours, regularised by 1e-6 I, then the determinant-weighted
+    blend B = w1 inv(A) + w2 I, w1 = det / (det + det_sqr), w2 = det_sqr /
+    (det + det_sqr), det_sqr = max(alpha - det, 0): B falls back to the
+    identity where the support is deficient (A ~ 1e-6 I) or det <= 0.
+    det and inv are the closed forms of core/linalg.py."""
+    pos, vol = fluid["Position"], fluid["VolumetricMeasure"]
+    pg = pair_geometry(pos, pos, nl_inner, kernel, dim, need_W=False, box=box)
+    vol_j, _ = gather(vol, nl_inner.idx)
+    gradw = (pg.dW * vol_j)[..., None] * pg.e
+    A = -outer_sum(pg.r[..., None] * pg.e, gradw)
+    if wall is not None:
+        pgw = pair_geometry(pos, wall["Position"], nl_wall, kernel, dim,
+                            need_W=False, box=box)
+        wvol_j, _ = gather(wall["VolumetricMeasure"], nl_wall.idx)
+        gradww = (pgw.dW * wvol_j)[..., None] * pgw.e
+        A = A - outer_sum(pgw.r[..., None] * pgw.e, gradww)
+    eye = torch.eye(dim, dtype=pos.dtype, device=pos.device)
+    A = A + 1.0e-6 * eye
+    det_a = det(A)
+    det_sqr = torch.clamp(alpha - det_a, min=0.0)
+    w1 = det_a / (det_a + det_sqr + TINY)
+    w2 = det_sqr / (det_a + det_sqr + TINY)
+    out = dict(fluid)
+    out["LinearGradientCorrectionMatrix"] = w1[:, None, None] * inv(A) + w2[:, None, None] * eye
+    return out
 
 
 # ---------------------------------------------------------------------------

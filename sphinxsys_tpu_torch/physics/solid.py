@@ -16,13 +16,10 @@ Verlet scheme (elastic_dynamics.cpp):
   2nd half: x += v dt/2; dF/dt_i = -[sum_j (v_i - v_j) outer dW_ij V_j
             e_ij] B_i; F += dF/dt dt/2
 
-Determinants and inverses of the 2x2 / 3x3 per-particle matrices are
-closed-form cofactor expansions and their products broadcast sums (`mm`):
-torch.linalg.inv on the card checks for singular input and waits for the
-host, and cuBLAS splits million-particle batches of tiny products into
-many launches.  At F ~ I they agree with JAX's LU forms to float64
-roundoff.  The same goes for the pair contractions, which are broadcast
-products and sums rather than einsums.
+Determinants, inverses and products of the 2x2 / 3x3 per-particle
+matrices are the closed forms of core/linalg.py.  The pair contractions
+are broadcast products and sums rather than einsums, for the same
+reason: no host read and few launches.
 """
 
 from __future__ import annotations
@@ -32,6 +29,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from sphinxsys_tpu_torch.core.linalg import (
+    cholesky, cofactors, det, inv, mm, mv, outer_sum)
 from sphinxsys_tpu_torch.core.state import State, make_base_state, nreal_mask
 from sphinxsys_tpu_torch.neighbors.neighbor_list import NeighborList, gather
 from sphinxsys_tpu_torch.physics.pair import pair_geometry
@@ -40,73 +39,6 @@ TINY = 1.0e-15
 # the decomposed integration's shear correction (reference
 # DecomposedIntegration1stHalf, elastic_dynamics.cpp)
 CORRECTION_FACTOR = 1.07
-
-
-# ---------------------------------------------------------------------------
-# per-particle 2x2 / 3x3 algebra
-# ---------------------------------------------------------------------------
-
-def cofactors(M: torch.Tensor) -> torch.Tensor:
-    """Cofactor matrices of (..., d, d), d = 2 or 3: inv(M) = C^T / det(M)."""
-    if M.shape[-1] == 2:
-        a, b, c, d = M[..., 0, 0], M[..., 0, 1], M[..., 1, 0], M[..., 1, 1]
-        return torch.stack([torch.stack([d, -c], dim=-1),
-                            torch.stack([-b, a], dim=-1)], dim=-2)
-    a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
-    d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
-    g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
-    return torch.stack([
-        torch.stack([e * i - f * h, f * g - d * i, d * h - e * g], dim=-1),
-        torch.stack([c * h - b * i, a * i - c * g, b * g - a * h], dim=-1),
-        torch.stack([b * f - c * e, c * d - a * f, a * e - b * d], dim=-1),
-    ], dim=-2)
-
-
-def det(M: torch.Tensor, C: torch.Tensor | None = None) -> torch.Tensor:
-    """det(M) from its cofactors (expansion along the first row)."""
-    C = cofactors(M) if C is None else C
-    out = M[..., 0, 0] * C[..., 0, 0]
-    for k in range(1, M.shape[-1]):
-        out = out + M[..., 0, k] * C[..., 0, k]
-    return out
-
-
-def inv(M: torch.Tensor) -> torch.Tensor:
-    C = cofactors(M)
-    return C.transpose(-1, -2) / det(M, C)[..., None, None]
-
-
-def cholesky(M: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky factor of symmetric positive-definite (..., 2, 2) in
-    closed form, l11 = sqrt(a11), l21 = a21 / l11, l22 = sqrt(a22 - l21^2),
-    from the symmetrised input as `jnp.linalg.cholesky` takes it:
-    torch.linalg.cholesky on the card checks its info flag, a host read
-    at every call (the fish's solid sub-steps call it ~120,000 times)."""
-    if M.shape[-1] != 2:
-        raise NotImplementedError("cholesky: 2 x 2 only (the fish's law); "
-                                  "a 3D active-strain case has none yet")
-    S = 0.5 * (M + M.transpose(-1, -2))
-    l11 = torch.sqrt(S[..., 0, 0])
-    l21 = S[..., 1, 0] / l11
-    l22 = torch.sqrt(S[..., 1, 1] - l21 * l21)
-    return torch.stack([torch.stack([l11, torch.zeros_like(l11)], dim=-1),
-                        torch.stack([l21, l22], dim=-1)], dim=-2)
-
-
-def mm(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    """Per-particle matrix products of (..., d, d) stacks."""
-    return (A[..., :, :, None] * B[..., None, :, :]).sum(dim=-2)
-
-
-def mv(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """(..., d, d) @ (..., d) -> (..., d)."""
-    return (A * v[..., None, :]).sum(dim=-1)
-
-
-def outer_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """sum_k a_k outer b_k over the slot axis: (N, K, d) x (N, K, d) ->
-    (N, d, d) (JAX's einsum "nki,nkj->nij")."""
-    return (a[..., :, None] * b[..., None, :]).sum(dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -162,14 +94,12 @@ def integration_1st_half_pk2(solid: State, rp: ReferencePairs, material,
     """Integration1stHalfPK2 (elastic_dynamics.cpp): the PK2 stress of the
     material, corrected by B, plus the pair numerical damping
     0.5 rho0 c0 h (dim/r)^2 (x_i - x_j).(v_i - v_j) weighted by W/w0.
-    `pk1_fn(solid, F) -> PK1` replaces the material's stress (a composite
-    body's per-particle law, the fish's `active_model_pk1`).  The
-    active-stress hook is not ported (its first caller is
-    muscle_activation_3d): passing one raises."""
-    if active_stress_fn is not None:
-        raise NotImplementedError(
-            "active_stress_fn is not ported: its first caller is "
-            "muscle_activation_3d")
+    `active_stress_fn(solid, F) -> PK2` is added to the material's PK2
+    before F S (ActiveMuscle / ActiveContractionForce, complex_solid.h:
+    the muscle's `active_fiber_stress`).  `pk1_fn(solid, F) -> PK1`
+    replaces the material's stress (a composite body's per-particle law,
+    the fish's `active_model_pk1`; the Cauchy integrator's
+    `cauchy_pk1_fn`)."""
     out = dict(solid)
     dim = solid["Position"].shape[1]
     rho0 = material.rho0
@@ -179,8 +109,13 @@ def integration_1st_half_pk2(solid: State, rp: ReferencePairs, material,
     F = solid["DeformationGradient"] + solid["DeformationRate"] * (0.5 * dt)
     rho = rho0 / det(F)
     B = solid["LinearGradientCorrectionMatrix"]
-    P = pk1_fn(solid, F) if pk1_fn is not None \
-        else mm(F, material.stress_PK2(F))
+    if pk1_fn is not None:
+        P = pk1_fn(solid, F)
+    else:
+        S2 = material.stress_PK2(F)
+        if active_stress_fn is not None:
+            S2 = S2 + active_stress_fn(solid, F)
+        P = mm(F, S2)
     S = mm(P, B.transpose(-1, -2))
 
     vel = solid["Velocity"]
@@ -207,6 +142,28 @@ def integration_1st_half_pk2(solid: State, rp: ReferencePairs, material,
     out.update({"Position": pos, "DeformationGradient": F, "Density": rho,
                 "StressPK1OnParticle": S, "Force": force, "Velocity": vel})
     return out
+
+
+def cauchy_pk1_fn(material):
+    """The PK1 hook of Integration1stHalfCauchy (elastic_dynamics.cpp:
+    148-160): PK1 from the Cauchy stress of the Almansi strain,
+    P = J sigma((I - (F F^T)^-1) / 2) F^-T; pass it as `pk1_fn` to
+    integration_1st_half_pk2."""
+    def pk1(solid, F):
+        eye = torch.eye(F.shape[-1], dtype=F.dtype, device=F.device)
+        almansi = 0.5 * (eye - inv(mm(F, F.transpose(-1, -2))))
+        sigma = material.stress_cauchy(almansi)
+        return mm(det(F)[..., None, None] * sigma, inv(F).transpose(-1, -2))
+    return pk1
+
+
+def active_fiber_stress(solid: State, F) -> torch.Tensor:
+    """The ActiveMuscle active stress S_active = Ta f outer f (complex_solid.h
+    ActiveMuscle), Ta and f read from the state's ActiveContractionStress
+    and Fiber: an `active_stress_fn`."""
+    f = solid["Fiber"]
+    return solid["ActiveContractionStress"][..., None, None] \
+        * (f[..., :, None] * f[..., None, :])
 
 
 def decomposed_stress(solid: State, material, dt, smoothing_length: float,

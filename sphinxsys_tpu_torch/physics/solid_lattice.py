@@ -35,8 +35,9 @@ import numpy as np
 import torch
 
 from sphinxsys_tpu_torch.ops import lattice_sweeps as ls
+from sphinxsys_tpu_torch.core.linalg import cofactors, det, mm
 from sphinxsys_tpu_torch.physics.solid import (
-    CORRECTION_FACTOR, TINY, cofactors, decomposed_stress, det, mm,
+    CORRECTION_FACTOR, TINY, decomposed_stress,
 )
 
 

@@ -11,6 +11,7 @@ overrides (--set dx=0.05 --set t_end=2).
     python -m sphinxsys_tpu_torch.run twisting_column_3d --set engine=lattice
     python -m sphinxsys_tpu_torch.run fish_fsi_2d --set dx=0.01 --set t_end=0.1
     python -m sphinxsys_tpu_torch.run play_simbody_3d --set restart_step=5
+    python -m sphinxsys_tpu_torch.run muscle_activation_3d --set dx=0.1
 
 The VTP writer writes a body's first NReal rows, as the JAX package's
 does: for an open-boundary fluid these include dead slots parked at
@@ -156,6 +157,32 @@ CASES = {
     "flow_around_cylinder_2d": _run_single_fluid(
         "flow_around_cylinder_2d",
         lambda c, s: {"WaterBody": s.fluid, "Cylinder": s.cyl}, t_end=200.0),
+    "standing_wave_2d": _run_single_fluid(
+        "standing_wave_2d",
+        lambda c, s: {"WaterBody": s.fluid, "Wall": c.wall}, t_end=10.0),
+    "poiseuille_flow_2d": _run_single_fluid(
+        "poiseuille_flow_2d",
+        lambda c, s: {"WaterBody": s.fluid, "Wall": c.wall}, t_end=100.0),
+    "impact_patch_2d": _run_single_fluid(
+        "impact_patch_2d", lambda c, s: {"WaterBody": s.fluid}, t_end=1.0),
+    "rotation_patch_2d": _run_single_fluid(
+        "rotation_patch_2d", lambda c, s: {"WaterBody": s.fluid}, t_end=8.0),
+    "oscillating_beam_2d": _run_single_fluid(
+        "oscillating_beam_2d", lambda c, s: {"BeamBody": s.solid}, t_end=1.0),
+    "oscillating_beam_cauchy_2d": _run_single_fluid(
+        "oscillating_beam_cauchy_2d", lambda c, s: {"BeamBody": s.solid},
+        t_end=1.0),
+    "self_contact_2d": _run_single_fluid(
+        "self_contact_2d", lambda c, s: {"BeamBody": s.beam}, t_end=1.0),
+    "passive_cantilever_3d": _run_single_fluid(
+        "passive_cantilever_3d",
+        lambda c, s: {"CantileverBody": s.body}, t_end=3.0),
+    "muscle_activation_3d": _run_single_fluid(
+        "muscle_activation_3d",
+        lambda c, s: {"MyocardiumMuscleBody": s.body}, t_end=1.2),
+    "anisotropic_beam_2d": _run_single_fluid(
+        "anisotropic_beam_2d", lambda c, s: {"BeamBody": s.solid},
+        t_end=1.0),
     "dambreak_2d_block": _run_block(
         "dambreak_2d", lambda sc_, s: {"Wall": sc_.base.wall}, t_end=20.0),
     "dambreak_3d_block": _run_block("dambreak_3d", t_end=6.0),

@@ -22,6 +22,7 @@ from sphinxsys_tpu.cases import fish_fsi_2d as jff, fish_undulation_2d as jfu
 from sphinxsys_tpu.physics import solid as jsd
 from sphinxsys_tpu_torch.cases import fish_fsi_2d as tff, \
     fish_undulation_2d as tfu
+from sphinxsys_tpu_torch.core import linalg
 from sphinxsys_tpu_torch.physics import solid as tsd
 
 from test_torch_open_boundary import hold_cli_run
@@ -49,7 +50,7 @@ def test_cholesky_closed_form():
     rng = np.random.default_rng(2)
     M = 2.0 * _strain(rng, 50, 2) + np.eye(2)
     M[:, 0, 1] += 1e-3        # an asymmetric input: the symmetrised one counts
-    got = tsd.cholesky(torch.as_tensor(M)).numpy()
+    got = linalg.cholesky(torch.as_tensor(M)).numpy()
     _close(got, np.asarray(jnp.linalg.cholesky(jnp.asarray(M))))
     _close(got @ np.swapaxes(got, -1, -2), 0.5 * (M + np.swapaxes(M, -1, -2)))
 
@@ -138,9 +139,14 @@ def test_pk1_half_step(fish_pair):
     for k in ("Position", "DeformationGradient", "Density",
               "StressPK1OnParticle", "Force", "Velocity"):
         _close(to[k].numpy(), np.asarray(jo[k]), what=k)
-    with pytest.raises(NotImplementedError, match="muscle_activation_3d"):
-        tsd.integration_1st_half_pk2(tfish, tc.rp, tc.material, dt, h, w0,
-                                     active_stress_fn=lambda s, F: F)
+    # the active-stress hook (ported with the muscle), on the fish's
+    # material: S_active(F) = F added to its PK2
+    jo = jsd.integration_1st_half_pk2(jfish, jc.rp, jc.material, dt, h, w0,
+                                      active_stress_fn=lambda s, F: F)
+    to = tsd.integration_1st_half_pk2(tfish, tc.rp, tc.material, dt, h, w0,
+                                      active_stress_fn=lambda s, F: F)
+    for k in ("StressPK1OnParticle", "Force", "Velocity"):
+        _close(to[k].numpy(), np.asarray(jo[k]), what=k)
 
 
 def test_fish_undulation_matches_jax(fish_pair):

@@ -379,7 +379,9 @@ RAISES = [
     ("density_summation", dict(shell_contacts=[1]), "shell_fluid"),
     ("density_summation", dict(levelsets=[1]), "levelset"),
     ("acoustic_step_1st_half", dict(contacts=[1]), "multi-phase"),
-    ("acoustic_step_1st_half", dict(correction=True), "kernel_correction"),
+    # ported: the correction reads B, and a state without one fails loudly
+    ("acoustic_step_1st_half", dict(correction=True),
+     "LinearGradientCorrectionMatrix"),
     ("acoustic_step_1st_half", dict(shell_walls=[1]), "shell_fluid"),
     ("acoustic_step_1st_half", dict(levelsets=[1]), "levelset"),
     ("acoustic_step_1st_half", dict(extra_force=1.0), "oldroyd"),
@@ -408,14 +410,23 @@ def test_unported_arguments_raise(scenes, fn, kw, needs):
         "viscous_force": (d["fluid"], d["inner"], k, 2, 0.01, 0.1),
         "transport_velocity_correction": (d["fluid"], d["inner"], k, 2, 0.1),
     }[fn]
-    with pytest.raises(NotImplementedError, match=needs):
+    error = KeyError if "correction" in kw else NotImplementedError
+    with pytest.raises(error, match=needs):
         getattr(tfd, fn)(*args, **kw)
 
 
 @pytest.mark.parametrize("fn", ["kernel_correction_matrix"])
-def test_functions_off_the_routes_raise(fn):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        getattr(tfd, fn)({}, None)
+def test_functions_off_the_routes_raise(scenes, fn):
+    """The function that raised while no ported route called it is ported
+    now (the kernel-corrected cases): on the periodic TG scene it matches
+    JAX's (tests/test_torch_kernel_correction.py holds it on walls,
+    deficient rows and both alphas)."""
+    sc = scenes["tg"]
+    j = getattr(jfd, fn)(sc.j["fluid"], sc.j["inner"], sc.kernel_j, sc.dim,
+                         alpha=0.5, box=sc.box)
+    t = getattr(tfd, fn)(sc.t["fluid"], sc.t["inner"], sc.kernel_t, sc.dim,
+                         alpha=0.5, box=sc.box)
+    _hold_state(t, j, fn)
 
 
 # ---------------------------------------------------------------------------

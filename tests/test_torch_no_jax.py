@@ -67,7 +67,21 @@ def test_port_has_modules():
                  "sphinxsys_tpu_torch/cases/filling_tank_2d.py",
                  "sphinxsys_tpu_torch/cases/elastic_gate_2d.py",
                  "sphinxsys_tpu_torch/cases/flow_around_cylinder_2d.py",
-                 "sphinxsys_tpu_torch/benchmarks/a7_long.py"):
+                 "sphinxsys_tpu_torch/benchmarks/a7_long.py",
+                 "sphinxsys_tpu_torch/cases/standing_wave_2d.py",
+                 "sphinxsys_tpu_torch/cases/poiseuille_flow_2d.py",
+                 "sphinxsys_tpu_torch/cases/impact_patch_2d.py",
+                 "sphinxsys_tpu_torch/cases/rotation_patch_2d.py",
+                 "sphinxsys_tpu_torch/cases/oscillating_beam_2d.py",
+                 "sphinxsys_tpu_torch/cases/oscillating_beam_cauchy_2d.py",
+                 "sphinxsys_tpu_torch/cases/self_contact_2d.py",
+                 "sphinxsys_tpu_torch/cases/passive_cantilever_3d.py",
+                 "sphinxsys_tpu_torch/cases/muscle_activation_3d.py",
+                 "sphinxsys_tpu_torch/cases/anisotropic_beam_2d.py",
+                 "sphinxsys_tpu_torch/core/kernels.py",
+                 "sphinxsys_tpu_torch/core/materials.py",
+                 "sphinxsys_tpu_torch/core/linalg.py",
+                 "sphinxsys_tpu_torch/benchmarks/a7bc_long.py"):
         assert must in names
 
 

@@ -135,7 +135,12 @@ def test_cli_lists_cases(capsys):
                  "ball_shell_collision_3d", "fsi2_block", "t_pipe_2d",
                  "fish_undulation_2d", "fish_fsi_2d", "play_simbody_3d",
                  "tethered_fish_2d", "stlw_2d", "filling_tank_2d",
-                 "elastic_gate_2d", "flow_around_cylinder_2d"):
+                 "elastic_gate_2d", "flow_around_cylinder_2d",
+                 "standing_wave_2d", "poiseuille_flow_2d", "impact_patch_2d",
+                 "rotation_patch_2d", "oscillating_beam_2d",
+                 "oscillating_beam_cauchy_2d", "self_contact_2d",
+                 "passive_cantilever_3d", "muscle_activation_3d",
+                 "anisotropic_beam_2d"):
         assert case in out
 
 
@@ -143,7 +148,7 @@ def test_cli_cases_are_jax_entries():
     """Every entry is one of the JAX runner's, named alike; the ports of
     its other cases are listed in ROADMAP.md."""
     assert set(trun.CASES) <= set(jrun.CASES)
-    assert len(trun.CASES) == 19
+    assert len(trun.CASES) == 29
 
 
 @pytest.mark.parametrize("case", ["nope", "lid_driven_cavity_2d"])

@@ -153,16 +153,21 @@ def test_second_half_matches(body):
 
 
 def test_pk2_hooks_are_not_ported(body):
-    """The active-stress hook is not ported (its first caller is
-    muscle_activation_3d) and raises; the PK1 hook is (the fish's
-    composite law, tests/test_torch_fish.py): with P(F) = F (1 + |F|^2)
-    it matches JAX's."""
+    """Both hooks are ported and match JAX's: the active-stress hook (its
+    first caller is muscle_activation_3d; tests/test_torch_solid_laws.py
+    holds the muscle's own) with S_active(F) = F, added to the PK2, and
+    the PK1 hook (the fish's composite law, tests/test_torch_fish.py) with
+    P(F) = F (1 + |F|^2)."""
     dim, jrp, trp, js, ts, jk, tk = body
     h = 1.3 * DX
-    with pytest.raises(NotImplementedError, match="muscle_activation_3d"):
-        tsd.integration_1st_half_pk2(
-            dict(ts), trp, tmat.SaintVenantKirchhoffSolid(**SVK), DT, h,
-            tk.w0(dim), active_stress_fn=lambda s, F: F)
+    tout = tsd.integration_1st_half_pk2(
+        dict(ts), trp, tmat.SaintVenantKirchhoffSolid(**SVK), DT, h,
+        tk.w0(dim), active_stress_fn=lambda s, F: F)
+    jout = jsd.integration_1st_half_pk2(
+        dict(js), jrp, jmat.SaintVenantKirchhoffSolid(**SVK), DT, h,
+        jk.w0(dim), active_stress_fn=lambda s, F: F)
+    _hold(tout, jout, ("Position", "StressPK1OnParticle", "Force",
+                       "Velocity"))
     tout = tsd.integration_1st_half_pk2(
         dict(ts), trp, tmat.SaintVenantKirchhoffSolid(**SVK), DT, h,
         tk.w0(dim), pk1_fn=lambda s, F: F * (1 + (F * F).sum((-2, -1)))[
