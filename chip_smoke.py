@@ -45,6 +45,13 @@ cell-block engine — at full size:
     Cauchy), the self-contacting beam, the passive cantilever and the
     activated cube (the muscle and its active stress), the anisotropic
     beam, on neighbour lists and frozen pairs.
+  * the multi-phase fluid and the rigid bodies (ROADMAP A item 3d and
+    the first family of item 4) at their JAX default widths: the
+    two-phase dambreak (800 water, 3,440 air), the square droplet (625 +
+    1,875), the droplet impact (1,264 + 10,736), the cubic droplet (3D,
+    2,744 + 24,256), the floating block (1,250 + 50), stfb (2,120 + 400),
+    OWSC (10,013 + a 67-particle flap) and the moored structure in the
+    focused wave (16,865 + 400), on neighbour lists and torch ops.
 
 Phases:
 
@@ -220,6 +227,22 @@ Phases:
      printed), and one step and, for the fluid, an acoustic sub-step, the
      correction matrix and the corrected first half alone, each timed,
      profiled, its host reads counted and its bound computed.
+ 16. the multi-phase fluid and the rigid bodies (last): the eight cases
+     of ROADMAP A item 3d and the rigid-body family of item 4 (the
+     two-phase dambreak, the square, impacting and cubic droplets, the
+     floating block, stfb, OWSC, the focused wave on the moored
+     structure), each at its JAX default width: built in float64 on the
+     card and the same started state cast to float32 (the wave cases
+     just before their release), A7D_F32's steps on each (equal counts,
+     the displacement and the velocity within their tolerances of their
+     float64 max); then, float32, through build_case -> init_sim ->
+     make_run_chunk -> solver.run_simulation (stfb and the wave cases
+     with a 0.004 s hold, so that the run crosses the release), every
+     launch count reset just before and read just after, and one
+     advection step, one acoustic sub-step and its parts (the contact
+     first half, the surface tension, the rigid or pin update, the
+     wavemaker, the tethers) alone, each timed, profiled, its host
+     reads counted and its bound computed.
 
 Every kernel and plain-version time is taken by
 sphinxsys_tpu_torch.benchmarks.median_ms, the layout drivers' timer.  Its last two lines are a JSON object of per-kernel
@@ -2310,6 +2333,12 @@ LIST_PAIR_FLOPS = {
     "solid_substep": 60,      # the frozen pairs' stress and dF/dt sums
     "correction": 30,         # r e outer dW V e, both sums of A
     "corrected_1st_half": 50,  # B_i e, B_j e, the pressure and Riemann terms
+    "contact_1st_half": 60,   # the inner and wall terms, the phases' p*
+    # the surface tension's stress (a contact pair: ~30) and stress force
+    # (the (d, d) products M M, T mismatch, S e a pair: ~110 in 2D, ~280
+    # in 3D), a pair of both lists on average
+    "surface_tension_2d": 110,
+    "surface_tension_3d": 280,
 }
 
 
@@ -4234,6 +4263,352 @@ def a7bc_phase(torch, results):
     log(f"a7bc phase: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the multi-phase fluid and the rigid bodies (ROADMAP A item 3d
+# and the rigid-body family of item 4: neighbour lists, torch ops)
+# ---------------------------------------------------------------------------
+
+# case -> (the hold left at the start, the main path's end time, its output
+# interval).  stfb and the wave cases hold their body (and wavemaker) for
+# the first RELAX_TIME = 1 s; the main path (and the float32 check) takes
+# A7D_HOLD of it, stfb as init_sim's settle_time, the wave cases by starting
+# at a total time of RELAX_TIME - A7D_HOLD, so that its steps run both the
+# held and the released sub-steps.
+A7D_HOLD = 0.004
+A7D_MAIN = {
+    "two_phase_dambreak_2d": (None, 0.04, 0.02),
+    "square_droplet_2d": (None, 0.002, 0.001),
+    "droplet_impact_2d": (None, 0.003, 0.0015),
+    "cubic_droplet_3d": (None, 0.003, 0.0015),
+    "floating_body_2d": (None, 0.008, 0.004),
+    "stfb_2d": (A7D_HOLD, 0.006, 0.003),
+    "owsc_2d": (A7D_HOLD, 0.004, 0.002),
+    "nonlinear_wave_fsi_2d": (A7D_HOLD, 0.004, 0.002),
+}
+A7D_PHASES = ("two_phase_dambreak_2d", "square_droplet_2d",
+              "droplet_impact_2d", "cubic_droplet_3d")
+A7D_BODY = {name: "water" for name in A7D_PHASES}
+A7D_RIGID = {"floating_body_2d": ("block", "rb"), "stfb_2d": ("block", "rb"),
+             "owsc_2d": ("flap", "pj"),
+             "nonlinear_wave_fsi_2d": ("block", "rb")}
+# float32 against float64 from the same built state: case -> (advection
+# steps, tolerance of the displacement x - x0, tolerance of the velocity),
+# each a share of the float64 run's max (the form of A7BC_F32; the main
+# body: the water, or the fluid around the rigid body).  It starts as the
+# main path does (A7D_MAIN's hold), so that the wave cases' steps cross the
+# release.  Each tolerance is ten times the larger
+# reading of this check on the CPU (DEVICE = "cpu") and on an H100,
+# rounded up to one significant digit.  The wave tanks are 18 m and 35 m
+# long: float32's rounding of the positions there (~2e-6) is ~30 ulps of
+# the water's displacement after these steps.
+A7D_F32 = {
+    "two_phase_dambreak_2d": (10, 2e-3, 8e-4),
+    "square_droplet_2d": (10, 1e-3, 2e-4),
+    "droplet_impact_2d": (10, 8e-4, 5e-4),
+    "cubic_droplet_3d": (4, 2e-3, 2e-4),
+    "floating_body_2d": (10, 9e-3, 7e-3),
+    "stfb_2d": (10, 2e-3, 3e-3),
+    "owsc_2d": (10, 4e-2, 5e-2),
+    "nonlinear_wave_fsi_2d": (10, 7e-2, 7e-2),
+}
+A7D_F32_SEEN = 100.0
+
+
+def a7d_main_body(name, sim):
+    return getattr(sim, A7D_BODY.get(name, "fluid"))
+
+
+def a7d_start(torch, name, cm, case, states):
+    """init_sim with A7D_MAIN's hold left: stfb's settling window, or the
+    wave cases' total time that far before their release."""
+    hold = A7D_MAIN[name][0]
+    if name == "stfb_2d":
+        return cm.init_sim(case, *states, settle_time=hold)
+    sim = cm.init_sim(case, *states)
+    if hold is not None:
+        sim.total_time = torch.full_like(sim.total_time,
+                                         cm.RELAX_TIME - hold)
+    return sim
+
+
+def a7d_f32_check(torch, name):
+    """The case at its default width built in float64 on the card, started
+    (init_sim), and the same state cast to float32: A7D_F32's advection
+    steps on each, equal counts, the main body's displacement and velocity
+    each within its tolerance of its float64 max, the displacement at
+    least A7D_F32_SEEN times float32's rounding of the positions; the
+    rigid body's COM (or the pin's angle) beside them.  Returns the
+    errors."""
+    cm = importlib.import_module(f"sphinxsys_tpu_torch.cases.{name}")
+    n, tol_d, tol_v = A7D_F32[name]
+    case64, *states = cm.build_case(dtype=torch.float64, device=DEVICE)
+    s64 = a7d_start(torch, name, cm, case64, states)
+    case32, s32 = cast_tree(torch, case64, torch.float32), \
+        cast_tree(torch, s64, torch.float32)
+    runs, x0 = [], []
+    for case, s in ((case64, s64), (case32, s32)):
+        x0.append(a7d_main_body(name, s)["Position"].double())
+        step = cm.make_advection_step(case)
+        for _ in range(n):
+            s = step(s)
+        runs.append(s)
+    s64, s32 = runs
+    counts = [(s.n_adv, s.n_ac) for s in runs]
+    check(counts[0] == counts[1], f"a7d {name}: float32 counts {counts[1]} "
+          f"!= float64 {counts[0]}")
+    b64, b32 = a7d_main_body(name, s64), a7d_main_body(name, s32)
+    for b in (b32, b64):
+        for k in ("Position", "Velocity", "Density"):
+            check(bool(torch.isfinite(b[k]).all()),
+                  f"a7d {name}: non-finite {k}")
+    d64 = b64["Position"] - x0[0]
+    d32 = b32["Position"].double() - x0[1]
+    errs = {"displacement": (d32 - d64, d64, tol_d),
+            "velocity": (b32["Velocity"].double() - b64["Velocity"],
+                         b64["Velocity"], tol_v)}
+    errs = {k: (float(e.abs().max()), float(r.abs().max()), tol)
+            for k, (e, r, tol) in errs.items()}
+    rounding = n * 2.0 ** -24 * float(x0[0].abs().max())
+    seen = errs["displacement"][1] / rounding
+    rigid = ""
+    if name in A7D_RIGID:
+        r64, r32 = (getattr(s, A7D_RIGID[name][1]) for s in runs)
+        f = "theta" if name == "owsc_2d" else "com"
+        rigid = (f"; the rigid {f} {getattr(r32, f).double().tolist()} "
+                 f"(float32) against {getattr(r64, f).tolist()}")
+    log(f"a7d {name} float32 against float64 on the card (the same started "
+        f"state, {n} steps): counts {counts[0]}; max |d| / max, tolerance "
+        + ", ".join(f"{k} {e:.3e} / {m:.3e} = {e / m:.3e}, {tol:g}"
+                    for k, (e, m, tol) in errs.items())
+        + f"; displacement {seen:.1f} x float32's position rounding "
+        f"(at least {A7D_F32_SEEN:g})" + rigid)
+    check(seen >= A7D_F32_SEEN, f"a7d {name}: after {n} steps the "
+          f"displacement {errs['displacement'][1]:.3e} is only {seen:.1f} x "
+          f"float32's position rounding {rounding:.3e}")
+    for k, (e, m, tol) in errs.items():
+        check(e <= tol * m, f"a7d {name}: float32 {k} off float64 by "
+              f"{e:.3e} (max {m:.3e}, tolerance {tol:g})")
+    del case64, case32, s64, s32, runs, b64, b32, d64, d32
+    return dict(counts=counts[0], **{k: e for k, (e, _, _) in errs.items()})
+
+
+A7D_FLUID_READS = FLUID_AC_READS + ("Pressure",)
+A7D_ST = ("ColorGradient", "NormDirection", "SurfaceTensionStress",
+          "SurfaceTensionForce", "SurfaceTensionForcePrev", "Mass",
+          "Density", "VolumetricMeasure", "Position", "ForcePrior")
+A7D_RIGID_READS = ("Position", "Velocity", "AverageVelocity", "ForcePrior",
+                   "InitialPosition", "InitialNormalDirection",
+                   "NormalDirection")
+A7D_RIGID_WRITES = ("Position", "Velocity", "AverageVelocity",
+                    "NormalDirection", "AverageAcceleration")
+
+
+def a7d_bounds(torch, name, case, sim):
+    """Each profiled part's least time from this run's lists and fields
+    (`list_bound`): the acoustic sub-step over every list it sums, the
+    contact first half (the two-phase cases), the surface tension (the
+    droplets: its stress and stress force over both phases' lists, at
+    LIST_PAIR_FLOPS' per-pair count for its (N, K, d, d) tensors), the
+    rigid update (its body's rows read and written once), and the
+    advection step (its prep plus its mean sub-steps)."""
+    out = {}
+    if name in A7D_PHASES:
+        w, a, wall = sim.water, sim.air, case.wall
+        lists = [sim.nl_ww, sim.nl_wa, sim.nl_wb, sim.nl_aa, sim.nl_aw,
+                 sim.nl_ab]
+        reads = (fields(w, *A7D_FLUID_READS) + fields(a, *A7D_FLUID_READS)
+                 + fields(wall, *WALL_READS))
+        writes = fields(w, *FLUID_AC_WRITES) + fields(a, *FLUID_AC_WRITES)
+        ac = list_bound(torch, "acoustic_substep", lists, reads, writes)
+        out["contact_1st_half"] = list_bound(
+            torch, "contact_1st_half", [sim.nl_ww, sim.nl_wa, sim.nl_wb],
+            fields(w, *A7D_FLUID_READS)
+            + fields(a, "Position", "VolumetricMeasure", "Pressure")
+            + fields(wall, *WALL_READS), fields(w, *FLUID_AC_WRITES))
+        prep = list_bound(torch, "coupling", lists, reads,
+                          fields(w, "Density", "VolumetricMeasure",
+                                 "ForcePrior", "Position")
+                          + fields(a, "Density", "VolumetricMeasure",
+                                   "ForcePrior", "Position"))
+        if name != "two_phase_dambreak_2d":
+            st = list_bound(torch, f"surface_tension_{case.dim}d",
+                            [sim.nl_ww, sim.nl_wa, sim.nl_aa, sim.nl_aw],
+                            fields(w, *A7D_ST) + fields(a, *A7D_ST),
+                            fields(w, *A7D_ST[:5]) + fields(a, *A7D_ST[:5]))
+            out["surface_tension"] = st
+            ac = (ac[0] + st[0], ac[1], ac[2] + st[2])
+    else:
+        body_name, _ = A7D_RIGID[name]
+        f, b = sim.fluid, getattr(sim, body_name)
+        wall = getattr(sim, "wall", None) or case.wall
+        nl_fb = getattr(sim, "nl_fb", None) or sim.nl_ff
+        lists = [sim.nl_inner, sim.nl_fw, nl_fb, sim.nl_bf]
+        B = fields(f, "LinearGradientCorrectionMatrix")
+        reads = (fields(f, *A7D_FLUID_READS) + B + fields(wall, *WALL_READS)
+                 + fields(b, *WALL_READS))
+        ac = list_bound(torch, "acoustic_substep", lists, reads,
+                        fields(f, *FLUID_AC_WRITES)
+                        + fields(b, "PressureForceFromFluid", "ForcePrior"))
+        rig = list_bound(torch, "rigid", [], fields(b, *A7D_RIGID_READS),
+                         fields(b, *A7D_RIGID_WRITES))
+        out["rigid_update"] = rig
+        ac = (ac[0] + rig[0], ac[1], ac[2])
+        prep = list_bound(torch, "density", lists, reads,
+                          fields(f, "DensitySummation", "Density",
+                                 "VolumetricMeasure", "ForcePrior")
+                          + B)
+    out["acoustic_substep"] = ac
+    per_ac = sim.n_ac / sim.n_adv
+    out["advection_step"] = (prep[0] + per_ac * ac[0], ac[1],
+                             prep[2] + round(per_ac * ac[2]))
+    return out
+
+
+def a7d_parts(torch, name, cm, case, sim):
+    """One acoustic sub-step of the case alone, and its contact first
+    half, surface tension or rigid update alone, on the main path's end
+    state."""
+    from sphinxsys_tpu_torch.cases import floating_body_2d as fb
+    from sphinxsys_tpu_torch.cases import owsc_2d as ow
+    from sphinxsys_tpu_torch.cases import square_droplet_2d as sq
+    from sphinxsys_tpu_torch.cases import two_phase_dambreak_2d as tp
+    from sphinxsys_tpu_torch.physics import fluid as fd
+    from sphinxsys_tpu_torch.physics import rigid as rg
+
+    h = case.adaptation.h
+    if name in A7D_PHASES:
+        w, a = sim.water, sim.air
+        dt = torch.minimum(fd.acoustic_time_step(w, case.eos_w, h),
+                           fd.acoustic_time_step(a, case.eos_a, h))
+        fns = {"contact_1st_half": lambda: fd.acoustic_step_1st_half(
+            w, sim.nl_ww, case.kernel, case.dim, case.eos_w, case.rs_w, dt,
+            walls=[(case.wall, sim.nl_wb)],
+            contacts=[(a, sim.nl_wa, case.rs_wa)])}
+        if name == "two_phase_dambreak_2d":
+            fns["acoustic_substep"] = lambda: tp.acoustic_substep(
+                case, sim, w, a, dt)
+        else:
+            def substep():
+                w1, a1 = sq.surface_tension(case, sim, w, a)
+                return tp.acoustic_substep(
+                    case, sim, w1, a1, sq.capillary_dt(case, w1, a1, dt))
+            fns["surface_tension"] = lambda: sq.surface_tension(case, sim,
+                                                                w, a)
+            fns["acoustic_substep"] = substep
+        return fns
+    f = sim.fluid
+    dt_adv = fd.advection_viscous_time_step(
+        f, h, getattr(cm, "U_REF", None) or cm.U_F, cm.RHO0_F,
+        getattr(cm, "MU_F", 0.0))
+    dt = torch.minimum(fd.acoustic_time_step(f, case.eos, h), dt_adv)
+    if name == "owsc_2d":
+        def pin():
+            pj = rg.pin_joint_step(sim.pj, rg.pin_torque(
+                sim.flap, case.mask_b, sim.pj, force_keys=("ForcePrior",)),
+                dt, damping=cm.PTO_DAMPING, gravity=case.g_vec)
+            return rg.constrain_by_pin_joint(sim.flap, case.mask_b, pj,
+                                             case.flap0["InitialPosition"])
+        return {"acoustic_substep": lambda: cm.acoustic_substep(
+                    case, sim, f, sim.wall, sim.flap, sim.pj, sim.pto_energy,
+                    sim.total_time, dt_adv),
+                "rigid_update": pin,
+                "wavemaker": lambda: ow.move_wavemaker(
+                    case, sim.wall, case.piston, sim.total_time,
+                    sim.total_time >= cm.RELAX_TIME, cm.RELAX_TIME)}
+    if name == "nonlinear_wave_fsi_2d":
+        released = sim.total_time >= cm.RELAX_TIME
+        return {"acoustic_substep": lambda: cm.acoustic_substep(
+                    case, sim, f, sim.wall, sim.block, sim.rb, sim.tension,
+                    sim.total_time, dt_adv),
+                "rigid_update": lambda: cm.rigid_update(
+                    case, dict(sim.block), sim.rb, sim.tension, dt,
+                    released),
+                "wavemaker": lambda: ow.move_wavemaker(
+                    case, sim.wall, case.packet, sim.total_time, released,
+                    cm.RELAX_TIME),
+                "cable_forces": lambda: cm._cable_forces(sim.rb,
+                                                         case.rb0.com)}
+    # the floating body and stfb share the sub-step and the rigid update
+    return {"acoustic_substep": lambda: fb.acoustic_substep(
+                case, sim, f, sim.block, sim.rb, dt_adv),
+            "rigid_update": lambda: fb.rigid_update(case, dict(sim.block),
+                                                    sim.rb, dt)}
+
+
+def a7d_observable(name, cm, case, sim):
+    if name == "two_phase_dambreak_2d":
+        return float(cm.water_front(sim))
+    if name in A7D_PHASES:
+        return cm.water_kinetic_energy(sim)
+    if name == "owsc_2d":
+        return [float(sim.pj.theta), float(sim.pto_energy)]
+    out = sim.rb.com.tolist()
+    if name == "nonlinear_wave_fsi_2d":
+        out += sim.tension.tolist()
+    return out
+
+
+def a7d_case_path(torch, name, results):
+    """A case at its JAX default width through build_case -> init_sim ->
+    make_run_chunk -> solver.run_simulation (A7D_MAIN's end time),
+    float32, every launch count reset just before and read just after:
+    no overflow, finite fields, the observable printed; then one advection
+    step, one acoustic sub-step and the parts of `a7d_parts` alone
+    (`ob_parts`: wall and device time, launches, host reads, bound)."""
+    cm = importlib.import_module(f"sphinxsys_tpu_torch.cases.{name}")
+    _, t_end, sample = A7D_MAIN[name]
+
+    def build():
+        case, *states = cm.build_case(device=DEVICE)
+        return case, cm, a7d_start(torch, name, cm, case, states)
+
+    case, sim, rec = ob_main_run(torch, f"a7d {name}", build, t_end, sample)
+    check(not bool(sim.overflow), f"a7d {name}: overflow")
+    bodies = ("water", "air") if name in A7D_PHASES \
+        else ("fluid", A7D_RIGID[name][0])
+    for body in bodies:
+        for k in ("Position", "Velocity"):
+            check(bool(torch.isfinite(getattr(sim, body)[k]).all()),
+                  f"a7d {name}: non-finite {body} {k}")
+    if name in A7D_RIGID:
+        rigid = getattr(sim, A7D_RIGID[name][1])
+        check(all(bool(torch.isfinite(v).all()) for v in rigid),
+              f"a7d {name}: non-finite rigid state")
+    if hasattr(sim, "total_time"):
+        check(float(sim.total_time) > cm.RELAX_TIME,
+              f"a7d {name}: the main path never released the body")
+    counts = (sim.n_adv, sim.n_ac)
+    obs = a7d_observable(name, cm, case, sim)
+    n_rows = {b: getattr(sim, b)["Position"].shape[0] for b in bodies}
+    log(f"a7d {name} main path: {n_rows} particles; setup "
+        f"{rec['setup_s']:.2f} s; to t={float(sim.time):.6f} counts "
+        f"{counts}; observable {obs}; {rec['ms_per_adv']:.3f} ms an "
+        f"advection step (wall clock, mean), {rec['host_reads_per_adv']:.1f}"
+        f" host reads an advection step; peak device memory "
+        f"{rec['peak_gb']:.3f} GB")
+    fns = a7d_parts(torch, name, cm, case, sim)
+    step = cm.make_advection_step(case)
+    parts = ob_parts(torch, f"a7d_{name}", fns, lambda: step(sim),
+                     a7d_bounds(torch, name, case, sim), trace=False)
+    results[f"_a7d_{name}"] = dict(rec, counts=counts, observable=obs,
+                                   n_particles=n_rows, parts=parts)
+    del case, sim, fns, step
+    torch.cuda.empty_cache()
+
+
+def a7d_phase(torch, results):
+    """Phase 16: the eight cases of ROADMAP A item 3d and the rigid-body
+    family of item 4 (no hand kernel), each at its JAX default width:
+    float32 against float64 on the card from the same state, then through
+    the public entry points, its step by part."""
+    t0 = time.perf_counter()
+    for name in A7D_MAIN:
+        f32 = a7d_f32_check(torch, name)
+        a7d_case_path(torch, name, results)
+        results[f"_a7d_{name}"]["f32_vs_f64"] = f32
+    log(f"a7d phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (ROOT / "sphinxsys_tpu_torch").is_dir():
@@ -4300,6 +4675,7 @@ def main() -> int:
     open_boundary_phase(torch, results)
     a7_phase(torch, results)
     a7bc_phase(torch, results)
+    a7d_phase(torch, results)
 
     kernels = []
     for tag, names in [*((t, c["kernels"]) for t, c in CONFIGS.items()),
@@ -4334,7 +4710,8 @@ def main() -> int:
     for tag in ("io", "ball_shell", "dambreak_golden", "ob_fish",
                 "ob_t_pipe", "a7_play_simbody", "a7_tether",
                 *(f"a7_{name}" for name in A7_MAIN),
-                *(f"a7bc_{name}" for name in A7BC_MAIN)):
+                *(f"a7bc_{name}" for name in A7BC_MAIN),
+                *(f"a7d_{name}" for name in A7D_MAIN)):
         main_paths[tag] = results[f"_{tag}"]
     log("main paths: " + json.dumps(main_paths))
     log(f"all phases: {time.perf_counter() - t_start:.1f} s, the build "

@@ -462,12 +462,15 @@ RUNS = {"standing_wave": standing_wave,
         "anisotropic_beam": anisotropic_beam}
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--cases", default=",".join(RUNS))
+def run_all(runs: dict, argv, default_out: str, description: str) -> int:
+    """The runs named by --cases (all of `runs` by default) on --device in
+    --dtype, each reported and written to --out as it ends; 1 if any
+    raised, overflowed or failed a gate."""
+    ap = argparse.ArgumentParser(description=description)
+    ap.add_argument("--cases", default=",".join(runs))
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dtype", default="float32")
-    ap.add_argument("--out", default="a7bc_long.json")
+    ap.add_argument("--out", default=default_out)
     a = ap.parse_args(argv)
     device = resolve_device(a.device)
     card = (torch.cuda.get_device_name(device) if device.type == "cuda"
@@ -475,7 +478,7 @@ def main(argv=None) -> int:
     results, ok = {"device": card, "dtype": a.dtype}, True
     for name in a.cases.split(","):
         try:
-            res = RUNS[name](device, resolve_dtype(a.dtype))
+            res = runs[name](device, resolve_dtype(a.dtype))
         except Exception as exc:      # reported as a failed run, not hidden
             res = dict(error=repr(exc), gates={})
         results[name] = res
@@ -491,6 +494,10 @@ def main(argv=None) -> int:
         with open(a.out, "w") as f:
             json.dump(results, f)
     return 0 if ok else 1
+
+
+def main(argv=None) -> int:
+    return run_all(RUNS, argv, "a7bc_long.json", __doc__.splitlines()[0])
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 """State carried across from the JAX package: its state dicts, BlockSim
-arrays, neighbour lists, articulated trees and case sims, handed over as
+arrays, neighbour lists, articulated trees, rigid bodies and case sims
+(the two-phase ones too), handed over as
 numpy, become the port's CPU tensors, and back.  The parity tests use
 these to feed both sides identical inputs."""
 
@@ -11,6 +12,7 @@ import numpy as np
 import torch
 
 from sphinxsys_tpu_torch.neighbors.neighbor_list import NeighborList
+from sphinxsys_tpu_torch.physics import rigid
 from sphinxsys_tpu_torch.physics.articulated import ArticulatedTree
 
 
@@ -47,6 +49,14 @@ def tree_from_numpy(tree) -> ArticulatedTree:
         com=_tensor(tree.com), joint_type=tuple(tree.joint_type))
 
 
+def rigid_from_numpy(body):
+    """A rigid body or a pin joint (RigidBody2D, RigidBody3D, PinJoint2D:
+    any named tuple of those names, numpy leaves) -> the port's, its
+    fields tensors."""
+    cls = getattr(rigid, type(body).__name__)
+    return cls(**{k: _tensor(v) for k, v in body._asdict().items()})
+
+
 _COUNTS = ("n_adv", "n_ac", "n_s", "n_steps")
 
 
@@ -54,8 +64,9 @@ def sim_from_numpy(cls, sim):
     """A case's sim (any object with the port sim dataclass `cls`'s field
     names as attributes, numpy leaves) -> `cls`: its state dicts through
     `state_from_numpy`, its neighbour lists through
-    `neighbor_list_from_numpy`, its step counts as ints (0 where the sim
-    has none), its other arrays as tensors."""
+    `neighbor_list_from_numpy`, its rigid bodies and pin joints through
+    `rigid_from_numpy`, its step counts as ints (0 where the sim has
+    none), its other arrays as tensors."""
     out = {}
     for f in dataclasses.fields(cls):
         v = getattr(sim, f.name, None)
@@ -66,6 +77,8 @@ def sim_from_numpy(cls, sim):
                                             for k, x in v.items()})
         elif hasattr(v, "idx") and hasattr(v, "count"):
             out[f.name] = neighbor_list_from_numpy(v)
+        elif hasattr(v, "_asdict"):
+            out[f.name] = rigid_from_numpy(v)
         else:
             out[f.name] = _tensor(v)
     return cls(**out)

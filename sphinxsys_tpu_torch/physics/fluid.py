@@ -29,9 +29,9 @@ fluid_integration.hpp):
 
 A wall is a (state, neighbour list) pair whose state carries Position,
 VolumetricMeasure, Mass, NormalDirection, AverageVelocity and
-AverageAcceleration (a static wall's are zero).  The arguments the JAX
-package takes for cases not ported yet raise NotImplementedError naming
-what they need.
+AverageAcceleration (a static wall's are zero).  Another fluid phase is a
+`contacts` entry.  The arguments the JAX package takes for cases not
+ported yet raise NotImplementedError naming what they need.
 """
 
 from __future__ import annotations
@@ -52,7 +52,6 @@ _NEEDS = {
     "shell_contacts": "physics/shell_fluid.py",
     "shell_walls": "physics/shell_fluid.py",
     "levelsets": "meshes/levelset.py",
-    "contacts": "the multi-phase cases (the fluid-fluid contact terms)",
     "extra_force": "physics/oldroyd.py",
     "surface_projection": "the cohesive-soil cases",
 }
@@ -132,9 +131,14 @@ def acoustic_step_1st_half(fluid: State, nl_inner: NeighborList, kernel,
     `correction`: the reverse-kernel-gradient-corrected pressure force
     -(p_i B_j + p_j B_i) e_ij dW_ij V_j, and -(p_i + p_w) B_i e_iw dW V_w
     against a wall (fluid_integration.hpp:75, LinearGradientCorrection),
-    B read from fluid["LinearGradientCorrectionMatrix"]."""
-    _unported(contacts=contacts, shell_walls=shell_walls,
-              levelsets=levelsets, extra_force=extra_force is not None)
+    B read from fluid["LinearGradientCorrectionMatrix"].
+    `contacts`: other fluid phases as (state, list, solver) triples, the
+    solver built as (this phase, that phase); the pair takes the
+    impedance-weighted pressure average_p(p_i, p_k) and dissipates
+    through the solver's u-jump, p_k the other phase's stored Pressure
+    (fluid_integration.hpp:132-157, MultiPhase)."""
+    _unported(shell_walls=shell_walls, levelsets=levelsets,
+              extra_force=extra_force is not None)
     # --- initialization -----------------------------------------------
     rho = fluid["Density"] + fluid["DensityChangeRate"] * (0.5 * dt)
     p = eos.pressure(rho)
@@ -183,6 +187,21 @@ def acoustic_step_1st_half(fluid: State, nl_inner: NeighborList, kernel,
         force_total = force_total + force_w * vol[:, None]
         drho_dt = drho_dt + rho_diss_w * rho
 
+    # --- interaction: fluid-fluid contacts (hpp:132-157) -------------------
+    # the other phase's stored Pressure: its own last first half wrote it
+    for cstate, cnl, crs in contacts:
+        pgc = pair_geometry(pos, cstate["Position"], cnl, kernel, dim,
+                            need_W=False, box=box)
+        vol_k, _ = gather(cstate["VolumetricMeasure"], cnl.idx)
+        p_k, _ = gather(cstate["Pressure"], cnl.idx)
+        dWV_c = pgc.dW * vol_k
+        p_star = crs.average_p(p[:, None], p_k)
+        force_c = -torch.sum((2.0 * p_star * dWV_c)[..., None] * pgc.e, dim=1)
+        rho_diss_c = torch.sum(
+            crs.dissipative_u_jump(p[:, None] - p_k) * dWV_c, dim=1)
+        force_total = force_total + force_c * vol[:, None]
+        drho_dt = drho_dt + rho_diss_c * rho
+
     # --- update -----------------------------------------------------------
     vel = fluid["Velocity"] + (fluid["ForcePrior"] + force_total) \
         / fluid["Mass"][:, None] * dt
@@ -206,7 +225,11 @@ def acoustic_step_2nd_half(fluid: State, nl_inner: NeighborList, kernel,
                            contacts: Sequence[tuple] = (),
                            shell_walls: Sequence[tuple] = (),
                            levelsets: Sequence = ()) -> State:
-    _unported(contacts=contacts, shell_walls=shell_walls, levelsets=levelsets)
+    """`contacts`: other fluid phases as (state, list, solver) triples:
+    the density change against the impedance-averaged velocity
+    average_v(v_i, v_k) and the p-jump of the plain velocity jump
+    (fluid_integration.hpp:248-272)."""
+    _unported(shell_walls=shell_walls, levelsets=levelsets)
     # --- initialization ---------------------------------------------------
     pos = fluid["Position"] + fluid["Velocity"] * (0.5 * dt)
     vel = fluid["Velocity"]
@@ -245,6 +268,22 @@ def acoustic_step_2nd_half(fluid: State, nl_inner: NeighborList, kernel,
                              * face_to_fluid_n, dim=1)
         drho_dt = drho_dt + dcr_w * rho
         force = force + p_diss_w * vol[:, None]
+
+    # --- interaction: fluid-fluid contacts (hpp:248-272) ---------------------
+    for cstate, cnl, crs in contacts:
+        pgc = pair_geometry(pos, cstate["Position"], cnl, kernel, dim,
+                            need_W=False, box=box)
+        vol_k, _ = gather(cstate["VolumetricMeasure"], cnl.idx)
+        vel_k, _ = gather(cstate["Velocity"], cnl.idx)
+        dWV_c = pgc.dW * vol_k
+        vel_ave = crs.average_v(vel[:, None, :], vel_k)
+        dcr_c = torch.sum(2.0 * torch.sum((vel[:, None, :] - vel_ave) * pgc.e,
+                                          dim=-1) * dWV_c, dim=1)
+        u_jump_c = torch.sum((vel[:, None, :] - vel_k) * pgc.e, dim=-1)
+        p_diss_c = torch.sum((crs.dissipative_p_jump(u_jump_c)
+                              * dWV_c)[..., None] * pgc.e, dim=1)
+        drho_dt = drho_dt + dcr_c * rho
+        force = force + p_diss_c * vol[:, None]
 
     # --- update --------------------------------------------------------------
     out = dict(fluid)
@@ -307,8 +346,12 @@ def viscous_force(fluid: State, nl_inner: NeighborList, kernel, dim: int,
     """F_i = 2 mu V_i sum_j (v_i - v_j) / (r_ij + 0.01 h) dW_ij V_j (the
     wall terms double the jump against the averaged wall velocity), into
     ForcePrior by the ForcePrior bookkeeping: ForcePrior += F - F_prev,
-    F_prev = ViscousForcePrev (zero where the state has none)."""
-    _unported(contacts=contacts, shell_walls=shell_walls)
+    F_prev = ViscousForcePrev (zero where the state has none).
+    `contacts`: other fluid phases as (state, list, mu_pair) triples, the
+    inner form against the phase's own velocity with the pair-harmonic
+    viscosity mu_pair = 2 mu_1 mu_2 / (mu_1 + mu_2)
+    (viscous_dynamics.hpp:151-190)."""
+    _unported(shell_walls=shell_walls)
     pos, vel, vol = fluid["Position"], fluid["Velocity"], \
         fluid["VolumetricMeasure"]
     eps_r = 0.01 * smoothing_length
@@ -328,6 +371,15 @@ def viscous_force(fluid: State, nl_inner: NeighborList, kernel, dim: int,
             / (pgw.r + eps_r)[..., None]
         force = force + 2.0 * mu * torch.sum(
             vderiv_w * (pgw.dW * wall_vol)[..., None], dim=1)
+
+    for cstate, cnl, mu_pair in contacts:
+        pgc = pair_geometry(pos, cstate["Position"], cnl, kernel, dim,
+                            need_W=False, box=box)
+        c_vol, _ = gather(cstate["VolumetricMeasure"], cnl.idx)
+        c_vel, _ = gather(cstate["Velocity"], cnl.idx)
+        vderiv_c = (vel[:, None, :] - c_vel) / (pgc.r + eps_r)[..., None]
+        force = force + 2.0 * mu_pair * torch.sum(
+            vderiv_c * (pgc.dW * c_vol)[..., None], dim=1)
 
     out = dict(fluid)
     out["ViscousForce"] = force * vol[:, None]

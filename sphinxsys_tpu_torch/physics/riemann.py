@@ -4,6 +4,8 @@ sphinxsys_tpu/physics/riemann.py; reference riemann_solver.h:55-124):
     Acoustic:    DissipativePJump(du) = rho0c0_geo * du * min(coeff * inv_c0_ave * max(du, 0), 1)
                  DissipativeUJump(dp) = dp * inv_rho0c0_ave
     Dissipative: the Acoustic jumps with the limiter == 1
+The two-fluid pair (fluid_i, fluid_j) is oriented: the multi-phase
+contact terms of a phase use the solver built as (self, other).
 """
 
 from __future__ import annotations
@@ -41,6 +43,17 @@ class NoRiemannSolver:
 
     def dissipative_u_jump(self, p_jump):
         return torch.zeros_like(p_jump)
+
+    def average_p(self, p_i, p_j):
+        """The interface pressure of a two-fluid pair, weighted by the
+        other side's acoustic impedance (riemann_solver.h:67)."""
+        return ((p_i * self.rho0c0_j + p_j * self.rho0c0_i)
+                * self.inv_rho0c0_sum)
+
+    def average_v(self, v_i, v_j):
+        """The interface velocity, weighted by each side's impedance."""
+        return ((v_i * self.rho0c0_i + v_j * self.rho0c0_j)
+                * self.inv_rho0c0_sum)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -12,6 +12,8 @@ overrides (--set dx=0.05 --set t_end=2).
     python -m sphinxsys_tpu_torch.run fish_fsi_2d --set dx=0.01 --set t_end=0.1
     python -m sphinxsys_tpu_torch.run play_simbody_3d --set restart_step=5
     python -m sphinxsys_tpu_torch.run muscle_activation_3d --set dx=0.1
+    python -m sphinxsys_tpu_torch.run square_droplet_2d --set dx=0.08
+    python -m sphinxsys_tpu_torch.run floating_body_2d --set dx=0.05
 
 The VTP writer writes a body's first NReal rows, as the JAX package's
 does: for an open-boundary fluid these include dead slots parked at
@@ -183,6 +185,38 @@ CASES = {
     "anisotropic_beam_2d": _run_single_fluid(
         "anisotropic_beam_2d", lambda c, s: {"BeamBody": s.solid},
         t_end=1.0),
+    "two_phase_dambreak_2d": _run_single_fluid(
+        "two_phase_dambreak_2d",
+        lambda c, s: {"WaterBody": s.water, "AirBody": s.air, "Wall": c.wall},
+        t_end=10.0),
+    "square_droplet_2d": _run_single_fluid(
+        "square_droplet_2d",
+        lambda c, s: {"WaterBody": s.water, "AirBody": s.air, "Wall": c.wall},
+        t_end=2.0),
+    "droplet_impact_2d": _run_single_fluid(
+        "droplet_impact_2d",
+        lambda c, s: {"WaterBody": s.water, "AirBody": s.air,
+                      "WallBoundary": c.wall}, t_end=0.2),
+    "cubic_droplet_3d": _run_single_fluid(
+        "cubic_droplet_3d",
+        lambda c, s: {"WaterBody": s.water, "AirBody": s.air, "Wall": c.wall},
+        t_end=2.0),
+    "floating_body_2d": _run_single_fluid(
+        "floating_body_2d",
+        lambda c, s: {"WaterBody": s.fluid, "Block": s.block, "Wall": c.wall},
+        t_end=2.0),
+    "stfb_2d": _run_single_fluid(
+        "stfb_2d",
+        lambda c, s: {"WaterBody": s.fluid, "Structure": s.block,
+                      "Wall": c.wall}, t_end=10.0),
+    "owsc_2d": _run_single_fluid(
+        "owsc_2d",
+        lambda c, s: {"WaterBody": s.fluid, "Flap": s.flap, "Wall": s.wall},
+        t_end=12.0),
+    "nonlinear_wave_fsi_2d": _run_single_fluid(
+        "nonlinear_wave_fsi_2d",
+        lambda c, s: {"WaterBody": s.fluid, "Structure": s.block,
+                      "Wall": s.wall}, t_end=20.0),
     "dambreak_2d_block": _run_block(
         "dambreak_2d", lambda sc_, s: {"Wall": sc_.base.wall}, t_end=20.0),
     "dambreak_3d_block": _run_block("dambreak_3d", t_end=6.0),

@@ -378,17 +378,21 @@ def test_fsi_couplings_match_jax(scenes):
 RAISES = [
     ("density_summation", dict(shell_contacts=[1]), "shell_fluid"),
     ("density_summation", dict(levelsets=[1]), "levelset"),
-    ("acoustic_step_1st_half", dict(contacts=[1]), "multi-phase"),
+    # ported: a fluid-fluid contact reads the other phase's state, and a
+    # contact state without positions fails loudly
+    ("acoustic_step_1st_half", dict(contacts=[({}, None, None)]),
+     "Position"),
     # ported: the correction reads B, and a state without one fails loudly
     ("acoustic_step_1st_half", dict(correction=True),
      "LinearGradientCorrectionMatrix"),
     ("acoustic_step_1st_half", dict(shell_walls=[1]), "shell_fluid"),
     ("acoustic_step_1st_half", dict(levelsets=[1]), "levelset"),
     ("acoustic_step_1st_half", dict(extra_force=1.0), "oldroyd"),
-    ("acoustic_step_2nd_half", dict(contacts=[1]), "multi-phase"),
+    ("acoustic_step_2nd_half", dict(contacts=[({}, None, None)]),
+     "Position"),
     ("acoustic_step_2nd_half", dict(shell_walls=[1]), "shell_fluid"),
     ("acoustic_step_2nd_half", dict(levelsets=[1]), "levelset"),
-    ("viscous_force", dict(contacts=[1]), "multi-phase"),
+    ("viscous_force", dict(contacts=[({}, None, None)]), "Position"),
     ("viscous_force", dict(shell_walls=[1]), "shell_fluid"),
     ("transport_velocity_correction", dict(shell_walls=[1]), "shell_fluid"),
     ("transport_velocity_correction", dict(surface_projection=True),
@@ -410,7 +414,8 @@ def test_unported_arguments_raise(scenes, fn, kw, needs):
         "viscous_force": (d["fluid"], d["inner"], k, 2, 0.01, 0.1),
         "transport_velocity_correction": (d["fluid"], d["inner"], k, 2, 0.1),
     }[fn]
-    error = KeyError if "correction" in kw else NotImplementedError
+    error = KeyError if {"correction", "contacts"} & set(kw) \
+        else NotImplementedError
     with pytest.raises(error, match=needs):
         getattr(tfd, fn)(*args, **kw)
 

@@ -78,6 +78,18 @@ def test_port_has_modules():
                  "sphinxsys_tpu_torch/cases/passive_cantilever_3d.py",
                  "sphinxsys_tpu_torch/cases/muscle_activation_3d.py",
                  "sphinxsys_tpu_torch/cases/anisotropic_beam_2d.py",
+                 "sphinxsys_tpu_torch/physics/surface_tension.py",
+                 "sphinxsys_tpu_torch/physics/rigid.py",
+                 "sphinxsys_tpu_torch/physics/wavemaker.py",
+                 "sphinxsys_tpu_torch/cases/two_phase_dambreak_2d.py",
+                 "sphinxsys_tpu_torch/cases/square_droplet_2d.py",
+                 "sphinxsys_tpu_torch/cases/droplet_impact_2d.py",
+                 "sphinxsys_tpu_torch/cases/cubic_droplet_3d.py",
+                 "sphinxsys_tpu_torch/cases/floating_body_2d.py",
+                 "sphinxsys_tpu_torch/cases/stfb_2d.py",
+                 "sphinxsys_tpu_torch/cases/owsc_2d.py",
+                 "sphinxsys_tpu_torch/cases/nonlinear_wave_fsi_2d.py",
+                 "sphinxsys_tpu_torch/benchmarks/a7d_rigid_long.py",
                  "sphinxsys_tpu_torch/core/kernels.py",
                  "sphinxsys_tpu_torch/core/materials.py",
                  "sphinxsys_tpu_torch/core/linalg.py",

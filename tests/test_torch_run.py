@@ -140,7 +140,10 @@ def test_cli_lists_cases(capsys):
                  "rotation_patch_2d", "oscillating_beam_2d",
                  "oscillating_beam_cauchy_2d", "self_contact_2d",
                  "passive_cantilever_3d", "muscle_activation_3d",
-                 "anisotropic_beam_2d"):
+                 "anisotropic_beam_2d", "two_phase_dambreak_2d",
+                 "square_droplet_2d", "droplet_impact_2d",
+                 "cubic_droplet_3d", "floating_body_2d", "stfb_2d",
+                 "owsc_2d", "nonlinear_wave_fsi_2d"):
         assert case in out
 
 
@@ -148,7 +151,7 @@ def test_cli_cases_are_jax_entries():
     """Every entry is one of the JAX runner's, named alike; the ports of
     its other cases are listed in ROADMAP.md."""
     assert set(trun.CASES) <= set(jrun.CASES)
-    assert len(trun.CASES) == 29
+    assert len(trun.CASES) == 37
 
 
 @pytest.mark.parametrize("case", ["nope", "lid_driven_cavity_2d"])
