@@ -202,12 +202,13 @@ Phases:
      (equal counts after a fixed number of advection steps, positions
      within 1e-5 of max|x|, the tethered fish's (q, u) within 1e-3 of
      their max), and the filling tank through its injections in float64
-     on both (1e-9); play_simbody in float64 (its final q and u on the
-     closed-form motions within 1e-12, the restart from step 5 bit for
-     bit, one RK4 sub-step profiled); then, every launch count reset just
-     before and read just after, the tethered fish at full width and the
-     3a cases at their default widths through build_case -> init_sim ->
-     make_run_chunk -> solver.run_simulation (no overflow, finite fields,
+     on both (1e-9); play_simbody's first 5 steps in float64 (its final
+     q and u on the closed-form motions within 1e-12, the restart from
+     step 3 bit for bit, one RK4 sub-step profiled); then, every launch
+     count reset just before and read just after, the tethered fish at
+     full width and the 3a cases at their default widths through
+     build_case -> init_sim -> make_run_chunk -> solver.run_simulation
+     (no overflow, finite fields,
      the fish in the channel, the tank injecting), and one advection step
      and each part alone (the fish: rebuild, indication and density,
      acoustic sub-step, solid sub-step, one articulated RK4 step, emitter
@@ -227,7 +228,7 @@ Phases:
      printed), and one step and, for the fluid, an acoustic sub-step, the
      correction matrix and the corrected first half alone, each timed,
      profiled, its host reads counted and its bound computed.
- 16. the multi-phase fluid and the rigid bodies (last): the eight cases
+ 16. the multi-phase fluid and the rigid bodies: the eight cases
      of ROADMAP A item 3d and the rigid-body family of item 4 (the
      two-phase dambreak, the square, impacting and cubic droplets, the
      floating block, stfb, OWSC, the focused wave on the moored
@@ -243,6 +244,21 @@ Phases:
      first half, the surface tension, the rigid or pin update, the
      wavemaker, the tethers) alone, each timed, profiled, its host
      reads counted and its bound computed.
+ 17. the damping family (last): the seven cases of ROADMAP A item 4's
+     second family (the colliding balls, the sliding cube, the damped
+     neo-Hookean cantilever, the stretched plastic bar, the muscle and
+     its sliding plate, the rigid-ended twisting bar, the slender beam),
+     each at its JAX default width and dtype: the five float32 ones
+     built in float64 and cast to float32, A7E_F32's steps on each;
+     then through build_case -> init_sim -> make_run_chunk ->
+     solver.run_simulation, every launch count reset just before and
+     read just after, and one step and its parts (the damping, the
+     plastic first half, stretching's macro step of 26 sub-steps, the bar
+     sub-step) alone, each timed, profiled, its host reads counted and
+     its bound computed; then damping_implicit_cg on
+     the card against the CPU on tests/test_dissipation.py's lattice
+     (equal iteration counts, the difference within A7E_CG_TOL, no host
+     read in the solve).
 
 Every kernel and plain-version time is taken by
 sphinxsys_tpu_torch.benchmarks.median_ms, the layout drivers' timer.  Its last two lines are a JSON object of per-kernel
@@ -356,6 +372,12 @@ GATHER_ORACLE_SCENES = (
     ("taylor_green_2d", 0.05, 0.05, {}),
 )
 DEVICE = "cuda"
+# the host sleep at each end of a profiled window and the marker kernels
+# that open it; (tag, launches, attempts, the markers held, leading markers
+# recorded) of each profiled step (`profile_step`)
+PROFILE_PAD_S = 0.02
+PROFILE_GUARD = 256
+PROFILED = []
 DAMBREAK_KERNELS = ("density_sweep", "ac1_sweep", "ac2_sweep")
 CONFIGS = {  # the bench configs (bench.py:311-318), Taylor–Green at 1M
     "2d": dict(module="dambreak_2d", dx=0.0025, kw={}, min_adv=5,
@@ -401,7 +423,9 @@ def log(msg):
 
 
 def wall_s(torch, fn, reps):
-    """Median host wall time (s) of fn() ending in a device sync."""
+    """Median host wall time (s) of fn() ending in a device sync: `reps`
+    runs after a warm-up one, or the first alone where it takes over 2 s
+    (the tether's advection step)."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -410,6 +434,8 @@ def wall_s(torch, fn, reps):
         fn()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        if times[0] > 2.0:
+            break
     return statistics.median(times)
 
 
@@ -893,32 +919,60 @@ def profile_step(torch, tag, step, what="advection step", trace=True):
     """One step (`step()`) under torch.profiler: device time by kernel, the
     sweeps' share and the device idle share of the profiled step's wall
     time.  The profiler slows the host side, so the same step is also
-    timed unprofiled (median of 3) and an idle-share estimate is printed
+    timed unprofiled (`wall_s`) and an idle-share estimate is printed
     that divides the profiled device busy by that wall time — two different
-    executions, labelled as such.  Writes a Chrome trace to build/traces/
-    unless `trace` is False; then only the device is traced (phase 14:
-    steps of ~10^4-10^5 launches, whose host ops take tens of seconds to
-    record and sum).  Returns (device busy us, profiled wall us,
-    unprofiled wall us, device launches: kernels, copies and sets)."""
+    executions, labelled as such.  A session can drop the device events
+    of its first few ms (`benchmarks/profiler_check.py`) or, after many
+    sessions in one process, its first ~23 records, so the recorded
+    window opens with a PROFILE_PAD_S host sleep and PROFILE_GUARD marker
+    kernels (`torch.cuda._sleep`'s spin_kernel) and closes with a marker
+    and a pad.  A session whose first and last recorded device events are
+    markers held the whole step; else it runs again (at most 3 times;
+    `PROFILED` keeps each step's launches, attempts, whether the markers
+    held and how many leading markers were recorded).  Writes a Chrome
+    trace to build/traces/ unless `trace` is False; then only the device
+    is traced (phase 14: steps of ~10^4-10^5 launches, whose host ops take
+    tens of seconds to record and sum).  Returns (device busy us,
+    profiled wall us, unprofiled wall us, device launches: kernels,
+    copies and sets, the markers not counted)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     plain_wall_us = wall_s(torch, step, 3) * 1e6
     activities = [ProfilerActivity.CUDA]
-    if trace or not torch.cuda.is_available():   # a CPU rehearsal: host ops
+    on_card = torch.cuda.is_available()
+    if trace or not on_card:   # a CPU rehearsal: host ops
         activities.append(ProfilerActivity.CPU)
-    with profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    for attempt in range(1, 4):
+        with profile(activities=activities) as prof:
+            time.sleep(PROFILE_PAD_S)
+            for _ in range(PROFILE_GUARD if on_card else 0):
+                torch.cuda._sleep(100)
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+            if on_card:
+                torch.cuda._sleep(100)
+                torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        mark = ["spin_kernel" in e.name for e in sorted(
+            (e for e in prof.events() if e.device_type == DeviceType.CUDA),
+            key=lambda e: e.time_range.start)]
+        lead = next((i for i, m in enumerate(mark) if not m), len(mark))
+        held = not on_card or (bool(mark) and mark[0] and mark[-1])
+        if held:
+            break
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key]
+    launches = sum(e.count for e in kern)
+    PROFILED.append((tag, launches, attempt, held, lead))
     if trace:
         out = ROOT / "build" / "traces"
         out.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(out / f"trace_{tag}_step.json"))
     # device-side events only (kernels, copies); the aten ops that launched
     # them report the same time again
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in kern)
     sweeps_us = sum(e.self_device_time_total for e in kern
                     if any(n in e.key for n in SWEEP_KERNEL_NAMES))
@@ -929,8 +983,9 @@ def profile_step(torch, tag, step, what="advection step", trace=True):
     log(f"{tag} profile: unprofiled {what} wall {plain_wall_us / 1e3:.3f} ms; "
         f"estimated idle share {1 - dev_us / plain_wall_us:.3f} (profiled "
         f"device busy over unprofiled wall: two executions)")
-    launches = sum(e.count for e in kern)
-    log(f"{tag} profile: {launches} device launches (kernels, copies, sets)")
+    log(f"{tag} profile: {launches} device launches (kernels, copies, sets); "
+        f"attempt {attempt}, the markers held: {held} ({lead} of "
+        f"{PROFILE_GUARD} leading ones recorded)")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"{tag} profile:   {e.self_device_time_total / 1e3:9.3f} ms "
             f"x{e.count:<4d} {e.key[:90]}")
@@ -3339,8 +3394,10 @@ def ob_main_run(torch, tag, build, t_end, sample):
     # run_simulation's own reads: the start time, then the time and the
     # overflow flag after each chunk
     reads = syncs.n - (1 + 2 * len(outputs))
-    # a solid case's steps stand for the advection steps
-    n_adv = getattr(sim, "n_adv", None) or sim.n_steps
+    # a solid case's steps (a stretching bar's macro steps) stand for the
+    # advection steps
+    n_adv = (getattr(sim, "n_adv", None) or getattr(sim, "n_steps", None)
+             or sim.n_macro)
     rec = dict(setup_s=setup_s, run_s=elapsed, t_end=float(sim.time),
                ms_per_adv=elapsed / n_adv * 1e3,
                host_reads_per_adv=reads / n_adv,
@@ -3579,7 +3636,7 @@ def open_boundary_phase(torch, results):
 A7_REFS = (("tethered_fish_2d", dict(dx=0.15), 3),
            ("stlw_2d", dict(dx=0.1), 5),
            ("filling_tank_2d", dict(dx=0.05), 2),
-           ("elastic_gate_2d", dict(dx=5.0), 3),
+           ("elastic_gate_2d", dict(dx=5.0), 2),
            ("flow_around_cylinder_2d", dict(dx=0.4, relax_cyl=0), 4))
 # float32 against float64: positions within this share of max|x|; the
 # tethered fish's (q, u), small displacements of the head, within
@@ -3592,12 +3649,16 @@ A7_F32_Q_TOL = 1e-3
 # in float64
 A7_F64_REF = ("filling_tank_2d", dict(dx=0.05), 8)
 A7_POS_TOL = 1e-9
-A7_TETHER_T_END = 0.02      # the full-width tethered fish's main path
+A7_TETHER_T_END = 0.01      # the full-width tethered fish's main path
 A7_TETHER_SAMPLE = 0.01
+# play_simbody's steps (of the case's 10, each 20 RK4 sub-steps of ~0.11
+# s) and the step its restart starts from
+A7_SIMBODY_STEPS = 5
+A7_SIMBODY_RESTART = 3
 A7_MAIN = {  # the 3a cases at their JAX default widths: (kw, t_end, sample)
     "stlw_2d": (dict(), 0.1, 0.05),
     "filling_tank_2d": (dict(), 0.1, 0.05),
-    "elastic_gate_2d": (dict(), 4.0, 2.0),
+    "elastic_gate_2d": (dict(), 2.0, 1.0),
     "flow_around_cylinder_2d": (dict(), 0.5, 0.25),
 }
 A7_BODIES = {"tethered_fish_2d": ("fluid", "fish"), "stlw_2d": ("fluid",),
@@ -3674,10 +3735,30 @@ def a7_small_references(torch):
         + ", ".join(f"{b} {e:.3e} / {m:.3f}" for b, (e, m) in errs.items()))
 
 
+def a7_simbody_run(torch, ps, out, restart_step=0):
+    """play_simbody_3d.run_case's loop to A7_SIMBODY_STEPS: from the rest
+    state, or from the snapshot of `restart_step`, one make_run_step step
+    to each integer time, each written by write_state_xml."""
+    from sphinxsys_tpu_torch.physics import articulated as art
+
+    tree = ps.build_tree(device=DEVICE)
+    run = ps.make_run_step(tree, ps.build_motions())
+    s = ps.init_sim(tree)
+    if restart_step:
+        t, q, u = (torch.as_tensor(v, dtype=s.q.dtype, device=s.q.device)
+                   for v in art.read_state_xml(str(out), restart_step))
+        s = ps.SimState(t=t, q=q, u=u)
+    for step_i in range(restart_step + 1, A7_SIMBODY_STEPS + 1):
+        s = run(s)
+        art.write_state_xml(str(out), step_i, s.t, s.q, s.u)
+    return s
+
+
 def a7_play_simbody(torch, results):
-    """play_simbody_3d's 10 steps on the card in float64: the final q and
-    u on the closed-form motions within 1e-12, the restart from step 5 bit
-    for bit; the RK4 sub-step's launches profiled."""
+    """play_simbody_3d's first A7_SIMBODY_STEPS steps (of the case's 10,
+    `a7_simbody_run`) on the card in float64: the final q and u on the
+    closed-form motions within 1e-12, the restart from A7_SIMBODY_RESTART
+    bit for bit; the RK4 sub-step's launches profiled."""
     import shutil
 
     from sphinxsys_tpu_torch.cases import play_simbody_3d as ps
@@ -3687,14 +3768,15 @@ def a7_play_simbody(torch, results):
     read_counts = reset_all_launch_counts()
     with SyncCounter(torch) as syncs:
         t0 = time.perf_counter()
-        s = ps.run_case(str(out), device=DEVICE)
+        s = a7_simbody_run(torch, ps, out)
         run_s = time.perf_counter() - t0
     counts = read_counts()
     check(not any(counts.values()), f"a7 play_simbody: a hand kernel ran "
           f"{counts}")
-    names = [f"multibody_state_{i:06d}.xml" for i in range(6, 11)]
+    names = [f"multibody_state_{i:06d}.xml"
+             for i in range(A7_SIMBODY_RESTART + 1, A7_SIMBODY_STEPS + 1)]
     first = [(out / n).read_bytes() for n in names]
-    r = ps.run_case(str(out), restart_step=5, device=DEVICE)
+    r = a7_simbody_run(torch, ps, out, A7_SIMBODY_RESTART)
     same = [(out / n).read_bytes() for n in names] == first
     q, u, _ = ps.build_motions().q_u_udot(s.t, torch.float64)
     eq = float((s.q - q).abs().max() / q.abs().max())
@@ -3708,11 +3790,12 @@ def a7_play_simbody(torch, results):
         torch, "a7_play_simbody_rk4",
         lambda: step(s.t, s.q, s.u, dt, torch.zeros_like(s.q)),
         "RK4 sub-step", trace=False)
-    log(f"a7 play_simbody (float64, {ps.NUM_STEPS} steps of "
+    log(f"a7 play_simbody (float64, {A7_SIMBODY_STEPS} steps of "
         f"{round(1 / ps.DT)} RK4 sub-steps): {run_s:.2f} s, "
         f"{syncs.n} host reads; final q {s.q.tolist()} u {s.u.tolist()}, "
         f"relative error to the closed-form motions q {eq:.2e} u {eu:.2e} "
-        f"(bound 1e-12); restart from step 5 bit for bit: {same}; one RK4 "
+        f"(bound 1e-12); restart from step {A7_SIMBODY_RESTART} bit for bit: "
+        f"{same}; one RK4 "
         f"sub-step {plain_us / 1e3:.3f} ms wall, {dev_us / 1e3:.3f} ms "
         f"device in {launches} launches")
     check(eq <= 1e-12 and eu <= 1e-12,
@@ -4609,6 +4692,368 @@ def a7d_phase(torch, results):
     log(f"a7d phase: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the damping family (ROADMAP A item 4, second family: frozen
+# pairs and neighbour lists, torch ops; the CG solve)
+# ---------------------------------------------------------------------------
+
+# case -> (the main path's end time, its output interval), each at its JAX
+# default width and dtype (float64 for the muscle and the twisting bar);
+# stretching_2d's three macro steps take 1, 1 and 26 sub-steps (its end
+# time is not a multiple of the macro step's 0.01: float32's sum of three
+# of them falls short of 0.03, and run_simulation would ask again for a
+# target that run_chunk already holds met)
+A7E_MAIN = {
+    "collision_2d": (0.006, 0.003),
+    "sliding_2d": (0.006, 0.003),
+    "passive_cantilever_neohookean_3d": (0.002, 0.001),
+    "stretching_2d": (0.025, 0.0125),
+    "muscle_solid_contact_3d": (1e-3, 5e-4),
+    "twisting_rigid_elastic_bar_3d": (0.003, 0.0015),
+    "slender_beam_3d": (5e-4, 2.5e-4),
+}
+# the sim's body of each case (the collision's damping ball: its free ball
+# has no damping)
+A7E_BODY = {"collision_2d": "damping_ball", "sliding_2d": "cube",
+            "passive_cantilever_neohookean_3d": "body",
+            "stretching_2d": "bar", "muscle_solid_contact_3d": "myo",
+            "twisting_rigid_elastic_bar_3d": "bar", "slender_beam_3d": "bar"}
+# float32 against float64 from the same built state, for the five float32
+# cases: case -> (steps, tolerance of the displacement x - x0, tolerance of
+# the velocity), each a share of the float64 run's max (the form of
+# A7BC_F32; stretching_2d's steps are macro steps).  Each tolerance is ten
+# times the larger reading of this check on the CPU (DEVICE = "cpu") and
+# on an H100, rounded up to one significant digit.
+A7E_F32 = {
+    "collision_2d": (100, 9e-4, 3e-6),
+    "sliding_2d": (100, 2e-3, 7e-4),
+    "passive_cantilever_neohookean_3d": (100, 1e-4, 4e-5),
+    "stretching_2d": (4, 2e-1, 2e-1),
+    "slender_beam_3d": (150, 2e-3, 3e-4),
+}
+A7E_F32_SEEN = 100.0
+# the slender beam's damped fields (cases/slender_beam_3d.py DAMPED)
+A7E_BAR_DAMPED = ("Velocity", "AngularVelocity", "BinormalAngularVelocity")
+# damping_implicit_cg on tests/test_dissipation.py's lattice (dx 0.1, 20 x
+# 20, seeded velocities, float64): the deep regime's eta and dt, and the
+# card's largest difference from the CPU's solve over max |v|
+A7E_CG = dict(dx=0.1, eta=50.0, dt=1.0e-3, tol=1.0e-6, max_iter=60)
+A7E_CG_TOL = 1e-12
+# the pair operations of the parts whose bound counts them: a damping
+# sweep's pair weight (r, dW, the implicit coefficient and its limiter,
+# ~30) plus its two sweeps (~4 d each); a CG iteration's matvec (~3 d + 2
+# a pair); the plastic first half's pair terms (the mean inverse F
+# times the pair vector, the limiter, the shear and the stress terms,
+# ~70 in 2D); a bar step's pairs (three (3, 3) x 3 products and the
+# three rate outer products of the second half, ~150)
+LIST_PAIR_FLOPS.update({"damping_pairwise": 55, "cg_iteration": 8,
+                        "plastic_1st_half": 70, "bar_substep": 150})
+
+
+def a7e_start(cm, case, states):
+    return cm.init_sim(case, *states) if hasattr(cm, "init_sim") \
+        else states[0]
+
+
+def a7e_f32_check(torch, name):
+    """The case at its default width built in float64 on the card, and the
+    same state cast to float32: A7E_F32's steps on each, equal counts,
+    the displacement x - x0 and the velocity within their tolerances of
+    their float64 max, the displacement at least A7E_F32_SEEN times
+    float32's rounding of the positions.  Returns the errors."""
+    cm = importlib.import_module(f"sphinxsys_tpu_torch.cases.{name}")
+    n, tol_d, tol_v = A7E_F32[name]
+    case64, *states = cm.build_case(dtype=torch.float64, device=DEVICE)
+    s64 = a7e_start(cm, case64, states)
+    case32, s32 = cast_tree(torch, case64, torch.float32), \
+        cast_tree(torch, s64, torch.float32)
+    body = A7E_BODY[name]
+    runs, x0 = [], []
+    for case, s in ((case64, s64), (case32, s32)):
+        x0.append(getattr(s, body)["Position"].double())
+        step = cm.make_step(case)
+        for _ in range(n):
+            s = step(s)
+        runs.append(s)
+    s64, s32 = runs
+    counts = [tuple(getattr(s, k) for k in ("n_steps", "n_macro", "n_sub")
+                    if hasattr(s, k)) for s in runs]
+    check(counts[0] == counts[1], f"a7e {name}: float32 counts {counts[1]} "
+          f"!= float64 {counts[0]}")
+    b64, b32 = getattr(s64, body), getattr(s32, body)
+    for b in (b32, b64):
+        for k in ("Position", "Velocity"):
+            check(bool(torch.isfinite(b[k]).all()),
+                  f"a7e {name}: non-finite {k}")
+    d64 = b64["Position"] - x0[0]
+    d32 = b32["Position"].double() - x0[1]
+    errs = {"displacement": (d32 - d64, d64, tol_d),
+            "velocity": (b32["Velocity"].double() - b64["Velocity"],
+                         b64["Velocity"], tol_v)}
+    errs = {k: (float(e.abs().max()), float(r.abs().max()), tol)
+            for k, (e, r, tol) in errs.items()}
+    rounding = n * 2.0 ** -24 * float(x0[0].abs().max())
+    seen = errs["displacement"][1] / rounding
+    log(f"a7e {name} float32 against float64 on the card (the same built "
+        f"state, {n} steps): counts {counts[0]}; max |d| / max, tolerance "
+        + ", ".join(f"{k} {e:.3e} / {m:.3e} = {e / m:.3e}, {tol:g}"
+                    for k, (e, m, tol) in errs.items())
+        + f"; displacement {seen:.1f} x float32's position rounding "
+        f"(at least {A7E_F32_SEEN:g})")
+    check(seen >= A7E_F32_SEEN, f"a7e {name}: after {n} steps the "
+          f"displacement {errs['displacement'][1]:.3e} is only {seen:.1f} x "
+          f"float32's position rounding {rounding:.3e}")
+    for k, (e, m, tol) in errs.items():
+        check(e <= tol * m, f"a7e {name}: float32 {k} off float64 by "
+              f"{e:.3e} (max {m:.3e}, tolerance {tol:g})")
+    del case64, case32, s64, s32, runs, b64, b32, d64, d32
+    return dict(counts=counts[0], **{k: e for k, (e, _, _) in errs.items()})
+
+
+def a7e_cg_lattice(torch, device):
+    """tests/test_dissipation.py's lattice (:55-87) on `device` in float64:
+    (state, inner list, kernel)."""
+    from sphinxsys_tpu_torch.core.adaptation import SPHAdaptation
+    from sphinxsys_tpu_torch.core.state import make_fluid_state
+    from sphinxsys_tpu_torch.neighbors.cell_list import (build_cell_table,
+                                                        grid_from_bounds)
+    from sphinxsys_tpu_torch.neighbors.neighbor_list import \
+        build_neighbor_list
+    import numpy as np
+
+    dx = A7E_CG["dx"]
+    ad = SPHAdaptation(spacing=dx, dim=2)
+    xs = np.arange(dx / 2, 2.0, dx)
+    pos = np.stack(np.meshgrid(xs, xs, indexing="ij"), -1).reshape(-1, 2)
+    st = make_fluid_state(pos, dx * dx, 1.0, torch.float64, device)
+    st["Velocity"] = torch.as_tensor(
+        np.random.default_rng(0).normal(size=pos.shape), device=device)
+    grid = grid_from_bounds((-4 * dx, -4 * dx), (2.4, 2.4), ad.cutoff)
+    table = build_cell_table(st["Position"], st["NReal"], grid, 24)
+    nl = build_neighbor_list(st["Position"], st["NReal"], st["Position"],
+                             st["NReal"], table, grid, ad.cutoff, k_max=32,
+                             include_self=False)
+    return st, nl, ad.kernel
+
+
+def a7e_cg_check(torch, results):
+    """damping_implicit_cg on the card against the port's float64 CPU solve
+    on the same lattice: equal iteration counts, the largest difference
+    within A7E_CG_TOL of max |v|; the card's solve reads nothing back
+    (SyncCounter), its wall and device time, launches and bound."""
+    from sphinxsys_tpu_torch.physics import dissipation as dp
+
+    cfg = {k: A7E_CG[k] for k in ("eta", "dt")}
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        st, nl, kernel = a7e_cg_lattice(torch, dev)
+        matvec, rhs, pre = dp.implicit_cg_system(st, "Velocity", nl, kernel,
+                                                 2, **cfg)
+        x, k = dp.conjugate_gradient(matvec, rhs, st["Velocity"], pre,
+                                     A7E_CG["tol"], A7E_CG["max_iter"])
+        out[dev] = (x.cpu(), int(k))
+    (xc, kc), (xh, kh) = out[DEVICE], out["cpu"]
+    err = float((xc - xh).abs().max())
+    vmax = float(xh.abs().max())
+    st, nl, kernel = a7e_cg_lattice(torch, DEVICE)
+
+    def solve():
+        return dp.damping_implicit_cg(st, "Velocity", nl, kernel, 2,
+                                      tol=A7E_CG["tol"],
+                                      max_iter=A7E_CG["max_iter"], **cfg)
+
+    with SyncCounter(torch) as reads:
+        solve()
+    n_pairs = int(torch.clamp(nl.count, max=nl.idx.shape[1]).sum())
+    nbytes = sum(t.numel() * t.element_size() for t in (
+        nl.idx, st["Position"], st["VolumetricMeasure"], st["Mass"],
+        st["Velocity"], st["Velocity"]))
+    bound = (*bytes_or_flops(nbytes, kc * n_pairs
+                             * LIST_PAIR_FLOPS["cg_iteration"]), n_pairs)
+    parts = ob_parts(torch, "a7e_cg", {}, solve,
+                     {"advection_step": bound}, trace=False)
+    part = parts.pop("advection_step")
+    log(f"a7e cg on the card (float64, {st['Position'].shape[0]} particles, "
+        f"eta {cfg['eta']:g}, dt {cfg['dt']:g}, tol {A7E_CG['tol']:g}): "
+        f"{kc} iterations (cpu {kh}) of at most {A7E_CG['max_iter']}; max "
+        f"|card - cpu| {err:.3e} of max |v| {vmax:.3f} (tolerance "
+        f"{A7E_CG_TOL:g}); {reads.n} host reads in the solve")
+    check(kc == kh, f"a7e cg: the card took {kc} iterations, the CPU {kh}")
+    check(err <= A7E_CG_TOL * vmax, f"a7e cg: the card's solve is off the "
+          f"CPU's by {err:.3e}")
+    check(reads.n == 0, f"a7e cg: the solve read the device {reads.n} times")
+    check(1 < kc < A7E_CG["max_iter"], f"a7e cg: {kc} iterations")
+    results["_a7e_cg"] = dict(part, iterations=kc, max_abs_err=err,
+                              host_reads_in_solve=reads.n,
+                              n_particles=st["Position"].shape[0])
+
+
+def a7e_bounds(torch, name, case, sim):
+    """The parts' least times from this run's lists and fields
+    (`list_bound`): a step is its frozen pairs' pass (`frozen_bound`) plus
+    its damping (the bar's: three fields; the collision's free ball's
+    pass too); the damping, the plastic first half and the bar step
+    alone."""
+    import types
+
+    body = getattr(sim, A7E_BODY[name])
+    out = {}
+    if name == "slender_beam_3d":
+        rp = case.rp
+        frozen = types.SimpleNamespace(idx=rp.idx, count=rp.mask.sum(1))
+        bar_keys = [k for k, v in body.items()
+                    if torch.is_tensor(v) and v.is_floating_point()]
+        step = list_bound(torch, "bar_substep", [frozen],
+                          [rp.W, rp.dW, rp.r, rp.e, rp.mask]
+                          + fields(body, *bar_keys), fields(body, *bar_keys))
+        damp = list_bound(torch, "damping_pairwise", [case.nl],
+                          fields(body, "Position", "VolumetricMeasure",
+                                 "Mass", *A7E_BAR_DAMPED),
+                          fields(body, *A7E_BAR_DAMPED))
+        damp = (3 * damp[0], damp[1], 3 * damp[2])
+        out["bar_substep"] = step
+    else:
+        if name == "collision_2d":
+            free = frozen_bound(torch, case.rp_free, sim.free_ball)
+            damp_ball = frozen_bound(torch, case.rp_damp, body)
+            step = (free[0] + damp_ball[0], free[1], free[2] + damp_ball[2])
+        else:
+            step = frozen_bound(torch, case.rp, body)
+        nl = {"collision_2d": "nl_damp_inner", "sliding_2d": "nl_inner",
+              "passive_cantilever_neohookean_3d": "nl",
+              "stretching_2d": "nl_inner", "muscle_solid_contact_3d":
+              "nl_inner", "twisting_rigid_elastic_bar_3d": "nl_damp"}[name]
+        damp = list_bound(torch, "damping_pairwise", [getattr(case, nl)],
+                          fields(body, "Position", "VolumetricMeasure",
+                                 "Mass", "Velocity"),
+                          fields(body, "Velocity"))
+    out["damping"] = damp
+    if name == "stretching_2d":
+        plastic = list_bound(
+            torch, "plastic_1st_half", [types.SimpleNamespace(
+                idx=case.rp.idx, count=case.rp.mask.sum(1))],
+            [case.rp.dW, case.rp.r, case.rp.e, case.rp.mask]
+            + fields(body, *SOLID_READS, "InversePlasticStrain",
+                     "HardeningParameter"),
+            fields(body, *SOLID_WRITES, "InversePlasticStrain",
+                   "HardeningParameter"))
+        out["plastic_1st_half"] = plastic
+        per = sim.n_sub / sim.n_macro
+        out["advection_step"] = (per * (step[0] + damp[0]), step[1],
+                                 round(per * (step[2] + damp[2])))
+    else:
+        out["advection_step"] = (step[0] + damp[0], step[1],
+                                 step[2] + damp[2])
+    return out
+
+
+
+def a7e_parts(torch, name, cm, case, sim, states):
+    """The damping alone on the main path's end state (the collision's on
+    its damping ball); the slender beam's stress relaxation halves alone;
+    stretching's plastic first half, and its third macro step from the
+    build (26 sub-steps, the gate read once a sub-step)."""
+    from sphinxsys_tpu_torch.physics import bar as bd
+    from sphinxsys_tpu_torch.physics import solid as sd
+
+    body = getattr(sim, A7E_BODY[name])
+    h = case.adaptation.h
+    if name == "slender_beam_3d":
+        dt = sim.dt
+        return {"damping": lambda: cm.damping(case, body, dt),
+                "bar_substep": lambda: bd.bar_stress_relaxation_2nd_half(
+                    bd.bar_stress_relaxation_1st_half(
+                        body, case.rp, case.material, dt, h), case.rp, dt)}
+    dt = sd.solid_acoustic_time_step(body, case.material.sound_speed, h)
+    fns = {"damping": lambda: cm.damping(case, body, dt)}
+    if name == "stretching_2d":
+        step = cm.make_step(case)
+        s2 = step(step(cm.init_sim(case, *states)))
+        fns.update({"plastic_1st_half": lambda:
+                    sd.decomposed_plastic_integration_1st_half(
+                        body, case.rp, case.material, dt, h),
+                    "macro_step_3": lambda: step(s2)})
+    return fns
+
+
+def a7e_case_path(torch, name, results):
+    """A case at its JAX default width and dtype through build_case ->
+    init_sim -> make_run_chunk -> solver.run_simulation (A7E_MAIN's end
+    time), every launch count reset just before and read just after: no
+    overflow, finite fields, the counts and the observable printed; then
+    one step (for stretching a macro step) and its parts alone
+    (`ob_parts`: wall and device time, launches, host reads, idle share,
+    bound)."""
+    cm = importlib.import_module(f"sphinxsys_tpu_torch.cases.{name}")
+    t_end, sample = A7E_MAIN[name]
+    built = {}
+
+    def build():
+        case, *states = cm.build_case(device=DEVICE)
+        built["states"] = states
+        return case, cm, a7e_start(cm, case, states)
+
+    case, sim, rec = ob_main_run(torch, f"a7e {name}", build, t_end, sample)
+    check(not bool(getattr(sim, "overflow", False)), f"a7e {name}: overflow")
+    body = getattr(sim, A7E_BODY[name])
+    for k in ("Position", "Velocity"):
+        check(bool(torch.isfinite(body[k]).all()),
+              f"a7e {name}: non-finite {k}")
+    counts = tuple(getattr(sim, k) for k in ("n_steps", "n_macro", "n_sub")
+                   if hasattr(sim, k))
+    obs = a7e_observable(name, cm, case, sim, built["states"])
+    log(f"a7e {name} main path: {body['Position'].shape[0]} particles "
+        f"({body['Position'].dtype}); setup {rec['setup_s']:.2f} s; to "
+        f"t={float(sim.time):.6f} counts {counts}; observable {obs}; "
+        f"{rec['ms_per_adv']:.3f} ms a step (wall clock, mean), "
+        f"{rec['host_reads_per_adv']:.1f} host reads a step; peak device "
+        f"memory {rec['peak_gb']:.3f} GB")
+    step = cm.make_step(case)
+    parts = ob_parts(torch, f"a7e_{name}",
+                     a7e_parts(torch, name, cm, case, sim, built["states"]),
+                     lambda: step(sim), a7e_bounds(torch, name, case, sim),
+                     trace=False)
+    results[f"_a7e_{name}"] = dict(rec, counts=counts, observable=obs,
+                                   n_particles=body["Position"].shape[0],
+                                   parts=parts)
+    del case, sim, body, built, step
+    torch.cuda.empty_cache()
+
+
+def a7e_observable(name, cm, case, sim, states):
+    if name == "collision_2d":
+        return [cm.ball_center(sim.free_ball).tolist(),
+                cm.ball_center(sim.damping_ball).tolist()]
+    if name == "sliding_2d":
+        return cm.observe_position(sim, *cm.cube_observer(case, states[0])
+                                   ).tolist()
+    if name == "passive_cantilever_neohookean_3d":
+        return cm.observe_corner(sim, *cm.corner_observer(case, states[0])
+                                 ).tolist()
+    if name == "stretching_2d":
+        return float(sim.bar["HardeningParameter"].max())
+    if name == "muscle_solid_contact_3d":
+        return [cm.kinetic_energy(sim), float(sim.q)]
+    if name == "twisting_rigid_elastic_bar_3d":
+        return cm.observer_displacements(case, sim)[0].tolist()
+    return cm.midspan_displacement(case, sim)
+
+
+def a7e_phase(torch, results):
+    """Phase 17: the seven cases of the damping family (ROADMAP A item 4,
+    no hand kernel), each at its JAX default width and dtype: float32
+    against float64 on the card from the same state (the float32 cases),
+    then through the public entry points, its step by part; then the CG
+    solve against the CPU's."""
+    t0 = time.perf_counter()
+    for name in A7E_MAIN:
+        f32 = a7e_f32_check(torch, name) if name in A7E_F32 else None
+        a7e_case_path(torch, name, results)
+        results[f"_a7e_{name}"]["f32_vs_f64"] = f32
+    a7e_cg_check(torch, results)
+    log(f"a7e phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (ROOT / "sphinxsys_tpu_torch").is_dir():
@@ -4676,6 +5121,7 @@ def main() -> int:
     a7_phase(torch, results)
     a7bc_phase(torch, results)
     a7d_phase(torch, results)
+    a7e_phase(torch, results)
 
     kernels = []
     for tag, names in [*((t, c["kernels"]) for t, c in CONFIGS.items()),
@@ -4711,9 +5157,16 @@ def main() -> int:
                 "ob_t_pipe", "a7_play_simbody", "a7_tether",
                 *(f"a7_{name}" for name in A7_MAIN),
                 *(f"a7bc_{name}" for name in A7BC_MAIN),
-                *(f"a7d_{name}" for name in A7D_MAIN)):
+                *(f"a7d_{name}" for name in A7D_MAIN),
+                *(f"a7e_{name}" for name in A7E_MAIN), "a7e_cg"):
         main_paths[tag] = results[f"_{tag}"]
     log("main paths: " + json.dumps(main_paths))
+    lost = sorted({PROFILE_GUARD - p[4] for p in PROFILED})
+    log(f"profiler: {len(PROFILED)} profiled steps, "
+        f"{sum(not p[3] for p in PROFILED)} whose markers did not hold after "
+        f"3 attempts, {sum(p[2] > 1 for p in PROFILED)} profiled again; "
+        f"leading markers lost: {lost}; "
+        f"{[p for p in PROFILED if p[2] > 1 or p[4] < PROFILE_GUARD]}")
     log(f"all phases: {time.perf_counter() - t_start:.1f} s, the build "
         f"{build_s:.1f} s of it")
     print(smi, flush=True)

@@ -97,8 +97,10 @@ def _finite(*tensors) -> bool:
 
 
 def _record(case_name, s, wall, **kw) -> dict:
-    n = getattr(s, "n_adv", None) or s.n_steps
-    counts = {k: getattr(s, k) for k in ("n_adv", "n_ac", "n_steps")
+    n = (getattr(s, "n_adv", None) or getattr(s, "n_steps", None)
+         or s.n_macro)
+    counts = {k: getattr(s, k) for k in ("n_adv", "n_ac", "n_steps",
+                                         "n_macro", "n_sub")
               if hasattr(s, k)}
     return dict(case=case_name, t_reached=float(s.time), **counts,
                 overflow=bool(getattr(s, "overflow", False)), wall_s=wall,
@@ -462,23 +464,26 @@ RUNS = {"standing_wave": standing_wave,
         "anisotropic_beam": anisotropic_beam}
 
 
-def run_all(runs: dict, argv, default_out: str, description: str) -> int:
+def run_all(runs: dict, argv, default_out: str, description: str,
+            default_dtype: str = "float32") -> int:
     """The runs named by --cases (all of `runs` by default) on --device in
-    --dtype, each reported and written to --out as it ends; 1 if any
-    raised, overflowed or failed a gate."""
+    --dtype ("case": each case's own default, passed as None), each
+    reported and written to --out as it ends; 1 if any raised, overflowed
+    or failed a gate."""
     ap = argparse.ArgumentParser(description=description)
     ap.add_argument("--cases", default=",".join(runs))
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--dtype", default="float32")
+    ap.add_argument("--dtype", default=default_dtype)
     ap.add_argument("--out", default=default_out)
     a = ap.parse_args(argv)
     device = resolve_device(a.device)
     card = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
+    dtype = None if a.dtype == "case" else resolve_dtype(a.dtype)
     results, ok = {"device": card, "dtype": a.dtype}, True
     for name in a.cases.split(","):
         try:
-            res = runs[name](device, resolve_dtype(a.dtype))
+            res = runs[name](device, dtype)
         except Exception as exc:      # reported as a failed run, not hidden
             res = dict(error=repr(exc), gates={})
         results[name] = res

@@ -1,6 +1,8 @@
-"""State carried across from the JAX package: its state dicts, BlockSim
-arrays, neighbour lists, articulated trees, rigid bodies and case sims
-(the two-phase ones too), handed over as
+"""State carried across from the JAX package: its state dicts (the
+plastic and bar fields among them), BlockSim arrays, neighbour lists,
+articulated trees, rigid bodies and case sims (the two-phase ones, and
+the damping family's with their macro and sub-step counts, too), handed
+over as
 numpy, become the port's CPU tensors, and back.  The parity tests use
 these to feed both sides identical inputs."""
 
@@ -57,30 +59,33 @@ def rigid_from_numpy(body):
     return cls(**{k: _tensor(v) for k, v in body._asdict().items()})
 
 
-_COUNTS = ("n_adv", "n_ac", "n_s", "n_steps")
+_COUNTS = ("n_adv", "n_ac", "n_s", "n_steps", "n_macro", "n_sub")
 
 
 def sim_from_numpy(cls, sim):
-    """A case's sim (any object with the port sim dataclass `cls`'s field
-    names as attributes, numpy leaves) -> `cls`: its state dicts through
+    """A case's sim (any object with the port sim class `cls`'s field
+    names as attributes, numpy leaves; `cls` a dataclass or a named
+    tuple) -> `cls`: its state dicts through
     `state_from_numpy`, its neighbour lists through
     `neighbor_list_from_numpy`, its rigid bodies and pin joints through
     `rigid_from_numpy`, its step counts as ints (0 where the sim has
     none), its other arrays as tensors."""
+    names = ([f.name for f in dataclasses.fields(cls)]
+             if dataclasses.is_dataclass(cls) else cls._fields)
     out = {}
-    for f in dataclasses.fields(cls):
-        v = getattr(sim, f.name, None)
-        if f.name in _COUNTS:
-            out[f.name] = 0 if v is None else int(np.asarray(v))
+    for name in names:
+        v = getattr(sim, name, None)
+        if name in _COUNTS:
+            out[name] = 0 if v is None else int(np.asarray(v))
         elif isinstance(v, dict):
-            out[f.name] = state_from_numpy({k: np.asarray(x)
-                                            for k, x in v.items()})
+            out[name] = state_from_numpy({k: np.asarray(x)
+                                          for k, x in v.items()})
         elif hasattr(v, "idx") and hasattr(v, "count"):
-            out[f.name] = neighbor_list_from_numpy(v)
+            out[name] = neighbor_list_from_numpy(v)
         elif hasattr(v, "_asdict"):
-            out[f.name] = rigid_from_numpy(v)
+            out[name] = rigid_from_numpy(v)
         else:
-            out[f.name] = _tensor(v)
+            out[name] = _tensor(v)
     return cls(**out)
 
 

@@ -1,7 +1,8 @@
 """Materials (counterpart of sphinxsys_tpu/core/materials.py): the
 weakly-compressible fluid, the linear, Neo-Hookean and St.
 Venant-Kirchhoff elastic solids with their Cauchy stresses, and the
-Holzapfel-Ogden muscle.  Determinants, inverses and products of the
+Holzapfel-Ogden muscle, and the J2-plastic solids with linear and
+saturation hardening.  Determinants, inverses and products of the
 per-particle matrices are the closed forms of core/linalg.py."""
 
 from __future__ import annotations
@@ -70,6 +71,17 @@ class ElasticSolid:
     def shear_wave_speed(self) -> float:
         """cs0 = sqrt(G/rho0) (elastic_solid.cpp setSoundSpeeds)."""
         return math.sqrt(self.shear_modulus / self.rho0)
+
+    def stress_PK2(self, F):
+        """Second Piola-Kirchhoff stress of (..., d, d) deformation
+        gradients: linear elasticity on the Green-Lagrange strain,
+        S = lambda tr(E) I + 2 G E, E = (F^T F - I)/2."""
+        dim = F.shape[-1]
+        eye = torch.eye(dim, dtype=F.dtype, device=F.device)
+        E = 0.5 * (mm(F.transpose(-1, -2), F) - eye)
+        tr = torch.diagonal(E, dim1=-2, dim2=-1).sum(-1)
+        return self.lambda0 * tr[..., None, None] * eye \
+            + 2.0 * self.shear_modulus * E
 
     def volumetric_kirchhoff(self, J):
         """Volumetric Kirchhoff stress scalar of the decomposed shear /
@@ -183,15 +195,127 @@ class NeoHookeanSolid(ElasticSolid):
 
 @dataclasses.dataclass(frozen=True)
 class SaintVenantKirchhoffSolid(ElasticSolid):
-    """St. Venant-Kirchhoff: S = lambda tr(E) I + 2 G E (finite strain)."""
+    """St. Venant-Kirchhoff: S = lambda tr(E) I + 2 G E (finite strain),
+    the base class's stress_PK2."""
 
-    def stress_PK2(self, F):
-        """Second Piola-Kirchhoff stress of (..., d, d) deformation
-        gradients: linear elasticity on the Green-Lagrange strain,
-        S = lambda tr(E) I + 2 G E, E = (F^T F - I)/2."""
+
+def _tr(M):
+    return torch.diagonal(M, dim1=-2, dim2=-1).sum(-1)
+
+
+def _frobenius(M):
+    return torch.sqrt(torch.sum(M * M, dim=(-2, -1)))
+
+
+@dataclasses.dataclass(frozen=True)
+class HardeningPlasticSolid(ElasticSolid):
+    """J2 plasticity with linear isotropic hardening by radial return on
+    the normalised elastic left Cauchy-Green tensor (inelastic_solid.h:
+    60-100, inelastic_solid.cpp:31-54).  Each particle carries its plastic
+    state (InversePlasticStrain (.., d, d), HardeningParameter (..,))
+    through `elastic_left_cauchy`."""
+
+    yield_stress: float = 1.0
+    hardening_modulus: float = 0.0
+
+    def initial_plastic_state(self, n: int, dim: int, dtype, device):
+        """(InversePlasticStrain = I, HardeningParameter = 0) of n rows."""
+        eye = torch.eye(dim, dtype=dtype, device=device).expand(n, dim, dim)
+        return eye.contiguous(), torch.zeros((n,), dtype=dtype, device=device)
+
+    def _trial(self, be):
+        """The trial state of be: (be det(be)^(-1/d), tr/d, the deviatoric
+        Kirchhoff stress G dev, its Frobenius norm)."""
+        dim = be.shape[-1]
+        nbe = be * (det(be) ** (-1.0 / dim))[..., None, None]
+        iso = _tr(nbe) / dim
+        eye = torch.eye(dim, dtype=be.dtype, device=be.device)
+        dev_kirchhoff = self.shear_modulus * (nbe - iso[..., None, None] * eye)
+        return nbe, iso, dev_kirchhoff, _frobenius(dev_kirchhoff)
+
+    def _flow_stress(self, kappa):
+        return self.hardening_modulus * kappa + self.yield_stress
+
+    def _return(self, F_inv, dev_k, dk_norm, iso, nbe, Gr, relax, yielded):
+        """The relaxed state of a return increment: (normalised be, the new
+        inverse plastic strain F^-1 be F^-T)."""
+        dim = nbe.shape[-1]
+        eye = torch.eye(dim, dtype=nbe.dtype, device=nbe.device)
+        dev_relaxed = dev_k - (2.0 * Gr * relax
+                               / torch.clamp(dk_norm, min=1e-15)
+                               )[..., None, None] * dev_k
+        relaxed_be = dev_relaxed / self.shear_modulus \
+            + iso[..., None, None] * eye
+        nbe_new = relaxed_be * (det(relaxed_be)
+                                ** (-1.0 / dim))[..., None, None]
+        nbe_out = torch.where(yielded[..., None, None], nbe_new, nbe)
+        return nbe_out, mm(mm(F_inv, nbe_out), F_inv.transpose(-1, -2))
+
+    def elastic_left_cauchy(self, F, inv_plastic_strain, kappa):
+        """The radial-return update: (normalised be, inverse plastic
+        strain, hardening parameter) after the step."""
+        sqrt23 = math.sqrt(2.0 / 3.0)
+        be = mm(mm(F, inv_plastic_strain), F.transpose(-1, -2))
+        nbe, iso, dev_k, dk_norm = self._trial(be)
+        trial = dk_norm - sqrt23 * self._flow_stress(kappa)
+        Gr = iso * self.shear_modulus
+        relax = torch.clamp(trial, min=0.0) * 0.5 \
+            / (Gr + self.hardening_modulus / 3.0)
+        yielded = trial > 0.0
+        nbe_out, inv_ps = self._return(inv(F), dev_k, dk_norm, iso, nbe, Gr,
+                                       relax, yielded)
+        return nbe_out, inv_ps, torch.where(yielded, kappa + sqrt23 * relax,
+                                            kappa)
+
+    def kirchhoff_stress(self, normalized_be, J):
+        """tau = G dev(be_n) + K J (J - 1) I (DeviatoricKirchhoff +
+        LinearElasticSolid::VolumetricKirchhoff)."""
+        dim = normalized_be.shape[-1]
+        eye = torch.eye(dim, dtype=normalized_be.dtype,
+                        device=normalized_be.device)
+        iso = _tr(normalized_be) / dim
+        dev = self.shear_modulus * (normalized_be - iso[..., None, None] * eye)
+        return dev + (self.bulk_modulus * J * (J - 1.0))[..., None, None] * eye
+
+
+@dataclasses.dataclass(frozen=True)
+class NonLinearHardeningPlasticSolid(HardeningPlasticSolid):
+    """Saturation hardening (inelastic_solid.h:103-136,
+    inelastic_solid.cpp:56-80): the flow stress
+      sigma_y(k) = H k + sigma_0 + (sigma_inf - sigma_0)(1 - e^(-n k)),
+    the return increment by eight fixed Newton iterations."""
+
+    saturation_flow_stress: float = 1.0
+    saturation_exponent: float = 1.0
+
+    def _flow_stress(self, kappa):
+        return (self.hardening_modulus * kappa + self.yield_stress
+                + (self.saturation_flow_stress - self.yield_stress)
+                * (1.0 - torch.exp(-self.saturation_exponent * kappa)))
+
+    def _flow_stress_derivative(self, kappa):
+        return (self.hardening_modulus + self.saturation_exponent
+                * (self.saturation_flow_stress - self.yield_stress)
+                * torch.exp(-self.saturation_exponent * kappa))
+
+    def elastic_left_cauchy(self, F, inv_plastic_strain, kappa):
+        sqrt23 = math.sqrt(2.0 / 3.0)
         dim = F.shape[-1]
-        eye = torch.eye(dim, dtype=F.dtype, device=F.device)
-        E = 0.5 * (mm(F.transpose(-1, -2), F) - eye)
-        tr = torch.diagonal(E, dim1=-2, dim2=-1).sum(-1)
-        return self.lambda0 * tr[..., None, None] * eye \
-            + 2.0 * self.shear_modulus * E
+        nF = F * (det(F) ** (-1.0 / dim))[..., None, None]
+        be = mm(mm(nF, inv_plastic_strain), nF.transpose(-1, -2))
+        nbe, iso, dev_k, dk_norm = self._trial(be)
+        trial0 = dk_norm - sqrt23 * self._flow_stress(kappa)
+        Gr = iso * self.shear_modulus
+        relax = torch.zeros_like(kappa)
+        for _ in range(8):            # fixed Newton iterations
+            k_try = kappa + sqrt23 * relax
+            f = dk_norm - sqrt23 * self._flow_stress(k_try) - 2.0 * Gr * relax
+            df = -2.0 * Gr * (1.0 + self._flow_stress_derivative(k_try)
+                              / (3.0 * Gr))
+            relax = relax - f / df
+        relax = torch.clamp(relax, min=0.0)
+        yielded = trial0 > 0.0
+        nbe_out, inv_ps = self._return(inv(nF), dev_k, dk_norm, iso, nbe, Gr,
+                                       relax, yielded)
+        return nbe_out, inv_ps, torch.where(yielded, kappa + sqrt23 * relax,
+                                            kappa)

@@ -229,6 +229,67 @@ def decomposed_integration_1st_half(solid: State, rp: ReferencePairs,
     return out
 
 
+def decomposed_plastic_integration_1st_half(solid: State, rp: ReferencePairs,
+                                            material, dt,
+                                            smoothing_length: float) -> State:
+    """DecomposedPlasticIntegration1stHalf (inelastic_dynamics.cpp:16-33):
+    the volumetric-deviatoric decomposition of a J2-plastic solid.  The
+    radial return updates each particle's InversePlasticStrain and
+    HardeningParameter and gives the normalised elastic left Cauchy-Green
+    tensor be; then
+      scaling_i = be_i F_i^-T,
+      S_i       = F_i^-T [VolK(J) - G tr(be)/d] + 0.125 damping F_i^-T,
+      e_diff    = 0.5 (F_i^-1 + F_j^-1) (x_i - x_j)/r0_ij - e0_ij,
+      limiter   = min(10 max(|e_diff| - 0.05, 0), 1),
+      shear_ij  = G (scaling_i + scaling_j) (e0_ij + limiter e_diff),
+      F_i       = m_i/rho0 sum_j [(S_i + S_j) e0_ij + shear_ij] dW0 V_j."""
+    out = dict(solid)
+    dim = solid["Position"].shape[1]
+    rho0 = material.rho0
+    G = material.shear_modulus
+
+    pos = solid["Position"] + solid["Velocity"] * (0.5 * dt)
+    F = solid["DeformationGradient"] + solid["DeformationRate"] * (0.5 * dt)
+    dF = solid["DeformationRate"]
+    J = det(F)
+    nbe, inv_ps, kappa = material.elastic_left_cauchy(
+        F, solid["InversePlasticStrain"], solid["HardeningParameter"])
+    invF = inv(F)
+    invFT = invF.transpose(-1, -2)
+    scaling = mm(nbe, invFT)
+    iso = G * torch.diagonal(nbe, dim1=-2, dim2=-1).sum(-1) / dim
+    sr = 0.5 * (mm(dF, F.transpose(-1, -2)) + mm(F, dF.transpose(-1, -2)))
+    diag = torch.eye(dim, dtype=F.dtype, device=F.device) * sr
+    damp = 0.5 * rho0 * (material.shear_wave_speed * (sr - diag)
+                         + material.sound_speed * diag) * smoothing_length
+    S = ((material.volumetric_kirchhoff(J) - iso)[:, None, None] * invFT
+         + mm(0.125 * damp, invFT))
+
+    vol_j, _ = gather(solid["VolumetricMeasure"], rp.idx)
+    S_j, _ = gather(S, rp.idx)
+    scal_j, _ = gather(scaling, rp.idx)
+    invF_j, _ = gather(invF, rp.idx)
+    pos_j, _ = gather(pos, rp.idx)
+    pair_invF = 0.5 * (invF[:, None] + invF_j)
+    e_diff = mv(pair_invF, pos[:, None, :] - pos_j) \
+        / (rp.r + TINY)[..., None] - rp.e
+    e_norm = torch.linalg.vector_norm(e_diff, dim=-1)
+    limiter = torch.clamp(10.0 * torch.clamp(e_norm - 0.05, min=0.0),
+                          max=1.0)
+    shear = G * mv(scaling[:, None] + scal_j,
+                   rp.e + limiter[..., None] * e_diff)
+    pair = mv(S[:, None] + S_j, rp.e) + shear
+    coeff = (rp.dW * vol_j * rp.mask)[..., None]
+    force = (solid["Mass"] / rho0)[:, None] * torch.sum(pair * coeff, dim=1)
+
+    vel = solid["Velocity"] + (solid["ForcePrior"] + force) \
+        / solid["Mass"][:, None] * dt
+    out.update({"Position": pos, "DeformationGradient": F,
+                "Density": rho0 / J, "Force": force, "Velocity": vel,
+                "InversePlasticStrain": inv_ps, "HardeningParameter": kappa})
+    return out
+
+
 def integration_2nd_half(solid: State, rp: ReferencePairs, dt) -> State:
     """Integration2ndHalf: x to the full step, dF/dt from the velocity
     differences, F to the full step."""
@@ -244,6 +305,45 @@ def integration_2nd_half(solid: State, rp: ReferencePairs, dt) -> State:
     out.update({"Position": pos, "DeformationRate": dF_dt,
                 "DeformationGradient": F})
     return out
+
+
+def deformation_gradient_by_summation(solid: State,
+                                      rp: ReferencePairs) -> State:
+    """F_i = [-sum_j (x_i - x_j) outer gradW_ij V_j] B_i
+    (elastic_dynamics.h:107-122)."""
+    out = dict(solid)
+    pos = solid["Position"]
+    vol_j, _ = gather(solid["VolumetricMeasure"], rp.idx)
+    pos_j, _ = gather(pos, rp.idx)
+    grad = (rp.dW * vol_j * rp.mask)[..., None] * rp.e
+    out["DeformationGradient"] = mm(-outer_sum(pos[:, None, :] - pos_j, grad),
+                                    solid["LinearGradientCorrectionMatrix"])
+    return out
+
+
+def _von_mises(M, factor: float):
+    """sqrt(factor |dev M|^2) of (..., d, d) stacks."""
+    dim = M.shape[-1]
+    eye = torch.eye(dim, dtype=M.dtype, device=M.device)
+    tr = torch.diagonal(M, dim1=-2, dim2=-1).sum(-1) / dim
+    dev = M - tr[..., None, None] * eye
+    return torch.sqrt(factor * torch.sum(dev * dev, dim=(-2, -1)))
+
+
+def von_mises_stress(solid: State, material) -> torch.Tensor:
+    """The von Mises equivalent of the Cauchy stress F S F^T / J
+    (solid_dynamics_variable)."""
+    F = solid["DeformationGradient"]
+    sigma = mm(mm(F, material.stress_PK2(F)), F.transpose(-1, -2)) \
+        / det(F)[..., None, None]
+    return _von_mises(sigma, 1.5)
+
+
+def von_mises_strain(solid: State) -> torch.Tensor:
+    """The von Mises equivalent of the Green-Lagrange strain."""
+    F = solid["DeformationGradient"]
+    eye = torch.eye(F.shape[-1], dtype=F.dtype, device=F.device)
+    return _von_mises(0.5 * (mm(F.transpose(-1, -2), F) - eye), 2.0 / 3.0)
 
 
 # ---------------------------------------------------------------------------

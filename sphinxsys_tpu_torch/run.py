@@ -14,6 +14,7 @@ overrides (--set dx=0.05 --set t_end=2).
     python -m sphinxsys_tpu_torch.run muscle_activation_3d --set dx=0.1
     python -m sphinxsys_tpu_torch.run square_droplet_2d --set dx=0.08
     python -m sphinxsys_tpu_torch.run floating_body_2d --set dx=0.05
+    python -m sphinxsys_tpu_torch.run collision_2d --set dx=0.1 --set t_end=0.1
 
 The VTP writer writes a body's first NReal rows, as the JAX package's
 does: for an open-boundary fluid these include dead slots parked at
@@ -217,6 +218,28 @@ CASES = {
         "nonlinear_wave_fsi_2d",
         lambda c, s: {"WaterBody": s.fluid, "Structure": s.block,
                       "Wall": s.wall}, t_end=20.0),
+    "slender_beam_3d": _run_single_fluid(
+        "slender_beam_3d", lambda c, s: {"BarBody": s.bar}, t_end=0.8),
+    "sliding_2d": _run_single_fluid(
+        "sliding_2d",
+        lambda c, s: {"FreeCube": s.cube, "WallBoundary": c.wall}, t_end=2.5),
+    "collision_2d": _run_single_fluid(
+        "collision_2d",
+        lambda c, s: {"FreeBall": s.free_ball, "DampingBall": s.damping_ball,
+                      "WallBoundary": c.wall}, t_end=10.0),
+    "passive_cantilever_neohookean_3d": _run_single_fluid(
+        "passive_cantilever_neohookean_3d",
+        lambda c, s: {"CantileverBody": s.body}, t_end=1.0),
+    "stretching_2d": _run_single_fluid(
+        "stretching_2d", lambda c, s: {"StretchingBody": s.bar},
+        t_end=100.0),
+    "muscle_solid_contact_3d": _run_single_fluid(
+        "muscle_solid_contact_3d",
+        lambda c, s: {"MyocardiumBody": s.myo, "MovingPlate": s.plate},
+        t_end=0.1),
+    "twisting_rigid_elastic_bar_3d": _run_single_fluid(
+        "twisting_rigid_elastic_bar_3d", lambda c, s: {"Bar": s.bar},
+        t_end=5.0),
     "dambreak_2d_block": _run_block(
         "dambreak_2d", lambda sc_, s: {"Wall": sc_.base.wall}, t_end=20.0),
     "dambreak_3d_block": _run_block("dambreak_3d", t_end=6.0),

@@ -142,7 +142,7 @@ def chunk_runner(advection_step: Callable):
 
 
 # the step counters a sim may carry, printed by run_simulation
-_COUNTS = ("n_adv", "n_ac", "n_s", "n_steps")
+_COUNTS = ("n_adv", "n_ac", "n_s", "n_steps", "n_macro", "n_sub")
 
 
 def run_simulation(run_chunk, sim, end_time: float, output_interval: float,

@@ -93,7 +93,20 @@ def test_port_has_modules():
                  "sphinxsys_tpu_torch/core/kernels.py",
                  "sphinxsys_tpu_torch/core/materials.py",
                  "sphinxsys_tpu_torch/core/linalg.py",
-                 "sphinxsys_tpu_torch/benchmarks/a7bc_long.py"):
+                 "sphinxsys_tpu_torch/benchmarks/a7bc_long.py",
+                 "sphinxsys_tpu_torch/physics/dissipation.py",
+                 "sphinxsys_tpu_torch/physics/bar.py",
+                 "sphinxsys_tpu_torch/physics/shell.py",
+                 "sphinxsys_tpu_torch/physics/solid.py",
+                 "sphinxsys_tpu_torch/cases/collision_2d.py",
+                 "sphinxsys_tpu_torch/cases/sliding_2d.py",
+                 "sphinxsys_tpu_torch/cases/passive_cantilever_neohookean_3d.py",
+                 "sphinxsys_tpu_torch/cases/stretching_2d.py",
+                 "sphinxsys_tpu_torch/cases/muscle_solid_contact_3d.py",
+                 "sphinxsys_tpu_torch/cases/twisting_rigid_elastic_bar_3d.py",
+                 "sphinxsys_tpu_torch/cases/slender_beam_3d.py",
+                 "sphinxsys_tpu_torch/benchmarks/a7e_damping_long.py",
+                 "sphinxsys_tpu_torch/benchmarks/profiler_check.py"):
         assert must in names
 
 

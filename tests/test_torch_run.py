@@ -143,7 +143,10 @@ def test_cli_lists_cases(capsys):
                  "anisotropic_beam_2d", "two_phase_dambreak_2d",
                  "square_droplet_2d", "droplet_impact_2d",
                  "cubic_droplet_3d", "floating_body_2d", "stfb_2d",
-                 "owsc_2d", "nonlinear_wave_fsi_2d"):
+                 "owsc_2d", "nonlinear_wave_fsi_2d", "collision_2d",
+                 "sliding_2d", "passive_cantilever_neohookean_3d",
+                 "stretching_2d", "muscle_solid_contact_3d",
+                 "twisting_rigid_elastic_bar_3d", "slender_beam_3d"):
         assert case in out
 
 
@@ -151,7 +154,7 @@ def test_cli_cases_are_jax_entries():
     """Every entry is one of the JAX runner's, named alike; the ports of
     its other cases are listed in ROADMAP.md."""
     assert set(trun.CASES) <= set(jrun.CASES)
-    assert len(trun.CASES) == 37
+    assert len(trun.CASES) == 44
 
 
 @pytest.mark.parametrize("case", ["nope", "lid_driven_cavity_2d"])
