@@ -52,6 +52,12 @@ cell-block engine — at full size:
     2,744 + 24,256), the floating block (1,250 + 50), stfb (2,120 + 400),
     OWSC (10,013 + a 67-particle flap) and the moored structure in the
     focused wave (16,865 + 400), on neighbour lists and torch ops.
+  * the continuum family (ROADMAP A item 4, third family) at its JAX
+    default widths: the granular column collapse (5,000 soil + 2,664
+    wall), the cohesive soil (1,250 + 808), the 3D repose pile (3,140 +
+    43,080), the updated-Lagrangian beam (1,612), the spinning plate
+    (400) and the J2 Taylor bar (32,256 + a 20,736-particle holder), on
+    neighbour lists and torch ops.
 
 Phases:
 
@@ -149,9 +155,10 @@ Phases:
      route against the block route's kernels on the scenes of
      tests/test_scene_engines.py (equal counts, positions within 2e-3 of
      max|x|); Taylor–Green at dx=0.01 to t=0.1 against the analytic
-     decay; the 2D dambreak at dx=0.0025 (5 advection steps, the Morton
-     resort every 2nd) and the 3D one at dx=0.01 (the case's capacities,
-     2 steps) through solver.run_simulation, the block kernels' launch
+     decay; the 2D dambreak at dx=0.0025 (at least 4 advection steps, the
+     Morton resort every 2nd) and the 3D one at dx=0.01 (the case's
+     capacities, at least 1 step) through solver.run_simulation, the
+     block kernels' launch
      counts reset just before and read just after (the route launches
      none), no overflow, finite fields, energy drift < 1%, then the step
      by part (rebuild, density summation, acoustic sub-step, resort) with
@@ -159,7 +166,7 @@ Phases:
      profiled alone (its device time and launches: the pair sums against
      the rebuild) and the run's peak memory, beside phase 5's block-route
      figures; fsi2's gather route to t=0.1 against the CPU and to
-     FSI2_T_END, held to the JAX gather runs' count band and the tip
+     FSI2_GATHER_T_END, held to the JAX gather runs' count band and the tip
      envelope (`fsi2_gather_gates`), its step by part and profiled, and
      each part profiled alone;
  12. entry point and IO (last): the CLI as a subprocess at full width,
@@ -259,6 +266,19 @@ Phases:
      the card against the CPU on tests/test_dissipation.py's lattice
      (equal iteration counts, the difference within A7E_CG_TOL, no host
      read in the solve).
+ 18. the continuum family (last): the six cases of ROADMAP A item 4's
+     third family (the column collapse, the cohesive soil, the repose
+     pile, the UL beam, the spinning plate, the Taylor bar), each at its
+     JAX default width: built in float64 on the card and the same started
+     state cast to float32, A7F_F32's advection steps on each (equal
+     counts, the displacement x - x0 and the velocity within their
+     tolerances of their float64 max); then, float32, through build_case
+     -> init_sim -> make_run_chunk -> solver.run_simulation, every launch
+     count reset just before and read just after (no overflow, finite
+     fields, the case's observable printed), and one advection step and
+     its parts (the stress diffusion and the plastic halves; the
+     correction matrix and the hourglass halves) alone, each timed,
+     profiled, its host reads counted and its bound computed.
 
 Every kernel and plain-version time is taken by
 sphinxsys_tpu_torch.benchmarks.median_ms, the layout drivers' timer.  Its last two lines are a JSON object of per-kernel
@@ -363,9 +383,15 @@ FSI2_COUNT_BAND = 0.2
 # the 2D one resorted every 2nd advection step; the third oracle's scenes
 # (tests/test_scene_engines.py)
 GATHER_CONFIGS = {
-    "2d": dict(module="dambreak_2d", dx=0.0025, min_adv=5, sort_every=2),
-    "3d": dict(module="dambreak_3d", dx=0.01, min_adv=2, sort_every=None),
+    "2d": dict(module="dambreak_2d", dx=0.0025, min_adv=4, sort_every=2),
+    "3d": dict(module="dambreak_3d", dx=0.01, min_adv=1, sort_every=None),
 }
+# the gather step's parts: the timing repetitions of the advection step and
+# of each other part
+GATHER_REPS = (2, 3)
+# fsi2's gather route runs to here (phase 9's block route to FSI2_T_END),
+# held to the JAX gather runs' counts at their first sample past it
+FSI2_GATHER_T_END = 2.5
 GATHER_ORACLE_SCENES = (
     ("dambreak_2d", 0.1, 0.30, dict(cap=16)),
     ("dambreak_3d", 0.2, 0.20, dict(cap=48)),
@@ -2505,16 +2531,18 @@ def gather_main_path(torch, tag, cfg, results):
     step = db.make_advection_step(case)
     f = sim.fluid
     parts, peaks = {}, {}
+    reps_step, reps = GATHER_REPS
     timed = [
-        ("advection_step", lambda: step(sim), 3),
-        ("rebuild", lambda: db.rebuild_relations(case, f), 5),
+        ("advection_step", lambda: step(sim), reps_step),
+        ("rebuild", lambda: db.rebuild_relations(case, f), reps),
         ("density", lambda: fd.density_summation(
             f, sim.nl_inner, case.kernel, case.dim, db.RHO0_F,
             case.adaptation.sigma0,
-            contacts=[(case.wall, sim.nl_wall, db.RHO0_F)]), 5),
-        ("acoustic_substep", lambda: db.acoustic_substep(case, sim, f), 5)]
+            contacts=[(case.wall, sim.nl_wall, db.RHO0_F)]), reps),
+        ("acoustic_substep", lambda: db.acoustic_substep(case, sim, f),
+         reps)]
     if case.sort_every:
-        timed.append(("resort", lambda: morton_resort(f, case.grid), 5))
+        timed.append(("resort", lambda: morton_resort(f, case.grid), reps))
     for name, fn, reps in timed:
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
@@ -2627,16 +2655,19 @@ def gather_tg_decay(torch, results):
 
 
 def fsi2_gather_gates():
-    """What the card's fsi2 gather run to FSI2_T_END is held to: the
+    """What the card's fsi2 gather run to FSI2_GATHER_T_END is held to: the
     acoustic and solid sub-step counts within FSI2_COUNT_BAND of the JAX
-    package's float32 gather runs (x64 on: 815 / 1,629; off: 785 / 1,570),
-    outside the span of both widened by the band; the tip's excursion
-    within the largest of all four JAX float32 runs (`fsi2_gates`: the
-    start-up pulse, which each float32 run resolves its own way)."""
+    package's float32 gather runs at their first sample past that time
+    (x64 on and off), outside the span of both widened by the band; the
+    tip's excursion within the largest of all four JAX float32 runs
+    (`fsi2_gates`: the start-up pulse, which each float32 run resolves
+    its own way)."""
     runs = json.loads((ROOT / FSI2_JAX_RUNS).read_text())["runs"]
     gather = [r for r in runs if r["route"] == "gather"]
-    n_ac = [r["rows"][-1][2] for r in gather]
-    n_s = [r["rows"][-1][3] for r in gather]
+    rows = [next(row for row in r["rows"] if row[0] >= FSI2_GATHER_T_END)
+            for r in gather]
+    n_ac = [row[2] for row in rows]
+    n_s = [row[3] for row in rows]
     band = lambda ns: ((1 - FSI2_COUNT_BAND) * min(ns),
                        (1 + FSI2_COUNT_BAND) * max(ns))
     gather_tip = max(math.hypot(row[4], row[5]) for r in gather
@@ -2648,9 +2679,10 @@ def fsi2_gather_gates():
 def fsi2_gather_path(torch, results):
     """fsi2's gather route on the card: to FSI2_SHORT against the same run
     on the CPU (float32: equal counts, the fluid's positions within
-    FSI2_SHORT_TOL); then to FSI2_T_END through build_case -> init_sim ->
-    make_run_chunk, the tip sampled every FSI2_SAMPLE and the host reads of
-    device values counted, held to `fsi2_gather_gates`; its step by part,
+    FSI2_SHORT_TOL); then to FSI2_GATHER_T_END through build_case ->
+    init_sim -> make_run_chunk, the tip sampled every FSI2_SAMPLE and the
+    host reads of device values counted, held to `fsi2_gather_gates`; its
+    step by part,
     one profiled step, and each part (the couplings over the insert's
     list among them) profiled alone."""
     from sphinxsys_tpu_torch.cases import fsi2 as fc
@@ -2684,7 +2716,7 @@ def fsi2_gather_path(torch, results):
     bs.reset_launch_counts()
     t1 = time.perf_counter()
     with SyncCounter(torch) as syncs:
-        while float(sim.time) < FSI2_T_END:
+        while float(sim.time) < FSI2_GATHER_T_END:
             samples += 1
             sim = run(sim, samples * FSI2_SAMPLE)
             d = fc.observe_tip(sim.solid, idx, w) - tip0
@@ -2776,7 +2808,7 @@ def gather_phase(torch, results):
     on the card: small references against the CPU, the third oracle
     against the block route's kernels, the 2D and 3D dambreaks at full
     width (the 2D one with the Morton resort), Taylor–Green's decay, and
-    fsi2 to FSI2_T_END."""
+    fsi2 to FSI2_GATHER_T_END."""
     t0 = time.perf_counter()
     gather_small_reference(torch, "dambreak_2d", 0.1, 0.08)
     gather_small_reference(torch, "taylor_green_2d", 0.05, 0.08)
@@ -5054,6 +5086,312 @@ def a7e_phase(torch, results):
     log(f"a7e phase: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the continuum family (ROADMAP A item 4, third family: the
+# Drucker-Prager soils and the updated-Lagrangian solids on neighbour
+# lists, torch ops)
+# ---------------------------------------------------------------------------
+
+# case -> (the main path's end time, its output interval), each at its JAX
+# default width, float32
+A7F_MAIN = {
+    "column_collapse_2d": (0.0025, 0.00125),
+    "cohesive_soil_failure_2d": (0.02, 0.01),
+    "repose_angle_3d": (0.004, 0.002),
+    "oscillating_beam_ul_2d": (3e-4, 1.5e-4),
+    "spinning_plate_2d": (0.0012, 0.0006),
+    "taylor_bar_ul_3d": (6e-7, 3e-7),
+}
+A7F_BODY = {"oscillating_beam_ul_2d": "beam", "spinning_plate_2d": "plate",
+            "taylor_bar_ul_3d": "column"}
+A7F_SOILS = ("column_collapse_2d", "cohesive_soil_failure_2d",
+             "repose_angle_3d")
+# float32 against float64 from the same built state: case -> (advection
+# steps, tolerance of the displacement x - x0, tolerance of the velocity),
+# each a share of the float64 run's max (the form of A7E_F32).  Each
+# tolerance is ten times the larger reading of this check on the CPU
+# (DEVICE = "cpu") and on an H100, rounded up to one significant digit.
+# The plastic cases' readings are those of the yield branch's float32
+# roundoff (tests/test_torch_continuum_cases.py: a particle left on the
+# yield surface takes either branch at roundoff).
+A7F_F32 = {
+    "column_collapse_2d": (6, 2e-1, 1e-2),
+    "cohesive_soil_failure_2d": (4, 1e-1, 6e-1),
+    "repose_angle_3d": (2, 2e-1, 3e-2),
+    "oscillating_beam_ul_2d": (10, 5e-4, 5e-5),
+    "spinning_plate_2d": (6, 2e-4, 4e-5),
+    "taylor_bar_ul_3d": (3, 4e-1, 6e-1),
+}
+A7F_F32_SEEN = 100.0
+# the pair operations of the parts whose bound counts them: the stress
+# diffusion's jump of a 3 x 3 stress less its geostatic part (~30 past
+# the pair geometry); a plastic first half's stress force (the (d, d)
+# pair stress over rho_i rho_j, times grad W) and pressure dissipation,
+# and its wall terms (~50 in 2D); a plastic second half's velocity jumps,
+# dissipation and the velocity gradient's outer product (~45); an
+# hourglass first half's B e and velocity-gradient outer product (~40);
+# its second half's shear acceleration, the predicted pair velocity and
+# the penalty (~60)
+LIST_PAIR_FLOPS.update({"stress_diffusion": 50, "dp_1st_half": 50,
+                        "dp_2nd_half": 45, "hourglass_1st_half": 40,
+                        "hourglass_2nd_half": 60})
+
+
+def a7f_f32_check(torch, name):
+    """The case at its default width built in float64 on the card, started
+    (init_sim), and the same state cast to float32: A7F_F32's advection
+    steps on each, equal counts, the body's displacement x - x0 and
+    velocity within their tolerances of their float64 max, the
+    displacement at least A7F_F32_SEEN times float32's rounding of the
+    positions.  Returns the errors."""
+    cm = importlib.import_module(f"sphinxsys_tpu_torch.cases.{name}")
+    n, tol_d, tol_v = A7F_F32[name]
+    case64, body0 = cm.build_case(dtype=torch.float64, device=DEVICE)
+    s64 = cm.init_sim(case64, body0)
+    case32, s32 = cast_tree(torch, case64, torch.float32), \
+        cast_tree(torch, s64, torch.float32)
+    body = A7F_BODY.get(name, "soil")
+    runs, x0 = [], []
+    for case, s in ((case64, s64), (case32, s32)):
+        x0.append(getattr(s, body)["Position"].double())
+        step = cm.make_advection_step(case)
+        for _ in range(n):
+            s = step(s)
+        runs.append(s)
+    s64, s32 = runs
+    counts = [tuple(getattr(s, k) for k in ("n_adv", "n_steps", "n_ac")
+                    if hasattr(s, k)) for s in runs]
+    b64, b32 = getattr(s64, body), getattr(s32, body)
+    for s, b in ((s64, b64), (s32, b32)):
+        check(not bool(s.overflow), f"a7f {name}: overflow")
+        for k in ("Position", "Velocity"):
+            check(bool(torch.isfinite(b[k]).all()),
+                  f"a7f {name}: non-finite {k}")
+    d64 = b64["Position"] - x0[0]
+    d32 = b32["Position"].double() - x0[1]
+    errs = {"displacement": (d32 - d64, d64, tol_d),
+            "velocity": (b32["Velocity"].double() - b64["Velocity"],
+                         b64["Velocity"], tol_v)}
+    errs = {k: (float(e.abs().max()), float(r.abs().max()), tol)
+            for k, (e, r, tol) in errs.items()}
+    rounding = n * 2.0 ** -24 * float(x0[0].abs().max())
+    seen = errs["displacement"][1] / rounding
+    log(f"a7f {name} float32 against float64 on the card (the same built "
+        f"state, {n} advection steps): counts float64 {counts[0]}, float32 "
+        f"{counts[1]}; max |d| / max, tolerance "
+        + ", ".join(f"{k} {e:.3e} / {m:.3e} = {e / m:.3e}, {tol:g}"
+                    for k, (e, m, tol) in errs.items())
+        + f"; displacement {seen:.1f} x float32's position rounding "
+        f"(at least {A7F_F32_SEEN:g})")
+    check(counts[0][0] == counts[1][0], f"a7f {name}: float32 advection "
+          f"steps {counts[1]} != float64 {counts[0]}")
+    check(seen >= A7F_F32_SEEN, f"a7f {name}: after {n} steps the "
+          f"displacement {errs['displacement'][1]:.3e} is only {seen:.1f} x "
+          f"float32's position rounding {rounding:.3e}")
+    for k, (e, m, tol) in errs.items():
+        check(e <= tol * m, f"a7f {name}: float32 {k} off float64 by "
+              f"{e:.3e} (max {m:.3e}, tolerance {tol:g})")
+    del case64, case32, s64, s32, runs, b64, b32, d64, d32
+    return dict(counts=counts, **{k: e for k, (e, _, _) in errs.items()})
+
+
+def a7f_parts(torch, name, case, sim):
+    """A step's parts alone on the main path's end state: the stress
+    diffusion and the plastic halves (the soils), the correction matrix
+    and the hourglass halves (the UL solids)."""
+    from sphinxsys_tpu_torch.cases import oscillating_beam_ul_2d as ob
+    from sphinxsys_tpu_torch.physics import continuum as cn
+    from sphinxsys_tpu_torch.physics import fluid as fd
+
+    kernel, dim, h, m = case.kernel, case.dim, case.adaptation.h, \
+        case.material
+    if name in A7F_SOILS:
+        so = sim.soil
+        dt_adv = fd.advection_time_step(so, h, case.u_ref)
+        dt = torch.minimum(fd.acoustic_time_step(so, m, h, cfl=0.4), dt_adv)
+        wall = dict(wall=case.wall, nl_wall=sim.nl_wall)
+        so1 = cn.plastic_integration_1st_half(so, sim.nl_inner, kernel, dim,
+                                              m, case.riemann, dt, **wall)
+        return {
+            "stress_diffusion": lambda: cn.stress_diffusion(
+                so, sim.nl_inner, kernel, dim, m, h),
+            "dp_1st_half": lambda: cn.plastic_integration_1st_half(
+                so, sim.nl_inner, kernel, dim, m, case.riemann, dt, **wall),
+            "dp_2nd_half": lambda: cn.plastic_integration_2nd_half(
+                so1, sim.nl_inner, kernel, dim, m, case.riemann, dt,
+                **wall)}
+    body = getattr(sim, A7F_BODY[name])
+    nl = ob.inner_relation(case, body)
+    dt = fd.acoustic_time_step(body, case.eos, h, cfl=0.4)
+    plasticity = m if name == "taylor_bar_ul_3d" else None
+    b1 = cn.shear_stress_hourglass_1st_half(body, nl, kernel, dim, m, dt,
+                                            plasticity=plasticity)
+    return {"correction_matrix": lambda: cn.correction_matrix_current(
+                body, nl, kernel, dim),
+            "hourglass_1st_half": lambda: cn.shear_stress_hourglass_1st_half(
+                body, nl, kernel, dim, m, dt, plasticity=plasticity),
+            "hourglass_2nd_half": lambda:
+                cn.shear_acceleration_hourglass_2nd_half(b1, nl, kernel, dim,
+                                                         m, dt)}
+
+
+def a7f_bounds(torch, name, cm, case, sim):
+    """Each profiled part's least time from this run's lists and fields
+    (`list_bound`): a soil sub-step is its stress diffusion and both
+    plastic halves, its advection step the density summation (and the
+    cohesive soil's indication and transport correction) plus its mean
+    sub-steps; a UL sub-step is both fluid halves and both hourglass
+    halves (and the bar's wall contact), its advection step the
+    correction matrix plus its mean sub-steps."""
+    from sphinxsys_tpu_torch.cases import oscillating_beam_ul_2d as ob
+
+    per_ac = sim.n_ac / (sim.n_adv if name in A7F_SOILS else sim.n_steps)
+    if name in A7F_SOILS:
+        so = sim.soil
+        lists = [sim.nl_inner, sim.nl_wall]
+        wall = fields(case.wall, *WALL_READS)
+        stress = fields(so, "StressTensor3D", "StressRate3D",
+                        "StrainTensor3D", "VelocityGradient3D")
+        sd = list_bound(torch, "stress_diffusion", [sim.nl_inner],
+                        fields(so, "Position", "ForcePrior", "Mass",
+                               "VolumetricMeasure", "StressTensor3D"),
+                        fields(so, "StressRate3D"))
+        first = list_bound(torch, "dp_1st_half", lists,
+                           fields(so, *FLUID_AC_READS, "StressTensor3D")
+                           + wall, fields(so, *FLUID_AC_WRITES))
+        second = list_bound(torch, "dp_2nd_half", lists,
+                            fields(so, *FLUID_AC_READS) + stress + wall,
+                            fields(so, "Position", "Density", "Force",
+                                   "DensityChangeRate", "VolumetricMeasure")
+                            + stress)
+        sub = (sd[0] + first[0] + second[0], first[1], first[2])
+        prep = list_bound(torch, "density", lists,
+                          fields(so, "Position", "Mass", "Density") + wall,
+                          fields(so, "DensitySummation", "Density"))
+        prep_ms = prep[0]
+        if name == "cohesive_soil_failure_2d":
+            prep_ms += list_bound(
+                torch, "surface_indication", lists,
+                fields(so, "Position", "VolumetricMeasure",
+                       "PreviousSurfaceIndicator"),
+                fields(so, "Indicator", "PositionDivergence"))[0] \
+                + list_bound(torch, "coupling", lists,
+                             fields(so, "Position", "VolumetricMeasure",
+                                    "Indicator", "PositionDivergence"),
+                             fields(so, "Position"))[0]
+        return {"advection_step": (prep_ms + per_ac * sub[0], sub[1],
+                                   prep[2] + round(per_ac * sub[2])),
+                "stress_diffusion": sd,
+                "dp_1st_half": first, "dp_2nd_half": second}
+    body = getattr(sim, A7F_BODY[name])
+    nl = ob.inner_relation(case, body)
+    ul = ("ShearStress", "StrainTensor", "VelocityGradient", "AccHourglass",
+          "AccShear", "LinearGradientCorrectionMatrix", "HardeningFactor",
+          "ScalePenaltyForce")
+    corr = list_bound(torch, "correction", [nl],
+                      fields(body, "Position", "VolumetricMeasure"),
+                      fields(body, "LinearGradientCorrectionMatrix"))
+    h1 = list_bound(torch, "hourglass_1st_half", [nl],
+                    fields(body, "Position", "Velocity", "VolumetricMeasure",
+                           *ul), fields(body, *ul))
+    h2 = list_bound(torch, "hourglass_2nd_half", [nl],
+                    fields(body, "Position", "Velocity", "VolumetricMeasure",
+                           "Density", *ul), fields(body, "AccHourglass",
+                                                   "AccShear"))
+    fluid = list_bound(torch, "acoustic_substep", [nl],
+                       fields(body, *FLUID_AC_READS, "AccShear"),
+                       fields(body, *FLUID_AC_WRITES))
+    sub_ms = fluid[0] + h1[0] + h2[0]
+    pairs = fluid[2]
+    if name == "taylor_bar_ul_3d":
+        contact = list_bound(torch, "contact", [cm.wall_relation(case, body)],
+                             fields(body, "Position", "Velocity")
+                             + fields(case.wall, "Position", "Velocity",
+                                      "VolumetricMeasure",
+                                      "NormalDirection"),
+                             fields(body, "ForcePrior"))
+        sub_ms += contact[0]
+        pairs += contact[2]
+    sub = (sub_ms, fluid[1], pairs)
+    return {"advection_step": (corr[0] + per_ac * sub[0], sub[1],
+                               corr[2] + round(per_ac * sub[2])),
+            "correction_matrix": corr,
+            "hourglass_1st_half": h1, "hourglass_2nd_half": h2}
+
+
+def a7f_observable(name, cm, case, sim, built):
+    if name == "repose_angle_3d":
+        return cm.mechanical_energy(case, sim)
+    if name in A7F_SOILS:
+        from sphinxsys_tpu_torch.physics import general as gd
+
+        return [float(gd.total_mechanical_energy(sim.soil, case.gravity)),
+                float(sim.soil["Position"][:case.n_soil, 0].max())]
+    if name == "oscillating_beam_ul_2d":
+        return [cm.kinetic_energy(sim),
+                cm.observe_tip(sim, *cm.tip_observer(case, built)).tolist()]
+    if name == "taylor_bar_ul_3d":
+        return [cm.kinetic_energy(sim), cm.mushroom_radius(case, sim)]
+    return cm.kinetic_energy(sim)
+
+
+def a7f_case_path(torch, name, results):
+    """A case at its JAX default width through build_case -> init_sim ->
+    make_run_chunk -> solver.run_simulation (A7F_MAIN's end time),
+    float32, every launch count reset just before and read just after:
+    no overflow, finite fields, the observable printed; then one advection
+    step and its parts alone (`ob_parts`: wall and device time, launches,
+    host reads, idle share, bound)."""
+    cm = importlib.import_module(f"sphinxsys_tpu_torch.cases.{name}")
+    t_end, sample = A7F_MAIN[name]
+    built = {}
+
+    def build():
+        case, body = cm.build_case(device=DEVICE)
+        built["body"] = body
+        return case, cm, cm.init_sim(case, body)
+
+    case, sim, rec = ob_main_run(torch, f"a7f {name}", build, t_end, sample)
+    check(not bool(sim.overflow), f"a7f {name}: overflow")
+    body = getattr(sim, A7F_BODY.get(name, "soil"))
+    for k in ("Position", "Velocity", "Density"):
+        check(bool(torch.isfinite(body[k]).all()),
+              f"a7f {name}: non-finite {k}")
+    counts = tuple(getattr(sim, k) for k in ("n_adv", "n_steps", "n_ac")
+                   if hasattr(sim, k))
+    obs = a7f_observable(name, cm, case, sim, built["body"])
+    n_rows = body["Position"].shape[0]
+    n_wall = case.wall["NReal"] if hasattr(case, "wall") else 0
+    log(f"a7f {name} main path: {n_rows} particles, {n_wall} wall; setup "
+        f"{rec['setup_s']:.2f} s; to t={float(sim.time):.7f} counts "
+        f"{counts}; observable {obs}; {rec['ms_per_adv']:.3f} ms an "
+        f"advection step (wall clock, mean), {rec['host_reads_per_adv']:.1f}"
+        f" host reads an advection step; peak device memory "
+        f"{rec['peak_gb']:.3f} GB")
+    fns = a7f_parts(torch, name, case, sim)
+    step = cm.make_advection_step(case)
+    parts = ob_parts(torch, f"a7f_{name}", fns, lambda: step(sim),
+                     a7f_bounds(torch, name, cm, case, sim), trace=False)
+    results[f"_a7f_{name}"] = dict(rec, counts=counts, observable=obs,
+                                   n_particles=n_rows, n_wall=n_wall,
+                                   parts=parts)
+    del case, sim, body, built, fns, step
+    torch.cuda.empty_cache()
+
+
+def a7f_phase(torch, results):
+    """Phase 18: the six cases of the continuum family (ROADMAP A item 4,
+    no hand kernel), each at its JAX default width: float32 against
+    float64 on the card from the same state, then through the public
+    entry points, its step by part."""
+    t0 = time.perf_counter()
+    for name in A7F_MAIN:
+        f32 = a7f_f32_check(torch, name)
+        a7f_case_path(torch, name, results)
+        results[f"_a7f_{name}"]["f32_vs_f64"] = f32
+    log(f"a7f phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (ROOT / "sphinxsys_tpu_torch").is_dir():
@@ -5122,6 +5460,7 @@ def main() -> int:
     a7bc_phase(torch, results)
     a7d_phase(torch, results)
     a7e_phase(torch, results)
+    a7f_phase(torch, results)
 
     kernels = []
     for tag, names in [*((t, c["kernels"]) for t, c in CONFIGS.items()),
@@ -5158,7 +5497,8 @@ def main() -> int:
                 *(f"a7_{name}" for name in A7_MAIN),
                 *(f"a7bc_{name}" for name in A7BC_MAIN),
                 *(f"a7d_{name}" for name in A7D_MAIN),
-                *(f"a7e_{name}" for name in A7E_MAIN), "a7e_cg"):
+                *(f"a7e_{name}" for name in A7E_MAIN), "a7e_cg",
+                *(f"a7f_{name}" for name in A7F_MAIN)):
         main_paths[tag] = results[f"_{tag}"]
     log("main paths: " + json.dumps(main_paths))
     lost = sorted({PROFILE_GUARD - p[4] for p in PROFILED})

@@ -1,10 +1,12 @@
 """State carried across from the JAX package: its state dicts (the
-plastic and bar fields among them), BlockSim arrays, neighbour lists,
-articulated trees, rigid bodies and case sims (the two-phase ones, and
-the damping family's with their macro and sub-step counts, too), handed
-over as
-numpy, become the port's CPU tensors, and back.  The parity tests use
-these to feed both sides identical inputs."""
+plastic and bar fields among them, and the continuum's 3 x 3 stresses,
+shear stresses, hourglass accelerations, hardening and penalty factors),
+BlockSim arrays, neighbour lists, articulated trees, rigid bodies and
+case sims (the two-phase ones, the damping family's with their macro and
+sub-step counts, and the continuum family's, whose UL sims' sub-step
+count JAX does not keep and starts at 0), handed over as numpy, become
+the port's CPU tensors, and back.  The parity tests use these to feed
+both sides identical inputs."""
 
 from __future__ import annotations
 

@@ -2,7 +2,7 @@
 (counterpart of sphinxsys_tpu/core/geometry.py; what the dambreak and
 fsi2 scenes need: `Transform`, `Box`, `Ball`, `ComplexShape`,
 `make_complex`; the fish and the T-pipe need `Polygon` and
-`make_multi_polygon`).
+`make_multi_polygon`; the granular pile needs `Cylinder`).
 
 Positions are (..., dim) tensors.  `signed_distance` is negative inside.
 `find_normal_direction` is the unit gradient of the SDF, taken with
@@ -89,6 +89,39 @@ class Ball(Shape):
                         torch.sqrt(torch.where(pos_sq, sq, torch.ones_like(sq))),
                         torch.zeros_like(sq))
         return r - self.radius
+
+
+@dataclasses.dataclass(frozen=True)
+class Cylinder(Shape):
+    """Finite circular cylinder (TriangleMeshShapeCylinder): `axis` the
+    symmetry direction (normalised here), `halflength` the half-height.
+    The SDF is the 2D box distance in (radial, axial); the radius is
+    sqrt(|rad|^2 + 1e-30), as JAX's.  Outside, the normal is JAX's;
+    inside, where jax.grad gives NaN (the outside term's sqrt(0)
+    differentiated, times 0), autograd gives the nearer face's direction:
+    radial, or along the axis."""
+
+    center: Tuple[float, ...]
+    axis: Tuple[float, ...]
+    radius: float
+    halflength: float
+
+    def signed_distance(self, pos):
+        c = torch.as_tensor(self.center, dtype=pos.dtype, device=pos.device)
+        a = np.asarray(self.axis, dtype=np.float64)
+        a = torch.as_tensor(a / np.linalg.norm(a), dtype=pos.dtype,
+                            device=pos.device)
+        p = pos - c
+        ax = torch.sum(p * a, dim=-1)
+        rad_vec = p - ax[..., None] * a
+        rad = torch.sqrt(torch.sum(rad_vec * rad_vec, dim=-1) + 1e-30)
+        dr = rad - self.radius
+        dz = torch.abs(ax) - self.halflength
+        zero = torch.zeros_like(dr)
+        outside = torch.sqrt(torch.maximum(dr, zero) ** 2
+                             + torch.maximum(dz, zero) ** 2)
+        inside = torch.minimum(torch.maximum(dr, dz), zero)
+        return outside + inside
 
 
 @dataclasses.dataclass(frozen=True)

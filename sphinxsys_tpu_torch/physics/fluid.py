@@ -52,8 +52,6 @@ _NEEDS = {
     "shell_contacts": "physics/shell_fluid.py",
     "shell_walls": "physics/shell_fluid.py",
     "levelsets": "meshes/levelset.py",
-    "extra_force": "physics/oldroyd.py",
-    "surface_projection": "the cohesive-soil cases",
 }
 
 
@@ -136,9 +134,11 @@ def acoustic_step_1st_half(fluid: State, nl_inner: NeighborList, kernel,
     solver built as (this phase, that phase); the pair takes the
     impedance-weighted pressure average_p(p_i, p_k) and dissipates
     through the solver's u-jump, p_k the other phase's stored Pressure
-    (fluid_integration.hpp:132-157, MultiPhase)."""
-    _unported(shell_walls=shell_walls, levelsets=levelsets,
-              extra_force=extra_force is not None)
+    (fluid_integration.hpp:132-157, MultiPhase).
+    `extra_force`: an (N, d) force added to this half's Force before the
+    velocity update (the updated-Lagrangian solid's shear force,
+    continuum.ul_shear_force)."""
+    _unported(shell_walls=shell_walls, levelsets=levelsets)
     # --- initialization -----------------------------------------------
     rho = fluid["Density"] + fluid["DensityChangeRate"] * (0.5 * dt)
     p = eos.pressure(rho)
@@ -203,6 +203,8 @@ def acoustic_step_1st_half(fluid: State, nl_inner: NeighborList, kernel,
         drho_dt = drho_dt + rho_diss_c * rho
 
     # --- update -----------------------------------------------------------
+    if extra_force is not None:
+        force_total = force_total + extra_force
     vel = fluid["Velocity"] + (fluid["ForcePrior"] + force_total) \
         / fluid["Mass"][:, None] * dt
     out = dict(fluid)
@@ -410,8 +412,12 @@ def transport_velocity_correction(fluid: State, nl_inner: NeighborList,
         x_i += coef h^2 limiter(h^2 |I|^2) I_i
     limiter: min(slope x, 1) (TruncatedLinear), or 1 when `limiter_slope`
     is None (NoLimiter).  `scope_mask`: only these rows shift (the
-    free-stream cases' bulk particles, Indicator == 0)."""
-    _unported(shell_walls=shell_walls, surface_projection=surface_projection)
+    free-stream cases' bulk particles, Indicator == 0).
+    `surface_projection` (the cohesive soil's unified correction,
+    cohesive_soil_failure.h:128-143): a surface-indicated row shifts only
+    tangentially to I / |I| (at a free surface the inward normal), and not
+    at all where its PositionDivergence is below 0.6 dim."""
+    _unported(shell_walls=shell_walls)
     pos, vol = fluid["Position"], fluid["VolumetricMeasure"]
     pg = pair_geometry(pos, pos, nl_inner, kernel, dim, need_W=False, box=box)
     vol_j, _ = gather(vol, nl_inner.idx)
@@ -430,6 +436,16 @@ def transport_velocity_correction(fluid: State, nl_inner: NeighborList,
         shift = coefficient * h2 * lim[..., None] * inconsistency
     if scope_mask is not None:
         shift = torch.where(scope_mask[:, None], shift, torch.zeros_like(shift))
+    if surface_projection:
+        nrm = inconsistency / (torch.linalg.vector_norm(
+            inconsistency, dim=-1, keepdim=True) + TINY)
+        tangential = shift - torch.sum(shift * nrm, dim=-1,
+                                       keepdim=True) * nrm
+        at_surface = fluid["Indicator"] == 1
+        shift = torch.where(at_surface[:, None], tangential, shift)
+        deficient = fluid["PositionDivergence"] < 0.6 * dim
+        shift = torch.where((at_surface & deficient)[:, None],
+                            torch.zeros_like(shift), shift)
     out = dict(fluid)
     out["Position"] = pos + shift
     return out

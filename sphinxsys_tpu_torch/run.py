@@ -15,6 +15,7 @@ overrides (--set dx=0.05 --set t_end=2).
     python -m sphinxsys_tpu_torch.run square_droplet_2d --set dx=0.08
     python -m sphinxsys_tpu_torch.run floating_body_2d --set dx=0.05
     python -m sphinxsys_tpu_torch.run collision_2d --set dx=0.1 --set t_end=0.1
+    python -m sphinxsys_tpu_torch.run column_collapse_2d --set t_end=0.1
 
 The VTP writer writes a body's first NReal rows, as the JAX package's
 does: for an open-boundary fluid these include dead slots parked at
@@ -240,6 +241,25 @@ CASES = {
     "twisting_rigid_elastic_bar_3d": _run_single_fluid(
         "twisting_rigid_elastic_bar_3d", lambda c, s: {"Bar": s.bar},
         t_end=5.0),
+    "column_collapse_2d": _run_single_fluid(
+        "column_collapse_2d",
+        lambda c, s: {"SoilBody": s.soil, "Wall": c.wall}, t_end=1.0),
+    "cohesive_soil_failure_2d": _run_single_fluid(
+        "cohesive_soil_failure_2d",
+        lambda c, s: {"GranularBody": s.soil, "WallBoundary": c.wall},
+        t_end=2.0),
+    "repose_angle_3d": _run_single_fluid(
+        "repose_angle_3d",
+        lambda c, s: {"GranularBody": s.soil, "Wall": c.wall}, t_end=1.0),
+    "oscillating_beam_ul_2d": _run_single_fluid(
+        "oscillating_beam_ul_2d", lambda c, s: {"BeamBody": s.beam},
+        t_end=1.0),
+    "spinning_plate_2d": _run_single_fluid(
+        "spinning_plate_2d", lambda c, s: {"SquareBody": s.plate},
+        t_end=0.5),
+    "taylor_bar_ul_3d": _run_single_fluid(
+        "taylor_bar_ul_3d",
+        lambda c, s: {"Column": s.column, "Wall": c.wall}, t_end=1.0e-4),
     "dambreak_2d_block": _run_block(
         "dambreak_2d", lambda sc_, s: {"Wall": sc_.base.wall}, t_end=20.0),
     "dambreak_3d_block": _run_block("dambreak_3d", t_end=6.0),

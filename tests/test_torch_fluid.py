@@ -387,7 +387,10 @@ RAISES = [
      "LinearGradientCorrectionMatrix"),
     ("acoustic_step_1st_half", dict(shell_walls=[1]), "shell_fluid"),
     ("acoustic_step_1st_half", dict(levelsets=[1]), "levelset"),
-    ("acoustic_step_1st_half", dict(extra_force=1.0), "oldroyd"),
+    # ported: the extra force is added to the (N, d) force, and one of
+    # another width fails loudly
+    ("acoustic_step_1st_half", dict(extra_force=torch.zeros(1, 3)),
+     "size of tensor"),
     ("acoustic_step_2nd_half", dict(contacts=[({}, None, None)]),
      "Position"),
     ("acoustic_step_2nd_half", dict(shell_walls=[1]), "shell_fluid"),
@@ -395,8 +398,10 @@ RAISES = [
     ("viscous_force", dict(contacts=[({}, None, None)]), "Position"),
     ("viscous_force", dict(shell_walls=[1]), "shell_fluid"),
     ("transport_velocity_correction", dict(shell_walls=[1]), "shell_fluid"),
+    # ported: the projection reads the surface indication, and a state
+    # without one fails loudly
     ("transport_velocity_correction", dict(surface_projection=True),
-     "cohesive-soil"),
+     "Indicator"),
 ]
 
 
@@ -414,7 +419,8 @@ def test_unported_arguments_raise(scenes, fn, kw, needs):
         "viscous_force": (d["fluid"], d["inner"], k, 2, 0.01, 0.1),
         "transport_velocity_correction": (d["fluid"], d["inner"], k, 2, 0.1),
     }[fn]
-    error = KeyError if {"correction", "contacts"} & set(kw) \
+    error = KeyError if {"correction", "contacts", "surface_projection"} \
+        & set(kw) else RuntimeError if "extra_force" in kw \
         else NotImplementedError
     with pytest.raises(error, match=needs):
         getattr(tfd, fn)(*args, **kw)

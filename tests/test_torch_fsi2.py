@@ -276,9 +276,11 @@ def test_relax_insert_builds_and_runs():
 
 def test_jax_f32_runs_hold_chip_smoke_gates():
     """The committed JAX runs (four, to t = 5) and what chip_smoke.py
-    draws from them: each run's final counts sit in the count band and
-    its tip inside the envelope, so the card's run is held to a spread
-    JAX's own float32 runs show."""
+    draws from them: each run's final counts sit in the block route's
+    count band, each gather run's counts at the gather route's end time
+    (FSI2_GATHER_T_END) in the gather band, and every tip inside the
+    envelope, so the card's runs are held to a spread JAX's own float32
+    runs show."""
     import importlib.util
 
     path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
@@ -301,9 +303,11 @@ def test_jax_f32_runs_hold_chip_smoke_gates():
     assert gather["tip_radius"] == gates["tip_radius"]
     for r in runs:
         if r["route"] == "gather":
-            _, _, n_ac, n_s, dx, dy = np.asarray(r["rows"]).T
-            assert gather["n_ac"][0] <= n_ac[-1] <= gather["n_ac"][1]
-            assert gather["n_s"][0] <= n_s[-1] <= gather["n_s"][1]
+            t, _, n_ac, n_s, dx, dy = np.asarray(r["rows"]).T
+            at = np.argmax(t >= cs.FSI2_GATHER_T_END)
+            assert t[at] >= cs.FSI2_GATHER_T_END
+            assert gather["n_ac"][0] <= n_ac[at] <= gather["n_ac"][1]
+            assert gather["n_s"][0] <= n_s[at] <= gather["n_s"][1]
             assert np.hypot(dx, dy).max() <= gather["gather_tip"]
 
 

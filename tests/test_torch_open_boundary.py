@@ -272,10 +272,10 @@ def test_unported_fluid_arguments_still_raise(scene):
     with pytest.raises(NotImplementedError, match="shell_fluid"):
         tfd.free_surface_indication(s["tf"], s["tl"][0], s["tcase"].kernel,
                                     2, shell_walls=[object()])
-    with pytest.raises(NotImplementedError, match="cohesive-soil"):
+    with pytest.raises(NotImplementedError, match="shell_fluid"):
         tfd.transport_velocity_correction(s["tf"], s["tl"][0],
                                           s["tcase"].kernel, 2, 0.01,
-                                          surface_projection=True)
+                                          shell_walls=[object()])
 
 
 # ---------------------------------------------------------------------------

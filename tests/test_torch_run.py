@@ -146,7 +146,10 @@ def test_cli_lists_cases(capsys):
                  "owsc_2d", "nonlinear_wave_fsi_2d", "collision_2d",
                  "sliding_2d", "passive_cantilever_neohookean_3d",
                  "stretching_2d", "muscle_solid_contact_3d",
-                 "twisting_rigid_elastic_bar_3d", "slender_beam_3d"):
+                 "twisting_rigid_elastic_bar_3d", "slender_beam_3d",
+                 "column_collapse_2d", "cohesive_soil_failure_2d",
+                 "repose_angle_3d", "oscillating_beam_ul_2d",
+                 "spinning_plate_2d", "taylor_bar_ul_3d"):
         assert case in out
 
 
@@ -154,7 +157,7 @@ def test_cli_cases_are_jax_entries():
     """Every entry is one of the JAX runner's, named alike; the ports of
     its other cases are listed in ROADMAP.md."""
     assert set(trun.CASES) <= set(jrun.CASES)
-    assert len(trun.CASES) == 44
+    assert len(trun.CASES) == 50
 
 
 @pytest.mark.parametrize("case", ["nope", "lid_driven_cavity_2d"])
