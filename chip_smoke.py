@@ -54,10 +54,19 @@ cell-block engine — at full size:
     focused wave (16,865 + 400), on neighbour lists and torch ops.
   * the continuum family (ROADMAP A item 4, third family) at its JAX
     default widths: the granular column collapse (5,000 soil + 2,664
-    wall), the cohesive soil (1,250 + 808), the 3D repose pile (3,140 +
+    wall), the cohesive soil (1,250 + 847), the 3D repose pile (3,140 +
     43,080), the updated-Lagrangian beam (1,612), the spinning plate
     (400) and the J2 Taylor bar (32,256 + a 20,736-particle holder), on
     neighbour lists and torch ops.
+  * the small fluid modules and the plain diffusion family (ROADMAP A
+    items 2 and 4a) at their JAX default widths: the Herschel-Bulkley
+    lid cavity (2,500 + 864), the Oldroyd-B throat (7,200 + 4,320, the
+    CG damping in each sub-step), the Windkessel channel (1,777 rows +
+    696), the pulsatile channel's bidirectional buffers (2,560 rows +
+    704), the heat channel (3,625 + 1,160), the diffusion square
+    (10,000), the window frame (14,008 + 2,899 + 1,590), the
+    depolarization block (2,500) and the thermal optimisation (2,500,
+    the dense solve under autograd), on neighbour lists and torch ops.
 
 Phases:
 
@@ -279,6 +288,21 @@ Phases:
      its parts (the stress diffusion and the plastic halves; the
      correction matrix and the hourglass halves) alone, each timed,
      profiled, its host reads counted and its bound computed.
+ 19. the small fluid modules and the plain diffusion family (last): the
+     nine cases of ROADMAP A items 2 and 4a, each at its JAX default
+     width: built in float32 on the card and in float64 on the CPU,
+     A7G_F32's steps on each (equal counts, the displacement x - x0, the
+     velocity and the case's species within their tolerances of their
+     float64 max; the thermal optimisation's steady field and a few Adam
+     steps); then, float32 (the optimisation float64, its default),
+     through the public entry points (build_case -> init_sim ->
+     make_run_chunk -> solver.run_simulation; the optimisation's
+     optimize_conductivity), every launch count reset just before and
+     read just after, and one step and its new parts (the variable
+     viscosity, the CG damping and the Oldroyd-B halves, the Windkessel
+     update, the buffer exchange and pressure conditions, the RK2
+     diffusion, the reaction, the solve with its gradient) alone, each
+     timed, profiled, its host reads counted and its bound computed.
 
 Every kernel and plain-version time is taken by
 sphinxsys_tpu_torch.benchmarks.median_ms, the layout drivers' timer.  Its last two lines are a JSON object of per-kernel
@@ -3665,11 +3689,11 @@ def open_boundary_phase(torch, results):
 
 # the float32 card-against-float64 CPU references: (case, build keywords,
 # advection steps); the filling tank's stop before its first injection
-A7_REFS = (("tethered_fish_2d", dict(dx=0.15), 3),
-           ("stlw_2d", dict(dx=0.1), 5),
+A7_REFS = (("tethered_fish_2d", dict(dx=0.15), 2),
+           ("stlw_2d", dict(dx=0.1), 3),
            ("filling_tank_2d", dict(dx=0.05), 2),
-           ("elastic_gate_2d", dict(dx=5.0), 2),
-           ("flow_around_cylinder_2d", dict(dx=0.4, relax_cyl=0), 4))
+           ("elastic_gate_2d", dict(dx=5.0), 1),
+           ("flow_around_cylinder_2d", dict(dx=0.4, relax_cyl=0), 2))
 # float32 against float64: positions within this share of max|x|; the
 # tethered fish's (q, u), small displacements of the head, within
 # A7_F32_Q_TOL of their own max
@@ -3688,10 +3712,10 @@ A7_TETHER_SAMPLE = 0.01
 A7_SIMBODY_STEPS = 5
 A7_SIMBODY_RESTART = 3
 A7_MAIN = {  # the 3a cases at their JAX default widths: (kw, t_end, sample)
-    "stlw_2d": (dict(), 0.1, 0.05),
+    "stlw_2d": (dict(), 0.05, 0.025),
     "filling_tank_2d": (dict(), 0.1, 0.05),
-    "elastic_gate_2d": (dict(), 2.0, 1.0),
-    "flow_around_cylinder_2d": (dict(), 0.5, 0.25),
+    "elastic_gate_2d": (dict(), 1.0, 0.5),
+    "flow_around_cylinder_2d": (dict(), 0.25, 0.125),
 }
 A7_BODIES = {"tethered_fish_2d": ("fluid", "fish"), "stlw_2d": ("fluid",),
              "filling_tank_2d": ("fluid",),
@@ -4146,18 +4170,20 @@ def minimum_image(torch, d, box):
     return torch.where(L > 0, d - safe * torch.round(d / safe), d)
 
 
-def cast_tree(torch, obj, dtype):
+def cast_tree(torch, obj, dtype, device=None):
     """A sim or a case with every floating tensor cast to `dtype` (dicts,
-    named tuples and dataclasses walked; integer and bool tensors kept)."""
+    named tuples and dataclasses walked; integer and bool tensors kept),
+    and every tensor moved to `device` where one is given."""
     if torch.is_tensor(obj):
-        return obj.to(dtype) if obj.is_floating_point() else obj
+        obj = obj.to(dtype) if obj.is_floating_point() else obj
+        return obj if device is None else obj.to(device)
     if isinstance(obj, dict):
-        return {k: cast_tree(torch, v, dtype) for k, v in obj.items()}
+        return {k: cast_tree(torch, v, dtype, device) for k, v in obj.items()}
     if isinstance(obj, tuple) and hasattr(obj, "_fields"):
-        return type(obj)(*(cast_tree(torch, v, dtype) for v in obj))
+        return type(obj)(*(cast_tree(torch, v, dtype, device) for v in obj))
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         return dataclasses.replace(obj, **{
-            f.name: cast_tree(torch, getattr(obj, f.name), dtype)
+            f.name: cast_tree(torch, getattr(obj, f.name), dtype, device)
             for f in dataclasses.fields(obj) if f.init})
     return obj
 
@@ -5392,6 +5418,498 @@ def a7f_phase(torch, results):
     log(f"a7f phase: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the small fluid modules and the plain diffusion family (ROADMAP
+# A items 2 and 4a: neighbour lists and torch ops; the thermal
+# optimisation's dense solve)
+# ---------------------------------------------------------------------------
+
+# case -> (the main path's end time, its output interval), float32 at the
+# JAX default width: a few advection (or diffusion) steps each
+A7G_MAIN = {
+    "lid_driven_cavity_2d": (0.02, 0.01),
+    "throat_2d": (0.03, 0.03),
+    "channel_windkessel_2d": (0.0008, 0.0004),
+    "pulsatile_poiseuille_2d": (0.004, 0.002),
+    "heat_transfer_2d": (0.02, 0.01),
+    "diffusion_bcs_2d": (2e-4, 1e-4),
+    "windows_frame_diffusion_2d": (1e-5, 5e-6),
+    "depolarization_2d": (2e-3, 1e-3),
+}
+A7G_DIFFUSION = {"diffusion_bcs_2d": "Phi", "windows_frame_diffusion_2d": "Phi",
+                 "depolarization_2d": "Voltage"}
+# float32 on the card against float64 on the CPU from the same lattice:
+# case -> (steps, tolerance of x - x0, of the velocity, of the species'
+# change), each a share of the float64 run's max (A7F_F32's form); each
+# ten times the larger reading of this check on the CPU (DEVICE = "cpu")
+# and on an H100, rounded up to one significant digit
+A7G_F32 = {
+    "lid_driven_cavity_2d": (3, 6e-4, 6e-4, None),
+    "throat_2d": (1, 7e-2, 8e-3, None),
+    "channel_windkessel_2d": (4, 4e-4, 7e-3, None),
+    "pulsatile_poiseuille_2d": (4, 6e-4, 2e-3, None),
+    "heat_transfer_2d": (3, 5e-4, 8e-4, 7e-5),
+    "diffusion_bcs_2d": (5, None, None, 3e-5),
+    "windows_frame_diffusion_2d": (5, None, None, 8e-5),
+    "depolarization_2d": (12, None, None, 4e-4),
+}
+A7G_F32_SEEN = 100.0
+# the thermal optimisation: its Adam steps in the main path and in the
+# float32 check; the float32 steady field and losses against float64
+A7G_VP_STEPS = 3
+A7G_VP_TOL = 7e-3
+# the pair operations of the new parts whose bounds count them: the
+# velocity gradient's outer product and the harmonic-viscosity force
+# (~35 past the pair geometry); an Oldroyd-B first half (the acoustic
+# first half and the (d, d) stress force) and second half (the second
+# half and the gradient with the wall's distance factor); an RK2
+# diffusion step (two Euler steps, ~15 a pair each), the corrected one of
+# the muscle (its 0.5 (B_i + B_j) e); the pressure condition's kernel
+# gradient sum
+LIST_PAIR_FLOPS.update({"variable_viscosity": 55, "oldroyd_1st_half": 60,
+                        "oldroyd_2nd_half": 55, "diffusion_rk2": 70,
+                        "electrophysiology": 90, "pressure_conditions": 25})
+
+
+def a7g_body(sim):
+    return sim.fluid if hasattr(sim, "fluid") else sim.body
+
+
+def a7g_steps(torch, cm, case, s, n):
+    """n steps of the case's advection step from s: (the start's body, the
+    sim)."""
+    b0 = {k: v.clone() for k, v in a7g_body(s).items() if torch.is_tensor(v)}
+    step = cm.make_advection_step(case)
+    for _ in range(n):
+        s = step(s)
+    return b0, s
+
+
+def a7g_f32_check(torch, name):
+    """The case built and started in float64 on the CPU and the same state
+    cast to float32 on the card, A7G_F32's steps on each: equal counts, the live
+    masks equal, the displacement x - x0, the velocity and the species'
+    change within their tolerances of their float64 max (on the live
+    rows), the displacement (or the change) at least A7G_F32_SEEN times
+    float32's rounding of the positions (or the species).  Returns the
+    errors."""
+    cm = importlib.import_module(f"sphinxsys_tpu_torch.cases.{name}")
+    n, tol_d, tol_v, tol_c = A7G_F32[name]
+    built = cm.build_case(dtype=torch.float64, device="cpu")
+    case, *states = built if isinstance(built, tuple) else (built,)
+    s64 = cm.init_sim(case, *states)
+    b0h, sh = a7g_steps(torch, cm, case, s64, n)
+    b0c, sc_ = a7g_steps(torch, cm,
+                         cast_tree(torch, case, torch.float32, DEVICE),
+                         cast_tree(torch, s64, torch.float32, DEVICE), n)
+    counts = [tuple(getattr(s, k) for k in ("n_adv", "n_ac", "n_steps")
+                    if hasattr(s, k)) for s in (sh, sc_)]
+    bh, bc = a7g_body(sh), a7g_body(sc_)
+    live = bh.get("Alive")
+    if live is not None:
+        check(bool((bc["Alive"].cpu() == live).all()),
+              f"a7g {name}: the live masks part")
+    rows = slice(None) if live is None else live
+    species = A7G_DIFFUSION.get(name, "Phi")
+    pairs = {}
+    if tol_d is not None:
+        pairs["displacement"] = (bc["Position"].double().cpu() - b0c[
+            "Position"].double().cpu(), bh["Position"] - b0h["Position"],
+            tol_d)
+        pairs["velocity"] = (bc["Velocity"].double().cpu(), bh["Velocity"],
+                             tol_v)
+    if tol_c is not None:
+        pairs["species"] = (bc[species].double().cpu() - b0c[species]
+                            .double().cpu(), bh[species] - b0h[species],
+                            tol_c)
+    errs = {k: (float((c[rows] - h[rows]).abs().max()),
+                float(h[rows].abs().max()), tol)
+            for k, (c, h, tol) in pairs.items()}
+    first = "displacement" if tol_d is not None else "species"
+    ref = b0h["Position"] if tol_d is not None else b0h[species]
+    if "Alive" in b0h:          # the parked rows sit at FAR_AWAY
+        ref = ref[b0h["Alive"]]
+    rounding = n * 2.0 ** -24 * float(ref.abs().max())
+    seen = errs[first][1] / rounding
+    log(f"a7g {name} float32 card against float64 cpu ({n} steps): counts "
+        f"float64 {counts[0]}, float32 {counts[1]}; max |d| / max, "
+        "tolerance " + ", ".join(f"{k} {e:.3e} / {m:.3e} = {e / m:.3e}, "
+                                 f"{tol:g}" for k, (e, m, tol) in
+                                 errs.items())
+        + f"; {first} {seen:.1f} x float32's rounding (at least "
+        f"{A7G_F32_SEEN:g})")
+    check(counts[0] == counts[1], f"a7g {name}: float32 counts {counts[1]} "
+          f"!= float64 {counts[0]}")
+    check(seen >= A7G_F32_SEEN, f"a7g {name}: the {first} after {n} steps "
+          f"is only {seen:.1f} x float32's rounding")
+    for k, (e, m, tol) in errs.items():
+        check(bool(e <= tol * m), f"a7g {name}: float32 {k} off float64 by "
+              f"{e:.3e} (max {m:.3e}, tolerance {tol:g})")
+    return dict(counts=counts, **{k: e for k, (e, _, _) in errs.items()})
+
+
+def a7g_dt_adv(torch, name, cm, case, f):
+    """The case's advection dt on the fluid `f` (its `_advection_step`'s)."""
+    from sphinxsys_tpu_torch.physics import fluid as fd
+    from sphinxsys_tpu_torch.physics import viscosity as vc
+
+    h = case.adaptation.h
+    if name == "lid_driven_cavity_2d":
+        return torch.minimum(fd.advection_time_step(f, h, cm.U_LID),
+                             vc.srd_viscous_time_step(f, h))
+    if name == "throat_2d":
+        return fd.advection_time_step(f, h, cm.U_F)
+    if name == "channel_windkessel_2d":
+        return fd.advection_time_step(f, h, cm.U_MAX)
+    if name == "pulsatile_poiseuille_2d":
+        return fd.advection_viscous_time_step(f, h, 2.0 * case.u_ref,
+                                              case.rho0, case.mu)
+    return fd.advection_viscous_time_step(f, h, cm.U_F, cm.RHO0_F, cm.MU_F)
+
+
+def a7g_parts(torch, name, cm, case, sim):
+    """The new parts alone on the main path's end state (the step itself
+    is profiled beside them)."""
+    from sphinxsys_tpu_torch.physics import fluid as fd
+    from sphinxsys_tpu_torch.physics import viscosity as vc
+
+    if name in A7G_DIFFUSION:
+        if name != "depolarization_2d":
+            return {}
+        from sphinxsys_tpu_torch.physics import diffusion as df
+
+        dt = df.diffusion_time_step(case.adaptation.h, cm.DIFFUSION, 2)
+        return {"reaction": lambda: df.reaction_step(sim.body, cm.MODEL,
+                                                     0.5 * dt),
+                "diffusion_rk2": lambda: df.diffusion_step_rk2(
+                    sim.body, "Voltage", case.nl, case.kernel, 2,
+                    cm.DIFFUSION, dt, correction=True)}
+    f = sim.fluid
+    dt_adv = a7g_dt_adv(torch, name, cm, case, f)
+    dt = torch.minimum(fd.acoustic_time_step(f, case.eos, case.adaptation.h),
+                       dt_adv)
+    t_now = sim.time
+    if name == "lid_driven_cavity_2d":
+        walls = [(case.wall, sim.nl_fw)]
+
+        def variable():
+            g = vc.update_variable_viscosity(f, sim.nl_inner, case.kernel, 2,
+                                             case.model)
+            return vc.viscous_force_variable(g, sim.nl_inner, case.kernel, 2,
+                                             case.adaptation.h, walls=walls)
+        return {"variable_viscosity": variable,
+                "acoustic_substep": lambda: cm.acoustic_substep(
+                    case, sim, f, dt_adv)}
+    if name == "throat_2d":
+        dfw = cm.distance_from_wall(case, f["Position"])
+        f1 = cm.oldroyd_first_half(case, sim, f, dt)
+        return {"acoustic_substep": lambda: cm.acoustic_substep(
+                    case, sim, f, dt_adv, dfw),
+                "cg_damping": lambda: cm.implicit_damping(case, sim, f, dt),
+                "oldroyd_1st_half": lambda: cm.oldroyd_first_half(
+                    case, sim, f, dt),
+                "oldroyd_2nd_half": lambda: cm.oldroyd_second_half(
+                    case, sim, f1, dt, dfw)}
+    if name == "channel_windkessel_2d":
+        def windkessel():
+            wkst = cm.wk.accumulate_flow(sim.wkstate, f, case.outlet, 0, dt)
+            # the update taken (the next update time reached)
+            return cm.windkessel_step(wkst, sim.next_update,
+                                      sim.next_update + dt)
+        return {"acoustic_substep": lambda: cm.acoustic_substep(
+                    case, sim, f, dt_adv, t_now, sim.wkstate,
+                    sim.next_update),
+                "windkessel_update": windkessel,
+                "open_boundaries": lambda: cm.open_boundaries(
+                    case, f, f["Position"])}
+    if name == "pulsatile_poiseuille_2d":
+        prev = f["Position"] - 0.5 * case.dx * torch.sign(f["Velocity"])
+        return {"acoustic_substep": lambda: cm.acoustic_substep(
+                    case, sim, f, dt_adv, t_now),
+                "pressure_conditions": lambda: cm.pressure_conditions(
+                    case, sim, f, t_now, dt),
+                "buffer_exchange": lambda: cm.buffer_exchange(case, f, prev)}
+    return {"acoustic_substep": lambda: cm.acoustic_substep(
+                case, sim, f, dt_adv, t_now),
+            "diffusion_rk2": lambda: cm.thermal_relaxation(case, sim, f, dt)}
+
+
+def a7g_bounds(torch, name, cm, case, sim, parts):
+    """Each profiled part's least time from this run's lists and fields
+    (`list_bound`); a step is its parts' sum (the advection prep counted
+    as one more pass of the acoustic sub-step's reads) times its mean
+    sub-steps."""
+    from sphinxsys_tpu_torch.physics import dissipation as dp
+    from sphinxsys_tpu_torch.physics import fluid as fd
+
+    out = {}
+    body = a7g_body(sim)
+    if name in A7G_DIFFUSION:
+        sp = A7G_DIFFUSION[name]
+        if name == "depolarization_2d":
+            lists = [case.nl]
+            extra = fields(body, "LinearGradientCorrectionMatrix")
+            part = "electrophysiology"
+        elif name == "diffusion_bcs_2d":
+            lists = [case.nl_inner, case.nl_d, case.nl_n]
+            extra = fields(case.wall_d, "Position", "Phi") + fields(
+                case.wall_n, "Position", "NormalDirection", "PhiFlux")
+            part = "diffusion_rk2"
+        else:
+            lists = [case.nl_inner, case.nl_in, case.nl_ex]
+            extra = fields(body, "ThermalConductivity", "NormalDirection") \
+                + [t for a in (case.air_in, case.air_ex) for t in fields(
+                    a, "Position", "NormalDirection", "PhiConvection")]
+            part = "diffusion_rk2"
+        step = list_bound(torch, part, lists,
+                          fields(body, "Position", "VolumetricMeasure", sp,
+                                 "GateVariable") + extra,
+                          fields(body, sp, "GateVariable"))
+        out["advection_step"] = step
+        if "diffusion_rk2" in parts:
+            out["diffusion_rk2"] = list_bound(
+                torch, "diffusion_rk2", lists,
+                fields(body, "Position", "VolumetricMeasure", sp) + extra,
+                fields(body, sp))
+        if "reaction" in parts:
+            out["reaction"] = list_bound(torch, "reaction", [],
+                                         fields(body, sp, "GateVariable"),
+                                         fields(body, sp, "GateVariable"))
+        return out
+    wall_list = getattr(sim, "nl_wall", None) or sim.nl_fw
+    lists = [sim.nl_inner, wall_list]
+    wall = fields(case.wall, *WALL_READS)
+    reads = fields(body, *FLUID_AC_READS) + wall
+    writes = fields(body, *FLUID_AC_WRITES)
+    sub = list_bound(torch, "acoustic_substep", lists, reads, writes)
+    # the advection prep: the density summation and the transport
+    # correction (and the viscous force where the case has one)
+    prep = list_bound(torch, "density", lists,
+                      fields(body, "Position", "Mass", "Density",
+                             "VolumetricMeasure") + wall,
+                      fields(body, "DensitySummation", "Density",
+                             "Position"))[0]
+    bodies = fields(body, *bdy_fields(body))
+    if name == "lid_driven_cavity_2d":
+        out["variable_viscosity"] = list_bound(
+            torch, "variable_viscosity", lists,
+            fields(body, "Position", "Velocity", "VolumetricMeasure",
+                   "Density", "ForcePrior", "ViscousForcePrev") + wall,
+            fields(body, "VelocityGradient", "VariableViscosity",
+                   "ViscousForce", "ForcePrior"))
+        prep += out["variable_viscosity"][0]
+    elif name == "throat_2d":
+        st = ("ElasticStress", "ElasticStressChangeRate", "VelocityGradient")
+        o1 = list_bound(torch, "oldroyd_1st_half", lists,
+                        reads + fields(body, *st),
+                        writes + fields(body, "ElasticStress"))
+        o2 = list_bound(torch, "oldroyd_2nd_half", lists,
+                        reads + fields(body, *st), writes + fields(body, *st))
+        # the CG's iterations on this state, each a pass over the inner
+        # list (its matvec) at LIST_PAIR_FLOPS["cg_iteration"] a pair
+        dt = float(torch.minimum(fd.acoustic_time_step(
+            body, case.eos, case.adaptation.h),
+            a7g_dt_adv(torch, name, cm, case, body)))
+        matvec, rhs, pre = dp.implicit_cg_system(
+            body, "Velocity", sim.nl_inner, case.kernel, 2, cm.MU_F, dt,
+            [(case.wall, sim.nl_wall, None)], box=case.box)
+        _, k = dp.conjugate_gradient(matvec, rhs, body["Velocity"], pre,
+                                     1.0e-6, 60)
+        n_pairs = sub[2]
+        nbytes = sum(t.numel() * t.element_size() for t in (
+            *(nl.idx for nl in lists), *fields(
+                body, "Position", "VolumetricMeasure", "Mass", "Velocity",
+                "Velocity")))
+        cg = (*bytes_or_flops(nbytes, int(k) * n_pairs
+                              * LIST_PAIR_FLOPS["cg_iteration"]), n_pairs)
+        out.update(cg_damping=cg, oldroyd_1st_half=o1, oldroyd_2nd_half=o2)
+        sub = (cg[0] + o1[0] + o2[0], o1[1], n_pairs)
+    elif name == "channel_windkessel_2d":
+        out["windkessel_update"] = list_bound(
+            torch, "windkessel", [],
+            fields(body, "Position", "Velocity", "VolumetricMeasure"), [])
+        out["open_boundaries"] = list_bound(torch, "open_boundaries", [],
+                                            bodies, bodies)
+        sub = (sub[0] + out["windkessel_update"][0], sub[1], sub[2])
+    elif name == "pulsatile_poiseuille_2d":
+        out["pressure_conditions"] = list_bound(
+            torch, "pressure_conditions", lists,
+            fields(body, "Position", "VolumetricMeasure", "Velocity",
+                   "Density") + wall, fields(body, "Velocity"))
+        out["buffer_exchange"] = list_bound(torch, "buffer_exchange", [],
+                                            bodies, bodies)
+        sub = (sub[0] + out["pressure_conditions"][0], sub[1], sub[2])
+    else:
+        out["diffusion_rk2"] = list_bound(
+            torch, "diffusion_rk2", lists,
+            fields(body, "Position", "VolumetricMeasure", "Phi")
+            + fields(case.wall, "Position", "VolumetricMeasure", "Phi"),
+            fields(body, "Phi"))
+        sub = (sub[0] + out["diffusion_rk2"][0], sub[1], sub[2])
+    out["acoustic_substep"] = sub
+    per_ac = sim.n_ac / max(sim.n_adv, 1)
+    out["advection_step"] = (prep + per_ac * sub[0], sub[1],
+                             round((1 + per_ac) * sub[2]))
+    return out
+
+
+def bdy_fields(body):
+    from sphinxsys_tpu_torch.physics.boundary import _PARTICLE_FIELDS_HINT
+
+    return [k for k in (*_PARTICLE_FIELDS_HINT, "Alive") if k in body]
+def a7g_observable(name, cm, case, sim):
+    if name == "lid_driven_cavity_2d":
+        return cm.kinetic_energy(sim)
+    if name == "throat_2d":
+        return [cm.kinetic_energy(sim),
+                float(sim.fluid["ElasticStress"].abs().max())]
+    if name == "channel_windkessel_2d":
+        return [cm.outlet_pressure_mmhg(sim), cm.n_alive(sim)]
+    if name == "pulsatile_poiseuille_2d":
+        return [cm.centerline_velocity(case, sim), cm.n_alive(sim)]
+    if name == "heat_transfer_2d":
+        return cm.observe_phi(case, sim)
+    if name == "depolarization_2d":
+        return cm.observe_voltage(sim, *cm.voltage_observer(case, sim.body))
+    return cm.observe_phi(case, sim).tolist()
+
+
+def a7g_case_path(torch, name, results):
+    """A case at its JAX default width through build_case -> init_sim ->
+    make_run_chunk -> solver.run_simulation (A7G_MAIN's end time),
+    float32, every launch count reset just before and read just after: no
+    overflow, finite fields, the observable printed; then one step and
+    its new parts alone (`ob_parts`: wall and device time, launches, host
+    reads, idle share, bound)."""
+    cm = importlib.import_module(f"sphinxsys_tpu_torch.cases.{name}")
+    t_end, sample = A7G_MAIN[name]
+
+    def build():
+        built = cm.build_case(dtype=torch.float32, device=DEVICE)
+        case, *states = built if isinstance(built, tuple) else (built,)
+        return case, cm, cm.init_sim(case, *states)
+
+    case, sim, rec = ob_main_run(torch, f"a7g {name}", build, t_end, sample)
+    body = a7g_body(sim)
+    check(not bool(getattr(sim, "overflow", False)), f"a7g {name}: overflow")
+    rows = body.get("Alive", slice(None))
+    for k in ("Position", "Velocity", "Density", "Phi", "Voltage"):
+        if k in body:
+            check(bool(torch.isfinite(body[k][rows]).all()),
+                  f"a7g {name}: non-finite {k}")
+    counts = tuple(getattr(sim, k) for k in ("n_adv", "n_ac", "n_steps")
+                   if hasattr(sim, k))
+    obs = a7g_observable(name, cm, case, sim)
+    n_rows = body["Position"].shape[0]
+    log(f"a7g {name} main path: {n_rows} rows; setup {rec['setup_s']:.2f} s;"
+        f" to t={float(sim.time):.7f} counts {counts}; observable {obs}; "
+        f"{rec['ms_per_adv']:.3f} ms a step (wall clock, mean), "
+        f"{rec['host_reads_per_adv']:.1f} host reads a step; peak device "
+        f"memory {rec['peak_gb']:.3f} GB")
+    fns = a7g_parts(torch, name, cm, case, sim)
+    step = cm.make_advection_step(case)
+    parts = ob_parts(torch, f"a7g_{name}", fns, lambda: step(sim),
+                     a7g_bounds(torch, name, cm, case, sim, fns),
+                     trace=False)
+    results[f"_a7g_{name}"] = dict(rec, counts=counts, observable=obs,
+                                   n_rows=n_rows, parts=parts)
+    del case, sim, body, fns, step
+    torch.cuda.empty_cache()
+
+
+def a7g_vp(torch, results):
+    """The thermal optimisation at its default width (2,500, float64, its
+    default): the steady field and A7G_VP_STEPS Adam steps in float32 on
+    the card against float64 on the CPU from the same start (the field and
+    the losses within A7G_VP_TOL of their max); then float64 through
+    build_case -> optimize_conductivity, every launch count reset just
+    before and read just after; its solve and one optimisation step (the
+    loss, its gradient through the solve, Adam and the smoothing) alone.
+    The bounds: the LU's 2/3 n^3 operations and the two solves' 4 n^2 at
+    67 TFLOP/s (the data sheet's float64 tensor-core rate), or the dense
+    matrix's bytes, read and written once, over 3.35 TB/s."""
+    from sphinxsys_tpu_torch.cases import vp_heat_flux_2d as vp
+
+    runs = {}
+    for dt, dev in ((torch.float64, "cpu"), (torch.float32, DEVICE)):
+        case = vp.build_case(dtype=dt, device=dev)
+        n = case.body["NReal"]
+        gen = torch.Generator(device="cpu").manual_seed(0)
+        k0 = 0.5 + torch.rand(n, generator=gen, dtype=torch.float64)
+        T = vp.steady_temperature(case, k0.to(dt).to(dev))
+        _, _, hist = vp.optimize_conductivity(case, n_steps=A7G_VP_STEPS,
+                                              k_init=k0.to(dt).to(dev))
+        runs[dt] = (T.double().cpu(), torch.as_tensor(hist))
+    (Th, hh), (Tc, hc) = runs[torch.float64], runs[torch.float32]
+    errs = {"steady_field": (float((Tc - Th).abs().max()),
+                             float(Th.abs().max())),
+            "losses": (float((hc - hh).abs().max()), float(hh.abs().max()))}
+    log(f"a7g vp_heat_flux_2d float32 card against float64 cpu (the steady "
+        f"field, {A7G_VP_STEPS} Adam steps): max |d| / max, tolerance "
+        + ", ".join(f"{k} {e:.3e} / {m:.3e} = {e / m:.3e}, {A7G_VP_TOL:g}"
+                    for k, (e, m) in errs.items()))
+    for k, (e, m) in errs.items():
+        check(e <= A7G_VP_TOL * m, f"a7g vp: float32 {k} off float64 by "
+              f"{e:.3e} (max {m:.3e})")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    case = vp.build_case(device=DEVICE)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    read_counts = reset_all_launch_counts()
+    with SyncCounter(torch) as syncs:
+        t1 = time.perf_counter()
+        k, T, hist = vp.optimize_conductivity(case, n_steps=A7G_VP_STEPS)
+        mean_T = float(T.mean())
+        run_s = time.perf_counter() - t1
+    launched = read_counts()
+    check(not any(launched.values()), f"a7g vp: a hand kernel ran {launched}")
+    check(bool(torch.isfinite(T).all()) and hist[-1] < hist[0],
+          f"a7g vp: the optimisation did not lower the loss {hist}")
+    n = case.body["NReal"]
+    rec = dict(setup_s=setup_s, run_s=run_s,
+               ms_per_step=run_s / A7G_VP_STEPS * 1e3,
+               host_reads=syncs.n - 1, peak_gb=peak_gb(torch),
+               kernel_launches=launched)
+    log(f"a7g vp_heat_flux_2d main path (float64, {n} particles, "
+        f"{A7G_VP_STEPS} Adam steps): setup {setup_s:.2f} s; losses "
+        f"{[round(float(h), 4) for h in hist]}, mean T {mean_T:.3f}; "
+        f"{rec['ms_per_step']:.3f} ms a step (wall clock, mean), "
+        f"{rec['host_reads']} host reads in the optimisation; peak device "
+        f"memory {rec['peak_gb']:.3f} GB")
+    theta = torch.log(k)
+    zero = torch.zeros_like(theta)
+    nbytes = (n * n + 4 * n) * 8
+    solve = bytes_or_flops(nbytes, 2 * n ** 3 / 3 + 2 * n * n)
+    grad = bytes_or_flops(2 * nbytes, 2 * n ** 3 / 3 + 4 * n * n)
+    bounds = {"steady_solve": (*solve, 0), "advection_step": (*grad, 0)}
+    parts = ob_parts(torch, "a7g_vp_heat_flux_2d",
+                     {"steady_solve": lambda: vp.steady_temperature(case, k)},
+                     lambda: vp.optimization_step(case, theta, zero, zero, 1,
+                                                  0.1, 0.05),
+                     bounds, trace=False)
+    results["_a7g_vp_heat_flux_2d"] = dict(rec, f32_vs_f64=errs,
+                                           losses=hist.tolist(), parts=parts)
+    del case, k, T, theta
+    torch.cuda.empty_cache()
+
+
+def a7g_phase(torch, results):
+    """Phase 19: the nine cases of ROADMAP A items 2 and 4a (no hand
+    kernel), each at its JAX default width: float32 on the card against
+    float64 on the CPU, then through the public entry points, its step by
+    part."""
+    t0 = time.perf_counter()
+    for name in A7G_MAIN:
+        f32 = a7g_f32_check(torch, name)
+        a7g_case_path(torch, name, results)
+        results[f"_a7g_{name}"]["f32_vs_f64"] = f32
+    a7g_vp(torch, results)
+    log(f"a7g phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (ROOT / "sphinxsys_tpu_torch").is_dir():
@@ -5461,6 +5979,7 @@ def main() -> int:
     a7d_phase(torch, results)
     a7e_phase(torch, results)
     a7f_phase(torch, results)
+    a7g_phase(torch, results)
 
     kernels = []
     for tag, names in [*((t, c["kernels"]) for t, c in CONFIGS.items()),
@@ -5498,7 +6017,9 @@ def main() -> int:
                 *(f"a7bc_{name}" for name in A7BC_MAIN),
                 *(f"a7d_{name}" for name in A7D_MAIN),
                 *(f"a7e_{name}" for name in A7E_MAIN), "a7e_cg",
-                *(f"a7f_{name}" for name in A7F_MAIN)):
+                *(f"a7f_{name}" for name in A7F_MAIN),
+                *(f"a7g_{name}" for name in A7G_MAIN),
+                "a7g_vp_heat_flux_2d"):
         main_paths[tag] = results[f"_{tag}"]
     log("main paths: " + json.dumps(main_paths))
     lost = sorted({PROFILE_GUARD - p[4] for p in PROFILED})

@@ -3,9 +3,11 @@ plastic and bar fields among them, and the continuum's 3 x 3 stresses,
 shear stresses, hourglass accelerations, hardening and penalty factors),
 BlockSim arrays, neighbour lists, articulated trees, rigid bodies and
 case sims (the two-phase ones, the damping family's with their macro and
-sub-step counts, and the continuum family's, whose UL sims' sub-step
-count JAX does not keep and starts at 0), handed over as numpy, become
-the port's CPU tensors, and back.  The parity tests use these to feed
+sub-step counts, the continuum family's, whose UL sims' sub-step count
+JAX does not keep and starts at 0, and the Windkessel channel's with its
+RCR state), and plain arrays (a conductivity field, an optimiser's
+parameters), handed over as numpy, become the port's CPU tensors, and
+back.  The parity tests use these to feed
 both sides identical inputs."""
 
 from __future__ import annotations
@@ -18,10 +20,24 @@ import torch
 from sphinxsys_tpu_torch.neighbors.neighbor_list import NeighborList
 from sphinxsys_tpu_torch.physics import rigid
 from sphinxsys_tpu_torch.physics.articulated import ArticulatedTree
+from sphinxsys_tpu_torch.physics.windkessel import WindkesselState
 
 
 def _tensor(a):
     return torch.as_tensor(np.array(a))  # a private, writable copy
+
+
+def tensor_from_numpy(a) -> torch.Tensor:
+    """An array (a conductivity field, Adam's log-conductivity and
+    moments) -> a CPU tensor of its dtype, a private copy."""
+    return _tensor(a)
+
+
+def windkessel_from_numpy(wk) -> WindkesselState:
+    """A Windkessel state (p, q, flow_acc as numpy) -> the port's 0-d
+    tensors."""
+    return WindkesselState(p=_tensor(wk.p), q=_tensor(wk.q),
+                           flow_acc=_tensor(wk.flow_acc))
 
 
 def state_from_numpy(state: dict) -> dict:
@@ -69,7 +85,8 @@ def sim_from_numpy(cls, sim):
     names as attributes, numpy leaves; `cls` a dataclass or a named
     tuple) -> `cls`: its state dicts through
     `state_from_numpy`, its neighbour lists through
-    `neighbor_list_from_numpy`, its rigid bodies and pin joints through
+    `neighbor_list_from_numpy`, its Windkessel state through
+    `windkessel_from_numpy`, its rigid bodies and pin joints through
     `rigid_from_numpy`, its step counts as ints (0 where the sim has
     none), its other arrays as tensors."""
     names = ([f.name for f in dataclasses.fields(cls)]
@@ -84,6 +101,8 @@ def sim_from_numpy(cls, sim):
                                           for k, x in v.items()})
         elif hasattr(v, "idx") and hasattr(v, "count"):
             out[name] = neighbor_list_from_numpy(v)
+        elif type(v).__name__ == "WindkesselState":
+            out[name] = windkessel_from_numpy(v)
         elif hasattr(v, "_asdict"):
             out[name] = rigid_from_numpy(v)
         else:

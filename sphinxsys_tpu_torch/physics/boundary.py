@@ -14,12 +14,13 @@ with no host read:
     state before the move is made live in a dead slot — the k-th crosser
     (in index order) in the k-th dead slot.
 
+  * the bidirectional buffer: deletion past the buffer's outer plane,
+    and a clone one buffer length behind each particle that has just
+    crossed its inner plane into the bulk.
+
 The dead-slot table comes from a cumsum and a scatter of size N, not from
 `torch.nonzero` (whose size depends on the data, so that it reads the
 device), and the crossers past the last dead slot are dropped by a mask.
-
-`bidirectional_buffer_exchange` is not ported: its first caller is
-pulsatile_poiseuille_2d.
 """
 
 from __future__ import annotations
@@ -110,13 +111,31 @@ def emitter_inflow_injection(state: State, region: AlignedBoxRegion,
     else:
         crossed &= x <= hi + band
 
+    out, _ = _clone_into_dead_slots(out, crossed, fields)
+
+    # the crossers move back to the emitter's inlet
+    p = out["Position"].clone()
+    p[:, axis] -= crossed.to(p.dtype) * length
+    out["Position"] = p
+    return out
+
+
+def _clone_into_dead_slots(out: State, crossed, fields):
+    """The k-th crosser (in index order) cloned into the k-th dead slot:
+    its `fields` copied there and the slot made live; the crossers past
+    the last dead slot get no clone and set "_InjectionOverflow" (or-ed
+    into the state's own).  Returns (state, cloned: (N,) bool of the
+    slots filled)."""
+    alive = out["Alive"]
+    n = alive.shape[0]
+    device = alive.device
     # the k-th dead slot of each rank k (fixed size: ranks of live rows go
     # to a dump entry n); the k-th crosser's target slot
     dead = ~alive
-    arange = torch.arange(n, device=pos.device)
+    arange = torch.arange(n, device=device)
     dead_rank = torch.cumsum(dead, dim=0) - 1
     slot_of_rank = torch.full((n + 1,), n - 1, dtype=torch.int64,
-                              device=pos.device)
+                              device=device)
     slot_of_rank.scatter_(0, torch.where(dead, dead_rank,
                                          torch.full_like(dead_rank, n)), arange)
     n_dead = dead_rank[-1] + 1
@@ -126,7 +145,7 @@ def emitter_inflow_injection(state: State, region: AlignedBoxRegion,
                       slot_of_rank[torch.clamp(cross_rank, 0, n - 1)],
                       torch.full_like(cross_rank, n))
     # each target slot's source row (n: no clone there)
-    src = torch.full((n + 1,), n, dtype=torch.int64, device=pos.device)
+    src = torch.full((n + 1,), n, dtype=torch.int64, device=device)
     src.scatter_(0, tgt, arange)
     src = src[:n]
     cloned = src < n
@@ -140,12 +159,72 @@ def emitter_inflow_injection(state: State, region: AlignedBoxRegion,
         m = cloned.view(-1, *([1] * (v.dim() - 1)))
         out[k] = torch.where(m, v[src], v)
     out["Alive"] = alive | cloned
-
-    # the crossers move back to the emitter's inlet
-    p = out["Position"].clone()
-    p[:, axis] -= crossed.to(p.dtype) * length
-    out["Position"] = p
     overflow = torch.sum(crossed) > n_dead
     prev = out.get("_InjectionOverflow")
     out["_InjectionOverflow"] = overflow if prev is None else prev | overflow
+    return out, cloned
+
+
+def bidirectional_buffer_exchange(state: State, region: AlignedBoxRegion,
+                                  inward: int = +1,
+                                  fields=_PARTICLE_FIELDS_HINT,
+                                  prev_pos=None) -> State:
+    """BidirectionalBuffer (extra_src/shared/pressure_boundary/
+    bidirectional_buffer.h): a buffer at one end of the domain for flow in
+    either direction.
+
+      * a live particle past the buffer's outer plane (on the flow axis
+        alone, bidirectional_buffer.h:157-169) is deleted and parked at
+        FAR_AWAY;
+      * a live particle in the buffer's transverse band that has just
+        crossed its inner plane into the bulk keeps going, and a clone of
+        it goes live in a dead slot one buffer length behind
+        (`_clone_into_dead_slots`).
+
+    ``inward`` = +1 where the bulk lies toward +axis of the buffer (an
+    inlet), -1 toward -axis (an outlet).  With ``prev_pos`` (the positions
+    before this step's advection) a crosser must also have been in the
+    buffer before (the reference's buffer tag, bidirectional_buffer.h:
+    110-112): a slot refilled this step keeps its stale prev position,
+    which could otherwise pass the other buffer's test."""
+    axis = region.axis
+    out = dict(ensure_alive_mask(state))
+    pos = out["Position"]
+    lo_v, hi_v = region.bounds(pos)
+    outer = pos[:, axis] < region.lower[axis] if inward > 0 \
+        else pos[:, axis] > region.upper[axis]
+    transverse = torch.ones(pos.shape[0], dtype=torch.bool,
+                            device=pos.device)
+    for d in range(pos.shape[1]):
+        if d != axis:
+            transverse &= (pos[:, d] >= lo_v[d]) & (pos[:, d] <= hi_v[d])
+    gone = out["Alive"] & outer
+    out["Alive"] = out["Alive"] & ~gone
+    out["Position"] = torch.where(gone[:, None],
+                                  torch.full_like(pos, FAR_AWAY), pos)
+
+    pos = out["Position"]
+    alive = out["Alive"]
+    length = region.upper[axis] - region.lower[axis]
+    x = pos[:, axis]
+    if inward > 0:
+        plane = region.upper[axis]
+        crossed = alive & transverse & (x > plane)
+        if prev_pos is not None:
+            xp = prev_pos[:, axis]
+            crossed &= (xp <= plane) & (xp >= region.lower[axis])
+        shift = -length
+    else:
+        plane = region.lower[axis]
+        crossed = alive & transverse & (x < plane)
+        if prev_pos is not None:
+            xp = prev_pos[:, axis]
+            crossed &= (xp >= plane) & (xp <= region.upper[axis])
+        shift = length
+
+    out, cloned = _clone_into_dead_slots(out, crossed, fields)
+    # the clone, not the crosser, moves one buffer length back
+    p = out["Position"].clone()
+    p[:, axis] = torch.where(cloned, p[:, axis] + shift, p[:, axis])
+    out["Position"] = p
     return out

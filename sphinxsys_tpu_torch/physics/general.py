@@ -1,5 +1,6 @@
 """General dynamics (counterpart of sphinxsys_tpu/physics/general.py):
-gravity, the energy and speed reductions and wall normals from a shape."""
+gravity, the energy and speed reductions, the velocity gradient and wall
+normals from a shape."""
 
 from __future__ import annotations
 
@@ -9,7 +10,10 @@ from typing import Tuple
 import torch
 
 from sphinxsys_tpu_torch.core.geometry import normals_and_distance
+from sphinxsys_tpu_torch.core.linalg import outer_sum
 from sphinxsys_tpu_torch.core.state import State, valid_mask
+from sphinxsys_tpu_torch.neighbors.neighbor_list import gather
+from sphinxsys_tpu_torch.physics.pair import pair_geometry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +65,43 @@ def total_mechanical_energy(state: State, gravity: Gravity) -> torch.Tensor:
     pe = state["Mass"] * gravity.potential(state["Position"])
     e = ke + pe
     return torch.sum(torch.where(valid_mask(state), e, torch.zeros_like(e)))
+
+
+def velocity_gradient(state: State, nl, kernel, dim: int, box=None,
+                      walls=(), distance_from_wall=None) -> torch.Tensor:
+    """grad v_i = -sum_j (v_i - v_j) outer dW_ij V_j e_ij, (N, dim, dim).
+
+    `walls`: (wall state, list) pairs add the wall term
+    (velocity_gradient.cpp:12-33) against the wall's AverageVelocity.
+    `distance_from_wall` (N, dim), the vector from the nearest wall
+    surface point to the particle, scales each wall pair's velocity jump
+    by 1 - d_w.(d_w - r e) / |d_w|^2, the no-slip condition extrapolated
+    from the wall surface to the dummy particle.  The slot sums are
+    broadcast sums (`linalg.outer_sum`), not einsum, which the card runs
+    as a batched gemm."""
+    pos, vel = state["Position"], state["Velocity"]
+    pg = pair_geometry(pos, pos, nl, kernel, dim, need_W=False, box=box)
+    vel_j, _ = gather(vel, nl.idx)
+    vol_j, _ = gather(state["VolumetricMeasure"], nl.idx)
+    grad = (pg.dW * vol_j)[..., None] * pg.e
+    g = -outer_sum(vel[:, None, :] - vel_j, grad)
+
+    for wstate, wnl in walls:
+        pgw = pair_geometry(pos, wstate["Position"], wnl, kernel, dim,
+                            need_W=False, box=box)
+        wvol, _ = gather(wstate["VolumetricMeasure"], wnl.idx)
+        wvel, _ = gather(wstate["AverageVelocity"], wnl.idx)
+        gradw = (pgw.dW * wvol)[..., None] * pgw.e
+        dvel = vel[:, None, :] - wvel
+        if distance_from_wall is not None:
+            dw = distance_from_wall
+            ddiff = dw[:, None, :] - pgw.r[..., None] * pgw.e
+            dw2 = torch.sum(dw * dw, dim=-1) + 1.0e-15
+            factor = 1.0 - torch.sum(dw[:, None, :] * ddiff,
+                                     dim=-1) / dw2[:, None]
+            dvel = factor[..., None] * dvel
+        g = g - outer_sum(dvel, gradw)
+    return g
 
 
 def normal_direction_from_shape(state: State, shape) -> State:

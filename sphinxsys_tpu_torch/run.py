@@ -16,6 +16,8 @@ overrides (--set dx=0.05 --set t_end=2).
     python -m sphinxsys_tpu_torch.run floating_body_2d --set dx=0.05
     python -m sphinxsys_tpu_torch.run collision_2d --set dx=0.1 --set t_end=0.1
     python -m sphinxsys_tpu_torch.run column_collapse_2d --set t_end=0.1
+    python -m sphinxsys_tpu_torch.run throat_2d --set dx=0.4 --set t_end=0.1
+    python -m sphinxsys_tpu_torch.run vp_heat_flux_2d --set n_steps=5
 
 The VTP writer writes a body's first NReal rows, as the JAX package's
 does: for an open-boundary fluid these include dead slots parked at
@@ -62,7 +64,8 @@ def _run_single_fluid(module_name: str, bodies_of, t_end: float):
         p = dict(cfg.parameters)
         end = float(p.pop("t_end", t_end))
         n_out = int(p.pop("n_output", 20))
-        case, *states = mod.build_case(**p)
+        built = mod.build_case(**p)
+        case, *states = built if isinstance(built, tuple) else (built,)
         if hasattr(mod, "init_sim"):
             s = mod.init_sim(case, *states)
         else:       # the solids that build their sim themselves
@@ -260,6 +263,34 @@ CASES = {
     "taylor_bar_ul_3d": _run_single_fluid(
         "taylor_bar_ul_3d",
         lambda c, s: {"Column": s.column, "Wall": c.wall}, t_end=1.0e-4),
+    "lid_driven_cavity_2d": _run_single_fluid(
+        "lid_driven_cavity_2d",
+        lambda c, s: {"FluidBody": s.fluid, "Wall": c.wall}, t_end=10.0),
+    "throat_2d": _run_single_fluid(
+        "throat_2d",
+        lambda c, s: {"FluidBody": s.fluid, "WallBoundary": c.wall},
+        t_end=40.0),
+    "channel_windkessel_2d": _run_single_fluid(
+        "channel_windkessel_2d",
+        lambda c, s: {"WaterBody": s.fluid, "Wall": c.wall}, t_end=5.0),
+    "pulsatile_poiseuille_2d": _run_single_fluid(
+        "pulsatile_poiseuille_2d",
+        lambda c, s: {"WaterBody": s.fluid, "Wall": c.wall}, t_end=10.0),
+    "diffusion_bcs_2d": _run_single_fluid(
+        "diffusion_bcs_2d",
+        lambda c, s: {"DiffusionBody": dict(s.body)}, t_end=1.0),
+    "heat_transfer_2d": _run_single_fluid(
+        "heat_transfer_2d",
+        lambda c, s: {"ThermofluidBody": s.fluid, "ThermosolidBody": c.wall},
+        t_end=10.0),
+    "windows_frame_diffusion_2d": _run_single_fluid(
+        "windows_frame_diffusion_2d",
+        lambda c, s: {"DiffusionBody": s.body,
+                      "InternalConvectionBoundary": c.air_in,
+                      "ExternalConvectionBoundary": c.air_ex}, t_end=0.02),
+    "depolarization_2d": _run_single_fluid(
+        "depolarization_2d",
+        lambda c, s: {"MuscleBlock": dict(s.body)}, t_end=16.0),
     "dambreak_2d_block": _run_block(
         "dambreak_2d", lambda sc_, s: {"Wall": sc_.base.wall}, t_end=20.0),
     "dambreak_3d_block": _run_block("dambreak_3d", t_end=6.0),
@@ -284,6 +315,36 @@ def _run_play_simbody(cfg: RunConfig):
 
 
 CASES["play_simbody_3d"] = _run_play_simbody
+
+
+def _run_vp_optimization(cfg: RunConfig):
+    """The target-driven thermal optimisation (tests/optimization/*): the
+    steady solve at the uniform conductivity, the Adam optimisation
+    through the solve, and the optimised layout written as one VTP
+    (`--set config=same_sink`, `--set n_steps=N`)."""
+    import torch
+
+    from sphinxsys_tpu_torch.cases import vp_heat_flux_2d as vp
+    p = dict(cfg.parameters)
+    config = str(p.pop("config", "heat_flux"))
+    n_steps = int(p.pop("n_steps", 150))
+    case = vp.build_case(config, **p)
+    pos = case.body["Position"]
+    T0 = vp.steady_temperature(case, torch.full_like(pos[:, 0],
+                                                     vp.DIFF_COEFF))
+    log.info("steady (uniform k) mean T = %.2f", float(torch.mean(T0)))
+    k, T, hist = vp.optimize_conductivity(case, n_steps=n_steps)
+    log.info("optimized mean T = %.2f (after %d Adam steps)",
+             float(torch.mean(T)), n_steps)
+    if cfg.state_recording:
+        os.makedirs(cfg.output_dir, exist_ok=True)
+        body = dict(case.body, Phi=T, ThermalConductivity=k)
+        write_vtp(os.path.join(cfg.output_dir, "DiffusionBody_opt.vtp"),
+                  body, ["Phi", "ThermalConductivity"])
+    return k, T, hist
+
+
+CASES["vp_heat_flux_2d"] = _run_vp_optimization
 
 
 def main(argv=None):

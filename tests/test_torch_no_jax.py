@@ -114,7 +114,22 @@ def test_port_has_modules():
                  "sphinxsys_tpu_torch/cases/oscillating_beam_ul_2d.py",
                  "sphinxsys_tpu_torch/cases/spinning_plate_2d.py",
                  "sphinxsys_tpu_torch/cases/taylor_bar_ul_3d.py",
-                 "sphinxsys_tpu_torch/benchmarks/a7f_continuum_long.py"):
+                 "sphinxsys_tpu_torch/benchmarks/a7f_continuum_long.py",
+                 "sphinxsys_tpu_torch/physics/viscosity.py",
+                 "sphinxsys_tpu_torch/physics/oldroyd.py",
+                 "sphinxsys_tpu_torch/physics/windkessel.py",
+                 "sphinxsys_tpu_torch/physics/diffusion.py",
+                 "sphinxsys_tpu_torch/physics/general.py",
+                 "sphinxsys_tpu_torch/cases/lid_driven_cavity_2d.py",
+                 "sphinxsys_tpu_torch/cases/throat_2d.py",
+                 "sphinxsys_tpu_torch/cases/channel_windkessel_2d.py",
+                 "sphinxsys_tpu_torch/cases/pulsatile_poiseuille_2d.py",
+                 "sphinxsys_tpu_torch/cases/vp_heat_flux_2d.py",
+                 "sphinxsys_tpu_torch/cases/diffusion_bcs_2d.py",
+                 "sphinxsys_tpu_torch/cases/heat_transfer_2d.py",
+                 "sphinxsys_tpu_torch/cases/windows_frame_diffusion_2d.py",
+                 "sphinxsys_tpu_torch/cases/depolarization_2d.py",
+                 "sphinxsys_tpu_torch/benchmarks/a7g_fluid_diffusion_long.py"):
         assert must in names
 
 

@@ -149,7 +149,11 @@ def test_cli_lists_cases(capsys):
                  "twisting_rigid_elastic_bar_3d", "slender_beam_3d",
                  "column_collapse_2d", "cohesive_soil_failure_2d",
                  "repose_angle_3d", "oscillating_beam_ul_2d",
-                 "spinning_plate_2d", "taylor_bar_ul_3d"):
+                 "spinning_plate_2d", "taylor_bar_ul_3d",
+                 "lid_driven_cavity_2d", "throat_2d", "channel_windkessel_2d",
+                 "pulsatile_poiseuille_2d", "vp_heat_flux_2d",
+                 "diffusion_bcs_2d", "heat_transfer_2d",
+                 "windows_frame_diffusion_2d", "depolarization_2d"):
         assert case in out
 
 
@@ -157,10 +161,10 @@ def test_cli_cases_are_jax_entries():
     """Every entry is one of the JAX runner's, named alike; the ports of
     its other cases are listed in ROADMAP.md."""
     assert set(trun.CASES) <= set(jrun.CASES)
-    assert len(trun.CASES) == 50
+    assert len(trun.CASES) == 59
 
 
-@pytest.mark.parametrize("case", ["nope", "lid_driven_cavity_2d"])
+@pytest.mark.parametrize("case", ["nope", "turbulent_channel_2d"])
 def test_cli_rejects_unknown_case(case, capsys):
     assert trun.main([case]) == 2
     assert f"unknown case '{case}'" in capsys.readouterr().out
