@@ -3396,13 +3396,15 @@ def ob_small_references(torch):
 
 
 def ob_parts(torch, tag, fns, step, bounds, trace=True):
-    """The step and each part alone: wall ms (synchronised median), host
+    """The step (unless None) and each part alone: wall ms (synchronised
+    median), host
     reads of device values in one call, device busy ms and launches
     (profiled; `trace` as `profile_step`'s), the idle share of the
     unprofiled wall, and the part's bound where `bounds` has one (ms, by,
     real pairs: `list_bound`)."""
     table = {}
-    for name, fn in {"advection_step": step, **fns}.items():
+    steps = {} if step is None else {"advection_step": step}
+    for name, fn in {**steps, **fns}.items():
         with SyncCounter(torch) as reads:
             fn()
         torch.cuda.synchronize()
@@ -5910,6 +5912,603 @@ def a7g_phase(torch, results):
     log(f"a7g phase: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the shell family (ROADMAP A item 3: the shells' stress
+# relaxation, the tie coupling, the CVT, the shell contacts and the
+# surface contact on neighbour lists, torch ops)
+# ---------------------------------------------------------------------------
+
+# case -> (the main path's end time, its output interval), each at its JAX
+# default width and dtype (the roof, the half sphere, the coupling and the
+# three rings float64, the others float32): a few steps each
+A7H_MAIN = {
+    "shell_cantilever_2d": (5e-4, 2.5e-4),
+    "shell_plate_3d": (1e-3, 5e-4),
+    "roof_3d": (2e-4, 1e-4),
+    "shell_stability_half_sphere_3d": (3e-4, 1.5e-4),
+    "solid_shell_coupling_3d": (3e-3, 1.5e-3),
+    "hydrostatic_fsi_2d": (1e-3, 1e-3),
+    "poiseuille_flow_shell_3d": (3e-3, 1.5e-3),
+    "three_ring_impact_2d": (2.2e-2, 1.1e-2),   # the rings in contact
+}
+# the card against the CPU from the same built state in the case's dtype:
+# case -> (steps, tolerance of x - x0, tolerance of the velocity), each a
+# share of the body's own max in the CPU run (A7G_F32's form), ten times
+# the larger reading over the bodies of this check on the CPU (DEVICE =
+# "cpu": 0) and on an H100, rounded up to one significant digit; 1e-12
+# where that reading is 0 in float64
+A7H_CPU = {
+    "shell_cantilever_2d": (10, 3e-8, 9e-7),
+    "shell_plate_3d": (10, 3e-7, 1e-6),
+    "roof_3d": (6, 1e-12, 3e-15),
+    "shell_stability_half_sphere_3d": (4, 1e-12, 7e-13),
+    "solid_shell_coupling_3d": (4, 5e-11, 8e-12),
+    "hydrostatic_fsi_2d": (1, 2e-1, 2e-2),
+    "poiseuille_flow_shell_3d": (1, 2e-4, 3e-5),
+    "three_ring_impact_2d": (6, 1e-12, 2e-14),
+}
+# the bodies the card-against-CPU check holds, each against its own max:
+# the gate, which after one advection step from rest carries only the
+# first pressure, is held by `a7h_gate_check` from a loaded state
+A7H_CPU_BODIES = {"hydrostatic_fsi_2d": ("fluid",)}
+# bodies that may be at rest in the compared steps, then held to be
+# exactly so on both: the large ring (F = I, no load) until the medium
+# ring reaches it; once moving, held as the others
+A7H_AT_REST = {"three_ring_impact_2d": ("ring_l",)}
+# the gate under the hydrostatic load (`a7h_gate_check`): its two
+# sub-cycles on the card against the CPU (x - x0 above its float32 floor,
+# velocity, the pressure force, each a share of its own max: ten times
+# the larger reading on an H100, 1.9e-7), and its graph against its eager
+# sub-cycle on the card (every field, a share of its max)
+A7H_GATE_CPU = (2e-6, 2e-6, 2e-6)
+A7H_GRAPH_TOL = 1e-6
+A7H_ULPS = 4           # the float32 displacement floor, in rounding steps
+A7H_BODIES = {"solid_shell_coupling_3d": ("cube", "shell"),
+              "hydrostatic_fsi_2d": ("fluid", "gate"),
+              "poiseuille_flow_shell_3d": ("fluid",),
+              "three_ring_impact_2d": ("ring_l", "ring_m", "ring_s")}
+# the CVT's card-against-CPU check at a reduced width (the full width's
+# dense N x N sweeps take minutes on the host): dp_ratio, its tolerance as
+# a share of the radius
+A7H_CVT_DP = 8.0
+A7H_CVT_TOL = 2e-14       # ten times an H100's reading (1.35e-15 R)
+# the pair operations of the shell parts: a first half's pair exchange
+# (the stress and moment gathers, two (d, d) e products: ~50; the Gauss
+# integration is per particle and not counted), a second half's two outer
+# products (~40), a projection damping (~40), a tie mapping (~10), a
+# shell-contact pair build (the pair and n_dummy_static = 12 dummies,
+# ~30 a dummy: ~400), the surface contact (five builds with their stacks,
+# the factors and forces: ~450 a pair of its five contact lists), a CVT
+# sweep's dense pair (~25)
+LIST_PAIR_FLOPS.update({"shell_1st_half": 50, "shell_2nd_half": 40,
+                        "damping_projection": 40, "tie_mapping": 10,
+                        "shell_contact_pairs": 400, "surface_contact": 450,
+                        "cvt_sweep": 25})
+SHELL_READS = ("Position", "Velocity", "Rotation", "AngularVelocity",
+               "DeformationGradient", "DeformationRate",
+               "BendingDeformationGradient", "BendingDeformationRate",
+               "TransformationMatrix0", "Thickness", "Mass",
+               "VolumetricMeasure", "ForcePrior")
+SHELL_WRITES = ("Position", "Velocity", "Rotation", "AngularVelocity",
+                "AngularAcceleration", "DeformationGradient",
+                "BendingDeformationGradient", "GlobalStress", "GlobalMoment",
+                "GlobalShearStress", "Force", "Density", "PseudoNormal")
+
+
+def frozen_list(torch, rp):
+    """Frozen pairs (a ReferencePairs, a CouplingPairs) as list_bound's
+    list (idx, count)."""
+    import types
+
+    return types.SimpleNamespace(idx=rp.idx, count=rp.mask.sum(dim=1))
+
+
+def a7h_bodies(name):
+    return A7H_BODIES.get(name, ("shell",))
+
+
+def a7h_cpu_check(torch, name, start=None):
+    """The case built on the CPU in its dtype and the same state moved to
+    the card (the half sphere built on the card, its CVT there, and moved
+    to the CPU; the three rings from `start`, the main path's end on the
+    card, in contact, and moved to the CPU), A7H_CPU's steps on each:
+    equal counts, the live masks equal, each held body's x - x0 and
+    velocity within their tolerances of that body's max on the CPU (a body
+    of A7H_AT_REST may instead be exactly at rest on both).  Returns the
+    errors."""
+    cm = importlib.import_module(f"sphinxsys_tpu_torch.cases.{name}")
+    n, tol_d, tol_v = A7H_CPU[name]
+    if start is not None:
+        case, s0 = start
+        dtype = s0.time.dtype
+        pair = [(cast_tree(torch, case, dtype, "cpu"),
+                 cast_tree(torch, s0, dtype, "cpu")), (case, s0)]
+    else:
+        on_card = name == "shell_stability_half_sphere_3d"
+        case, *states = cm.build_case(device=DEVICE if on_card else "cpu")
+        s0 = cm.init_sim(case, *states) if hasattr(cm, "init_sim") \
+            else states[0]
+        dtype = s0.time.dtype
+        other = "cpu" if on_card else DEVICE
+        pair = [(case, s0), (cast_tree(torch, case, dtype, other),
+                             cast_tree(torch, s0, dtype, other))]
+        if on_card:
+            pair.reverse()
+    bodies = A7H_CPU_BODIES.get(name, a7h_bodies(name))
+    runs = []
+    for c, s in pair:
+        x0 = {b: getattr(s, b)["Position"].clone() for b in bodies}
+        step = a7bc_stepper(cm, c)
+        for _ in range(n):
+            s = step(s)
+        runs.append((s, x0))
+    (sh, xh), (sc_, xc) = runs
+    counts = [tuple(getattr(s, k) for k in ("n_steps", "n_adv", "n_ac", "n_s")
+                    if hasattr(s, k)) for s in (sh, sc_)]
+    tols = {"displacement": tol_d, "velocity": tol_v}
+    errs, parts, held = {}, [], []
+    for b in bodies:
+        bh, bc = getattr(sh, b), getattr(sc_, b)
+        rows = bh.get("Alive", slice(None))
+        if "Alive" in bh:
+            check(bool((bc["Alive"].cpu() == bh["Alive"]).all()),
+                  f"a7h {name}: the {b} live masks part")
+        # a float32 displacement of a few rounding steps of the positions
+        # is held to that rounding: A7H_ULPS of the body's largest |x|
+        floor = (A7H_ULPS * 2.0 ** -24 * float(bh["Position"][rows].abs()
+                                               .max())
+                 if dtype == torch.float32 else 0.0)
+        for k, c_, h_ in (("displacement", bc["Position"].cpu() - xc[b].cpu(),
+                           bh["Position"] - xh[b]),
+                          ("velocity", bc["Velocity"].cpu(), bh["Velocity"])):
+            e = float((c_[rows] - h_[rows]).abs().max())
+            m = float(h_[rows].abs().max())
+            errs[f"{b}_{k}"] = e
+            parts.append(f"{b} {k} {e:.3e} / {m:.3e} = "
+                         f"{e / max(m, 1e-300):.3e}, {tols[k]:g}"
+                         + (f" (float32 floor {floor:.3e})"
+                            if floor and k == "displacement" else ""))
+            held.append((b, k, e, m, max(tols[k] * m, floor if
+                                         k == "displacement" else 0.0)))
+    log(f"a7h {name} card against cpu ({str(dtype)[6:]}, {n} steps"
+        + (f" from t={float(pair[1][1].time):.7f}" if start is not None
+           else "") + f"): counts cpu {counts[0]}, card {counts[1]}; max "
+        "|d| / max, tolerance: " + "; ".join(parts))
+    check(counts[0] == counts[1], f"a7h {name}: card counts {counts[1]} != "
+          f"cpu {counts[0]}")
+    at_rest = A7H_AT_REST.get(name, ())
+    for b, k, e, m, bound in held:
+        if b in at_rest and m == 0.0:
+            check(e == 0.0, f"a7h {name}: the {b} {k} at rest on the cpu "
+                  f"and not on the card ({e:.3e})")
+            continue
+        check(m > 0.0 and e <= bound, f"a7h {name}: the card's {b} {k} off "
+              f"the cpu's by {e:.3e} (max {m:.3e}, bound {bound:.3e})")
+    return dict(counts=counts, **errs)
+
+
+def a7h_cvt_check(torch, results):
+    """The CVT (200 sweeps, float64) on the card against the CPU at
+    A7H_CVT_DP: positions within A7H_CVT_TOL of the radius, the
+    generator's own gates (the minimum pair distance above dp / 2)."""
+    import numpy as np
+
+    from sphinxsys_tpu_torch.cases import shell_stability_half_sphere_3d as hs
+    from sphinxsys_tpu_torch.core.surface_cvt import min_pair_distance
+
+    dp = A7H_CVT_DP * hs.THICKNESS
+    t0 = time.perf_counter()
+    card = hs.generate_particles(dp, 200, torch.float64, DEVICE)
+    t1 = time.perf_counter()
+    host = hs.generate_particles(dp, 200, torch.float64, "cpu")
+    t2 = time.perf_counter()
+    err = float(np.abs(card[0] - host[0]).max()) / hs.RADIUS
+    dmin = min_pair_distance(card[0])
+    log(f"a7h cvt card against cpu ({len(card[0])} points, 200 sweeps, "
+        f"float64): max |dx| / R {err:.3e} (tolerance {A7H_CVT_TOL:g}); min "
+        f"pair distance {dmin:.4f} (at least dp / 2 = {dp / 2:g}); card "
+        f"{t1 - t0:.3f} s, cpu {t2 - t1:.3f} s")
+    check(err <= A7H_CVT_TOL, f"a7h cvt: card off cpu by {err:.3e} R")
+    check(dmin > dp / 2, f"a7h cvt: min pair distance {dmin} <= dp / 2")
+    results["_a7h_cvt"] = dict(n=len(card[0]), err=err, min_pair=dmin,
+                               card_s=t1 - t0, cpu_s=t2 - t1)
+
+
+def a7h_parts(torch, name, cm, case, sim):
+    """The new parts alone on the main path's end state."""
+    from sphinxsys_tpu_torch.physics import shell as sh
+
+    h = case.adaptation.h
+    if name == "hydrostatic_fsi_2d":
+        from sphinxsys_tpu_torch.physics import fluid as fd
+
+        dt = torch.minimum(fd.acoustic_time_step(sim.fluid, case.eos, h),
+                           fd.advection_time_step(sim.fluid, h, cm.U_REF))
+        dt_s = torch.minimum(sh.shell_acoustic_time_step(
+            sim.gate, case.material_s, h), dt)
+        return {"contact_pairs": lambda: cm.contact_pairs(
+                    case, sim, sim.fluid, sim.gate),
+                "gate_substep": lambda: cm.gate_substep(case, sim.gate,
+                                                        dt_s)}
+    if name == "poiseuille_flow_shell_3d":
+        from sphinxsys_tpu_torch.physics import fluid as fd
+
+        pairs = cm.shell_pairs(case, sim, sim.fluid)
+        dt_adv = fd.advection_viscous_time_step(sim.fluid, h, cm.U_MAX,
+                                                cm.RHO0_F, cm.MU_F)
+        return {"contact_pairs": lambda: cm.shell_pairs(case, sim,
+                                                        sim.fluid),
+                "acoustic_substep": lambda: cm.acoustic_substep(
+                    case, sim, sim.fluid, dt_adv, torch.zeros_like(dt_adv),
+                    pairs)}
+    if name == "three_ring_impact_2d":
+        return {"surface_contact": lambda: cm.contact_forces(
+                    case, sim.ring_l, sim.ring_m, sim.ring_s),
+                "shell_1st_half": lambda: sh.shell_stress_relaxation_1st_half(
+                    sim.ring_m, case.rp_m, case.mat_m, sim.dt, h),
+                "shell_2nd_half": lambda: sh.shell_stress_relaxation_2nd_half(
+                    sim.ring_m, case.rp_m, sim.dt)}
+    if name == "solid_shell_coupling_3d":
+        from sphinxsys_tpu_torch.physics import solid_shell as ss
+
+        def ties():
+            v = ss.consistent_mapping(case.cp_shell, sim.cube["Velocity"],
+                                      sim.shell["Velocity"],
+                                      part_mask=case.shell_tied_part)
+            return v, cm.cube_force_prior(case, sim.cube, sim.shell)
+        return {"tie_mapping": ties,
+                "shell_1st_half": lambda: sh.shell_stress_relaxation_1st_half(
+                    sim.shell, case.rp_shell, case.material, sim.dt, h),
+                "shell_2nd_half": lambda: sh.shell_stress_relaxation_2nd_half(
+                    sim.shell, case.rp_shell, sim.dt)}
+    out = {"shell_1st_half": lambda: sh.shell_stress_relaxation_1st_half(
+               sim.shell, case.rp, case.material, sim.dt, h),
+           "shell_2nd_half": lambda: sh.shell_stress_relaxation_2nd_half(
+               sim.shell, case.rp, sim.dt)}
+    if name in ("roof_3d", "shell_stability_half_sphere_3d"):
+        if name == "roof_3d":
+            eta = cm.PHYSICAL_VISCOSITY / cm.DAMPING_RATIO
+            out["damping_projection"] = lambda: cm.damping(case, sim.shell,
+                                                           sim.dt, eta)
+        else:
+            out["damping_projection"] = lambda: cm.damping(case, sim.shell,
+                                                           sim.dt)
+            out["cvt"] = lambda: cm.generate_particles(case.dp, 200,
+                                                       torch.float64, DEVICE)
+    return out
+
+
+def a7h_bounds(torch, name, cm, case, sim, parts):
+    """Each profiled part's least time from this run's lists and fields
+    (`list_bound`); a step is its parts' sum (times the acoustic and the
+    gate's sub-steps for the fluid cases)."""
+    out = {}
+
+    def shell_halves(shell, rp):
+        lst = [frozen_list(torch, rp)]
+        first = list_bound(torch, "shell_1st_half", lst,
+                           fields(shell, *SHELL_READS),
+                           fields(shell, *SHELL_WRITES))
+        second = list_bound(torch, "shell_2nd_half", lst,
+                            fields(shell, *SHELL_READS,
+                                   "LinearGradientCorrectionMatrix"),
+                            fields(shell, "Position", "Rotation",
+                                   "PseudoNormal", "PseudoNormalRate",
+                                   "DeformationRate",
+                                   "BendingDeformationRate",
+                                   "DeformationGradient",
+                                   "BendingDeformationGradient"))
+        return first, second
+
+    if name == "hydrostatic_fsi_2d":
+        g, f = sim.gate, sim.fluid
+        lists = [sim.nl_ff, sim.nl_fw, sim.nl_fg]
+        pairs = list_bound(torch, "shell_contact_pairs",
+                           [sim.nl_fw, sim.nl_fg, sim.nl_gf],
+                           fields(f, "Position") + fields(
+                               g, "Position", "NormalDirection", "Thickness")
+                           + fields(case.wall, "Position", "NormalDirection"),
+                           [])
+        first, second = shell_halves(g, case.gate_rp)
+        gsub = (first[0] + second[0], first[1], first[2] + second[2])
+        ac = list_bound(torch, "acoustic_substep", lists,
+                        fields(f, *FLUID_AC_READS) + fields(
+                            g, "Position", "VolumetricMeasure",
+                            "AverageVelocity", "AverageAcceleration"),
+                        fields(f, *FLUID_AC_WRITES))
+        per_s = sim.n_s / max(sim.n_ac, 1)
+        sub = (ac[0] + per_s * gsub[0], ac[1], ac[2] + round(per_s * gsub[2]))
+        per_ac = sim.n_ac / max(sim.n_adv, 1)
+        out.update(contact_pairs=pairs, acoustic_substep=sub,
+                   gate_substep=gsub,
+                   advection_step=(pairs[0] + per_ac * sub[0], sub[1],
+                                   pairs[2] + round(per_ac * sub[2])))
+        return out
+    if name == "poiseuille_flow_shell_3d":
+        f = sim.fluid
+        lists = [sim.nl_ff, sim.nl_fs]
+        pairs = list_bound(torch, "shell_contact_pairs", [sim.nl_fs],
+                           fields(f, "Position") + [case.shell_k1,
+                                                    case.shell_k2]
+                           + fields(case.shell, "Position",
+                                    "NormalDirection", "Thickness"), [])
+        sub = list_bound(torch, "acoustic_substep", lists,
+                         fields(f, *FLUID_AC_READS) + fields(
+                             case.shell, "VolumetricMeasure"),
+                         fields(f, *FLUID_AC_WRITES))
+        prep = list_bound(torch, "density", lists,
+                          fields(f, "Position", "Mass", "Density",
+                                 "VolumetricMeasure", "Velocity"),
+                          fields(f, "DensitySummation", "Density",
+                                 "Position", "ViscousForce"))
+        per_ac = sim.n_ac / max(sim.n_adv, 1)
+        out.update(contact_pairs=pairs, acoustic_substep=sub,
+                   advection_step=(pairs[0] + prep[0] + per_ac * sub[0],
+                                   sub[1], pairs[2] + prep[2]
+                                   + round(per_ac * sub[2])))
+        return out
+    if name == "three_ring_impact_2d":
+        rings = (sim.ring_l, sim.ring_m, sim.ring_s)
+        rl, rm, rs = rings
+        n_l, n_m, n_s = case.n_l, case.n_m, case.n_s
+        contact_lists = [
+            cm._contact_nl(case, rs["Position"], n_s, rm, n_m),
+            cm._contact_nl(case, rm["Position"], n_m, rs, n_s),
+            cm._contact_nl(case, rm["Position"], n_m, rl, n_l),
+            cm._contact_nl(case, rl["Position"], n_l, rm, n_m),
+            cm._contact_nl(case, rm["Position"], n_m, rm, n_m)]
+        contact = list_bound(torch, "surface_contact", contact_lists,
+                             [t for r in rings for t in fields(
+                                 r, "Position", "Velocity", "NormalDirection",
+                                 "VolumetricMeasure", "Thickness")],
+                             [t for r in rings for t in fields(
+                                 r, "ForcePrior")])
+        first, second = shell_halves(sim.ring_m, case.rp_m)
+        solid = list_bound(torch, "solid_substep",
+                           [frozen_list(torch, case.rp_l)],
+                           fields(sim.ring_l, *SOLID_READS),
+                           fields(sim.ring_l, *SOLID_WRITES))
+        s_s = shell_halves(sim.ring_s, case.rp_s)
+        step = contact[0] + first[0] + second[0] + s_s[0][0] + s_s[1][0] \
+            + solid[0]
+        out.update(surface_contact=contact, shell_1st_half=first,
+                   shell_2nd_half=second,
+                   advection_step=(step, contact[1],
+                                   contact[2] + first[2] + s_s[0][2]
+                                   + solid[2]))
+        return out
+    if name == "solid_shell_coupling_3d":
+        first, second = shell_halves(sim.shell, case.rp_shell)
+        ties = list_bound(torch, "tie_mapping",
+                          [frozen_list(torch, case.cp_shell),
+                           frozen_list(torch, case.cp_cube)],
+                          fields(sim.cube, "Velocity", "VolumetricMeasure",
+                                 "Mass") + fields(sim.shell, "Velocity",
+                                                  "Force"),
+                          fields(sim.shell, "Velocity")
+                          + fields(sim.cube, "ForcePrior"))
+        solid = list_bound(torch, "solid_substep",
+                           [frozen_list(torch, case.rp_cube)],
+                           fields(sim.cube, *SOLID_READS),
+                           fields(sim.cube, *SOLID_WRITES))
+        out.update(shell_1st_half=first, shell_2nd_half=second,
+                   tie_mapping=ties,
+                   advection_step=(first[0] + second[0] + ties[0] + solid[0],
+                                   first[1], first[2] + second[2]
+                                   + solid[2]))
+        return out
+    first, second = shell_halves(sim.shell, case.rp)
+    out.update(shell_1st_half=first, shell_2nd_half=second)
+    step = first[0] + second[0]
+    if "damping_projection" in parts:
+        damp = list_bound(torch, "damping_projection", [case.nl],
+                          fields(sim.shell, "Position", "VolumetricMeasure",
+                                 "Mass", "Velocity", "AngularVelocity"),
+                          fields(sim.shell, "Velocity", "AngularVelocity"))
+        out["damping_projection"] = damp
+        step += damp[0]
+    if "cvt" in parts:
+        n = case.n_shell
+        out["cvt"] = (*bytes_or_flops(2 * 3 * 8 * n * 200, n * n * 200
+                                      * LIST_PAIR_FLOPS["cvt_sweep"]),
+                      n * n * 200)
+    out["advection_step"] = (step, first[1], first[2] + second[2])
+    return out
+
+
+def a7h_observable(name, cm, case, sim):
+    if name in ("shell_cantilever_2d", "shell_plate_3d"):
+        return cm.tip_displacement(case, sim)
+    if name == "roof_3d":
+        return cm.observer_position(case, sim).tolist()
+    if name == "shell_stability_half_sphere_3d":
+        return cm.max_displacement(sim)
+    if name == "solid_shell_coupling_3d":
+        return [cm.center_deflection(case, sim), cm.u_max(sim)]
+    if name == "hydrostatic_fsi_2d":
+        return cm.center_displacement(case, sim)
+    if name == "poiseuille_flow_shell_3d":
+        return [cm.n_alive(sim), float(cm.observed_velocity(
+            case, sim, cm.radial_observation_points()[:1])[0, 1])]
+    return cm.observer_point(case, sim).tolist()
+
+
+def a7h_case_path(torch, name, results):
+    """A case at its JAX default width and dtype through build_case ->
+    init_sim -> make_run_chunk -> solver.run_simulation (A7H_MAIN's end
+    time), every launch count reset just before and read just after: no
+    overflow, finite fields, the observable printed; then one step and its
+    parts alone (`ob_parts`).  Returns the end (case, sim)."""
+    cm = importlib.import_module(f"sphinxsys_tpu_torch.cases.{name}")
+    t_end, sample = A7H_MAIN[name]
+
+    def build():
+        case, *states = cm.build_case(device=DEVICE)
+        sim = cm.init_sim(case, *states) if hasattr(cm, "init_sim") \
+            else states[0]
+        return case, cm, sim
+
+    case, sim, rec = ob_main_run(torch, f"a7h {name}", build, t_end, sample)
+    check(not bool(getattr(sim, "overflow", False)), f"a7h {name}: overflow")
+    for b in a7h_bodies(name):
+        body = getattr(sim, b)
+        rows = body.get("Alive", slice(None))
+        for k in ("Position", "Velocity", "Density"):
+            if k in body:
+                check(bool(torch.isfinite(body[k][rows]).all()),
+                      f"a7h {name}: non-finite {b} {k}")
+    counts = tuple(getattr(sim, k) for k in ("n_steps", "n_adv", "n_ac",
+                                             "n_s") if hasattr(sim, k))
+    obs = a7h_observable(name, cm, case, sim)
+    n_rows = {b: getattr(sim, b)["Position"].shape[0]
+              for b in a7h_bodies(name)}
+    log(f"a7h {name} main path: rows {n_rows}; setup {rec['setup_s']:.2f} s;"
+        f" to t={float(sim.time):.7f} counts {counts}; observable {obs}; "
+        f"{rec['ms_per_adv']:.3f} ms a step (wall clock, mean), "
+        f"{rec['host_reads_per_adv']:.1f} host reads a step; peak device "
+        f"memory {rec['peak_gb']:.3f} GB")
+    fns = a7h_parts(torch, name, cm, case, sim)
+    step = a7bc_stepper(cm, case)
+    # the gate's advection step (~1,600 sub-steps of ~620 launches) is
+    # timed by its main path and `a7h_gate_check`, not profiled
+    parts = ob_parts(torch, f"a7h_{name}", fns,
+                     None if name == "hydrostatic_fsi_2d"
+                     else lambda: step(sim),
+                     a7h_bounds(torch, name, cm, case, sim, fns),
+                     trace=False)
+    results[f"_a7h_{name}"] = dict(rec, counts=counts, observable=obs,
+                                   n_rows=n_rows, parts=parts)
+    return case, sim
+
+
+def a7h_loaded_gate(torch, hf, case, s):
+    """The gate under the water column at rest: the fluid's pressure rho g
+    (H - y) and its density from the equation of state, the pressure force
+    over the corrected pairs folded into ForcePrior as an acoustic
+    sub-step folds it.  Returns (gate, the acoustic dt)."""
+    from sphinxsys_tpu_torch.physics import fluid as fd
+    from sphinxsys_tpu_torch.physics import fsi
+    from sphinxsys_tpu_torch.physics import shell_fluid as sf
+
+    f = dict(s.fluid)
+    f["Pressure"] = hf.RHO0_F * hf.GRAVITY_G * (hf.DAM_H - f["Position"][:, 1])
+    f["Density"] = case.eos.density_from_pressure(f["Pressure"])
+    _, _, pairs_gf = hf.contact_pairs(case, s, f, s.gate)
+    g = fsi.force_prior_update(s.gate, "PressureForceFromFluid",
+                               sf.pressure_force_from_fluid_on_shell(
+                                   s.gate, f, pairs_gf, s.nl_gf,
+                                   case.no_riemann))
+    h = case.adaptation.h
+    dt = torch.minimum(fd.acoustic_time_step(f, case.eos, h),
+                       fd.advection_time_step(f, h, hf.U_REF))
+    return g, dt
+
+
+def a7h_gate_check(torch, results):
+    """The gate at its default width from a loaded, moving state: the
+    loaded gate (`a7h_loaded_gate`) built on the CPU and moved to the
+    card, two sub-cycles on each (the card's a replayed CUDA graph, the
+    CPU's the eager loop): equal sub-step counts, the gate's x - x0,
+    velocity and pressure force within A7H_GATE_CPU of their own max on
+    the CPU; then from the card's state after its first sub-cycle (moving,
+    loaded) the graph against the eager loop on the card: equal counts,
+    every field within A7H_GRAPH_TOL of its max."""
+    from sphinxsys_tpu_torch.cases import hydrostatic_fsi_2d as hf
+    from sphinxsys_tpu_torch.physics import fsi
+
+    case_h, fluid, gate = hf.build_case(device="cpu")
+    s_h = hf.init_sim(case_h, fluid, gate)
+    dtype = s_h.time.dtype
+    runs = {}
+    for where, case, s in (("cpu", case_h, s_h),
+                           ("card", cast_tree(torch, case_h, dtype, DEVICE),
+                            cast_tree(torch, s_h, dtype, DEVICE))):
+        g, dt = a7h_loaded_gate(torch, hf, case, s)
+        x0 = g["Position"].clone()
+        g1, k1 = hf.gate_substeps(case, g, dt)
+        g2, k2 = hf.gate_substeps(case, g1, dt)
+        runs[where] = dict(case=case, g=g, g1=g1, g2=g2, k=(k1, k2), x0=x0,
+                           dt=dt)
+    rh, rc = runs["cpu"], runs["card"]
+    floor = (A7H_ULPS * 2.0 ** -24 * float(rh["g2"]["Position"].abs().max())
+             if dtype == torch.float32 else 0.0)
+    errs, parts = {}, []
+    for k, c_, h_, tol in (
+            ("displacement", rc["g2"]["Position"] - rc["x0"],
+             rh["g2"]["Position"] - rh["x0"], A7H_GATE_CPU[0]),
+            ("velocity", rc["g2"]["Velocity"], rh["g2"]["Velocity"],
+             A7H_GATE_CPU[1]),
+            ("pressure force", rc["g"]["PressureForceFromFluid"],
+             rh["g"]["PressureForceFromFluid"], A7H_GATE_CPU[2])):
+        e, m = float((c_.cpu() - h_).abs().max()), float(h_.abs().max())
+        bound = max(tol * m, floor if k == "displacement" else 0.0)
+        errs[k] = (e, m, bound)
+        parts.append(f"{k} {e:.3e} / {m:.3e} = {e / max(m, 1e-300):.3e}, "
+                     f"{tol:g}" + (f" (float32 floor {floor:.3e})"
+                                   if floor and k == "displacement" else ""))
+    log(f"a7h gate card against cpu (loaded, {str(dtype)[6:]}, two "
+        f"sub-cycles): sub-steps cpu {rh['k']}, card {rc['k']}; max |d| / "
+        "max, tolerance: " + "; ".join(parts))
+    check(rh["k"] == rc["k"], f"a7h gate: card sub-steps {rc['k']} != cpu "
+          f"{rh['k']}")
+    for k, (e, m, bound) in errs.items():
+        check(m > 0.0 and e <= bound, f"a7h gate: the card's {k} off the "
+              f"cpu's by {e:.3e} (max {m:.3e}, bound {bound:.3e})")
+
+    case, dt = rc["case"], rc["dt"]
+    g0 = fsi.initialize_displacement(rc["g1"])
+    out, walls = {}, {}
+    for mode, fn in (("eager", hf._eager_substeps),
+                     ("graph", case.subcycle.run)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[mode] = fn(case, g0, dt)
+        torch.cuda.synchronize()
+        walls[mode] = time.perf_counter() - t0
+    (ge, ke), (gg, kg) = out["eager"], out["graph"]
+    err = max(float((gg[k] - ge[k]).abs().max())
+              / max(float(ge[k].abs().max()), 1e-300)
+              for k in ge if torch.is_tensor(ge[k])
+              and ge[k].is_floating_point())
+    v_max = float(g0["Velocity"].abs().max())
+    log(f"a7h gate sub-cycle, graph against eager on the card (loaded, max "
+        f"|v| {v_max:.3e} at the start): {kg} / {ke} sub-steps, max |d| / "
+        f"max {err:.3e} (tolerance {A7H_GRAPH_TOL:g}); wall "
+        f"{walls['graph'] * 1e3:.1f} ms against {walls['eager'] * 1e3:.1f} "
+        f"ms ({walls['graph'] / kg * 1e3:.3f} / "
+        f"{walls['eager'] / ke * 1e3:.3f} ms a sub-step)")
+    check(v_max > 0.0, "a7h gate: the gate does not move")
+    check(kg == ke, f"a7h gate: graph sub-steps {kg} != eager {ke}")
+    check(err <= A7H_GRAPH_TOL, f"a7h gate: graph off eager by {err:.3e}")
+    results["_a7h_gate"] = dict(
+        substeps=kg, graph_err=err, graph_s=walls["graph"],
+        eager_s=walls["eager"], **{f"cpu_{k.replace(' ', '_')}": e
+                                   for k, (e, _, _) in errs.items()})
+
+
+def a7h_phase(torch, results):
+    """Phase 20: the eight cases of the shell family (ROADMAP A item 3, no
+    hand kernel), each at its JAX default width and dtype: the card
+    against the CPU from the same state (the three rings from the main
+    path's end, in contact), through the public entry points, its step by
+    part; the loaded gate's sub-cycles; the CVT on the card against the
+    CPU."""
+    t0 = time.perf_counter()
+    for name in A7H_MAIN:
+        if name == "three_ring_impact_2d":
+            end = a7h_case_path(torch, name, results)
+            cpu = a7h_cpu_check(torch, name, start=end)
+        else:
+            cpu = a7h_cpu_check(torch, name)
+            end = a7h_case_path(torch, name, results)
+        results[f"_a7h_{name}"]["card_vs_cpu"] = cpu
+        del end
+        torch.cuda.empty_cache()
+    a7h_gate_check(torch, results)
+    a7h_cvt_check(torch, results)
+    log(f"a7h phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (ROOT / "sphinxsys_tpu_torch").is_dir():
@@ -5980,6 +6579,7 @@ def main() -> int:
     a7e_phase(torch, results)
     a7f_phase(torch, results)
     a7g_phase(torch, results)
+    a7h_phase(torch, results)
 
     kernels = []
     for tag, names in [*((t, c["kernels"]) for t, c in CONFIGS.items()),
@@ -6019,7 +6619,9 @@ def main() -> int:
                 *(f"a7e_{name}" for name in A7E_MAIN), "a7e_cg",
                 *(f"a7f_{name}" for name in A7F_MAIN),
                 *(f"a7g_{name}" for name in A7G_MAIN),
-                "a7g_vp_heat_flux_2d"):
+                "a7g_vp_heat_flux_2d",
+                *(f"a7h_{name}" for name in A7H_MAIN), "a7h_gate",
+                "a7h_cvt"):
         main_paths[tag] = results[f"_{tag}"]
     log("main paths: " + json.dumps(main_paths))
     lost = sorted({PROFILE_GUARD - p[4] for p in PROFILED})

@@ -5,7 +5,9 @@ BlockSim arrays, neighbour lists, articulated trees, rigid bodies and
 case sims (the two-phase ones, the damping family's with their macro and
 sub-step counts, the continuum family's, whose UL sims' sub-step count
 JAX does not keep and starts at 0, and the Windkessel channel's with its
-RCR state), and plain arrays (a conductivity field, an optimiser's
+RCR state, the shell family's), frozen pairs (ReferencePairs, the
+solid-shell CouplingPairs, the shell contacts' ShellContactPairs and
+SurfacePairs), and plain arrays (a conductivity field, an optimiser's
 parameters), handed over as numpy, become the port's CPU tensors, and
 back.  The parity tests use these to feed
 both sides identical inputs."""
@@ -67,6 +69,14 @@ def tree_from_numpy(tree) -> ArticulatedTree:
         r_parent=_tensor(tree.r_parent), r_child=_tensor(tree.r_child),
         mass=_tensor(tree.mass), inertia=_tensor(tree.inertia),
         com=_tensor(tree.com), joint_type=tuple(tree.joint_type))
+
+
+def pairs_from_numpy(cls, pairs):
+    """Frozen pairs (any named tuple of arrays with the port class `cls`'s
+    field names: solid.ReferencePairs, solid_shell.CouplingPairs,
+    shell_fluid.ShellContactPairs, surface_contact.SurfacePairs) -> `cls`,
+    its fields tensors of the arrays' dtypes."""
+    return cls(**{k: _tensor(getattr(pairs, k)) for k in cls._fields})
 
 
 def rigid_from_numpy(body):

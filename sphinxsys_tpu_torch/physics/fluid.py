@@ -30,8 +30,12 @@ fluid_integration.hpp):
 A wall is a (state, neighbour list) pair whose state carries Position,
 VolumetricMeasure, Mass, NormalDirection, AverageVelocity and
 AverageAcceleration (a static wall's are zero).  Another fluid phase is a
-`contacts` entry.  The arguments the JAX package takes for cases not
-ported yet raise NotImplementedError naming what they need.
+`contacts` entry.  A shell seen as a wall is a `shell_walls` entry
+(state, list, shell_fluid.ShellContactPairs) or, in the density
+summation, a `shell_contacts` entry (state, list, pairs, the shell's
+rho0): the curvature-corrected pairs of physics/shell_fluid.py, built
+once an advection step.  The level sets the JAX package takes raise
+NotImplementedError naming what they need.
 """
 
 from __future__ import annotations
@@ -44,13 +48,14 @@ from sphinxsys_tpu_torch.core.linalg import det, inv, mv, outer_sum
 from sphinxsys_tpu_torch.core.state import State, nreal_mask
 from sphinxsys_tpu_torch.neighbors.neighbor_list import NeighborList, gather
 from sphinxsys_tpu_torch.physics.pair import pair_geometry
+from sphinxsys_tpu_torch.physics.shell_fluid import (
+    acoustic_1st_half_shell_term, acoustic_2nd_half_shell_term,
+    density_summation_shell_term)
 
 TINY = 1.0e-15
 
 # the first module or case of the JAX package that needs each argument
 _NEEDS = {
-    "shell_contacts": "physics/shell_fluid.py",
-    "shell_walls": "physics/shell_fluid.py",
     "levelsets": "meshes/levelset.py",
 }
 
@@ -86,7 +91,7 @@ def density_summation(fluid: State, nl_inner: NeighborList, kernel, dim: int,
     contact: rho_sum += [sum W_ik m_k / rho0_k] rho0^2 / sigma0 / m_i
     update:  free surface: rho = max(rho_sum, rho0) (density_summation.hpp:29-32)
              otherwise:    rho = rho_sum ; Vol = m / rho"""
-    _unported(shell_contacts=shell_contacts, levelsets=levelsets)
+    _unported(levelsets=levelsets)
     pos = fluid["Position"]
     pg = pair_geometry(pos, pos, nl_inner, kernel, dim, need_dW=False, box=box)
     sigma = kernel.w0(dim) + torch.sum(pg.W, dim=1)
@@ -97,6 +102,9 @@ def density_summation(fluid: State, nl_inner: NeighborList, kernel, dim: int,
         mass_k, _ = gather(c_state["Mass"], nl_c.idx)
         sigma_c = torch.sum(pgc.W * mass_k / c_rho0, dim=1)
         rho_sum = rho_sum + sigma_c * rho0 * rho0 / sigma0 / fluid["Mass"]
+    for s_state, nl_s, s_pairs, s_rho0 in shell_contacts:
+        rho_sum = rho_sum + density_summation_shell_term(
+            fluid, s_state, s_pairs, nl_s, rho0, sigma0, s_rho0)
     out = dict(fluid)
     out["DensitySummation"] = rho_sum
     if free_surface:
@@ -138,7 +146,7 @@ def acoustic_step_1st_half(fluid: State, nl_inner: NeighborList, kernel,
     `extra_force`: an (N, d) force added to this half's Force before the
     velocity update (the updated-Lagrangian solid's shear force,
     continuum.ul_shear_force)."""
-    _unported(shell_walls=shell_walls, levelsets=levelsets)
+    _unported(levelsets=levelsets)
     # --- initialization -----------------------------------------------
     rho = fluid["Density"] + fluid["DensityChangeRate"] * (0.5 * dt)
     p = eos.pressure(rho)
@@ -186,6 +194,11 @@ def acoustic_step_1st_half(fluid: State, nl_inner: NeighborList, kernel,
             wr.dissipative_u_jump(p[:, None] - p_in_wall) * dWV_w, dim=1)
         force_total = force_total + force_w * vol[:, None]
         drho_dt = drho_dt + rho_diss_w * rho
+    for sstate, snl, spairs in shell_walls:
+        force_s, rho_diss_s = acoustic_1st_half_shell_term(
+            p, rho, fluid, sstate, spairs, snl, wr)
+        force_total = force_total + force_s * vol[:, None]
+        drho_dt = drho_dt + rho_diss_s * rho
 
     # --- interaction: fluid-fluid contacts (hpp:132-157) -------------------
     # the other phase's stored Pressure: its own last first half wrote it
@@ -231,7 +244,7 @@ def acoustic_step_2nd_half(fluid: State, nl_inner: NeighborList, kernel,
     the density change against the impedance-averaged velocity
     average_v(v_i, v_k) and the p-jump of the plain velocity jump
     (fluid_integration.hpp:248-272)."""
-    _unported(shell_walls=shell_walls, levelsets=levelsets)
+    _unported(levelsets=levelsets)
     # --- initialization ---------------------------------------------------
     pos = fluid["Position"] + fluid["Velocity"] * (0.5 * dt)
     vel = fluid["Velocity"]
@@ -270,6 +283,11 @@ def acoustic_step_2nd_half(fluid: State, nl_inner: NeighborList, kernel,
                              * face_to_fluid_n, dim=1)
         drho_dt = drho_dt + dcr_w * rho
         force = force + p_diss_w * vol[:, None]
+    for sstate, snl, spairs in shell_walls:
+        p_diss_s, dcr_s = acoustic_2nd_half_shell_term(
+            vel, fluid, sstate, spairs, snl, wr)
+        drho_dt = drho_dt + dcr_s * rho
+        force = force + p_diss_s * vol[:, None]
 
     # --- interaction: fluid-fluid contacts (hpp:248-272) ---------------------
     for cstate, cnl, crs in contacts:
@@ -353,7 +371,6 @@ def viscous_force(fluid: State, nl_inner: NeighborList, kernel, dim: int,
     inner form against the phase's own velocity with the pair-harmonic
     viscosity mu_pair = 2 mu_1 mu_2 / (mu_1 + mu_2)
     (viscous_dynamics.hpp:151-190)."""
-    _unported(shell_walls=shell_walls)
     pos, vel, vol = fluid["Position"], fluid["Velocity"], \
         fluid["VolumetricMeasure"]
     eps_r = 0.01 * smoothing_length
@@ -382,6 +399,17 @@ def viscous_force(fluid: State, nl_inner: NeighborList, kernel, dim: int,
         vderiv_c = (vel[:, None, :] - c_vel) / (pgc.r + eps_r)[..., None]
         force = force + 2.0 * mu_pair * torch.sum(
             vderiv_c * (pgc.dW * c_vol)[..., None], dim=1)
+
+    # a shell wall through its corrected pairs (ViscousForce<Contact<Wall>>
+    # over ContactRelationFromShellToFluid)
+    for sstate, snl, spairs in shell_walls:
+        area_k, _ = gather(sstate["VolumetricMeasure"], snl.idx)
+        vel_ave_k, _ = gather(sstate["AverageVelocity"], snl.idx)
+        vderiv_s = 2.0 * (vel[:, None, :] - vel_ave_k) \
+            / (spairs.r + eps_r)[..., None]
+        force = force + 2.0 * mu * torch.sum(
+            vderiv_s * (spairs.dWV * area_k
+                        * spairs.mask.to(force.dtype))[..., None], dim=1)
 
     out = dict(fluid)
     out["ViscousForce"] = force * vol[:, None]
@@ -417,7 +445,6 @@ def transport_velocity_correction(fluid: State, nl_inner: NeighborList,
     cohesive_soil_failure.h:128-143): a surface-indicated row shifts only
     tangentially to I / |I| (at a free surface the inward normal), and not
     at all where its PositionDivergence is below 0.6 dim."""
-    _unported(shell_walls=shell_walls)
     pos, vol = fluid["Position"], fluid["VolumetricMeasure"]
     pg = pair_geometry(pos, pos, nl_inner, kernel, dim, need_W=False, box=box)
     vol_j, _ = gather(vol, nl_inner.idx)
@@ -428,6 +455,11 @@ def transport_velocity_correction(fluid: State, nl_inner: NeighborList,
         wall_vol, _ = gather(wstate["VolumetricMeasure"], wnl.idx)
         inconsistency = inconsistency - torch.sum(
             (2.0 * pgw.dW * wall_vol)[..., None] * pgw.e, dim=1)
+    for sstate, snl, spairs in shell_walls:
+        area_k, _ = gather(sstate["VolumetricMeasure"], snl.idx)
+        inconsistency = inconsistency - torch.sum(
+            (2.0 * spairs.dWV * area_k
+             * spairs.mask.to(pos.dtype))[..., None] * spairs.e, dim=1)
     h2 = h_ref * h_ref
     shift = coefficient * h2 * inconsistency
     if limiter_slope is not None:
@@ -505,7 +537,6 @@ def free_surface_indication(fluid: State, nl_inner: NeighborList, kernel,
     step and no neighbour was surface then (surface_indication.cpp:57-90).
     Writes Indicator (int32), PositionDivergence and
     PreviousSurfaceIndicator."""
-    _unported(shell_walls=shell_walls)
     pos = fluid["Position"]
     threshold = 0.75 * dim
     pg = pair_geometry(pos, pos, nl_inner, kernel, dim, need_W=False, box=box)
@@ -516,6 +547,11 @@ def free_surface_indication(fluid: State, nl_inner: NeighborList, kernel,
                             need_W=False, box=box)
         vol_k, _ = gather(c_state["VolumetricMeasure"], nl_c.idx)
         pos_div = pos_div - torch.sum(pgc.dW * vol_k * pgc.r, dim=1)
+    for sstate, snl, spairs in shell_walls:
+        area_k, _ = gather(sstate["VolumetricMeasure"], snl.idx)
+        pos_div = pos_div - torch.sum(spairs.dWV * area_k
+                                      * spairs.mask.to(pos_div.dtype)
+                                      * spairs.r, dim=1)
 
     if spatial_temporal and "PreviousSurfaceIndicator" in fluid:
         prev = fluid["PreviousSurfaceIndicator"]

@@ -18,6 +18,8 @@ overrides (--set dx=0.05 --set t_end=2).
     python -m sphinxsys_tpu_torch.run column_collapse_2d --set t_end=0.1
     python -m sphinxsys_tpu_torch.run throat_2d --set dx=0.4 --set t_end=0.1
     python -m sphinxsys_tpu_torch.run vp_heat_flux_2d --set n_steps=5
+    python -m sphinxsys_tpu_torch.run roof_3d --set t_end=0.01
+    python -m sphinxsys_tpu_torch.run hydrostatic_fsi_2d --set dx=0.05
 
 The VTP writer writes a body's first NReal rows, as the JAX package's
 does: for an open-boundary fluid these include dead slots parked at
@@ -291,6 +293,29 @@ CASES = {
     "depolarization_2d": _run_single_fluid(
         "depolarization_2d",
         lambda c, s: {"MuscleBlock": dict(s.body)}, t_end=16.0),
+    "shell_cantilever_2d": _run_single_fluid(
+        "shell_cantilever_2d", lambda c, s: {"Shell": s.shell}, t_end=1.0),
+    "shell_plate_3d": _run_single_fluid(
+        "shell_plate_3d", lambda c, s: {"Plate": s.shell}, t_end=0.02),
+    "roof_3d": _run_single_fluid(
+        "roof_3d", lambda c, s: {"CylinderBody": s.shell}, t_end=2.0),
+    "shell_stability_half_sphere_3d": _run_single_fluid(
+        "shell_stability_half_sphere_3d", lambda c, s: {"Shell": s.shell},
+        t_end=0.5),
+    "solid_shell_coupling_3d": _run_single_fluid(
+        "solid_shell_coupling_3d",
+        lambda c, s: {"Cube": s.cube, "Shell": s.shell}, t_end=40.0),
+    "hydrostatic_fsi_2d": _run_single_fluid(
+        "hydrostatic_fsi_2d",
+        lambda c, s: {"WaterBody": s.fluid, "Gate": s.gate, "Wall": c.wall},
+        t_end=0.2),
+    "poiseuille_flow_shell_3d": _run_single_fluid(
+        "poiseuille_flow_shell_3d",
+        lambda c, s: {"WaterBody": s.fluid, "Shell": c.shell}, t_end=2.0),
+    "three_ring_impact_2d": _run_single_fluid(
+        "three_ring_impact_2d",
+        lambda c, s: {"RingL": s.ring_l, "RingM": s.ring_m,
+                      "RingS": s.ring_s}, t_end=0.2),
     "dambreak_2d_block": _run_block(
         "dambreak_2d", lambda sc_, s: {"Wall": sc_.base.wall}, t_end=20.0),
     "dambreak_3d_block": _run_block("dambreak_3d", t_end=6.0),

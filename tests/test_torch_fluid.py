@@ -376,7 +376,10 @@ def test_fsi_couplings_match_jax(scenes):
 
 
 RAISES = [
-    ("density_summation", dict(shell_contacts=[1]), "shell_fluid"),
+    # ported: a shell contact reads the shell's state, and a shell state
+    # without its fields fails loudly
+    ("density_summation", dict(shell_contacts=[({}, None, None, 1.0)]),
+     "Mass"),
     ("density_summation", dict(levelsets=[1]), "levelset"),
     # ported: a fluid-fluid contact reads the other phase's state, and a
     # contact state without positions fails loudly
@@ -385,7 +388,8 @@ RAISES = [
     # ported: the correction reads B, and a state without one fails loudly
     ("acoustic_step_1st_half", dict(correction=True),
      "LinearGradientCorrectionMatrix"),
-    ("acoustic_step_1st_half", dict(shell_walls=[1]), "shell_fluid"),
+    ("acoustic_step_1st_half", dict(shell_walls=[({}, None, None)]),
+     "VolumetricMeasure"),
     ("acoustic_step_1st_half", dict(levelsets=[1]), "levelset"),
     # ported: the extra force is added to the (N, d) force, and one of
     # another width fails loudly
@@ -393,11 +397,14 @@ RAISES = [
      "size of tensor"),
     ("acoustic_step_2nd_half", dict(contacts=[({}, None, None)]),
      "Position"),
-    ("acoustic_step_2nd_half", dict(shell_walls=[1]), "shell_fluid"),
+    ("acoustic_step_2nd_half", dict(shell_walls=[({}, None, None)]),
+     "VolumetricMeasure"),
     ("acoustic_step_2nd_half", dict(levelsets=[1]), "levelset"),
     ("viscous_force", dict(contacts=[({}, None, None)]), "Position"),
-    ("viscous_force", dict(shell_walls=[1]), "shell_fluid"),
-    ("transport_velocity_correction", dict(shell_walls=[1]), "shell_fluid"),
+    ("viscous_force", dict(shell_walls=[({}, None, None)]),
+     "VolumetricMeasure"),
+    ("transport_velocity_correction", dict(shell_walls=[({}, None, None)]),
+     "VolumetricMeasure"),
     # ported: the projection reads the surface indication, and a state
     # without one fails loudly
     ("transport_velocity_correction", dict(surface_projection=True),
@@ -419,9 +426,9 @@ def test_unported_arguments_raise(scenes, fn, kw, needs):
         "viscous_force": (d["fluid"], d["inner"], k, 2, 0.01, 0.1),
         "transport_velocity_correction": (d["fluid"], d["inner"], k, 2, 0.1),
     }[fn]
-    error = KeyError if {"correction", "contacts", "surface_projection"} \
-        & set(kw) else RuntimeError if "extra_force" in kw \
-        else NotImplementedError
+    error = KeyError if {"correction", "contacts", "surface_projection",
+                         "shell_contacts", "shell_walls"} & set(kw) \
+        else RuntimeError if "extra_force" in kw else NotImplementedError
     with pytest.raises(error, match=needs):
         getattr(tfd, fn)(*args, **kw)
 

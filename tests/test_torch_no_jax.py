@@ -129,7 +129,20 @@ def test_port_has_modules():
                  "sphinxsys_tpu_torch/cases/heat_transfer_2d.py",
                  "sphinxsys_tpu_torch/cases/windows_frame_diffusion_2d.py",
                  "sphinxsys_tpu_torch/cases/depolarization_2d.py",
-                 "sphinxsys_tpu_torch/benchmarks/a7g_fluid_diffusion_long.py"):
+                 "sphinxsys_tpu_torch/benchmarks/a7g_fluid_diffusion_long.py",
+                 "sphinxsys_tpu_torch/physics/solid_shell.py",
+                 "sphinxsys_tpu_torch/core/surface_cvt.py",
+                 "sphinxsys_tpu_torch/physics/shell_fluid.py",
+                 "sphinxsys_tpu_torch/physics/surface_contact.py",
+                 "sphinxsys_tpu_torch/cases/shell_cantilever_2d.py",
+                 "sphinxsys_tpu_torch/cases/shell_plate_3d.py",
+                 "sphinxsys_tpu_torch/cases/roof_3d.py",
+                 "sphinxsys_tpu_torch/cases/shell_stability_half_sphere_3d.py",
+                 "sphinxsys_tpu_torch/cases/solid_shell_coupling_3d.py",
+                 "sphinxsys_tpu_torch/cases/hydrostatic_fsi_2d.py",
+                 "sphinxsys_tpu_torch/cases/poiseuille_flow_shell_3d.py",
+                 "sphinxsys_tpu_torch/cases/three_ring_impact_2d.py",
+                 "sphinxsys_tpu_torch/benchmarks/a7h_shell_long.py"):
         assert must in names
 
 

@@ -268,14 +268,20 @@ def test_transport_velocity_correction_scope_mask(scene, limiter):
 
 
 def test_unported_fluid_arguments_still_raise(scene):
+    """The level sets still raise; the shell walls of the indication and
+    the transport correction are ported (physics/shell_fluid.py): a wall
+    entry without a shell state fails loudly."""
     s = scene
-    with pytest.raises(NotImplementedError, match="shell_fluid"):
+    with pytest.raises(NotImplementedError, match="levelset"):
+        tfd.density_summation(s["tf"], s["tl"][0], s["tcase"].kernel, 2,
+                              1.0, 1.0, levelsets=[object()])
+    with pytest.raises(KeyError, match="VolumetricMeasure"):
         tfd.free_surface_indication(s["tf"], s["tl"][0], s["tcase"].kernel,
-                                    2, shell_walls=[object()])
-    with pytest.raises(NotImplementedError, match="shell_fluid"):
+                                    2, shell_walls=[({}, None, None)])
+    with pytest.raises(KeyError, match="VolumetricMeasure"):
         tfd.transport_velocity_correction(s["tf"], s["tl"][0],
                                           s["tcase"].kernel, 2, 0.01,
-                                          shell_walls=[object()])
+                                          shell_walls=[({}, None, None)])
 
 
 # ---------------------------------------------------------------------------

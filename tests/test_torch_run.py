@@ -153,7 +153,11 @@ def test_cli_lists_cases(capsys):
                  "lid_driven_cavity_2d", "throat_2d", "channel_windkessel_2d",
                  "pulsatile_poiseuille_2d", "vp_heat_flux_2d",
                  "diffusion_bcs_2d", "heat_transfer_2d",
-                 "windows_frame_diffusion_2d", "depolarization_2d"):
+                 "windows_frame_diffusion_2d", "depolarization_2d",
+                 "shell_cantilever_2d", "shell_plate_3d", "roof_3d",
+                 "shell_stability_half_sphere_3d", "solid_shell_coupling_3d",
+                 "hydrostatic_fsi_2d", "poiseuille_flow_shell_3d",
+                 "three_ring_impact_2d"):
         assert case in out
 
 
@@ -161,7 +165,7 @@ def test_cli_cases_are_jax_entries():
     """Every entry is one of the JAX runner's, named alike; the ports of
     its other cases are listed in ROADMAP.md."""
     assert set(trun.CASES) <= set(jrun.CASES)
-    assert len(trun.CASES) == 59
+    assert len(trun.CASES) == 67
 
 
 @pytest.mark.parametrize("case", ["nope", "turbulent_channel_2d"])
