@@ -67,6 +67,20 @@ cell-block engine — at full size:
     (10,000), the window frame (14,008 + 2,899 + 1,590), the
     depolarization block (2,500) and the thermal optimisation (2,500,
     the dense solve under autograd), on neighbour lists and torch ops.
+  * the shell family (ROADMAP A item 3) at its JAX default widths and
+    dtypes: the cantilever (53), the plate (189), the roof (425, float64),
+    the half sphere (3,927, float64, its CVT), the solid-shell coupling
+    (1,100 + 500, float64), the hydrostatic gate (3,200 + 48 + 168, its
+    sub-step a CUDA graph), the shell pipe (6,000 rows + 7,540) and the
+    three rings (2,812 + 138 + 113, float64), on neighbour lists, frozen
+    pairs and torch ops.
+  * the rest of the diffusion family and the Eulerian fluid (ROADMAP A
+    item 4 and item 5's first half) at their JAX default widths: the
+    water entry (9,600 water, 2,464 wall, a 1,252-particle wetted
+    cylinder), the Purkinje-driven ventricle (1,570 and a 67-particle
+    tree), the heart (1,570, its fibers, the adaptive mechanics
+    sub-cycle) and the Eulerian Taylor-Green vortex (2,500, HLLC), on
+    neighbour lists, the tree's list, frozen pairs and torch ops.
 
 Phases:
 
@@ -288,7 +302,7 @@ Phases:
      its parts (the stress diffusion and the plastic halves; the
      correction matrix and the hourglass halves) alone, each timed,
      profiled, its host reads counted and its bound computed.
- 19. the small fluid modules and the plain diffusion family (last): the
+ 19. the small fluid modules and the plain diffusion family: the
      nine cases of ROADMAP A items 2 and 4a, each at its JAX default
      width: built in float32 on the card and in float64 on the CPU,
      A7G_F32's steps on each (equal counts, the displacement x - x0, the
@@ -303,6 +317,33 @@ Phases:
      update, the buffer exchange and pressure conditions, the RK2
      diffusion, the reaction, the solve with its gradient) alone, each
      timed, profiled, its host reads counted and its bound computed.
+ 20. the shell family: the eight cases of ROADMAP A item 3, each at its
+     JAX default width and dtype: the card against the CPU from the same
+     built state (A7H_CPU's steps: the displacement x - x0 and the
+     velocity of each body within their tolerances of its own max; the
+     three rings from the main path's end, in contact); then through the
+     public entry points, every launch count reset just before and read
+     just after (no overflow, finite fields, the observable printed), and
+     one step and its parts (the shell halves, the tie mappings, the
+     dummy stacks, the surface contact, the gate's sub-step) alone, each
+     timed, profiled, its host reads counted and its bound computed; the
+     loaded gate's sub-step as a CUDA graph against eager and the card
+     against the CPU; the CVT on the card against the CPU.
+ 21. the rest of the diffusion family and the Eulerian fluid (last): the
+     four cases of ROADMAP A item 4 and item 5's first half, each at its
+     JAX default width: built in float64 on the CPU and the same started
+     state cast to float32 on the card, A7I_F32's steps on each (equal
+     counts but the heart's mechanics sub-steps, which may differ by one
+     a step at float64's roundoff; the quantities within their
+     tolerances of their float64 max); then, float32, through
+     build_case -> init_sim -> make_run_chunk -> solver.run_simulation,
+     every launch count reset just before and read just after (no
+     overflow, finite fields, the observable printed), and one step and
+     its new parts (the water entry's prep, sub-step and wetting; the
+     tree's electrophysiology and the mechanics sub-steps; the local
+     directional rate and the cavity's flow rate; the HLLC halves and the
+     viscous force) alone, each timed, profiled, its host reads counted
+     and its bound computed.
 
 Every kernel and plain-version time is taken by
 sphinxsys_tpu_torch.benchmarks.median_ms, the layout drivers' timer.  Its last two lines are a JSON object of per-kernel
@@ -6509,6 +6550,336 @@ def a7h_phase(torch, results):
     log(f"a7h phase: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the rest of the diffusion family and the Eulerian SPH fluid
+# (ROADMAP A item 4 and the Eulerian half of item 5: neighbour lists, the
+# tree's list, frozen pairs, torch ops)
+# ---------------------------------------------------------------------------
+
+# case -> (the main path's end time, its output interval), float32 at the
+# JAX default width: a few steps each
+A7I_MAIN = {
+    "water_entry_exit_2d": (0.004, 0.002),
+    "pkj_lv_electrocontraction_3d": (0.25, 0.125),
+    "heart_electromechanics_3d": (0.1, 0.05),
+    "eulerian_taylor_green_2d": (0.02, 0.01),
+}
+# float32 on the card against float64 on the CPU from the same started
+# state: case -> (steps, ((what, the quantity of a sim, a change from the
+# start?, tolerance as a share of the float64 max), ...)); the first
+# quantity's float64 max at least A7I_F32_SEEN times float32's rounding of
+# its start.  Each tolerance ten times the larger reading of this check on
+# the CPU (DEVICE = "cpu") and on an H100, rounded up to one significant
+# digit.  The water entry's fluid starts at rest under its hydrostatic
+# pressure: its velocities after 8 steps are float32's acoustic noise
+# (1.3e-2 of their max on both), so the cylinder's fall leads.  The
+# Purkinje muscle's velocity is not held: before its leaves fire it is
+# roundoff of F ~ I (1.4e-6 in float64, float32 2.7 x that).
+A7I_F32 = {
+    "water_entry_exit_2d": (8, (
+        ("cylinder", lambda s: s.cyl["Position"], True, 2e-2),
+        ("displacement", lambda s: s.fluid["Position"], True, 9e-2),
+        ("velocity", lambda s: s.fluid["Velocity"], False, 2e-1))),
+    "pkj_lv_electrocontraction_3d": (2, (
+        ("tree_voltage", lambda s: s.pkj_v, True, 9e-6),
+        ("voltage", lambda s: s.myo["Voltage"], True, 2e-5))),
+    "heart_electromechanics_3d": (3, (
+        ("voltage", lambda s: s.myo["Voltage"], True, 3e-5),
+        ("velocity", lambda s: s.myo["Velocity"], False, 4e-4),
+        ("displacement", lambda s: s.myo["Position"], True, 3e-3))),
+    "eulerian_taylor_green_2d": (20, (
+        ("velocity_change", lambda s: s.fluid["Velocity"], True, 7e-3),
+        ("density_change", lambda s: s.fluid["Density"], True, 2e-2))),
+}
+A7I_F32_SEEN = 100.0
+A7I_COUNTS = ("n_adv", "n_ac", "n_steps", "n_sub")
+# the pair operations of the new parts whose bounds count them: the local
+# directional rate (the pair geometry, T_j gathered, 0.5 (T_i + T_j) e
+# and its square, the area); an HLLC half (the pair geometry, two sound
+# speeds, the wave speeds, the contact speed, both star states and the
+# four selects, the flux); the viscous force
+LIST_PAIR_FLOPS.update({"local_directional_rate": 70, "hllc_1st_half": 190,
+                        "hllc_2nd_half": 200, "viscous_force": 35})
+
+
+def a7i_start(cm, case, states):
+    """The started sim: init_sim's, or the build's own (the two hearts)."""
+    return cm.init_sim(case, *states) if hasattr(cm, "init_sim") \
+        else states[0]
+
+
+def a7i_f32_check(torch, name):
+    """The case built and started in float64 on the CPU and the same state
+    cast to float32 on the card, A7I_F32's steps on each: equal counts,
+    each quantity (or its change from the start) within its tolerance of
+    its float64 max, the first at least A7I_F32_SEEN times float32's
+    rounding.  Returns the errors."""
+    cm = importlib.import_module(f"sphinxsys_tpu_torch.cases.{name}")
+    n, quantities = A7I_F32[name]
+    case, *states = cm.build_case(dtype=torch.float64, device="cpu")
+    s64 = a7i_start(cm, case, states)
+    runs = []
+    for c, s in ((case, s64),
+                 (cast_tree(torch, case, torch.float32, DEVICE),
+                  cast_tree(torch, s64, torch.float32, DEVICE))):
+        starts = [get(s).double().cpu() for _, get, _, _ in quantities]
+        step = cm.make_advection_step(c)
+        for _ in range(n):
+            s = step(s)
+        runs.append((s, starts))
+    (sh, starts_h), (sc_, starts_c) = runs
+    counts = [tuple(getattr(s, k) for k in A7I_COUNTS if hasattr(s, k))
+              for s in (sh, sc_)]
+    errs = {}
+    for (what, get, change, tol), h0, c0 in zip(quantities, starts_h,
+                                                 starts_c):
+        h, c = get(sh).double().cpu(), get(sc_).double().cpu()
+        if change:
+            h, c = h - h0, c - c0
+        errs[what] = (float((c - h).abs().max()), float(h.abs().max()), tol)
+    first = quantities[0][0]
+    # float32's rounding of the first quantity at its start's scale (at
+    # the change's own where it starts from zero, the hearts' voltage)
+    rounding = n * 2.0 ** -24 * max(float(starts_h[0].abs().max()),
+                                    errs[first][1])
+    seen = errs[first][1] / rounding
+    log(f"a7i {name} float32 card against float64 cpu ({n} steps): counts "
+        f"float64 {counts[0]}, float32 {counts[1]}; max |d| / max, "
+        "tolerance " + ", ".join(f"{k} {e:.3e} / {m:.3e} = "
+                                 f"{e / max(m, 1e-300):.3e}, {tol:g}"
+                                 for k, (e, m, tol) in errs.items())
+        + f"; {first} {seen:.1f} x float32's rounding (at least "
+        f"{A7I_F32_SEEN:g})")
+    # the heart's adaptive mechanics loop ends when the summed sub-steps
+    # reach dt: float64's sum of the capped steps can fall an ulp short and
+    # take one more sub-step of ~1e-17 (the JAX package's loop too), so
+    # n_sub may differ by at most one a step; the other counts are equal
+    n_sub = [getattr(s, "n_sub", 0) for s in (sh, sc_)]
+    equal = [tuple(getattr(s, k) for k in A7I_COUNTS[:3] if hasattr(s, k))
+             for s in (sh, sc_)]
+    check(equal[0] == equal[1], f"a7i {name}: float32 counts {counts[1]} "
+          f"!= float64 {counts[0]}")
+    check(abs(n_sub[0] - n_sub[1]) <= n, f"a7i {name}: float32 mechanics "
+          f"sub-steps {n_sub[1]} part from float64's {n_sub[0]} by more than "
+          f"one a step")
+    check(seen >= A7I_F32_SEEN, f"a7i {name}: the {first} after {n} steps "
+          f"is only {seen:.1f} x float32's rounding")
+    for k, (e, m, tol) in errs.items():
+        check(bool(e <= tol * m), f"a7i {name}: float32 {k} off float64 by "
+              f"{e:.3e} (max {m:.3e}, tolerance {tol:g})")
+    return dict(counts=counts, **{k: e for k, (e, _, _) in errs.items()})
+
+
+def a7i_parts(torch, name, cm, case, sim):
+    """The new parts alone on the main path's end state (the step itself
+    is profiled beside them)."""
+    from sphinxsys_tpu_torch.physics import diffusion as df
+    from sphinxsys_tpu_torch.physics import eulerian as eu
+    from sphinxsys_tpu_torch.physics import fluid as fd
+
+    kernel = case.adaptation.kernel
+    if name == "water_entry_exit_2d":
+        f = sim.fluid
+        dt_adv = fd.advection_time_step(f, case.adaptation.h, cm.U_MAX)
+        dt = torch.minimum(fd.acoustic_time_step(f, case.eos,
+                                                 case.adaptation.h), dt_adv)
+        return {"advection_prep": lambda: cm.advection_prep(case, sim),
+                "acoustic_substep": lambda: cm.acoustic_substep(
+                    case, sim, f, sim.cyl, sim.rb, dt_adv),
+                "wetting_rk2": lambda: df.diffusion_step_rk2(
+                    sim.cyl, "Phi", sim.nl_cc, kernel, 2, case.diffusion, dt,
+                    dirichlet_contacts=[(f, sim.nl_cf)])}
+    if name == "pkj_lv_electrocontraction_3d":
+        dt = cm.step_dt(case, sim)
+        pk = cm._pkj_state(case, sim.pkj_v, sim.pkj_w)
+        return {"tree_electrophysiology": lambda: df.electrophysiology_step(
+                    pk, case.nl_pkj, case.line_kernel, 3,
+                    df.IsotropicDiffusion(cm.D_PKJ), case.model_pkj,
+                    dt / case.n_pkj_sub),
+                "tree_substeps": lambda: cm.tree_substeps(case, sim, dt),
+                "myo_electrophysiology": lambda: df.electrophysiology_step(
+                    sim.myo, case.nl_myo, kernel, 3,
+                    df.IsotropicDiffusion(cm.D_MYO), case.model_myo, dt),
+                "mechanics_substep": lambda: cm.mechanics_substep(
+                    case, sim.myo, dt / case.n_mech_sub)}
+    if name == "heart_electromechanics_3d":
+        dt = cm.step_dt(case, sim)
+        m = sim.myo
+        dt_i = cm.mechanics_dt(case, m, dt, torch.zeros_like(dt))
+        return {"local_directional_rate": lambda: df.diffusion_rate(
+                    m["Position"], m["Voltage"], m["VolumetricMeasure"],
+                    m["Position"], m["Voltage"], case.nl, kernel, 3,
+                    case.diffusion, B_q=m["LinearGradientCorrectionMatrix"],
+                    fiber_q=m["Fiber"]),
+                "electrophysiology": lambda: df.electrophysiology_step(
+                    m, case.nl, kernel, 3, case.diffusion, case.model, dt),
+                "mechanics_substep": lambda: cm.mechanics_substep(case, m,
+                                                                  dt_i),
+                "cavity_flow_rate": lambda: cm.cavity_flow_rate(case, m)}
+    f = sim.fluid
+    dt = cm.time_step(case, f)
+    box = case.box
+    return {"viscous_force": lambda: fd.viscous_force(
+                f, case.nl, kernel, 2, cm.MU_F, case.adaptation.h, box=box),
+            "hllc_1st_half": lambda: eu.compressible_integration_1st_half(
+                f, case.nl, kernel, 2, case.gas, dt, box=box,
+                limiter=cm.LIMITER),
+            "hllc_2nd_half": lambda: eu.compressible_integration_2nd_half(
+                f, case.nl, kernel, 2, case.gas, dt, box=box,
+                limiter=cm.LIMITER)}
+
+
+EP_FIELDS = ("Position", "VolumetricMeasure", "Voltage", "GateVariable",
+             "ActiveContractionStress")
+EP_WRITES = ("Voltage", "GateVariable", "ActiveContractionStress")
+GAS_READS = ("Position", "VolumetricMeasure", "Density", "Velocity",
+             "Pressure", "TotalEnergy", "Momentum", "Mass", "ForcePrior")
+
+
+def a7i_bounds(torch, name, cm, case, sim):
+    """Each profiled part's least time from this run's lists and fields
+    (`list_bound`); a step is its parts' sum (the water entry's: the prep
+    and its mean sub-steps; the Purkinje case's: its tree sub-steps, the
+    muscle's electrophysiology and its mechanics sub-steps; the heart's:
+    its electrophysiology and its mean mechanics sub-steps)."""
+    out = {}
+    if name == "water_entry_exit_2d":
+        f, c = sim.fluid, sim.cyl
+        lists = [sim.nl_ff, sim.nl_fw, sim.nl_fc, sim.nl_cf]
+        wall = fields(case.wall, *WALL_READS) + fields(c, *WALL_READS)
+        sub = list_bound(torch, "acoustic_substep", lists,
+                         fields(f, *FLUID_AC_READS) + wall,
+                         fields(f, *FLUID_AC_WRITES)
+                         + fields(c, "Position", "Velocity", "ForcePrior"))
+        wet = list_bound(torch, "diffusion_rk2", [sim.nl_cc, sim.nl_cf],
+                         fields(c, "Position", "VolumetricMeasure", "Phi")
+                         + fields(f, "Position", "VolumetricMeasure", "Phi"),
+                         fields(c, "Phi"))
+        prep = list_bound(torch, "density", lists[:3],
+                          fields(f, "Position", "Mass", "Density",
+                                 "VolumetricMeasure", "Velocity") + wall,
+                          fields(f, "Density", "Indicator", "ViscousForce",
+                                 "ForcePrior", "Position"))
+        sub = (sub[0] + wet[0], sub[1], sub[2] + wet[2])
+        per_ac = sim.n_ac / max(sim.n_adv, 1)
+        out.update(advection_prep=prep, acoustic_substep=sub,
+                   wetting_rk2=wet, advection_step=(
+                       prep[0] + per_ac * sub[0], sub[1],
+                       round(prep[2] + per_ac * sub[2])))
+        return out
+    if name in ("pkj_lv_electrocontraction_3d", "heart_electromechanics_3d"):
+        m = sim.myo
+        nl = case.nl_myo if hasattr(case, "nl_myo") else case.nl
+        ep = list_bound(torch, "electrophysiology", [nl],
+                        fields(m, *EP_FIELDS, "LinearGradientCorrectionMatrix",
+                               "Fiber"), fields(m, *EP_WRITES))
+        mech = frozen_bound(torch, case.rp, m)
+        if name == "pkj_lv_electrocontraction_3d":
+            pk = cm._pkj_state(case, sim.pkj_v, sim.pkj_w)
+            tree = list_bound(torch, "electrophysiology", [case.nl_pkj],
+                              fields(pk, *EP_FIELDS), fields(pk, *EP_WRITES))
+            subs = (case.n_pkj_sub * tree[0], tree[1],
+                    case.n_pkj_sub * tree[2])
+            out.update(tree_electrophysiology=tree, tree_substeps=subs,
+                       myo_electrophysiology=ep, mechanics_substep=mech)
+            n_mech = case.n_mech_sub
+        else:
+            out.update(local_directional_rate=list_bound(
+                torch, "local_directional_rate", [nl],
+                fields(m, "Position", "VolumetricMeasure", "Voltage",
+                       "Fiber", "LinearGradientCorrectionMatrix"),
+                fields(m, "Voltage")), electrophysiology=ep,
+                mechanics_substep=mech)
+            subs = (0.0, ep[1], 0)
+            n_mech = sim.n_sub / max(sim.n_steps, 1)
+        out["advection_step"] = (subs[0] + ep[0] + n_mech * mech[0], ep[1],
+                                 round(subs[2] + ep[2] + n_mech * mech[2]))
+        return out
+    f = sim.fluid
+    h1 = list_bound(torch, "hllc_1st_half", [case.nl], fields(f, *GAS_READS),
+                    fields(f, "Momentum", "Velocity"))
+    h2 = list_bound(torch, "hllc_2nd_half", [case.nl], fields(f, *GAS_READS),
+                    fields(f, "Mass", "TotalEnergy", "Density", "Pressure"))
+    vf = list_bound(torch, "viscous_force", [case.nl],
+                    fields(f, "Position", "Velocity", "VolumetricMeasure",
+                           "ViscousForcePrev", "ForcePrior"),
+                    fields(f, "ViscousForce", "ViscousForcePrev",
+                           "ForcePrior"))
+    out.update(hllc_1st_half=h1, hllc_2nd_half=h2, viscous_force=vf,
+               advection_step=(h1[0] + h2[0] + vf[0], h1[1],
+                               h1[2] + h2[2] + vf[2]))
+    return out
+
+
+def a7i_observable(name, cm, case, sim):
+    if name == "water_entry_exit_2d":
+        return [*cm.center_position(sim).tolist(),
+                cm.bottom_wetting(case, sim)]
+    if name == "pkj_lv_electrocontraction_3d":
+        return [cm.apex_voltage(case, sim), float(sim.pkj_v.max()),
+                cm.midwall_ring_radius(case, sim)]
+    if name == "heart_electromechanics_3d":
+        return [float(sim.myo["Voltage"].max()), float(sim.dv),
+                float(sim.q)]
+    return cm.kinetic_energy(sim)
+
+
+def a7i_case_path(torch, name, results):
+    """A case at its JAX default width through build_case -> init_sim ->
+    make_run_chunk -> solver.run_simulation (A7I_MAIN's end time),
+    float32, every launch count reset just before and read just after: no
+    overflow, finite fields, the observable printed; then one step and
+    its new parts alone (`ob_parts`: wall and device time, launches, host
+    reads, idle share, bound)."""
+    cm = importlib.import_module(f"sphinxsys_tpu_torch.cases.{name}")
+    t_end, sample = A7I_MAIN[name]
+
+    def build():
+        case, *states = cm.build_case(device=DEVICE)
+        return case, cm, a7i_start(cm, case, states)
+
+    case, sim, rec = ob_main_run(torch, f"a7i {name}", build, t_end, sample)
+    check(not bool(getattr(sim, "overflow", False)), f"a7i {name}: overflow")
+    bodies = {"water_entry_exit_2d": ("fluid", "cyl"),
+              "eulerian_taylor_green_2d": ("fluid",)}.get(name, ("myo",))
+    for b in bodies:
+        body = getattr(sim, b)
+        for k in ("Position", "Velocity", "Density", "Phi", "Voltage",
+                  "TotalEnergy"):
+            if k in body:
+                check(bool(torch.isfinite(body[k]).all()),
+                      f"a7i {name}: non-finite {b} {k}")
+    counts = tuple(getattr(sim, k) for k in A7I_COUNTS if hasattr(sim, k))
+    obs = a7i_observable(name, cm, case, sim)
+    n_rows = {b: getattr(sim, b)["Position"].shape[0] for b in bodies}
+    log(f"a7i {name} main path: rows {n_rows}; setup {rec['setup_s']:.2f} s;"
+        f" to t={float(sim.time):.7f} counts {counts}; observable {obs}; "
+        f"{rec['ms_per_adv']:.3f} ms a step (wall clock, mean), "
+        f"{rec['host_reads_per_adv']:.1f} host reads a step; peak device "
+        f"memory {rec['peak_gb']:.3f} GB")
+    fns = a7i_parts(torch, name, cm, case, sim)
+    step = cm.make_advection_step(case)
+    parts = ob_parts(torch, f"a7i_{name}", fns, lambda: step(sim),
+                     a7i_bounds(torch, name, cm, case, sim), trace=False)
+    results[f"_a7i_{name}"] = dict(rec, counts=counts, observable=obs,
+                                   n_rows=n_rows, parts=parts)
+    del case, sim, fns, step
+    torch.cuda.empty_cache()
+
+
+def a7i_phase(torch, results):
+    """Phase 21: the four cases of ROADMAP A item 4's rest and item 5's
+    Eulerian half (no hand kernel), each at its JAX default width:
+    float32 on the card against float64 on the CPU, then through the
+    public entry points, its step by part."""
+    t0 = time.perf_counter()
+    for name in A7I_MAIN:
+        f32 = a7i_f32_check(torch, name)
+        a7i_case_path(torch, name, results)
+        results[f"_a7i_{name}"]["f32_vs_f64"] = f32
+    log(f"a7i phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (ROOT / "sphinxsys_tpu_torch").is_dir():
@@ -6580,6 +6951,7 @@ def main() -> int:
     a7f_phase(torch, results)
     a7g_phase(torch, results)
     a7h_phase(torch, results)
+    a7i_phase(torch, results)
 
     kernels = []
     for tag, names in [*((t, c["kernels"]) for t, c in CONFIGS.items()),
@@ -6621,7 +6993,7 @@ def main() -> int:
                 *(f"a7g_{name}" for name in A7G_MAIN),
                 "a7g_vp_heat_flux_2d",
                 *(f"a7h_{name}" for name in A7H_MAIN), "a7h_gate",
-                "a7h_cvt"):
+                "a7h_cvt", *(f"a7i_{name}" for name in A7I_MAIN)):
         main_paths[tag] = results[f"_{tag}"]
     log("main paths: " + json.dumps(main_paths))
     lost = sorted({PROFILE_GUARD - p[4] for p in PROFILED})

@@ -1,6 +1,8 @@
 """State carried across from the JAX package: its state dicts (the
-plastic and bar fields among them, and the continuum's 3 x 3 stresses,
-shear stresses, hourglass accelerations, hardening and penalty factors),
+plastic and bar fields among them, the continuum's 3 x 3 stresses,
+shear stresses, hourglass accelerations, hardening and penalty factors,
+the muscles' Fiber and Sheet fields, and the Eulerian and compressible
+states with their Momentum and TotalEnergy), tree networks,
 BlockSim arrays, neighbour lists, articulated trees, rigid bodies and
 case sims (the two-phase ones, the damping family's with their macro and
 sub-step counts, the continuum family's, whose UL sims' sub-step count
@@ -19,6 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from sphinxsys_tpu_torch.core.network import Branch, TreeNetwork
 from sphinxsys_tpu_torch.neighbors.neighbor_list import NeighborList
 from sphinxsys_tpu_torch.physics import rigid
 from sphinxsys_tpu_torch.physics.articulated import ArticulatedTree
@@ -69,6 +72,21 @@ def tree_from_numpy(tree) -> ArticulatedTree:
         r_parent=_tensor(tree.r_parent), r_child=_tensor(tree.r_child),
         mass=_tensor(tree.mass), inertia=_tensor(tree.inertia),
         com=_tensor(tree.com), joint_type=tuple(tree.joint_type))
+
+
+def network_from_numpy(net) -> TreeNetwork:
+    """A tree network (positions, branch ids, its branches) -> the port's
+    TreeNetwork, every array a private float64 / int64 copy."""
+    branches = [Branch(id=int(b.id), parent=int(b.parent),
+                       particles=[int(i) for i in b.particles],
+                       end_direction=np.array(b.end_direction, np.float64),
+                       children=[int(c) for c in b.children],
+                       is_terminated=bool(b.is_terminated))
+                for b in net.branches]
+    return TreeNetwork(positions=np.array(net.positions, np.float64),
+                       branch_id=np.array(net.branch_id, np.int64),
+                       branches=branches,
+                       segment_length=float(net.segment_length))
 
 
 def pairs_from_numpy(cls, pairs):

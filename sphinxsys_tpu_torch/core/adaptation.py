@@ -1,6 +1,6 @@
 """Resolution policy (counterpart of sphinxsys_tpu/core/adaptation.py):
 h/dx = 1.3, Wendland C2 with cutoff 2h (reference adaptation.h:71,
-adaptation.cpp:16)."""
+adaptation.cpp:16) unless `kernel_cls` names another kernel."""
 
 from __future__ import annotations
 
@@ -14,14 +14,15 @@ class SPHAdaptation:
     spacing: float
     dim: int
     h_spacing_ratio: float = 1.3
+    kernel_cls: type = K.WendlandC2
 
     @property
     def h(self) -> float:
         return self.h_spacing_ratio * self.spacing
 
     @property
-    def kernel(self) -> K.WendlandC2:
-        return K.WendlandC2(h=self.h)
+    def kernel(self) -> K.SmoothingKernel:
+        return self.kernel_cls(h=self.h)
 
     @property
     def cutoff(self) -> float:

@@ -2,7 +2,8 @@
 (counterpart of sphinxsys_tpu/core/geometry.py; what the dambreak and
 fsi2 scenes need: `Transform`, `Box`, `Ball`, `ComplexShape`,
 `make_complex`; the fish and the T-pipe need `Polygon` and
-`make_multi_polygon`; the granular pile needs `Cylinder`).
+`make_multi_polygon`; the granular pile needs `Cylinder`; the heart's
+ventricle and the Purkinje tree need `Ellipsoid` and `HalfSpace`).
 
 Positions are (..., dim) tensors.  `signed_distance` is negative inside.
 `find_normal_direction` is the unit gradient of the SDF, taken with
@@ -122,6 +123,53 @@ class Cylinder(Shape):
                              + torch.maximum(dz, zero) ** 2)
         inside = torch.minimum(torch.maximum(dr, dz), zero)
         return outside + inside
+
+
+@dataclasses.dataclass(frozen=True)
+class Ellipsoid(Shape):
+    """Axis-aligned ellipsoid (the procedural stand-in for the STL organ
+    geometries): the first-order SDF sd = k0 (k0 - 1) / k1 with
+    k0 = |p / r|, k1 = |p / r^2| (each root of its sum + 1e-30, as JAX's)
+    -- the exact sign everywhere, the distance accurate near the surface,
+    where the generators and the network growth use it."""
+
+    center: Tuple[float, ...]
+    semi_axes: Tuple[float, ...]
+
+    def signed_distance(self, pos):
+        c = torch.as_tensor(self.center, dtype=pos.dtype, device=pos.device)
+        r = torch.as_tensor(self.semi_axes, dtype=pos.dtype,
+                            device=pos.device)
+        p = pos - c
+        k0 = torch.sqrt(torch.sum((p / r) ** 2, dim=-1) + 1e-30)
+        k1 = torch.sqrt(torch.sum((p / (r * r)) ** 2, dim=-1) + 1e-30)
+        return k0 * (k0 - 1.0) / k1
+
+    def bounds(self):
+        c = np.asarray(self.center, dtype=np.float64)
+        r = np.asarray(self.semi_axes, dtype=np.float64)
+        return c - r, c + r
+
+
+@dataclasses.dataclass(frozen=True)
+class HalfSpace(Shape):
+    """The half space {x : (x - point) . n < 0}, n the normalised
+    `outward_normal` (open walls; the ventricle's base cut)."""
+
+    point: Tuple[float, ...]
+    outward_normal: Tuple[float, ...]
+
+    def signed_distance(self, pos):
+        p = torch.as_tensor(self.point, dtype=pos.dtype, device=pos.device)
+        n = torch.as_tensor(self.outward_normal, dtype=pos.dtype,
+                            device=pos.device)
+        n = n / torch.sqrt(torch.sum(n * n))
+        return torch.sum((pos - p) * n, dim=-1)
+
+    def bounds(self):
+        big = 1e30
+        d = len(self.point)
+        return -big * np.ones(d), big * np.ones(d)
 
 
 @dataclasses.dataclass(frozen=True)

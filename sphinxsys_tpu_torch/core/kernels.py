@@ -1,7 +1,8 @@
 """Smoothing kernels (counterpart of sphinxsys_tpu/core/kernels.py).
 
 Wendland C2 — the reference default and the one the dambreak uses —
-and the anisotropic kernel over it.  ``W(r)`` has units 1/len^dim,
+the anisotropic kernel over it, and the Laguerre-Gauss kernel of the
+Eulerian Taylor-Green vortex.  ``W(r)`` has units 1/len^dim,
 ``dW(r)`` = dW/dr (negative); the support radius is 2h
 (src/shared/kernels/kernel_wendland_c2.cpp).
 """
@@ -16,7 +17,10 @@ import torch
 
 
 @dataclasses.dataclass(frozen=True)
-class WendlandC2:
+class SmoothingKernel:
+    """A radial kernel from its shape w(q) / w'(q) of q = r / h and its
+    normalisation; subclasses give `_w`, `_dw` and `_factor_w`."""
+
     h: float
     kernel_size: float = 2.0  # support = kernel_size * h
 
@@ -24,27 +28,10 @@ class WendlandC2:
     def cutoff(self) -> float:
         return self.kernel_size * self.h
 
-    @staticmethod
-    def _w(q):
-        return (1.0 - 0.5 * q) ** 4 * (1.0 + 2.0 * q)
-
-    @staticmethod
-    def _dw(q):
-        return 0.625 * (q - 2.0) ** 3 * q
-
-    def _factor_w(self, dim: int) -> float:
-        h = self.h
-        if dim == 1:
-            return 3.0 / (4.0 * h)
-        if dim == 2:
-            return 7.0 / (4.0 * math.pi * h * h)
-        if dim == 3:
-            return 21.0 / (16.0 * math.pi * h * h * h)
-        raise ValueError(f"dim must be 1/2/3, got {dim}")
-
     def w0(self, dim: int) -> float:
         """W at r = 0 (a Python float)."""
-        return self._factor_w(dim) * float(self._w(0.0))
+        return self._factor_w(dim) * float(
+            self._w(torch.zeros((), dtype=torch.float64)))
 
     def W(self, r: torch.Tensor, dim: int) -> torch.Tensor:
         """Kernel value; zero outside support."""
@@ -63,6 +50,53 @@ class WendlandC2:
 
 
 @dataclasses.dataclass(frozen=True)
+class WendlandC2(SmoothingKernel):
+    @staticmethod
+    def _w(q):
+        return (1.0 - 0.5 * q) ** 4 * (1.0 + 2.0 * q)
+
+    @staticmethod
+    def _dw(q):
+        return 0.625 * (q - 2.0) ** 3 * q
+
+    def _factor_w(self, dim: int) -> float:
+        h = self.h
+        if dim == 1:
+            return 3.0 / (4.0 * h)
+        if dim == 2:
+            return 7.0 / (4.0 * math.pi * h * h)
+        if dim == 3:
+            return 21.0 / (16.0 * math.pi * h * h * h)
+        raise ValueError(f"dim must be 1/2/3, got {dim}")
+
+
+@dataclasses.dataclass(frozen=True)
+class LaguerreGauss(SmoothingKernel):
+    """Laguerre-Gauss kernel (kernel_laguerre_gauss.cpp): a truncated
+    Gaussian times a Laguerre polynomial, the same shape in every
+    dimension, cut at 2h as the JAX package cuts it."""
+
+    @staticmethod
+    def _w(q):
+        return (1.0 - q * q + q ** 4 / 6.0) * torch.exp(-q * q)
+
+    @staticmethod
+    def _dw(q):
+        return (-(q ** 5) / 3.0 + 8.0 * q ** 3 / 3.0 - 4.0 * q) \
+            * torch.exp(-q * q)
+
+    def _factor_w(self, dim: int) -> float:
+        inv_h = 1.0 / self.h
+        if dim == 1:
+            return inv_h * 8.0 / (5.0 * math.sqrt(math.pi))
+        if dim == 2:
+            return inv_h ** 2 * 3.0 / math.pi
+        if dim == 3:
+            return inv_h ** 3 * 8.0 / math.pi ** 1.5
+        raise ValueError(f"dim must be 1/2/3, got {dim}")
+
+
+@dataclasses.dataclass(frozen=True)
 class AnisotropicKernel:
     """AnisotropicKernel<KernelType> (anisotropic_kernel.{h,hpp}): a
     displacement d is mapped to an isotropic space by G = diag(1 / (h k_i))
@@ -75,7 +109,7 @@ class AnisotropicKernel:
     (physics/pair.py's `pair_geometry` stays radial: the cases that use
     this kernel freeze its pairs themselves.)"""
 
-    base: WendlandC2
+    base: SmoothingKernel
     kernel_vector: tuple
 
     @property
@@ -127,7 +161,7 @@ class AnisotropicKernel:
         return coeff[..., None] * (g * gd)
 
 
-def lattice_number_density(kernel: WendlandC2, spacing: float, dim: int) -> float:
+def lattice_number_density(kernel: SmoothingKernel, spacing: float, dim: int) -> float:
     """Reference number density sigma0 = sum of W over a regular lattice
     within the cutoff (src/shared/adaptations/adaptation.cpp:26-60),
     evaluated in float64 on the host."""

@@ -1,9 +1,10 @@
 """Materials (counterpart of sphinxsys_tpu/core/materials.py): the
-weakly-compressible fluid, the linear, Neo-Hookean and St.
+weakly-compressible fluid, the ideal gas, the linear, Neo-Hookean and St.
 Venant-Kirchhoff elastic solids with their Cauchy stresses, and the
-Holzapfel-Ogden muscle, and the J2-plastic solids with linear and
-saturation hardening.  Determinants, inverses and products of the
-per-particle matrices are the closed forms of core/linalg.py."""
+Holzapfel-Ogden muscle (also with per-particle directions), and the
+J2-plastic solids with linear and saturation hardening.  Determinants,
+inverses and products of the per-particle matrices are the closed forms
+of core/linalg.py."""
 
 from __future__ import annotations
 
@@ -37,6 +38,24 @@ class WeaklyCompressibleFluid:
 
     def sound_speed(self, p=None, rho=None):
         return self.c0
+
+
+@dataclasses.dataclass(frozen=True)
+class CompressibleFluid:
+    """Ideal-gas compressible fluid (materials/compressible_fluid.cpp):
+        p = (gamma - 1) rho e,   c = sqrt(gamma p / rho)."""
+
+    rho0: float = 1.0
+    gamma: float = 1.4
+
+    def pressure(self, rho, e):
+        return (self.gamma - 1.0) * rho * e
+
+    def internal_energy(self, p, rho):
+        return p / (rho * (self.gamma - 1.0))
+
+    def sound_speed(self, p, rho):
+        return torch.sqrt(self.gamma * p / rho)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,19 +143,23 @@ class Muscle(ElasticSolid):
         return math.sqrt(self.bulk_modulus_param / self.rho0)
 
     def stress_PK2(self, F):
+        f0 = torch.as_tensor(self.f0, dtype=F.dtype, device=F.device)
+        s0 = torch.as_tensor(self.s0, dtype=F.dtype, device=F.device)
+        return self._holzapfel_pk2(F, f0, s0)
+
+    def _holzapfel_pk2(self, F, f0, s0):
         """S = a0 e^(b0 I_1) I + (lambda (J - 1) - a0) J C^-1
         + 2 a1 I_ff e^(b1 I_ff^2) f0 f0 + 2 a2 I_ss e^(b2 I_ss^2) s0 s0
         + a3 I_fs e^(b3 I_fs^2) (f0 s0 + s0 f0), with C = F^T F,
         I_1 = tr C - dim, I_ff = f0.C f0 - 1, I_ss = s0.C s0 - 1,
-        I_fs = f0.C s0."""
+        I_fs = f0.C s0; f0 / s0 are (d,) or per particle (..., d)."""
         dim = F.shape[-1]
         eye = torch.eye(dim, dtype=F.dtype, device=F.device)
         C = mm(F.transpose(-1, -2), F)
-        f0 = torch.as_tensor(self.f0, dtype=F.dtype, device=F.device)
-        s0 = torch.as_tensor(self.s0, dtype=F.dtype, device=F.device)
-        f0f0 = f0[:, None] * f0[None, :]
-        s0s0 = s0[:, None] * s0[None, :]
-        f0s0 = f0[:, None] * s0[None, :] + s0[:, None] * f0[None, :]
+        f0f0 = f0[..., :, None] * f0[..., None, :]
+        s0s0 = s0[..., :, None] * s0[..., None, :]
+        f0s0 = f0[..., :, None] * s0[..., None, :] \
+            + s0[..., :, None] * f0[..., None, :]
         Cf, Cs = mv(C, f0), mv(C, s0)
         I_ff = (Cf * f0).sum(-1) - 1.0
         I_ss = (Cs * s0).sum(-1) - 1.0
@@ -153,6 +176,16 @@ class Muscle(ElasticSolid):
             (2.0 * a[2] * I_ss * torch.exp(b[2] * I_ss * I_ss))[..., None, None] \
             * s0s0 + \
             (a[3] * I_fs * torch.exp(b[3] * I_fs * I_fs))[..., None, None] * f0s0
+
+
+@dataclasses.dataclass(frozen=True)
+class LocallyOrthotropicMuscle(Muscle):
+    """The muscle with per-particle fiber and sheet directions
+    (elastic_solid.h:334-372, LocallyOrthotropicMuscle::StressPK2): the
+    same terms, the directions read from the state's (N, d) fields."""
+
+    def stress_PK2_local(self, F, f0_local, s0_local):
+        return self._holzapfel_pk2(F, f0_local, s0_local)
 
 
 @dataclasses.dataclass(frozen=True)

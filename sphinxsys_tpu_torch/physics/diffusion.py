@@ -13,10 +13,6 @@ species is the exponential integrator (reaction_dynamics.h:48-52)
     C <- C e^{-L dt} + P (1 - e^{-L dt}) / L,
 
 swept forward, then backward, over the species.
-
-`LocalDirectionalDiffusion` (a per-particle fiber, whose pair coefficient
-needs a 3 x 3 Cholesky factor and its triangular inverse) is not ported:
-its one caller is heart_electromechanics_3d.
 """
 
 from __future__ import annotations
@@ -26,7 +22,8 @@ from typing import Dict, Sequence
 
 import torch
 
-from sphinxsys_tpu_torch.core.linalg import mv
+from sphinxsys_tpu_torch.core.linalg import (cholesky,
+                                             lower_triangular_inverse, mv)
 from sphinxsys_tpu_torch.core.state import State
 from sphinxsys_tpu_torch.neighbors.neighbor_list import NeighborList, gather
 from sphinxsys_tpu_torch.physics.pair import pair_geometry
@@ -72,6 +69,42 @@ class DirectionalDiffusion:
         return self.d_coeff + self.bias_coeff
 
 
+@dataclasses.dataclass(frozen=True)
+class LocalDirectionalDiffusion:
+    """Diffusion biased along a per-particle fiber (LocalDirectionalDiffusion,
+    materials/diffusion_reaction.h:236-242): D_i = d I + d_bias f_i f_i^T.
+    The pair coefficient is 1 / |0.5 (T_i + T_j) e|^2 with T = chol(D)^-1,
+    the inverse Cholesky factor.  `inverse_cholesky` forms T once a
+    particle; diffusion_rate gathers T_j by the list (JAX forms it on the
+    gathered (N, K, d) fibers: the same values, K times the work).
+    `fiber_key` names the state's fiber field, which diffusion_step reads
+    when the diffusion carries this attribute."""
+
+    d_coeff: float
+    bias_coeff: float
+    fiber_key: str = "Fiber"
+
+    def inverse_cholesky(self, f):
+        """T = chol(d I + b f f^T)^-1 for a (..., dim) fiber stack, in the
+        closed forms of core/linalg.py."""
+        eye = torch.eye(f.shape[-1], dtype=f.dtype, device=f.device)
+        D = self.d_coeff * eye + self.bias_coeff * (f[..., :, None]
+                                                    * f[..., None, :])
+        return lower_triangular_inverse(cholesky(D))
+
+    def inter_particle_coeff(self, e_ij, T_i=None, T_j=None):
+        """(N, K) coefficients from the (N, d, d) T_i and the gathered
+        (N, K, d, d) T_j; without them (a contact), d + b / 2."""
+        if T_i is None:
+            return self.d_coeff + 0.5 * self.bias_coeff
+        g = mv(0.5 * (T_i[:, None] + T_j), e_ij)
+        return 1.0 / (torch.sum(g * g, dim=-1) + TINY)
+
+    @property
+    def reference_diffusivity(self) -> float:
+        return self.d_coeff + self.bias_coeff
+
+
 def diffusion_time_step(h: float, diffusion, dim: int) -> float:
     """dt = 0.5 h^2 / d / dim (diffusion_reaction.cpp:16-19)."""
     return 0.5 * h * h / diffusion.reference_diffusivity / dim
@@ -83,14 +116,16 @@ def diffusion_time_step(h: float, diffusion, dim: int) -> float:
 
 def diffusion_rate(pos_q, species_q, vol_s, pos_s, species_s,
                    nl: NeighborList, kernel, dim: int, diffusion, box=None,
-                   B_q=None, B_s=None, local_diff_q=None, local_diff_s=None):
+                   B_q=None, B_s=None, local_diff_q=None, local_diff_s=None,
+                   fiber_q=None, fiber_s=None):
     """dC/dt through one relation.  `B_q` / `B_s`: the two sides'
     correction matrices; the pair's area then takes the corrected
     gradient 0.5 (B_i + B_j) e (CorrectedKernelGradientInner,
     diffusion_dynamics.h:92-103).  `local_diff_q` / `local_diff_s`:
     per-particle diffusivities (LocalIsotropicDiffusion), the pair
     coefficient their mean 0.5 (k_i + k_j), or k_i against a body
-    without one."""
+    without one.  `fiber_q` / `fiber_s`: the two sides' fibers of a
+    LocalDirectionalDiffusion (`fiber_s` defaults to `fiber_q`)."""
     pg = pair_geometry(pos_q, pos_s, nl, kernel, dim, need_W=False, box=box)
     vol_j, _ = gather(vol_s, nl.idx)
     c_j, _ = gather(species_s, nl.idx)
@@ -100,6 +135,11 @@ def diffusion_rate(pos_q, species_q, vol_s, pos_s, species_s,
         else:
             k_j, _ = gather(local_diff_s, nl.idx)
             d_ij = 0.5 * (local_diff_q[:, None] + k_j)
+    elif fiber_q is not None:
+        T_q = diffusion.inverse_cholesky(fiber_q)
+        T_s = T_q if fiber_s is None else diffusion.inverse_cholesky(fiber_s)
+        T_j, _ = gather(T_s, nl.idx)
+        d_ij = diffusion.inter_particle_coeff(pg.e, T_q, T_j)
     else:
         d_ij = diffusion.inter_particle_coeff(pg.e)
     area = 2.0 * pg.dW * vol_j / (pg.r + TINY)
@@ -165,14 +205,18 @@ def diffusion_step(state: State, species: str, nl_inner: NeighborList,
           "<species>Convection";
       correction: the inner pairs take the state's
           LinearGradientCorrectionMatrix;
-      local_diff: the state key of a per-particle diffusivity."""
+      local_diff: the state key of a per-particle diffusivity.
+    A diffusion with a `fiber_key` (LocalDirectionalDiffusion) reads that
+    field for its inner pairs."""
     pos = state["Position"]
     c = state[species]
     B = state["LinearGradientCorrectionMatrix"] if correction else None
     kq = state[local_diff] if local_diff is not None else None
+    fq = state[diffusion.fiber_key] if hasattr(diffusion, "fiber_key") \
+        else None
     rate = diffusion_rate(pos, c, state["VolumetricMeasure"], pos, c,
                           nl_inner, kernel, dim, diffusion, box, B_q=B,
-                          local_diff_q=kq, local_diff_s=kq)
+                          local_diff_q=kq, local_diff_s=kq, fiber_q=fq)
     for c_state, nl_c in dirichlet_contacts:
         rate = rate + 2.0 * diffusion_rate(
             pos, c, c_state["VolumetricMeasure"], c_state["Position"],

@@ -316,6 +316,19 @@ CASES = {
         "three_ring_impact_2d",
         lambda c, s: {"RingL": s.ring_l, "RingM": s.ring_m,
                       "RingS": s.ring_s}, t_end=0.2),
+    "water_entry_exit_2d": _run_single_fluid(
+        "water_entry_exit_2d",
+        lambda c, s: {"WaterBody": s.fluid, "Cylinder": s.cyl,
+                      "Wall": c.wall}, t_end=1.0),
+    "pkj_lv_electrocontraction_3d": _run_single_fluid(
+        "pkj_lv_electrocontraction_3d",
+        lambda c, s: {"Myocardium": s.myo}, t_end=10.0),
+    "heart_electromechanics_3d": _run_single_fluid(
+        "heart_electromechanics_3d", lambda c, s: {"Myocardium": s.myo},
+        t_end=8.0),
+    "eulerian_taylor_green_2d": _run_single_fluid(
+        "eulerian_taylor_green_2d",
+        lambda c, s: {"WaterBody": s.fluid}, t_end=5.0),
     "dambreak_2d_block": _run_block(
         "dambreak_2d", lambda sc_, s: {"Wall": sc_.base.wall}, t_end=20.0),
     "dambreak_3d_block": _run_block("dambreak_3d", t_end=6.0),

@@ -157,7 +157,9 @@ def test_cli_lists_cases(capsys):
                  "shell_cantilever_2d", "shell_plate_3d", "roof_3d",
                  "shell_stability_half_sphere_3d", "solid_shell_coupling_3d",
                  "hydrostatic_fsi_2d", "poiseuille_flow_shell_3d",
-                 "three_ring_impact_2d"):
+                 "three_ring_impact_2d", "water_entry_exit_2d",
+                 "pkj_lv_electrocontraction_3d", "heart_electromechanics_3d",
+                 "eulerian_taylor_green_2d"):
         assert case in out
 
 
@@ -165,7 +167,7 @@ def test_cli_cases_are_jax_entries():
     """Every entry is one of the JAX runner's, named alike; the ports of
     its other cases are listed in ROADMAP.md."""
     assert set(trun.CASES) <= set(jrun.CASES)
-    assert len(trun.CASES) == 67
+    assert len(trun.CASES) == 71
 
 
 @pytest.mark.parametrize("case", ["nope", "turbulent_channel_2d"])
