@@ -329,7 +329,7 @@ Phases:
      timed, profiled, its host reads counted and its bound computed; the
      loaded gate's sub-step as a CUDA graph against eager and the card
      against the CPU; the CVT on the card against the CPU.
- 21. the rest of the diffusion family and the Eulerian fluid (last): the
+ 21. the rest of the diffusion family and the Eulerian fluid: the
      four cases of ROADMAP A item 4 and item 5's first half, each at its
      JAX default width: built in float64 on the CPU and the same started
      state cast to float32 on the card, A7I_F32's steps on each (equal
@@ -344,6 +344,20 @@ Phases:
      directional rate and the cavity's flow rate; the HLLC halves and the
      viscous force) alone, each timed, profiled, its host reads counted
      and its bound computed.
+ 22. the FVM front end and the multi-resolution family (last): the seven
+     cases of ROADMAP A items 5b and 6, each at its JAX default width
+     (the 3D channel on a generated 64 x 40 x 2 hex channel, 5,120 cells,
+     the ICEM mesh not being in the repository): the FVM cases built in
+     float32 on the card and in float64 on the CPU, ten steps each, the
+     change of each field within ten times the JAX package's own float32
+     spread from its float64 (tests/golden_torch/fvm/jax_f32_spread.json);
+     the MR cases as phase 21's, A7J_MR_F32's steps and tolerances; then,
+     float32, through build_case -> init_sim -> make_run_chunk ->
+     solver.run_simulation as phase 21's, and one step and its new parts
+     (the face states with their Riemann or HLLC flux, `_cell_reduce`,
+     the MUSCL reconstruction, the ghosts, the multi-level list build,
+     the adaptive halves, the open boundaries) alone, each timed,
+     profiled, its host reads counted and its bound computed.
 
 Every kernel and plain-version time is taken by
 sphinxsys_tpu_torch.benchmarks.median_ms, the layout drivers' timer.  Its last two lines are a JSON object of per-kernel
@@ -6880,6 +6894,451 @@ def a7i_phase(torch, results):
     log(f"a7i phase: {time.perf_counter() - t0:.1f} s")
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 22: the FVM front end and the multi-resolution family (ROADMAP A
+# items 5b and 6: face gathers and (C, K) incidence sums, multi-level
+# neighbour lists, frozen pairs, torch ops)
+# ---------------------------------------------------------------------------
+
+# case -> (the main path's end time, its output interval), float32 at the
+# JAX default width: a few steps each
+A7J_MAIN = {
+    "fvm_cylinder_2d": (0.02, 0.01),
+    "supersonic_cylinder_2d": (0.04, 0.02),
+    "double_mach_reflection_2d": (0.001, 0.0005),
+    "fvm_channel_3d": (4.0e-5, 2.0e-5),
+    "taylor_green_mr_2d": (0.01, 0.005),
+    "mr_cantilever_beam_2d": (1.0e-4, 5.0e-5),
+    "mr_cylinder_2d": (0.2, 0.1),
+}
+A7J_FVM = ("fvm_cylinder_2d", "supersonic_cylinder_2d",
+           "double_mach_reflection_2d", "fvm_channel_3d")
+# the generated channel (tests/test_torch_fvm_cases.py CHANNEL_CELLS /
+# CHANNEL_LENGTHS: the JAX spread was read on this mesh)
+A7J_CHANNEL = ((64, 40, 2), (0.77, 0.5, 0.03))
+A7J_JAX_SPREAD = "tests/golden_torch/fvm/jax_f32_spread.json"
+A7J_FVM_FIELDS = ("Density", "Velocity", "Pressure", "TotalEnergyDensity")
+A7J_SPREAD_FACTOR = 10.0
+
+
+def torch_where_rows(f, key):
+    """A fluid field with its dead rows zeroed (the MR cylinder's clones
+    land in dead slots parked far away)."""
+    v = f[key]
+    m = f["Alive"].view(-1, *([1] * (v.dim() - 1)))
+    return v * m.to(v.dtype)
+
+
+# the MR cases' float32 check, phase 21's method: case -> (steps, ((what,
+# the quantity of a sim, a change from the start?, tolerance as a share of
+# the float64 max), ...)), each tolerance ten times the larger reading of
+# this check on the CPU and on an H100, rounded up to one significant digit
+A7J_MR_F32 = {
+    "taylor_green_mr_2d": (3, (
+        ("velocity_change", lambda s: s.fluid["Velocity"], True, 5e-4),
+        ("density_change", lambda s: s.fluid["Density"], True, 6e-4))),
+    "mr_cantilever_beam_2d": (20, (
+        ("displacement", lambda s: s.solid["Position"], True, 2e-3),
+        ("velocity", lambda s: s.solid["Velocity"], False, 2e-4))),
+    "mr_cylinder_2d": (2, (
+        ("velocity_change", lambda s: torch_where_rows(s.fluid, "Velocity"),
+         True, 6e-4),
+        ("displacement", lambda s: torch_where_rows(s.fluid, "Position"),
+         True, 9e-4))),
+}
+A7J_COUNTS = ("n_adv", "n_ac", "n_steps")
+# float32 operations of the new parts, counted from their formulas: a
+# face's acoustic interface state and WC fluxes; its HLLC star state
+# (sound speeds, wave and contact speeds, both star states, the selects)
+# and fluxes; a MUSCL face value (the gradient's face term, the limiter's
+# two quotients, the two reconstructions) of one field; a ghost select; a
+# boundary face's force; an adaptive pair (`list_bound`): the multi-level
+# build's distance and cut, the adaptive density, both acoustic halves,
+# the viscous force with the TVC, the surface indication
+FVM_FACE_FLOPS = {"face_states_flux": 70, "wc_step": 110,
+                  "face_states_hllc": 210, "hllc_step": 260,
+                  "muscl_reconstruction": 4 * 60, "muscl_step": 4 * 60 + 260,
+                  "ghosts": 40, "boundary_force": 30}
+# the mesh arrays each part reads (`fvm_bound` counts only these): the face
+# states read the incidence, the tags and the normals; a cell reduction
+# the slots and their signs; a step adds the areas and volumes (and r_eff
+# where the fluid is viscous); MUSCL the midpoints and centroids
+_FVM_FACES = ("owner", "neigh", "interior", "btype", "normal")
+_FVM_CELLS = ("cell_faces", "cell_sign", "volumes")
+_FVM_MUSCL = ("owner", "neigh", "interior", "area", "normal", "midpoint",
+              "centroids") + _FVM_CELLS
+FVM_MESH_READS = {"cell_reduce": ("cell_faces", "cell_sign"),
+                  "face_states_flux": _FVM_FACES,
+                  "face_states_hllc": _FVM_FACES,
+                  "boundary_force": _FVM_FACES + ("area", "r_eff"),
+                  "wc_step": _FVM_FACES + ("area",) + _FVM_CELLS,
+                  "hllc_step": _FVM_FACES + ("area",) + _FVM_CELLS,
+                  "muscl_reconstruction": _FVM_MUSCL,
+                  "muscl_step": _FVM_MUSCL + ("btype",),
+                  "ghosts": ("interior", "midpoint", "normal")}
+LIST_PAIR_FLOPS.update({"multilevel_build": 12, "adaptive_density": 26,
+                        "adaptive_substep": 85, "adaptive_viscous_tvc": 60,
+                        "adaptive_surface": 30})
+
+
+def a7j_build(cm, name, dtype, device, **kw):
+    """(case, started sim) at the JAX default width; the channel on the
+    generated hex channel."""
+    if name == "fvm_channel_3d":
+        from sphinxsys_tpu_torch.fvm.meshgen import hex_box
+
+        kw["raw"] = hex_box(*A7J_CHANNEL[0], A7J_CHANNEL[1],
+                            cm.CHANNEL_SIDES)
+    case, *states = cm.build_case(dtype=dtype, device=device, **kw)
+    return case, a7i_start(cm, case, states)
+
+
+def a7j_fields(name, sim):
+    return sim.state if name == "fvm_channel_3d" else sim.fluid
+
+
+def a7j_fvm_f32_check(torch, name):
+    """The FVM case built in float32 on the card and in float64 on the CPU,
+    the JAX spread's steps on each: equal counts, each field's change from
+    the start within A7J_SPREAD_FACTOR times the JAX package's own float32
+    spread (max |f32 change - f64 change| / max |f64 change|).  Returns the
+    spreads."""
+    cm = importlib.import_module(f"sphinxsys_tpu_torch.cases.{name}")
+    with open(ROOT / A7J_JAX_SPREAD) as f:
+        jax_ref = json.load(f)["cases"][name]
+    n = jax_ref["steps"]
+    changes = []
+    for dtype, device in ((torch.float64, "cpu"), (torch.float32, DEVICE)):
+        case, s = a7j_build(cm, name, dtype, device)
+        start = {k: v.double().cpu() for k, v in a7j_fields(name, s).items()}
+        step = cm.make_advection_step(case)
+        for _ in range(n):
+            s = step(s)
+        changes.append((s.n_steps, {k: v.double().cpu() - start[k]
+                                    for k, v in a7j_fields(name, s).items()}))
+    (n64, c64), (n32, c32) = changes
+    spread = {k: float((c32[k] - c64[k]).abs().max()
+                       / c64[k].abs().max().clamp(min=1e-300))
+              for k in A7J_FVM_FIELDS if k in c64}
+    log(f"a7j {name} float32 card against float64 cpu ({n} steps): counts "
+        f"{n64} / {n32}; spread (JAX's own) " + ", ".join(
+            f"{k} {v:.3e} ({jax_ref['spread'][k]:.3e})"
+            for k, v in spread.items()))
+    check(n64 == n32 == n, f"a7j {name}: counts {n64} / {n32} != {n}")
+    for k, v in spread.items():
+        check(v <= A7J_SPREAD_FACTOR * jax_ref["spread"][k],
+              f"a7j {name}: float32 {k} spread {v:.3e} over "
+              f"{A7J_SPREAD_FACTOR:g} x JAX's own {jax_ref['spread'][k]:.3e}")
+    return dict(counts=(n64, n32), spread=spread,
+                jax_spread=jax_ref["spread"])
+
+
+def a7j_mr_f32_check(torch, name):
+    """Phase 21's check with A7J_MR_F32: built and started in float64 on
+    the CPU (the MR cylinder from its lattice, unrelaxed), the state cast
+    to float32 on the card."""
+    cm = importlib.import_module(f"sphinxsys_tpu_torch.cases.{name}")
+    n, quantities = A7J_MR_F32[name]
+    # the cylinder's lattice start: its relaxation runs on the main path
+    kw = dict(relax_ic=False) if name == "mr_cylinder_2d" else {}
+    case, s64 = a7j_build(cm, name, torch.float64, "cpu", **kw)
+    runs = []
+    for c, s in ((case, s64),
+                 (cast_tree(torch, case, torch.float32, DEVICE),
+                  cast_tree(torch, s64, torch.float32, DEVICE))):
+        starts = [get(s).double().cpu() for _, get, _, _ in quantities]
+        step = (cm.make_advection_step(c) if hasattr(cm, "make_advection_step")
+                else cm.make_step(c))
+        for _ in range(n):
+            s = step(s)
+        runs.append((s, starts))
+    (sh, starts_h), (sc_, starts_c) = runs
+    counts = [tuple(getattr(s, k) for k in A7J_COUNTS if hasattr(s, k))
+              for s in (sh, sc_)]
+    errs = {}
+    for (what, get, change, tol), h0, c0 in zip(quantities, starts_h,
+                                                 starts_c):
+        h, c = get(sh).double().cpu(), get(sc_).double().cpu()
+        if change:
+            h, c = h - h0, c - c0
+        errs[what] = (float((c - h).abs().max()), float(h.abs().max()), tol)
+    log(f"a7j {name} float32 card against float64 cpu ({n} steps): counts "
+        f"float64 {counts[0]}, float32 {counts[1]}; max |d| / max, "
+        "tolerance " + ", ".join(f"{k} {e:.3e} / {m:.3e} = "
+                                 f"{e / max(m, 1e-300):.3e}, {tol:g}"
+                                 for k, (e, m, tol) in errs.items()))
+    check(counts[0] == counts[1], f"a7j {name}: float32 counts {counts[1]} "
+          f"!= float64 {counts[0]}")
+    for k, (e, m, tol) in errs.items():
+        check(bool(e <= tol * m), f"a7j {name}: float32 {k} off float64 by "
+              f"{e:.3e} (max {m:.3e}, tolerance {tol:g})")
+    return dict(counts=counts, **{k: e / max(m, 1e-300)
+                                  for k, (e, m, _) in errs.items()})
+
+
+def a7j_parts(torch, name, cm, case, sim):
+    """The new parts alone on the main path's end state (the step itself
+    is profiled beside them)."""
+    from sphinxsys_tpu_torch.fvm import dynamics as fv
+    from sphinxsys_tpu_torch.physics import eulerian as eu
+    from sphinxsys_tpu_torch.physics import fluid_adaptive as fa
+    from sphinxsys_tpu_torch.physics import solid as sd
+
+    if name in A7J_FVM:
+        f, dm = a7j_fields(name, sim), case.dm
+        flux = torch.ones((dm.area.shape[0], dm.dim), dtype=dm.area.dtype,
+                          device=dm.area.device)
+        step = cm.make_advection_step(case)
+        out = {"cell_reduce": lambda: fv._cell_reduce(dm, flux)}
+        if name in ("fvm_cylinder_2d", "fvm_channel_3d"):
+            bc = getattr(case, "bc", fv.BCSpec())
+
+            def wc_faces():
+                l, r = fv.face_states(f, dm, case.far, bc)
+                return eu.interface_state(case.riemann, *l, *r, -dm.normal)
+            out["face_states_flux"] = wc_faces
+            if name == "fvm_cylinder_2d":
+                out["boundary_force"] = lambda: cm.cylinder_force(case, sim)
+            return out
+        gas = case.gas
+        if name == "supersonic_cylinder_2d":
+            def hllc_faces():
+                l, r = fv.compressible_face_states(f, dm, case.far, gas)
+                return eu.hllc_interface_state(gas, *l, *r, -dm.normal)
+            out["face_states_hllc"] = hllc_faces
+            return out
+
+        def muscl():
+            vel = f["Velocity"]
+            return [fv.muscl_face_values(q, dm) for q in (
+                f["Density"], f["Pressure"], vel[:, 0], vel[:, 1])]
+        left, right = fv.compressible_face_states(f, dm, cm.FAR, gas)
+        out.update(muscl_reconstruction=muscl,
+                   ghosts=lambda: cm._ghosts(left, right, dm, sim.time))
+        return out
+    if name == "taylor_green_mr_2d":
+        dt_adv, f = cm.advection_prep(case, sim)
+        dt = torch.minimum(fd_acoustic_dt(case, f), dt_adv)
+        kernel, box = case.kernel, case.box
+        f1 = fa.acoustic_step_1st_half_adaptive(f, sim.nl_inner, kernel, 2,
+                                                case.eos, case.riemann, dt,
+                                                box=box)
+        return {"multilevel_build": lambda: cm.rebuild_inner(case, sim.fluid),
+                "advection_prep": lambda: cm.advection_prep(case, sim),
+                "adaptive_1st_half": lambda: fa.acoustic_step_1st_half_adaptive(
+                    f, sim.nl_inner, kernel, 2, case.eos, case.riemann, dt,
+                    box=box),
+                "adaptive_2nd_half": lambda: fa.acoustic_step_2nd_half_adaptive(
+                    f1, sim.nl_inner, kernel, 2, case.no_riemann, dt, box=box)}
+    if name == "mr_cantilever_beam_2d":
+        s0 = sim.solid
+        hr = s0["SmoothingLengthRatio"]
+        return {"adaptive_freeze": lambda: sd.freeze_adaptive_reference_pairs(
+                    s0["InitialPosition"], hr, a7j_frozen_list(case),
+                    case.kernel, 2)}
+    dt_adv, f = cm.advection_prep(case, sim)
+    return {"rebuild_relations": lambda: cm.rebuild_relations(case, sim.fluid),
+            "advection_prep": lambda: cm.advection_prep(case, sim),
+            "acoustic_substep": lambda: cm.acoustic_substep(
+                case, sim, f, dt_adv, sim.time),
+            "open_boundaries": lambda: cm.open_boundaries(
+                case, sim.fluid, sim.fluid["Position"])}
+
+
+def fd_acoustic_dt(case, f):
+    from sphinxsys_tpu_torch.physics import fluid as fd
+
+    return fd.acoustic_time_step(f, case.eos, case.adaptation.h / 2.0)
+
+
+def a7j_frozen_list(case):
+    """The MR beam's frozen list as a NeighborList (its idx and counts)."""
+    from sphinxsys_tpu_torch.neighbors.neighbor_list import NeighborList
+
+    rp = case.rp
+    return NeighborList(idx=rp.idx, count=rp.mask.sum(1).to(rp.idx.dtype),
+                        overflow=rp.mask.new_zeros(()))
+
+
+def fvm_bound(torch, part, dm, reads, writes, cell_fields=0, extra=()):
+    """The least time (ms) of one FVM pass: the mesh arrays the part reads
+    (FVM_MESH_READS[part], and `extra`) read once, each array in `reads`
+    read once and each in `writes` written once, over 3.35 TB/s;
+    FVM_FACE_FLOPS[part] a real face, plus a signed add a slot for each of
+    `cell_fields` reduced components, over 67 TFLOP/s.  Returns (ms, by,
+    faces)."""
+    mesh = tuple(getattr(dm, k) for k in FVM_MESH_READS[part] + extra)
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (*mesh, *reads, *writes))
+    faces = dm.n_faces
+    flops = faces * FVM_FACE_FLOPS.get(part, 0) \
+        + 2 * dm.cell_faces.numel() * cell_fields
+    ms, by = bytes_or_flops(nbytes, flops)
+    return ms, by, faces
+
+
+def a7j_bounds(torch, name, cm, case, sim):
+    """Each profiled part's least time from this run's mesh, lists and
+    fields; a step is its parts' sum."""
+    out = {}
+    if name in A7J_FVM:
+        f, dm = a7j_fields(name, sim), case.dm
+        state = list(f.values())
+        ncomp = 2 + dm.dim if "TotalEnergyDensity" in f else 1 + dm.dim
+        part = {"fvm_cylinder_2d": "wc_step", "fvm_channel_3d": "wc_step",
+                "supersonic_cylinder_2d": "hllc_step",
+                "double_mach_reflection_2d": "muscl_step"}[name]
+        out["advection_step"] = fvm_bound(
+            torch, part, dm, state, state, ncomp,
+            ("r_eff",) if name == "fvm_cylinder_2d" else ())
+        out["cell_reduce"] = fvm_bound(
+            torch, "cell_reduce", dm,
+            [torch.empty((dm.area.shape[0], dm.dim), device=dm.area.device)],
+            [f["Velocity"]], dm.dim)
+        faces_out = [torch.empty((dm.area.shape[0], 2 + dm.dim),
+                                 device=dm.area.device)]
+        if part == "wc_step":
+            out["face_states_flux"] = fvm_bound(torch, "face_states_flux",
+                                                dm, state, faces_out)
+            if name == "fvm_cylinder_2d":
+                out["boundary_force"] = fvm_bound(torch, "boundary_force", dm,
+                                                  state, [])
+        elif part == "hllc_step":
+            out["face_states_hllc"] = fvm_bound(torch, "face_states_hllc",
+                                                dm, state, faces_out)
+        else:
+            out["muscl_reconstruction"] = fvm_bound(
+                torch, "muscl_reconstruction", dm, state, faces_out * 2)
+            out["ghosts"] = fvm_bound(torch, "ghosts", dm, faces_out,
+                                      faces_out)
+        return out
+    if name == "mr_cantilever_beam_2d":
+        out["advection_step"] = frozen_bound(torch, case.rp, sim.solid)
+        s0 = sim.solid
+        out["adaptive_freeze"] = list_bound(
+            torch, "multilevel_build", [a7j_frozen_list(case)],
+            [s0["InitialPosition"], s0["SmoothingLengthRatio"]],
+            [case.rp.W, case.rp.dW, case.rp.r, case.rp.e])
+        return out
+    f = sim.fluid
+    lists = ([sim.nl_inner] if name == "taylor_green_mr_2d"
+             else [sim.nl_ff, sim.nl_fw])
+    ac_reads = fields(f, *FLUID_AC_READS, "SmoothingLengthRatio")
+    wall = [] if name == "taylor_green_mr_2d" else fields(
+        case.cylinder, *WALL_READS, "SmoothingLengthRatio")
+    sub = list_bound(torch, "adaptive_substep", lists, ac_reads + wall,
+                     fields(f, *FLUID_AC_WRITES))
+    half = (sub[0] / 2, sub[1], sub[2])
+    build_lists = lists if name == "taylor_green_mr_2d" \
+        else [sim.nl_ff, sim.nl_fw, sim.nl_wf]
+    build = list_bound(torch, "multilevel_build", build_lists,
+                       fields(f, "Position", "SmoothingLengthRatio",
+                              "Alive"), [])
+    prep_parts = [list_bound(torch, p, lists,
+                             fields(f, "Position", "Mass", "Velocity",
+                                    "VolumetricMeasure",
+                                    "SmoothingLengthRatio") + wall,
+                             fields(f, "Density", "VolumetricMeasure",
+                                    "ViscousForce", "ForcePrior",
+                                    "Position"))
+                  for p in ("adaptive_density", "adaptive_viscous_tvc")
+                  + (("adaptive_surface",)
+                     if name == "mr_cylinder_2d" else ())]
+    prep = (sum(p[0] for p in prep_parts), prep_parts[0][1],
+            sum(p[2] for p in prep_parts))
+    per_ac = sim.n_ac / max(sim.n_adv, 1)
+    out["advection_step"] = (prep[0] + per_ac * sub[0] + build[0], sub[1],
+                             round(prep[2] + per_ac * sub[2] + build[2]))
+    out["advection_prep"] = prep
+    if name == "taylor_green_mr_2d":
+        out.update(multilevel_build=build, adaptive_1st_half=half,
+                   adaptive_2nd_half=half)
+    else:
+        from sphinxsys_tpu_torch.physics.boundary import _PARTICLE_FIELDS_HINT
+
+        out.update(rebuild_relations=build, acoustic_substep=sub,
+                   open_boundaries=list_bound(
+                       torch, None, [], fields(f, "Alive", "Position",
+                                               *cm.CLONE_FIELDS),
+                       fields(f, "Alive", *cm.CLONE_FIELDS)))
+    return out
+
+
+def a7j_observable(name, cm, case, sim):
+    if name == "fvm_cylinder_2d":
+        return cm.drag_coefficient(case, sim)
+    if name == "supersonic_cylinder_2d":
+        return list(cm.stagnation_state(case, sim))
+    if name == "double_mach_reflection_2d":
+        return [cm.wall_shock_position(case, sim),
+                float(sim.fluid["Density"].max())]
+    if name == "fvm_channel_3d":
+        return [cm.boundary_flux(case, sim, 10), cm.boundary_flux(case, sim, 5),
+                cm.max_speed(sim)]
+    if name == "taylor_green_mr_2d":
+        return cm.max_speed(sim)
+    if name == "mr_cantilever_beam_2d":
+        return cm.tip_displacement(case, sim)
+    fv, fp = cm.cylinder_forces(case, sim)
+    return [*fv.tolist(), *fp.tolist(), cm.n_alive(sim)]
+
+
+def a7j_case_path(torch, name, results):
+    """A case at its JAX default width through build_case -> init_sim ->
+    make_run_chunk -> solver.run_simulation (A7J_MAIN's end time),
+    float32, every launch count reset just before and read just after: no
+    overflow, finite fields, the observable printed; then one step and
+    its new parts alone (`ob_parts`)."""
+    cm = importlib.import_module(f"sphinxsys_tpu_torch.cases.{name}")
+    t_end, sample = A7J_MAIN[name]
+
+    def build():
+        case, sim = a7j_build(cm, name, torch.float32, DEVICE)
+        return case, cm, sim
+
+    case, sim, rec = ob_main_run(torch, f"a7j {name}", build, t_end, sample)
+    check(not bool(getattr(sim, "overflow", False)), f"a7j {name}: overflow")
+    body = (sim.solid if name == "mr_cantilever_beam_2d"
+            else a7j_fields(name, sim))
+    for k in ("Position", "Velocity", "Density", "Pressure",
+              "TotalEnergyDensity"):
+        if k in body:
+            check(bool(torch.isfinite(body[k]).all()),
+                  f"a7j {name}: non-finite {k}")
+    counts = tuple(getattr(sim, k) for k in A7J_COUNTS if hasattr(sim, k))
+    obs = a7j_observable(name, cm, case, sim)
+    rows = (case.dm.n_cells if name in A7J_FVM
+            else body["Position"].shape[0])
+    log(f"a7j {name} main path: {rows} cells or rows; setup "
+        f"{rec['setup_s']:.2f} s; to t={float(sim.time):.7g} counts {counts};"
+        f" observable {obs}; {rec['ms_per_adv']:.3f} ms a step (wall clock, "
+        f"mean), {rec['host_reads_per_adv']:.1f} host reads a step; peak "
+        f"device memory {rec['peak_gb']:.3f} GB")
+    fns = a7j_parts(torch, name, cm, case, sim)
+    step = (cm.make_advection_step(case) if hasattr(cm, "make_advection_step")
+            else cm.make_step(case))
+    parts = ob_parts(torch, f"a7j_{name}", fns, lambda: step(sim),
+                     a7j_bounds(torch, name, cm, case, sim), trace=False)
+    results[f"_a7j_{name}"] = dict(rec, counts=counts, observable=obs,
+                                   rows=rows, parts=parts)
+    del case, sim, fns, step
+    torch.cuda.empty_cache()
+
+
+def a7j_phase(torch, results):
+    """Phase 22: the seven cases of ROADMAP A items 5b and 6 (no hand
+    kernel), each at its JAX default width: float32 on the card against
+    float64 on the CPU, then through the public entry points, its step by
+    part."""
+    t0 = time.perf_counter()
+    for name in A7J_MAIN:
+        f32 = (a7j_fvm_f32_check(torch, name) if name in A7J_FVM
+               else a7j_mr_f32_check(torch, name))
+        a7j_case_path(torch, name, results)
+        results[f"_a7j_{name}"]["f32_vs_f64"] = f32
+    log(f"a7j phase: {time.perf_counter() - t0:.1f} s")
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (ROOT / "sphinxsys_tpu_torch").is_dir():
@@ -6952,6 +7411,7 @@ def main() -> int:
     a7g_phase(torch, results)
     a7h_phase(torch, results)
     a7i_phase(torch, results)
+    a7j_phase(torch, results)
 
     kernels = []
     for tag, names in [*((t, c["kernels"]) for t, c in CONFIGS.items()),
@@ -6993,7 +7453,8 @@ def main() -> int:
                 *(f"a7g_{name}" for name in A7G_MAIN),
                 "a7g_vp_heat_flux_2d",
                 *(f"a7h_{name}" for name in A7H_MAIN), "a7h_gate",
-                "a7h_cvt", *(f"a7i_{name}" for name in A7I_MAIN)):
+                "a7h_cvt", *(f"a7i_{name}" for name in A7I_MAIN),
+                *(f"a7j_{name}" for name in A7J_MAIN)):
         main_paths[tag] = results[f"_{tag}"]
     log("main paths: " + json.dumps(main_paths))
     lost = sorted({PROFILE_GUARD - p[4] for p in PROFILED})

@@ -3,7 +3,8 @@
 fsi2 scenes need: `Transform`, `Box`, `Ball`, `ComplexShape`,
 `make_complex`; the fish and the T-pipe need `Polygon` and
 `make_multi_polygon`; the granular pile needs `Cylinder`; the heart's
-ventricle and the Purkinje tree need `Ellipsoid` and `HalfSpace`).
+ventricle and the Purkinje tree need `Ellipsoid` and `HalfSpace`; the
+multi-resolution cylinder's relaxation needs `InverseShape`).
 
 Positions are (..., dim) tensors.  `signed_distance` is negative inside.
 `find_normal_direction` is the unit gradient of the SDF, taken with
@@ -71,6 +72,11 @@ class Box(Shape):
         inside = torch.minimum(dmax, torch.zeros_like(dmax))
         return outside + inside
 
+    def bounds(self):
+        hs = np.asarray(self.halfsize, dtype=np.float64)
+        t = np.asarray(self.transform.translation, dtype=np.float64)
+        return t - hs, t + hs
+
 
 @dataclasses.dataclass(frozen=True)
 class Ball(Shape):
@@ -90,6 +96,10 @@ class Ball(Shape):
                         torch.sqrt(torch.where(pos_sq, sq, torch.ones_like(sq))),
                         torch.zeros_like(sq))
         return r - self.radius
+
+    def bounds(self):
+        c = np.asarray(self.center, dtype=np.float64)
+        return c - self.radius, c + self.radius
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,6 +180,23 @@ class HalfSpace(Shape):
         big = 1e30
         d = len(self.point)
         return -big * np.ones(d), big * np.ones(d)
+
+
+@dataclasses.dataclass(frozen=True)
+class InverseShape(Shape):
+    """Inside and outside swapped (InverseShape<>, base_geometry.h): a
+    fluid confined outside an obstacle (static_confinement.cpp:147)."""
+
+    base: Shape
+
+    def signed_distance(self, pos):
+        return -self.base.signed_distance(pos)
+
+    def contains(self, pos):
+        return ~self.base.contains(pos)
+
+    def bounds(self):
+        return self.base.bounds()
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,7 +2,8 @@
 
 Wendland C2 — the reference default and the one the dambreak uses —
 the anisotropic kernel over it, and the Laguerre-Gauss kernel of the
-Eulerian Taylor-Green vortex.  ``W(r)`` has units 1/len^dim,
+Eulerian Taylor-Green vortex; `W_adaptive` / `dW_adaptive` evaluate any
+of them at per-particle smoothing lengths.  ``W(r)`` has units 1/len^dim,
 ``dW(r)`` = dW/dr (negative); the support radius is 2h
 (src/shared/kernels/kernel_wendland_c2.cpp).
 """
@@ -35,18 +36,41 @@ class SmoothingKernel:
 
     def W(self, r: torch.Tensor, dim: int) -> torch.Tensor:
         """Kernel value; zero outside support."""
-        q = r / self.h
-        inside = q < self.kernel_size
-        val = self._factor_w(dim) * self._w(torch.clamp(q, max=self.kernel_size))
-        return torch.where(inside, val, torch.zeros_like(val))
+        return self._W_at(r / self.h, 1.0, dim)
 
     def dW(self, r: torch.Tensor, dim: int) -> torch.Tensor:
         """Radial derivative dW/dr; zero outside support."""
-        q = r / self.h
+        return self._dW_at(r / self.h, 1.0, dim)
+
+    # Variable smoothing length (adaptive-h bodies): Kernel::W(h_ratio, r)
+    # = factor_W W(q h_ratio) h_ratio^d and dW(h_ratio, ...) h_ratio^(d+1)
+    # (base_kernel.cpp:98-140), h_ratio = h_ref / h_particle >= 1 for a
+    # refined particle.  The JAX package patches these onto its class at
+    # import; here they are methods.  W and dW are the h_ratio = 1 case
+    # (the Python float 1.0 scales exactly, so the values are the same bits).
+
+    def W_adaptive(self, r: torch.Tensor, h_ratio, dim: int) -> torch.Tensor:
+        return self._W_at(r / self.h * h_ratio, h_ratio, dim)
+
+    def dW_adaptive(self, r: torch.Tensor, h_ratio, dim: int) -> torch.Tensor:
+        return self._dW_at(r / self.h * h_ratio, h_ratio, dim)
+
+    def _W_at(self, q: torch.Tensor, h_ratio, dim: int) -> torch.Tensor:
         inside = q < self.kernel_size
-        factor = self._factor_w(dim) / self.h
-        val = factor * self._dw(torch.clamp(q, max=self.kernel_size))
+        val = self._factor_w(dim) * (h_ratio ** dim) * self._w(
+            torch.clamp(q, max=self.kernel_size))
         return torch.where(inside, val, torch.zeros_like(val))
+
+    def _dW_at(self, q: torch.Tensor, h_ratio, dim: int) -> torch.Tensor:
+        inside = q < self.kernel_size
+        val = (self._factor_w(dim) / self.h) * (h_ratio ** (dim + 1)) * \
+            self._dw(torch.clamp(q, max=self.kernel_size))
+        return torch.where(inside, val, torch.zeros_like(val))
+
+    def w0_adaptive(self, h_ratio, dim: int) -> torch.Tensor:
+        """W(0) at each particle's own h: factor_W h_ratio^d w(0)."""
+        return self._factor_w(dim) * (h_ratio ** dim) * self._w(
+            torch.zeros((), dtype=h_ratio.dtype, device=h_ratio.device))
 
 
 @dataclasses.dataclass(frozen=True)

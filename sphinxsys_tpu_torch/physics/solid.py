@@ -63,6 +63,26 @@ def freeze_reference_pairs(pos0, nl: NeighborList, kernel,
                           mask=pg.mask)
 
 
+def freeze_adaptive_reference_pairs(pos0, h_ratio, nl: NeighborList, kernel,
+                                    dim: int) -> ReferencePairs:
+    """The adaptive-h freeze_reference_pairs of a multi-resolution solid
+    (ParticleWithLocalRefinement / AdaptiveWithinShape,
+    test_2d_mr_cantilever_beam.cpp:190): each pair at the pair smoothing
+    length max(h_i, h_j) (the smaller ratio), and W divided by that
+    pair's W(0), so integration_1st_half_pk2's damping weight runs with
+    w0 = 1."""
+    pos_j, mask = gather(pos0, nl.idx)
+    hr_j, _ = gather(h_ratio, nl.idx)
+    hr_pair = torch.minimum(h_ratio[:, None], hr_j)
+    disp = pos0[:, None, :] - pos_j
+    r = torch.sqrt(torch.sum(disp * disp, dim=-1) + TINY)
+    e = disp / (r[..., None] + TINY)
+    fmask = mask.to(pos0.dtype)
+    W = kernel.W_adaptive(r, hr_pair, dim) * fmask
+    dW = kernel.dW_adaptive(r, hr_pair, dim) * fmask
+    return ReferencePairs(idx=nl.idx, W=W / kernel.w0_adaptive(hr_pair, dim),
+                          dW=dW, r=r, e=e, mask=mask)
+
 def linear_gradient_correction_matrix(rp: ReferencePairs, vol,
                                       alpha: float = 0.0,
                                       eps: float = 1.0e-8) -> torch.Tensor:

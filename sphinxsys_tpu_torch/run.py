@@ -20,6 +20,9 @@ overrides (--set dx=0.05 --set t_end=2).
     python -m sphinxsys_tpu_torch.run vp_heat_flux_2d --set n_steps=5
     python -m sphinxsys_tpu_torch.run roof_3d --set t_end=0.01
     python -m sphinxsys_tpu_torch.run hydrostatic_fsi_2d --set dx=0.05
+    python -m sphinxsys_tpu_torch.run double_mach_reflection_2d --set nx=240 \\
+        --set ny=60
+    python -m sphinxsys_tpu_torch.run taylor_green_mr_2d --set dx=0.05
 
 The VTP writer writes a body's first NReal rows, as the JAX package's
 does: for an open-boundary fluid these include dead slots parked at
@@ -83,6 +86,16 @@ def _run_single_fluid(module_name: str, bodies_of, t_end: float):
         return s
 
     return runner
+
+
+def _cells_body(module_name: str, body: str):
+    """An FVM case's cell centroids and fields as one body (its module's
+    `cells_as_body`), as the JAX package's entries write them."""
+    def bodies_of(case, s):
+        mod = importlib.import_module(f"sphinxsys_tpu_torch.cases.{module_name}")
+        return {body: mod.cells_as_body(case, s)}
+
+    return bodies_of
 
 
 def _run_block(module_name: str, extra_bodies=None, t_end: float = 20.0,
@@ -334,6 +347,27 @@ CASES = {
     "dambreak_3d_block": _run_block("dambreak_3d", t_end=6.0),
     "taylor_green_2d_block": _run_block("taylor_green_2d", t_end=5.0),
     "fsi2_block": _run_block("fsi2", t_end=20.0, fsi=True),
+    "fvm_cylinder_2d": _run_single_fluid(
+        "fvm_cylinder_2d", _cells_body("fvm_cylinder_2d", "FluidCells"),
+        t_end=200.0),
+    "supersonic_cylinder_2d": _run_single_fluid(
+        "supersonic_cylinder_2d",
+        _cells_body("supersonic_cylinder_2d", "GasCells"), t_end=40.0),
+    "double_mach_reflection_2d": _run_single_fluid(
+        "double_mach_reflection_2d",
+        _cells_body("double_mach_reflection_2d", "GasCells"), t_end=0.2),
+    "fvm_channel_3d": _run_single_fluid(
+        "fvm_channel_3d", lambda c, s: {}, t_end=2.0),
+    "taylor_green_mr_2d": _run_single_fluid(
+        "taylor_green_mr_2d", lambda c, s: {"WaterBody": s.fluid},
+        t_end=2.0),
+    "mr_cantilever_beam_2d": _run_single_fluid(
+        "mr_cantilever_beam_2d", lambda c, s: {"BeamBody": s.solid},
+        t_end=1.0),
+    "mr_cylinder_2d": _run_single_fluid(
+        "mr_cylinder_2d",
+        lambda c, s: {"WaterBody": s.fluid, "Cylinder": c.cylinder},
+        t_end=30.0),
 }
 
 

@@ -150,7 +150,21 @@ def test_port_has_modules():
                  "sphinxsys_tpu_torch/cases/pkj_lv_electrocontraction_3d.py",
                  "sphinxsys_tpu_torch/cases/heart_electromechanics_3d.py",
                  "sphinxsys_tpu_torch/cases/eulerian_taylor_green_2d.py",
-                 "sphinxsys_tpu_torch/benchmarks/a7i_diffusion_eulerian_long.py"):
+                 "sphinxsys_tpu_torch/benchmarks/a7i_diffusion_eulerian_long.py",
+                 "sphinxsys_tpu_torch/fvm/__init__.py",
+                 "sphinxsys_tpu_torch/fvm/mesh.py",
+                 "sphinxsys_tpu_torch/fvm/meshgen.py",
+                 "sphinxsys_tpu_torch/fvm/dynamics.py",
+                 "sphinxsys_tpu_torch/neighbors/multilevel.py",
+                 "sphinxsys_tpu_torch/physics/fluid_adaptive.py",
+                 "sphinxsys_tpu_torch/cases/fvm_cylinder_2d.py",
+                 "sphinxsys_tpu_torch/cases/supersonic_cylinder_2d.py",
+                 "sphinxsys_tpu_torch/cases/double_mach_reflection_2d.py",
+                 "sphinxsys_tpu_torch/cases/fvm_channel_3d.py",
+                 "sphinxsys_tpu_torch/cases/taylor_green_mr_2d.py",
+                 "sphinxsys_tpu_torch/cases/mr_cantilever_beam_2d.py",
+                 "sphinxsys_tpu_torch/cases/mr_cylinder_2d.py",
+                 "sphinxsys_tpu_torch/benchmarks/a7j_fvm_mr_long.py"):
         assert must in names
 
 

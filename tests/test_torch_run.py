@@ -159,7 +159,10 @@ def test_cli_lists_cases(capsys):
                  "hydrostatic_fsi_2d", "poiseuille_flow_shell_3d",
                  "three_ring_impact_2d", "water_entry_exit_2d",
                  "pkj_lv_electrocontraction_3d", "heart_electromechanics_3d",
-                 "eulerian_taylor_green_2d"):
+                 "eulerian_taylor_green_2d", "fvm_cylinder_2d",
+                 "supersonic_cylinder_2d", "double_mach_reflection_2d",
+                 "fvm_channel_3d", "taylor_green_mr_2d",
+                 "mr_cantilever_beam_2d", "mr_cylinder_2d"):
         assert case in out
 
 
@@ -167,7 +170,7 @@ def test_cli_cases_are_jax_entries():
     """Every entry is one of the JAX runner's, named alike; the ports of
     its other cases are listed in ROADMAP.md."""
     assert set(trun.CASES) <= set(jrun.CASES)
-    assert len(trun.CASES) == 71
+    assert len(trun.CASES) == 78
 
 
 @pytest.mark.parametrize("case", ["nope", "turbulent_channel_2d"])
