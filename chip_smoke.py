@@ -81,6 +81,12 @@ cell-block engine — at full size:
     tree), the heart (1,570, its fibers, the adaptive mechanics
     sub-cycle) and the Eulerian Taylor-Green vortex (2,500, HLLC), on
     neighbour lists, the tree's list, frozen pairs and torch ops.
+  * the level sets, the relaxations and the k-epsilon turbulence
+    (ROADMAP A items 7 and 8) at their JAX default widths: the static
+    confinement (3,200 water particles between two level sets), the
+    turbulent channel (160 + 64), the shell annulus (315) and the implicit
+    relaxation of a NACA 0012 section (820), on neighbour lists, packaged
+    level-set probes and torch ops.
 
 Phases:
 
@@ -159,7 +165,7 @@ Phases:
      the state at t=0.5 (also with holes, padding near the real slots and
      coincident particles), timed and bounded; the kernels and the block
      forms on the card to t=0.1 (equal counts, states within
-     FSI2_SHORT_TOL); the main path to t=5 (build_block_case ->
+     FSI2_SHORT_TOL); the main path to t=2.5 (build_block_case ->
      init_block_sim -> make_run_chunk, counts reset just before it, the
      host reads of device values counted) held to the spread of the JAX
      package's own float32 runs (`fsi2_gates`: sub-step counts, tip
@@ -232,9 +238,9 @@ Phases:
      (equal counts after a fixed number of advection steps, positions
      within 1e-5 of max|x|, the tethered fish's (q, u) within 1e-3 of
      their max), and the filling tank through its injections in float64
-     on both (1e-9); play_simbody's first 5 steps in float64 (its final
+     on both (1e-9); play_simbody's first 3 steps in float64 (its final
      q and u on the closed-form motions within 1e-12, the restart from
-     step 3 bit for bit, one RK4 sub-step profiled); then, every launch
+     step 2 bit for bit, one RK4 sub-step profiled); then, every launch
      count reset just before and read just after, the tethered fish at
      full width and the 3a cases at their default widths through
      build_case -> init_sim -> make_run_chunk -> solver.run_simulation
@@ -344,7 +350,7 @@ Phases:
      directional rate and the cavity's flow rate; the HLLC halves and the
      viscous force) alone, each timed, profiled, its host reads counted
      and its bound computed.
- 22. the FVM front end and the multi-resolution family (last): the seven
+ 22. the FVM front end and the multi-resolution family: the seven
      cases of ROADMAP A items 5b and 6, each at its JAX default width
      (the 3D channel on a generated 64 x 40 x 2 hex channel, 5,120 cells,
      the ICEM mesh not being in the repository): the FVM cases built in
@@ -358,6 +364,20 @@ Phases:
      the MUSCL reconstruction, the ghosts, the multi-level list build,
      the adaptive halves, the open boundaries) alone, each timed,
      profiled, its host reads counted and its bound computed.
+ 23. the level sets, the relaxations and the k-epsilon turbulence
+     (last): the four cases of ROADMAP A items 7 and 8 at their JAX
+     default widths (the static confinement's 3,200 water particles and
+     two level sets, the channel's 160 + 64, the shell annulus's 315 on
+     its 0.1-spaced level set, the implicit relaxation on a NACA 0012
+     stand-in of chord 4, 820 particles, the turbine blade's file not
+     being in the repository): float32 on the card against float64 on
+     the CPU (phase 21's check; the relaxations from one jittered start),
+     then through build_case -> init_sim -> make_run_chunk ->
+     solver.run_simulation or run_case, and one step or iteration and its
+     new parts (the level-set probes and the surface bounding, the
+     wall-function correction, the K and Epsilon equations, the implicit
+     update, the normal prediction) alone, each timed, profiled, its host
+     reads counted and its bound computed.
 
 Every kernel and plain-version time is taken by
 sphinxsys_tpu_torch.benchmarks.median_ms, the layout drivers' timer.  Its last two lines are a JSON object of per-kernel
@@ -454,7 +474,7 @@ FSI2_DX = 0.1
 FSI2_MID = 0.5
 FSI2_SHORT = 0.1
 FSI2_SHORT_TOL = 5e-5
-FSI2_T_END = 5.0
+FSI2_T_END = 2.5
 FSI2_SAMPLE = 0.05
 FSI2_JAX_RUNS = "tests/golden_torch/fsi2/jax_f32_runs.json"
 FSI2_COUNT_BAND = 0.2
@@ -467,10 +487,10 @@ GATHER_CONFIGS = {
 }
 # the gather step's parts: the timing repetitions of the advection step and
 # of each other part
-GATHER_REPS = (2, 3)
+GATHER_REPS = (1, 2)
 # fsi2's gather route runs to here (phase 9's block route to FSI2_T_END),
 # held to the JAX gather runs' counts at their first sample past it
-FSI2_GATHER_T_END = 2.5
+FSI2_GATHER_T_END = 1.25
 GATHER_ORACLE_SCENES = (
     ("dambreak_2d", 0.1, 0.30, dict(cap=16)),
     ("dambreak_3d", 0.2, 0.20, dict(cap=48)),
@@ -2172,17 +2192,19 @@ def fsi2_gates():
     package's own float32 runs at dx = 0.1 (FSI2_JAX_RUNS: its block and
     gather routes, x64 on and off, to t = 5; tests/test_torch_fsi2.py
     writes them).  Counts: the acoustic (n_ac) and solid (n_s) sub-steps
-    within FSI2_COUNT_BAND of the block route's with x64 on (790 / 1,580;
-    the four runs span 785-815 / 1,570-1,629, and their advection counts
-    283-322, so a 20% band holds them all and a broken coupling, which
-    shrinks the time steps, still falls out).  Tip: the beam tip's
+    within FSI2_COUNT_BAND of the block route's with x64 on at its first
+    sample past FSI2_T_END (391 / 782 at t = 2.5; the four runs span
+    389-418 / 778-835 there, 785-815 / 1,570-1,629 at t = 5, so a 20%
+    band holds them all and a broken coupling, which shrinks the time
+    steps, still falls out).  Tip: the beam tip's
     displacement from its start, |d| at every sample, within the largest
     any of the four runs reaches (0.548, the block route with x64 off, at
     t < 1: the start-up pressure pulse at the tip, which the float32 runs
     resolve each their own way)."""
     runs = json.loads((ROOT / FSI2_JAX_RUNS).read_text())["runs"]
     ref = next(r for r in runs if r["route"] == "block" and r["x64"])
-    n_ac, n_s = ref["rows"][-1][2:4]
+    n_ac, n_s = next(row for row in ref["rows"]
+                     if row[0] >= FSI2_T_END)[2:4]
     band = lambda n: ((1 - FSI2_COUNT_BAND) * n, (1 + FSI2_COUNT_BAND) * n)
     radius = max(math.hypot(row[4], row[5]) for r in runs for row in r["rows"])
     return dict(n_ac=band(n_ac), n_s=band(n_s), tip_radius=radius)
@@ -3746,7 +3768,7 @@ def open_boundary_phase(torch, results):
 
 # the float32 card-against-float64 CPU references: (case, build keywords,
 # advection steps); the filling tank's stop before its first injection
-A7_REFS = (("tethered_fish_2d", dict(dx=0.15), 2),
+A7_REFS = (("tethered_fish_2d", dict(dx=0.15), 1),
            ("stlw_2d", dict(dx=0.1), 3),
            ("filling_tank_2d", dict(dx=0.05), 2),
            ("elastic_gate_2d", dict(dx=5.0), 1),
@@ -3766,8 +3788,8 @@ A7_TETHER_T_END = 0.01      # the full-width tethered fish's main path
 A7_TETHER_SAMPLE = 0.01
 # play_simbody's steps (of the case's 10, each 20 RK4 sub-steps of ~0.11
 # s) and the step its restart starts from
-A7_SIMBODY_STEPS = 5
-A7_SIMBODY_RESTART = 3
+A7_SIMBODY_STEPS = 3
+A7_SIMBODY_RESTART = 2
 A7_MAIN = {  # the 3a cases at their JAX default widths: (kw, t_end, sample)
     "stlw_2d": (dict(), 0.05, 0.025),
     "filling_tank_2d": (dict(), 0.1, 0.05),
@@ -6622,14 +6644,14 @@ def a7i_start(cm, case, states):
         else states[0]
 
 
-def a7i_f32_check(torch, name):
+def a7i_f32_check(torch, name, table=None, tag="a7i"):
     """The case built and started in float64 on the CPU and the same state
-    cast to float32 on the card, A7I_F32's steps on each: equal counts,
-    each quantity (or its change from the start) within its tolerance of
-    its float64 max, the first at least A7I_F32_SEEN times float32's
-    rounding.  Returns the errors."""
+    cast to float32 on the card, A7I_F32's (or `table`'s) steps on each:
+    equal counts, each quantity (or its change from the start) within its
+    tolerance of its float64 max, the first at least A7I_F32_SEEN times
+    float32's rounding.  Returns the errors."""
     cm = importlib.import_module(f"sphinxsys_tpu_torch.cases.{name}")
-    n, quantities = A7I_F32[name]
+    n, quantities = (table or A7I_F32)[name]
     case, *states = cm.build_case(dtype=torch.float64, device="cpu")
     s64 = a7i_start(cm, case, states)
     runs = []
@@ -6657,7 +6679,7 @@ def a7i_f32_check(torch, name):
     rounding = n * 2.0 ** -24 * max(float(starts_h[0].abs().max()),
                                     errs[first][1])
     seen = errs[first][1] / rounding
-    log(f"a7i {name} float32 card against float64 cpu ({n} steps): counts "
+    log(f"{tag} {name} float32 card against float64 cpu ({n} steps): counts "
         f"float64 {counts[0]}, float32 {counts[1]}; max |d| / max, "
         "tolerance " + ", ".join(f"{k} {e:.3e} / {m:.3e} = "
                                  f"{e / max(m, 1e-300):.3e}, {tol:g}"
@@ -6671,15 +6693,15 @@ def a7i_f32_check(torch, name):
     n_sub = [getattr(s, "n_sub", 0) for s in (sh, sc_)]
     equal = [tuple(getattr(s, k) for k in A7I_COUNTS[:3] if hasattr(s, k))
              for s in (sh, sc_)]
-    check(equal[0] == equal[1], f"a7i {name}: float32 counts {counts[1]} "
+    check(equal[0] == equal[1], f"{tag} {name}: float32 counts {counts[1]} "
           f"!= float64 {counts[0]}")
-    check(abs(n_sub[0] - n_sub[1]) <= n, f"a7i {name}: float32 mechanics "
+    check(abs(n_sub[0] - n_sub[1]) <= n, f"{tag} {name}: float32 mechanics "
           f"sub-steps {n_sub[1]} part from float64's {n_sub[0]} by more than "
           f"one a step")
-    check(seen >= A7I_F32_SEEN, f"a7i {name}: the {first} after {n} steps "
+    check(seen >= A7I_F32_SEEN, f"{tag} {name}: the {first} after {n} steps "
           f"is only {seen:.1f} x float32's rounding")
     for k, (e, m, tol) in errs.items():
-        check(bool(e <= tol * m), f"a7i {name}: float32 {k} off float64 by "
+        check(bool(e <= tol * m), f"{tag} {name}: float32 {k} off float64 by "
               f"{e:.3e} (max {m:.3e}, tolerance {tol:g})")
     return dict(counts=counts, **{k: e for k, (e, _, _) in errs.items()})
 
@@ -7339,6 +7361,388 @@ def a7j_phase(torch, results):
         results[f"_a7j_{name}"]["f32_vs_f64"] = f32
     log(f"a7j phase: {time.perf_counter() - t0:.1f} s")
 
+
+# ---------------------------------------------------------------------------
+# Phase 23: the level sets, the shell and implicit relaxations and the
+# k-epsilon turbulence (ROADMAP A items 7 and 8: packaged level-set probes,
+# (N, K) list sums and d x d closed-form solves, torch ops)
+# ---------------------------------------------------------------------------
+
+# the time-stepping cases: (the main path's end time, its output
+# interval), float32 at the JAX default width: a few steps each
+A7K_MAIN = {
+    "static_confinement_2d": (0.02, 0.01),
+    "turbulent_channel_2d": (0.05, 0.025),
+}
+# the relaxations through run_case: iterations (and the curve's interval)
+A7K_RELAX = {
+    "shell_relaxation_2d": dict(n_iterations=100),
+    "implicit_relaxation_2d": dict(n_iterations=50, record_every=25),
+}
+# float32 on the card against float64 on the CPU from the same started
+# state (phase 21's check and form), each tolerance ten times the larger
+# reading of this check on the CPU (DEVICE = "cpu") and on an H100,
+# rounded up to one significant digit
+A7K_F32 = {
+    "static_confinement_2d": (10, (
+        ("displacement", lambda s: s.fluid["Position"], True, 6e-3),
+        ("velocity", lambda s: s.fluid["Velocity"], False, 6e-3))),
+    "turbulent_channel_2d": (10, (
+        ("velocity_change", lambda s: s.fluid["Velocity"], True, 5e-4),
+        ("k_change", lambda s: s.fluid["TurbulenceKineticEnergy"], True,
+         1e-4))),
+}
+# the relaxations' check: iterations, the tolerance of the displacement
+# from the jittered start (and of the implicit curve) as a share of the
+# float64 max, the same rule
+A7K_RELAX_F32 = {"shell_relaxation_2d": (40, dict(displacement=3e-4)),
+                 "implicit_relaxation_2d": (20, dict(displacement=7e-4,
+                                                     curve=3e-5))}
+A7K_BLADE_CHORD = 4.0       # the NACA 0012 stand-in for the turbine blade
+# the pair operations of the new parts whose bounds count them: the
+# channel's outer half (the density, both correction matrices, the
+# turbulent viscous force, the transport correction); its acoustic
+# sub-step (both halves, the TKE force, the wall-function correction, the
+# velocity gradient, the K and Epsilon equations); a relaxation residual;
+# the implicit update (dW, d2W, e e^T, B, B B, the push); the smoothing
+LIST_PAIR_FLOPS.update({"turbulence_prep": 150, "turbulence_substep": 270,
+                        "relax_residual": 15, "implicit_update": 60,
+                        "normal_smoothing": 15})
+
+
+def levelset_arrays(shape, *names):
+    """A LevelSetShape's (or LevelSet's) tables and the named fields."""
+    ls = getattr(shape, "levelset", shape)
+    return [ls.coarse_map, ls.pkg_nbr] + [getattr(ls, k) for k in names]
+
+
+def a7k_relax_start(torch, name, device, dtype):
+    """(run one relaxation from the jittered start: fn(pos, n), the start
+    (float64 on the CPU, cast to `dtype` on `device`), the spacing)."""
+    from sphinxsys_tpu_torch.physics import relax as rx
+    from sphinxsys_tpu_torch.physics import relax_shell as rs
+
+    cm = importlib.import_module(f"sphinxsys_tpu_torch.cases.{name}")
+    f64 = dict(dtype=torch.float64, device="cpu")
+    if name == "shell_relaxation_2d":
+        _, ls, pos0, area, ad, grid = cm.build_case(**f64)
+        start = rs.mid_surface_bounding(
+            rx.randomize_positions(pos0, ad.spacing), ls, ad.spacing)
+        ls = cast_tree(torch, ls, dtype, device)
+        return (lambda p, n: (rs.shell_relax_iterations(
+            ls, p, area * cm.THICKNESS, ad, grid, n_iterations=n), None),
+            start.to(device, dtype), ad.spacing)
+    blade = cm.naca0012(A7K_BLADE_CHORD)
+    pos0, vol, ad, grid, ls = cm.build_case(blade, **f64)
+    start = rx.surface_bounding(rx.randomize_positions(pos0, ad.spacing),
+                                blade, ad.spacing)
+    ls = cast_tree(torch, ls, dtype, device)
+    return (lambda p, n: rx.relax_shape_implicit_iterations(
+        blade, p, vol, ad, grid, n_iterations=n, record_every=5,
+        levelset=ls), start.to(device, dtype), ad.spacing)
+
+
+def a7k_relax_f32_check(torch, name):
+    """A relaxation from one jittered start (float64 on the CPU) run in
+    float64 there and in float32 on the card: the displacement from the
+    start (and the implicit curve) within A7K_RELAX_F32's tolerance of
+    the float64 max."""
+    n, tols = A7K_RELAX_F32[name]
+    runs = []
+    for dtype, device in ((torch.float64, "cpu"), (torch.float32, DEVICE)):
+        run, start, _ = a7k_relax_start(torch, name, device, dtype)
+        p, curve = run(start, n)
+        runs.append((p.double().cpu() - start.double().cpu(),
+                     None if curve is None else curve.double().cpu()))
+    (d64, c64), (d32, c32) = runs
+    errs = {"displacement": (float((d32 - d64).abs().max()),
+                             float(d64.abs().max()))}
+    if c64 is not None:
+        errs["curve"] = (float((c32 - c64).abs().max()),
+                         float(c64.abs().max()))
+    log(f"a7k {name} float32 card against float64 cpu ({n} iterations): "
+        "max |d| / max, tolerance " + ", ".join(
+            f"{k} {e:.3e} / {m:.3e} = {e / max(m, 1e-300):.3e}, {tols[k]:g}"
+            for k, (e, m) in errs.items()))
+    for k, (e, m) in errs.items():
+        check(m > 0 and e <= tols[k] * m, f"a7k {name}: float32 {k} off "
+              f"float64 by {e:.3e} (max {m:.3e}, tolerance {tols[k]:g})")
+    return {k: e / max(m, 1e-300) for k, (e, m) in errs.items()}
+
+
+def a7k_parts(torch, name, cm, case, sim):
+    """The new parts alone on the main path's end state."""
+    from sphinxsys_tpu_torch.physics import relax as rx
+    from sphinxsys_tpu_torch.physics import turbulence as tb
+
+    if name == "static_confinement_2d":
+        dt_adv, f = cm.advection_prep(case, sim)
+        pos = f["Position"]
+        return {"advection_prep": lambda: cm.advection_prep(case, sim),
+                "acoustic_substep": lambda: cm.acoustic_substep(case, sim, f),
+                "surface_bounding": lambda: rx.surface_bounding(
+                    pos, case.ls_wall, case.dx),
+                "kernel_gradient_probe": lambda: case.ls_wall
+                .compute_kernel_gradient_integral(pos),
+                "rebuild_relations": lambda: cm.rebuild_relations(case, f)}
+    dt_adv, f = cm.advection_prep(case, sim)
+    kernel, wall, nlw = case.kernel, case.wall, sim.nl_wall
+
+    def wall_function():
+        g = tb.judge_is_near_wall(f, wall, nlw, kernel, 2, case.dx, case.dx)
+        return tb.standard_wall_function_correction(
+            g, wall, nlw, kernel, 2, cm.MU_F, sim.time, case.closure)
+
+    def k_epsilon():
+        g = tb.k_equation(f, sim.nl_inner, kernel, 2, cm.MU_F,
+                          case.adaptation.h, dt_adv, case.closure, stl=False)
+        return tb.epsilon_equation(g, sim.nl_inner, kernel, 2, cm.MU_F,
+                                   case.adaptation.h, dt_adv, case.closure,
+                                   stl=False)
+
+    return {"advection_prep": lambda: cm.advection_prep(case, sim),
+            "acoustic_substep": lambda: cm.acoustic_substep(
+                case, sim, f, dt_adv, sim.time),
+            "wall_function": wall_function, "k_epsilon": k_epsilon,
+            "rebuild_lists": lambda: cm.rebuild_lists(case, f)}
+
+
+TURB_READS = ("TurbulenceKineticEnergy", "TurbulentDissipation",
+              "TurbulentViscosity", "TurbulentVelocityGradient",
+              "IsNearWallP1", "IsNearWallP2", "K_Production", "Y_P",
+              "WallNearestNormal", "TurbulentCorrectionMatrix")
+
+
+def a7k_bounds(torch, name, cm, case, sim):
+    """Each profiled part's least time from this run's lists, fields and
+    level sets (`list_bound`); a step is its parts' sum."""
+    f = sim.fluid
+    per_ac = sim.n_ac / max(sim.n_adv, 1)
+    if name == "static_confinement_2d":
+        lists = [sim.nl_inner]
+        ls = levelset_arrays(case.ls_wall, "kernel_gw", "phi") \
+            + levelset_arrays(case.ls_triangle, "kernel_gw", "phi")
+        prep = list_bound(torch, "density", lists,
+                          fields(f, "Position", "Mass", "Velocity", "Force",
+                                 "ForcePrior") + levelset_arrays(
+                              case.ls_wall, "kernel_w")
+                          + levelset_arrays(case.ls_triangle, "kernel_w"),
+                          fields(f, "DensitySummation", "Density"))
+        sub = list_bound(torch, "acoustic_substep", lists,
+                         fields(f, *FLUID_AC_READS) + ls,
+                         fields(f, *FLUID_AC_WRITES))
+        build = list_bound(torch, "multilevel_build", lists,
+                           fields(f, "Position"), [])
+        return {"advection_prep": prep, "acoustic_substep": sub,
+                "surface_bounding": list_bound(
+                    torch, None, [], [f["Position"]]
+                    + levelset_arrays(case.ls_wall, "phi"), [f["Position"]]),
+                "kernel_gradient_probe": list_bound(
+                    torch, None, [], [f["Position"]] + levelset_arrays(
+                        case.ls_wall, "kernel_gw"), [f["Position"]]),
+                "rebuild_relations": build,
+                "advection_step": (prep[0] + per_ac * sub[0] + build[0],
+                                   sub[1], round(prep[2] + per_ac * sub[2]
+                                                 + build[2]))}
+    lists = [sim.nl_inner, sim.nl_wall]
+    wall = fields(case.wall, *WALL_READS)
+    prep = list_bound(torch, "turbulence_prep", lists,
+                      fields(f, "Position", "Mass", "Velocity",
+                             "VolumetricMeasure", *TURB_READS) + wall,
+                      fields(f, "Density", "Pressure", "VolumetricMeasure",
+                             "LinearGradientCorrectionMatrix",
+                             "TurbulentCorrectionMatrix", "TurbulentViscosity",
+                             "ViscousForce", "ForcePrior", "Position"))
+    sub = list_bound(torch, "turbulence_substep", lists,
+                     fields(f, *FLUID_AC_READS, *TURB_READS) + wall,
+                     fields(f, *FLUID_AC_WRITES, *TURB_READS))
+    build = list_bound(torch, "multilevel_build", lists,
+                       fields(f, "Position"), [])
+    return {"advection_prep": prep, "acoustic_substep": sub,
+            "wall_function": list_bound(
+                torch, "density", [sim.nl_wall],
+                fields(f, "Position", "Velocity", "Density", *TURB_READS)
+                + wall, fields(f, "WallYstar", "WallYplus",
+                               "FrictionVelocity", "TurbulentDissipation",
+                               "TurbulentVelocityGradient", "K_Production")),
+            "k_epsilon": list_bound(
+                torch, "relax_residual", [sim.nl_inner],
+                fields(f, "Position", "VolumetricMeasure", "Density",
+                       *TURB_READS), fields(f, "TurbulenceKineticEnergy",
+                                            "TurbulentDissipation",
+                                            "TurbulentStrainRate")),
+            "rebuild_lists": build,
+            "advection_step": (prep[0] + per_ac * sub[0] + build[0], sub[1],
+                               round(prep[2] + per_ac * sub[2] + build[2]))}
+
+
+def a7k_observable(name, cm, case, sim):
+    if name == "static_confinement_2d":
+        pos = sim.fluid["Position"]
+        return [cm.mechanical_energy(case, sim), float(pos[:, 1].min()),
+                float(pos[:, 0].max())]
+    return [float(sim.fluid["TurbulentViscosity"].max()),
+            float(sim.fluid["TurbulenceKineticEnergy"].mean()),
+            int(sim.fluid["IsNearWallP1"].sum())]
+
+
+def a7k_case_path(torch, name, results):
+    """A time-stepping case at its JAX default width through build_case ->
+    init_sim -> make_run_chunk -> solver.run_simulation (A7K_MAIN's end
+    time), float32, every launch count reset just before and read just
+    after: no overflow, finite fields, the observable printed; then one
+    step and its new parts alone (`ob_parts`)."""
+    cm = importlib.import_module(f"sphinxsys_tpu_torch.cases.{name}")
+    t_end, sample = A7K_MAIN[name]
+
+    def build():
+        case, fluid = cm.build_case(device=DEVICE)
+        return case, cm, cm.init_sim(case, fluid)
+
+    case, sim, rec = ob_main_run(torch, f"a7k {name}", build, t_end, sample)
+    check(not bool(sim.overflow), f"a7k {name}: overflow")
+    for k in ("Position", "Velocity", "Density", "Pressure",
+              "TurbulenceKineticEnergy", "TurbulentDissipation"):
+        if k in sim.fluid:
+            check(bool(torch.isfinite(sim.fluid[k]).all()),
+                  f"a7k {name}: non-finite {k}")
+    counts = (sim.n_adv, sim.n_ac)
+    obs = a7k_observable(name, cm, case, sim)
+    log(f"a7k {name} main path: {sim.fluid['Position'].shape[0]} fluid rows;"
+        f" setup {rec['setup_s']:.2f} s; to t={float(sim.time):.7f} counts "
+        f"{counts}; observable {obs}; {rec['ms_per_adv']:.3f} ms a step "
+        f"(wall clock, mean), {rec['host_reads_per_adv']:.1f} host reads a "
+        f"step; peak device memory {rec['peak_gb']:.3f} GB")
+    if name == "static_confinement_2d":
+        check(obs[1] > -case.dx, f"a7k {name}: a particle below the floor")
+    step = cm.make_advection_step(case)
+    parts = ob_parts(torch, f"a7k_{name}", a7k_parts(torch, name, cm, case,
+                                                     sim), lambda: step(sim),
+                     a7k_bounds(torch, name, cm, case, sim), trace=False)
+    results[f"_a7k_{name}"] = dict(rec, counts=counts, observable=obs,
+                                   rows=sim.fluid["Position"].shape[0],
+                                   parts=parts)
+    del case, sim, step
+    torch.cuda.empty_cache()
+
+
+def a7k_relax_path(torch, name, results):
+    """A relaxation through its run_case at the JAX default width
+    (A7K_RELAX's iterations), float32, the launch counts reset just
+    before and read just after (no hand kernel), the host reads counted:
+    finite output, the shell on its mid circle and its normals unit, the
+    implicit residual curve falling; then one iteration and its parts
+    alone (`ob_parts`)."""
+    from sphinxsys_tpu_torch.physics import relax as rx
+    from sphinxsys_tpu_torch.physics import relax_shell as rs
+
+    cm = importlib.import_module(f"sphinxsys_tpu_torch.cases.{name}")
+    kw = dict(A7K_RELAX[name])
+    n_it = kw["n_iterations"]
+    if name == "implicit_relaxation_2d":
+        kw["blade"] = cm.naca0012(A7K_BLADE_CHORD)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    read_counts = reset_all_launch_counts()
+    with SyncCounter(torch) as syncs:
+        t0 = time.perf_counter()
+        out = cm.run_case(device=DEVICE, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = read_counts()
+    check(not any(counts.values()), f"a7k {name}: a hand kernel ran {counts}")
+    pos = out[0]
+    check(bool(torch.isfinite(pos).all()), f"a7k {name}: non-finite positions")
+    rec = dict(run_s=wall, ms_per_iteration=wall / n_it * 1e3,
+               host_reads_per_iteration=syncs.n / n_it, peak_gb=peak_gb(torch),
+               rows=pos.shape[0], iterations=n_it, kernel_launches=counts)
+    if name == "shell_relaxation_2d":
+        normals, updated = out[1], out[2]
+        r = torch.linalg.vector_norm(pos.double(), dim=1)
+        off = float((r - cm.R_MID).abs().max())
+        unit = float((torch.linalg.vector_norm(normals.double(), dim=1)
+                      - 1).abs().max())
+        rec.update(max_off_mid=off, normals_unit_err=unit,
+                   all_updated=bool(updated.all()))
+        obs = [off, unit, int(updated.sum())]
+        check(off < cm.DX and unit < 1e-5, f"a7k {name}: off the mid circle "
+              f"by {off:.3e} or normals not unit ({unit:.3e})")
+    else:
+        curve = out[1].double().cpu()
+        rec["curve"] = curve.tolist()
+        obs = curve.tolist()
+        check(bool(torch.isfinite(curve).all()) and bool(curve[-1] < curve[0]),
+              f"a7k {name}: residual curve {curve.tolist()}")
+    log(f"a7k {name} main path (run_case): {pos.shape[0]} particles, {n_it} "
+        f"iterations in {wall:.2f} s (setup included): "
+        f"{rec['ms_per_iteration']:.3f} ms an iteration, "
+        f"{rec['host_reads_per_iteration']:.2f} host reads an iteration; "
+        f"observable {obs}; peak device memory {rec['peak_gb']:.3f} GB")
+
+    p = pos        # the parts on the main path's relaxed particles
+    if name == "shell_relaxation_2d":
+        _, ls, _, area, ad, grid = cm.build_case(device=DEVICE)
+        nl = rx._inner_list(p, grid, ad.cutoff, 32, 48)
+        vol = torch.full((p.shape[0],), area * cm.THICKNESS, device=p.device)
+        fns = {"relax_iteration": lambda: rs.shell_relax_iterations(
+                   ls, p, area * cm.THICKNESS, ad, grid, n_iterations=1),
+               "mid_surface_bounding": lambda: rs.mid_surface_bounding(
+                   p, ls, ad.spacing),
+               "normal_prediction": lambda: rs.shell_normal_prediction(
+                   p, ls, cm.THICKNESS, ad, grid)}
+        bounds = {"relax_iteration": list_bound(
+                      torch, "relax_residual", [nl], [p, vol]
+                      + levelset_arrays(ls, "phi"), [p]),
+                  "mid_surface_bounding": list_bound(
+                      torch, None, [], [p] + levelset_arrays(ls, "phi"), [p]),
+                  "normal_prediction": list_bound(
+                      torch, "normal_smoothing", [nl],
+                      [p] + levelset_arrays(ls, "phi"), [p])}
+    else:
+        blade = cm.naca0012(A7K_BLADE_CHORD)
+        _, vol, ad, grid, ls = cm.build_case(blade, device=DEVICE)
+        nl = rx._inner_list(p, grid, ad.cutoff, 32, 48)
+        vols = torch.full((p.shape[0],), vol, device=p.device)
+        fns = {"implicit_iteration": lambda: rx.relax_shape_implicit_iterations(
+                   blade, p, vol, ad, grid, n_iterations=1, record_every=1,
+                   levelset=ls),
+               "implicit_update": lambda: rx.implicit_relaxation_update(
+                   p, vols, nl, ad.kernel, 2, 1e-4, levelset=ls),
+               "levelset_probes": lambda: (
+                   ls.probe_kernel_integral(p),
+                   ls.probe_kernel_gradient_integral(p),
+                   ls.probe_kernel_second_gradient_integral(p))}
+        ls_reads = levelset_arrays(ls, "kernel_w", "kernel_gw", "kernel_g2w")
+        bounds = {"implicit_iteration": list_bound(
+                      torch, "implicit_update", [nl], [p, vols] + ls_reads,
+                      [p]),
+                  "implicit_update": list_bound(
+                      torch, "implicit_update", [nl], [p, vols] + ls_reads,
+                      [p, p]),
+                  "levelset_probes": list_bound(
+                      torch, None, [], [p] + ls_reads, [p, p, p, p])}
+    parts = ob_parts(torch, f"a7k_{name}", fns, None, bounds, trace=False)
+    results[f"_a7k_{name}"] = dict(rec, observable=obs, parts=parts)
+    torch.cuda.empty_cache()
+
+
+def a7k_phase(torch, results):
+    """Phase 23: the four cases of ROADMAP A items 7 and 8 (no hand
+    kernel), each at its JAX default width (the implicit relaxation on
+    the NACA 0012 stand-in): float32 on the card against float64 on the
+    CPU, then through the public entry points, its step or iteration by
+    part."""
+    t0 = time.perf_counter()
+    for name in A7K_MAIN:
+        f32 = a7i_f32_check(torch, name, A7K_F32, "a7k")
+        a7k_case_path(torch, name, results)
+        results[f"_a7k_{name}"]["f32_vs_f64"] = f32
+    for name in A7K_RELAX:
+        f32 = a7k_relax_f32_check(torch, name)
+        a7k_relax_path(torch, name, results)
+        results[f"_a7k_{name}"]["f32_vs_f64"] = f32
+    log(f"a7k phase: {time.perf_counter() - t0:.1f} s")
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (ROOT / "sphinxsys_tpu_torch").is_dir():
@@ -7412,6 +7816,7 @@ def main() -> int:
     a7h_phase(torch, results)
     a7i_phase(torch, results)
     a7j_phase(torch, results)
+    a7k_phase(torch, results)
 
     kernels = []
     for tag, names in [*((t, c["kernels"]) for t, c in CONFIGS.items()),
@@ -7454,7 +7859,8 @@ def main() -> int:
                 "a7g_vp_heat_flux_2d",
                 *(f"a7h_{name}" for name in A7H_MAIN), "a7h_gate",
                 "a7h_cvt", *(f"a7i_{name}" for name in A7I_MAIN),
-                *(f"a7j_{name}" for name in A7J_MAIN)):
+                *(f"a7j_{name}" for name in A7J_MAIN),
+                *(f"a7k_{name}" for name in (*A7K_MAIN, *A7K_RELAX))):
         main_paths[tag] = results[f"_{tag}"]
     log("main paths: " + json.dumps(main_paths))
     lost = sorted({PROFILE_GUARD - p[4] for p in PROFILED})

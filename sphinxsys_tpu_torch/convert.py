@@ -9,8 +9,8 @@ sub-step counts, the continuum family's, whose UL sims' sub-step count
 JAX does not keep and starts at 0, and the Windkessel channel's with its
 RCR state, the shell family's), frozen pairs (ReferencePairs, the
 solid-shell CouplingPairs, the shell contacts' ShellContactPairs and
-SurfacePairs), and plain arrays (a conductivity field, an optimiser's
-parameters), handed over as numpy, become the port's CPU tensors, and
+SurfacePairs), level sets (`levelset_from_jax`) and plain arrays (a
+conductivity field, an optimiser's parameters), handed over as numpy, become the port's CPU tensors, and
 back.  The parity tests use these to feed
 both sides identical inputs."""
 
@@ -136,6 +136,28 @@ def sim_from_numpy(cls, sim):
         else:
             out[name] = _tensor(v)
     return cls(**out)
+
+
+def levelset_from_jax(ls):
+    """A JAX package LevelSet (its arrays read as numpy) -> the port's
+    LevelSet on the CPU: the same field bit for bit, the integer tables
+    as int64, the kernel integrals where it has them."""
+    from sphinxsys_tpu_torch.meshes.levelset import LevelSet
+
+    def arr(name, dtype=None):
+        v = getattr(ls, name)
+        if v is None:
+            return None
+        t = _tensor(np.asarray(v))
+        return t if dtype is None else t.to(dtype)
+
+    return LevelSet(spacing=float(ls.spacing), lower=arr("lower"),
+                    n_pkg=tuple(int(x) for x in ls.n_pkg),
+                    coarse_map=arr("coarse_map", torch.int64),
+                    pkg_coord=arr("pkg_coord", torch.int64),
+                    pkg_nbr=arr("pkg_nbr", torch.int64), phi=arr("phi"),
+                    kernel_w=arr("kernel_w"), kernel_gw=arr("kernel_gw"),
+                    kernel_g2w=arr("kernel_g2w"))
 
 
 def to_numpy(x):

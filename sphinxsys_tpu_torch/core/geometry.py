@@ -256,6 +256,10 @@ class Polygon(Shape):
         inside = torch.sum(cond & (x < xcross), dim=-1) % 2 == 1
         return torch.where(inside, -d, d)
 
+    def bounds(self):
+        v = np.asarray(self.vertices, dtype=np.float64)
+        return v.min(0), v.max(0)
+
 
 def make_complex(*parts: Tuple[str, Shape]) -> ComplexShape:
     """ComplexShape from ("add"|"sub", shape) pairs."""

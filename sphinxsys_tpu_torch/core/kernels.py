@@ -4,7 +4,8 @@ Wendland C2 — the reference default and the one the dambreak uses —
 the anisotropic kernel over it, and the Laguerre-Gauss kernel of the
 Eulerian Taylor-Green vortex; `W_adaptive` / `dW_adaptive` evaluate any
 of them at per-particle smoothing lengths.  ``W(r)`` has units 1/len^dim,
-``dW(r)`` = dW/dr (negative); the support radius is 2h
+``dW(r)`` = dW/dr (negative), ``d2W(r)`` its derivative (Wendland C2
+only); the support radius is 2h
 (src/shared/kernels/kernel_wendland_c2.cpp).
 """
 
@@ -41,6 +42,17 @@ class SmoothingKernel:
     def dW(self, r: torch.Tensor, dim: int) -> torch.Tensor:
         """Radial derivative dW/dr; zero outside support."""
         return self._dW_at(r / self.h, 1.0, dim)
+
+    def d2W(self, r: torch.Tensor, dim: int) -> torch.Tensor:
+        """Second radial derivative d2W/dr2; zero outside support (the
+        level-set second-gradient integral and the implicit relaxation)."""
+        q = r / self.h
+        val = (self._factor_w(dim) / (self.h * self.h)) * self._d2w(
+            torch.clamp(q, max=self.kernel_size))
+        return torch.where(q < self.kernel_size, val, torch.zeros_like(val))
+
+    def _d2w(self, q):
+        raise NotImplementedError(f"{type(self).__name__} has no d2W")
 
     # Variable smoothing length (adaptive-h bodies): Kernel::W(h_ratio, r)
     # = factor_W W(q h_ratio) h_ratio^d and dW(h_ratio, ...) h_ratio^(d+1)
@@ -82,6 +94,10 @@ class WendlandC2(SmoothingKernel):
     @staticmethod
     def _dw(q):
         return 0.625 * (q - 2.0) ** 3 * q
+
+    @staticmethod
+    def _d2w(q):
+        return 1.25 * (q - 2.0) ** 2 * (2.0 * q - 1.0)
 
     def _factor_w(self, dim: int) -> float:
         h = self.h

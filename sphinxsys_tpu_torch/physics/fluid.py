@@ -34,8 +34,9 @@ AverageAcceleration (a static wall's are zero).  Another fluid phase is a
 (state, list, shell_fluid.ShellContactPairs) or, in the density
 summation, a `shell_contacts` entry (state, list, pairs, the shell's
 rho0): the curvature-corrected pairs of physics/shell_fluid.py, built
-once an advection step.  The level sets the JAX package takes raise
-NotImplementedError naming what they need.
+once an advection step.  A static confinement is a `levelsets` entry: a
+meshes/levelset.py LevelSetShape whose kernel integrals stand in for
+the missing wall particles (shape_confinement.cpp).
 """
 
 from __future__ import annotations
@@ -53,19 +54,6 @@ from sphinxsys_tpu_torch.physics.shell_fluid import (
     density_summation_shell_term)
 
 TINY = 1.0e-15
-
-# the first module or case of the JAX package that needs each argument
-_NEEDS = {
-    "levelsets": "meshes/levelset.py",
-}
-
-
-def _unported(**args):
-    for name, value in args.items():
-        if value:
-            raise NotImplementedError(
-                f"`{name}` is not ported: it needs {_NEEDS[name]}")
-
 
 def _walls(wall, nl_wall, walls):
     out = list(walls)
@@ -90,8 +78,10 @@ def density_summation(fluid: State, nl_inner: NeighborList, kernel, dim: int,
     inner:   sigma = W0 + sum W_ij ;  rho_sum = sigma rho0 / sigma0
     contact: rho_sum += [sum W_ik m_k / rho0_k] rho0^2 / sigma0 / m_i
     update:  free surface: rho = max(rho_sum, rho0) (density_summation.hpp:29-32)
-             otherwise:    rho = rho_sum ; Vol = m / rho"""
-    _unported(levelsets=levelsets)
+             otherwise:    rho = rho_sum ; Vol = m / rho
+    `levelsets`: rho_sum += KI(pos) rho0^2 / sigma0 / m_i, the wall
+    region's kernel integral (StaticConfinementDensity,
+    shape_confinement.cpp:20-25)."""
     pos = fluid["Position"]
     pg = pair_geometry(pos, pos, nl_inner, kernel, dim, need_dW=False, box=box)
     sigma = kernel.w0(dim) + torch.sum(pg.W, dim=1)
@@ -105,6 +95,9 @@ def density_summation(fluid: State, nl_inner: NeighborList, kernel, dim: int,
     for s_state, nl_s, s_pairs, s_rho0 in shell_contacts:
         rho_sum = rho_sum + density_summation_shell_term(
             fluid, s_state, s_pairs, nl_s, rho0, sigma0, s_rho0)
+    for ls in levelsets:
+        ki = ls.compute_kernel_integral(pos)
+        rho_sum = rho_sum + ki * rho0 * rho0 / sigma0 / fluid["Mass"]
     out = dict(fluid)
     out["DensitySummation"] = rho_sum
     if free_surface:
@@ -145,8 +138,10 @@ def acoustic_step_1st_half(fluid: State, nl_inner: NeighborList, kernel,
     (fluid_integration.hpp:132-157, MultiPhase).
     `extra_force`: an (N, d) force added to this half's Force before the
     velocity update (the updated-Lagrangian solid's shear force,
-    continuum.ul_shear_force)."""
-    _unported(levelsets=levelsets)
+    continuum.ul_shear_force).
+    `levelsets`: F -= 2 V_i p_i KGI(pos), the confinement's pressure
+    force (StaticConfinementIntegration1stHalf, shape_confinement.cpp:
+    39-43)."""
     # --- initialization -----------------------------------------------
     rho = fluid["Density"] + fluid["DensityChangeRate"] * (0.5 * dt)
     p = eos.pressure(rho)
@@ -199,6 +194,9 @@ def acoustic_step_1st_half(fluid: State, nl_inner: NeighborList, kernel,
             p, rho, fluid, sstate, spairs, snl, wr)
         force_total = force_total + force_s * vol[:, None]
         drho_dt = drho_dt + rho_diss_s * rho
+    for ls in levelsets:
+        kgi = ls.compute_kernel_gradient_integral(pos)
+        force_total = force_total - 2.0 * (p * vol)[:, None] * kgi
 
     # --- interaction: fluid-fluid contacts (hpp:132-157) -------------------
     # the other phase's stored Pressure: its own last first half wrote it
@@ -243,8 +241,10 @@ def acoustic_step_2nd_half(fluid: State, nl_inner: NeighborList, kernel,
     """`contacts`: other fluid phases as (state, list, solver) triples:
     the density change against the impedance-averaged velocity
     average_v(v_i, v_k) and the p-jump of the plain velocity jump
-    (fluid_integration.hpp:248-272)."""
-    _unported(levelsets=levelsets)
+    (fluid_integration.hpp:248-272).
+    `levelsets`: drho/dt += 2 rho v_i . KGI(pos), the wall's mirror
+    velocity -v_i (StaticConfinementIntegration2ndHalf,
+    shape_confinement.cpp:57-62)."""
     # --- initialization ---------------------------------------------------
     pos = fluid["Position"] + fluid["Velocity"] * (0.5 * dt)
     vel = fluid["Velocity"]
@@ -288,6 +288,9 @@ def acoustic_step_2nd_half(fluid: State, nl_inner: NeighborList, kernel,
             vel, fluid, sstate, spairs, snl, wr)
         drho_dt = drho_dt + dcr_s * rho
         force = force + p_diss_s * vol[:, None]
+    for ls in levelsets:
+        kgi = ls.compute_kernel_gradient_integral(pos)
+        drho_dt = drho_dt + 2.0 * rho * torch.sum(vel * kgi, dim=-1)
 
     # --- interaction: fluid-fluid contacts (hpp:248-272) ---------------------
     for cstate, cnl, crs in contacts:

@@ -8,12 +8,18 @@ lattice fill into an isotropic, body-fitted particle distribution.
                         x += 0.5 residual scaling
                         surface bounding: phi > -dx/2 -> x -= (phi + dx/2) n }
 
-The jitter is kept apart from the iterations: `relax_shape_iterations` and
-`relax_periodic_iterations` run the loop from positions already jittered,
-so the same loop can start from another generator's jitter.  The loop is
-a fixed number of iterations on the host, with no read of the device; a
-neighbour-list overflow in any iteration raises once the loop is done.
-The implicit variant (`relax_shape_implicit`) is not ported.
+The implicit variant (`relax_shape_implicit`, the level-set-corrected
+implicit step of relax_stepping.{h,hpp,cpp}) solves each particle's
+d x d linearised system per iteration, in the JAX package's order-free
+two-pass form, through core/linalg.py's closed forms.
+
+The jitter is kept apart from the iterations: `relax_shape_iterations`,
+`relax_shape_implicit_iterations` and `relax_periodic_iterations` run the
+loop from positions already jittered, so the same loop can start from
+another generator's jitter.  The loop is a fixed number of iterations on
+the host, with no read of the device (the implicit step's dt comes from
+the previous residual's max on the device); a neighbour-list overflow in
+any iteration raises once the loop is done.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sphinxsys_tpu_torch.core.linalg import inv, mm, mv
 from sphinxsys_tpu_torch.neighbors.cell_list import (CellGrid,
                                                     build_cell_table,
                                                     wrap_positions)
@@ -164,6 +171,140 @@ def relax_shape(shape, pos0, volume: float, adaptation, grid: CellGrid,
     return relax_shape_iterations(shape, pos, volume, adaptation, grid,
                                   n_iterations, cell_cap, k_max,
                                   surface_correction)
+
+
+def half_space_kernel_tables(kernel, dim: int, n_samples: int = 64):
+    """Flat-surface closures of the implicit level-set correction
+    (RelaxationResidual<Inner<LevelSetCorrection, Implicit>>,
+    relax_stepping.cpp): K(d) = integral of W over the half space beyond
+    depth d (the overlap kernel integral) and L'(d) = d/dd of the
+    gradient-integral magnitude (the flat surface's second-gradient
+    integral is -L'(d) n n^T).  Host float64 quadrature; returns (d_grid,
+    K, Lp) as numpy arrays."""
+    cutoff = kernel.cutoff
+    W = lambda r: kernel.W(torch.as_tensor(r, dtype=torch.float64),
+                           dim).numpy()
+    d_grid = np.linspace(0.0, cutoff, n_samples)
+    ys = np.linspace(0.0, cutoff, 401)
+    dy = ys[1] - ys[0]
+    if dim == 2:
+        xs = np.linspace(-cutoff, cutoff, 801)
+        line = np.sum(W(np.sqrt(xs[None, :] ** 2 + ys[:, None] ** 2)),
+                      axis=1) * (xs[1] - xs[0])
+    else:
+        s = np.linspace(0.0, cutoff, 401)
+        Wg = W(np.sqrt(s[None, :] ** 2 + ys[:, None] ** 2))
+        line = 2.0 * np.pi * np.sum(Wg * s[None, :], axis=1) * (s[1] - s[0])
+    # K(y) = int_y^cutoff line(t) dt, the reversed cumulative integral
+    tail = np.concatenate([np.cumsum(line[::-1])[::-1][1:] * dy, [0.0]])
+    K = np.interp(d_grid, ys, tail)
+    _, L = half_space_gradient_table(kernel, dim, n_samples)
+    return d_grid, K, np.gradient(L, d_grid)
+
+
+def implicit_relaxation_update(pos, vol, nl, kernel, dim: int, dtsq,
+                               shape=None, tables=None, levelset=None):
+    """One implicit relaxation solve in the JAX package's Jacobi two-pass
+    form of the reference's sequenced splitting sweep (relax_stepping.cpp
+    RelaxationResidual<Inner<Implicit>>::computeErrorAndParameters /
+    updateStates): pass 1 solves every particle's local system
+    (a^2 + c) k = error from the same configuration, pass 2 applies each
+    particle's own move a k and the gathered neighbour pushes -B_ij k_j.
+    The d x d systems are solved by the closed-form inverse.
+
+    The surface correction is the sampled level set's (`levelset`: its
+    overlap, gradient and second-gradient integrals, relax_stepping.cpp:
+    97-110) or, without one, the flat-surface `tables` (d_grid, K, Lp, L)
+    probed at the depth of `shape`.  Returns (new_pos, residual), the
+    residual -error / dt^2 the reference records as
+    ParticleKineticEnergy."""
+    pg = pair_geometry(pos, pos, nl, kernel, dim, need_W=False)
+    vol_j, _ = gather(vol, nl.idx)
+    d2w = kernel.d2W(pg.r, dim) * pg.mask.to(pos.dtype)
+    ee = pg.e[..., :, None] * pg.e[..., None, :]            # (N, K, d, d)
+    B = 2.0 * ee * (d2w * vol_j * dtsq)[..., None, None]
+    error = torch.sum((2.0 * pg.dW * vol_j * dtsq)[..., None] * pg.e, dim=1)
+    eye = torch.eye(dim, dtype=pos.dtype, device=pos.device)
+    a = -eye - torch.sum(B, dim=1)
+    c = torch.sum(mm(B, B), dim=1)
+    sg = overlap = None
+    if levelset is not None:
+        overlap = levelset.probe_kernel_integral(pos) * dtsq
+        grad_int = levelset.probe_kernel_gradient_integral(pos)
+        sg = levelset.probe_kernel_second_gradient_integral(pos)
+    elif shape is not None and tables is not None:
+        d_grid, K, Lp, L = (torch.as_tensor(x, dtype=pos.dtype,
+                                            device=pos.device)
+                            for x in tables)
+        phi = shape.signed_distance(pos)
+        n = shape.find_normal_direction(pos)
+        depth = torch.clamp(-phi, min=0.0, max=float(d_grid[-1]))
+        overlap = interp(depth, d_grid, K) * dtsq
+        grad_int = interp(depth, d_grid, L)[..., None] * n
+        sg = -interp(depth, d_grid, Lp)[..., None, None] * (
+            n[..., :, None] * n[..., None, :])
+    if sg is not None:
+        error = error + 2.0 * grad_int * dtsq * (1.0 + overlap)[..., None]
+        a = a - 2.0 * sg * dtsq * (1.0 + overlap)[..., None, None]
+    k = mv(inv(mm(a, a) + c), error)                       # (N, d)
+    # pass 2: own move + neighbour pushes (B with the receiver's volume)
+    k_j, _ = gather(k, nl.idx)
+    B_recv = 2.0 * ee * (d2w * dtsq)[..., None, None] \
+        * vol[:, None, None, None]
+    push = torch.sum(mv(B_recv, k_j), dim=1)
+    return pos + mv(a, k) - push, -error / dtsq
+
+
+def relax_shape_implicit_iterations(shape, pos, volume: float, adaptation,
+                                    grid: CellGrid, n_iterations: int = 1000,
+                                    cell_cap: int = 32, k_max: int = 48,
+                                    record_every: int = 200, levelset=None):
+    """The iterations of `relax_shape_implicit` from jittered, bounded
+    positions (RelaxationStepLevelSetCorrectionInnerImplicit,
+    relax_stepping.hpp:66-89): dt = min(sqrt(0.0625 h / max|residual|),
+    0.01) from the previous iteration's residual (a device value), the
+    implicit solve, the surface bounding.  Returns (positions, curve),
+    curve[m] the mean |residual| after (m + 1) record_every iterations."""
+    kernel, dim = adaptation.kernel, pos.shape[1]
+    vol = torch.full((pos.shape[0],), volume, dtype=pos.dtype,
+                     device=pos.device)
+    d_grid, K, Lp = half_space_kernel_tables(kernel, dim)
+    _, L = half_space_gradient_table(kernel, dim)
+    tables = (d_grid, K, Lp, L)
+    overflow = torch.zeros((), dtype=torch.bool, device=pos.device)
+    res_max = torch.zeros((), dtype=pos.dtype, device=pos.device)
+    curve = []
+    p = pos
+    for it in range(n_iterations):
+        dt = torch.clamp(torch.sqrt(0.0625 * adaptation.h
+                                    / (res_max + TINY)), max=0.01)
+        nl = _inner_list(p, grid, adaptation.cutoff, cell_cap, k_max)
+        overflow = overflow | nl.overflow
+        p, res = implicit_relaxation_update(p, vol, nl, kernel, dim, dt * dt,
+                                            shape, tables, levelset=levelset)
+        p = surface_bounding(p, shape, adaptation.spacing)
+        rn = torch.linalg.vector_norm(res, dim=-1)
+        if (it + 1) % record_every == 0:
+            curve.append(torch.mean(rn))
+        res_max = torch.max(rn)
+    _raise_on(overflow, "relax_shape_implicit", cell_cap, k_max)
+    n_records = n_iterations // record_every
+    return p, (torch.stack(curve[:n_records]) if n_records
+               else p.new_zeros((0,)))
+
+
+def relax_shape_implicit(shape, pos0, volume: float, adaptation,
+                         grid: CellGrid, n_iterations: int = 1000,
+                         cell_cap: int = 32, k_max: int = 48, seed: int = 0,
+                         record_every: int = 200, levelset=None):
+    """Relax `pos0` inside `shape` by the implicit level-set-corrected step
+    (test_2d_implicit_relaxation): jitter, bound, then
+    `relax_shape_implicit_iterations`.  Returns (positions, curve)."""
+    pos = surface_bounding(randomize_positions(pos0, adaptation.spacing, seed),
+                           shape, adaptation.spacing)
+    return relax_shape_implicit_iterations(shape, pos, volume, adaptation,
+                                           grid, n_iterations, cell_cap,
+                                           k_max, record_every, levelset)
 
 
 def relax_periodic_iterations(pos, volume: float, adaptation, grid: CellGrid,

@@ -23,6 +23,12 @@ overrides (--set dx=0.05 --set t_end=2).
     python -m sphinxsys_tpu_torch.run double_mach_reflection_2d --set nx=240 \\
         --set ny=60
     python -m sphinxsys_tpu_torch.run taylor_green_mr_2d --set dx=0.05
+    python -m sphinxsys_tpu_torch.run static_confinement_2d --set dx=0.05
+    python -m sphinxsys_tpu_torch.run turbulent_channel_2d --set t_end=1
+    python -m sphinxsys_tpu_torch.run shell_relaxation_2d \
+        --set n_iterations=200
+    python -m sphinxsys_tpu_torch.run implicit_relaxation_2d \
+        --set blade_path=TurbineBlade.dat
 
 The VTP writer writes a body's first NReal rows, as the JAX package's
 does: for an open-boundary fluid these include dead slots parked at
@@ -31,7 +37,9 @@ it).
 
 A case runs on the card unless `--set device=cpu` asks for the CPU (the
 case's own `device` argument).  The exit codes and log lines are the JAX
-package's: 0, or 2 for an unknown case or bad case parameters.
+package's: 0, or 2 for an unknown case or bad case parameters;
+implicit_relaxation_2d without its blade file exits 1 with the
+FileNotFoundError's message.
 """
 
 from __future__ import annotations
@@ -368,6 +376,12 @@ CASES = {
         "mr_cylinder_2d",
         lambda c, s: {"WaterBody": s.fluid, "Cylinder": c.cylinder},
         t_end=30.0),
+    "static_confinement_2d": _run_single_fluid(
+        "static_confinement_2d", lambda c, s: {"WaterBody": s.fluid},
+        t_end=20.0),
+    "turbulent_channel_2d": _run_single_fluid(
+        "turbulent_channel_2d",
+        lambda c, s: {"WaterBody": s.fluid, "Wall": c.wall}, t_end=100.0),
 }
 
 
@@ -417,6 +431,55 @@ def _run_vp_optimization(cfg: RunConfig):
 
 
 CASES["vp_heat_flux_2d"] = _run_vp_optimization
+
+
+def _write_relaxed(cfg: RunConfig, name: str, pos, extra=None):
+    if cfg.state_recording:
+        os.makedirs(cfg.output_dir, exist_ok=True)
+        body = dict({"Position": pos, "NReal": pos.shape[0]}, **(extra or {}))
+        write_vtp(os.path.join(cfg.output_dir, name), body,
+                  list(extra or {}))
+
+
+def _run_implicit_relaxation(cfg: RunConfig):
+    """test_2d_implicit_relaxation: relax the turbine blade (`--set
+    blade_path=...`, the vertex file) with the implicit level-set-corrected
+    step; writes the relaxed distribution."""
+    from sphinxsys_tpu_torch.cases import implicit_relaxation_2d as ir
+
+    p = dict(cfg.parameters)
+    n_it = int(p.pop("n_iterations", 1000))
+    try:
+        ir.load_blade(p.get("blade_path"))
+    except FileNotFoundError as e:
+        raise SystemExit(f"error: implicit_relaxation_2d: {e}") from None
+    pos, curve, _ = ir.run_case(n_iterations=n_it, **p)
+    for m, v in enumerate(curve.tolist()):
+        log.info("ite %d: avg |residual| = %.6f",
+                 (m + 1) * (n_it // len(curve)), v)
+    _write_relaxed(cfg, "Body_relaxed.vtp", pos)
+    return pos, curve
+
+
+CASES["implicit_relaxation_2d"] = _run_implicit_relaxation
+
+
+def _run_shell_relaxation(cfg: RunConfig):
+    """test_2d_shell_particle_relaxation: relax the thin pipe's particles
+    onto its mid-surface and predict consistent normals; writes the
+    relaxed shell."""
+    from sphinxsys_tpu_torch.cases import shell_relaxation_2d as sr
+
+    p = dict(cfg.parameters)
+    n_it = int(p.pop("n_iterations", 2000))
+    pos, normals, updated = sr.run_case(n_iterations=n_it, **p)
+    log.info("normal flood fill complete: %s", bool(updated.all()))
+    _write_relaxed(cfg, "Shell_relaxed.vtp", pos,
+                   {"NormalDirection": normals})
+    return pos, normals
+
+
+CASES["shell_relaxation_2d"] = _run_shell_relaxation
 
 
 def main(argv=None):

@@ -380,7 +380,7 @@ RAISES = [
     # without its fields fails loudly
     ("density_summation", dict(shell_contacts=[({}, None, None, 1.0)]),
      "Mass"),
-    ("density_summation", dict(levelsets=[1]), "levelset"),
+    ("density_summation", dict(levelsets=[1]), "compute_kernel_integral"),
     # ported: a fluid-fluid contact reads the other phase's state, and a
     # contact state without positions fails loudly
     ("acoustic_step_1st_half", dict(contacts=[({}, None, None)]),
@@ -390,7 +390,10 @@ RAISES = [
      "LinearGradientCorrectionMatrix"),
     ("acoustic_step_1st_half", dict(shell_walls=[({}, None, None)]),
      "VolumetricMeasure"),
-    ("acoustic_step_1st_half", dict(levelsets=[1]), "levelset"),
+    # ported: a level set is a LevelSetShape, and an entry without its
+    # probes fails loudly
+    ("acoustic_step_1st_half", dict(levelsets=[1]),
+     "compute_kernel_gradient_integral"),
     # ported: the extra force is added to the (N, d) force, and one of
     # another width fails loudly
     ("acoustic_step_1st_half", dict(extra_force=torch.zeros(1, 3)),
@@ -399,7 +402,8 @@ RAISES = [
      "Position"),
     ("acoustic_step_2nd_half", dict(shell_walls=[({}, None, None)]),
      "VolumetricMeasure"),
-    ("acoustic_step_2nd_half", dict(levelsets=[1]), "levelset"),
+    ("acoustic_step_2nd_half", dict(levelsets=[1]),
+     "compute_kernel_gradient_integral"),
     ("viscous_force", dict(contacts=[({}, None, None)]), "Position"),
     ("viscous_force", dict(shell_walls=[({}, None, None)]),
      "VolumetricMeasure"),
@@ -428,7 +432,8 @@ def test_unported_arguments_raise(scenes, fn, kw, needs):
     }[fn]
     error = KeyError if {"correction", "contacts", "surface_projection",
                          "shell_contacts", "shell_walls"} & set(kw) \
-        else RuntimeError if "extra_force" in kw else NotImplementedError
+        else RuntimeError if "extra_force" in kw \
+        else AttributeError if "levelsets" in kw else NotImplementedError
     with pytest.raises(error, match=needs):
         getattr(tfd, fn)(*args, **kw)
 

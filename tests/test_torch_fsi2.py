@@ -276,11 +276,11 @@ def test_relax_insert_builds_and_runs():
 
 def test_jax_f32_runs_hold_chip_smoke_gates():
     """The committed JAX runs (four, to t = 5) and what chip_smoke.py
-    draws from them: each run's final counts sit in the block route's
-    count band, each gather run's counts at the gather route's end time
-    (FSI2_GATHER_T_END) in the gather band, and every tip inside the
-    envelope, so the card's runs are held to a spread JAX's own float32
-    runs show."""
+    draws from them: each run's counts at the block route's end time
+    (FSI2_T_END) sit in the block route's count band, each gather run's
+    counts at the gather route's end time (FSI2_GATHER_T_END) in the
+    gather band, and every tip inside the envelope, so the card's runs
+    are held to a spread JAX's own float32 runs show."""
     import importlib.util
 
     path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
@@ -294,11 +294,18 @@ def test_jax_f32_runs_hold_chip_smoke_gates():
     for r in runs:
         t, n_adv, n_ac, n_s, dx, dy = np.asarray(r["rows"]).T
         assert t[-1] >= 5.0 and not r["overflow"]
-        assert gates["n_ac"][0] <= n_ac[-1] <= gates["n_ac"][1]
-        assert gates["n_s"][0] <= n_s[-1] <= gates["n_s"][1]
+        at = np.argmax(t >= cs.FSI2_T_END)
+        assert t[at] >= cs.FSI2_T_END
+        assert gates["n_ac"][0] <= n_ac[at] <= gates["n_ac"][1]
+        assert gates["n_s"][0] <= n_s[at] <= gates["n_s"][1]
         assert np.hypot(dx, dy).max() <= gates["tip_radius"]
     block64 = next(r for r in runs if r["route"] == "block" and r["x64"])
     assert block64["rows"][-1][2:4] == [790, 1580]
+    at = next(row for row in block64["rows"] if row[0] >= cs.FSI2_T_END)
+    assert gates["n_ac"] == pytest.approx(
+        ((1 - cs.FSI2_COUNT_BAND) * at[2], (1 + cs.FSI2_COUNT_BAND) * at[2]))
+    assert gates["n_s"] == pytest.approx(
+        ((1 - cs.FSI2_COUNT_BAND) * at[3], (1 + cs.FSI2_COUNT_BAND) * at[3]))
     gather = cs.fsi2_gather_gates()          # the gather route's (phase 11)
     assert gather["tip_radius"] == gates["tip_radius"]
     for r in runs:

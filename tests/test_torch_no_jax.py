@@ -164,7 +164,18 @@ def test_port_has_modules():
                  "sphinxsys_tpu_torch/cases/taylor_green_mr_2d.py",
                  "sphinxsys_tpu_torch/cases/mr_cantilever_beam_2d.py",
                  "sphinxsys_tpu_torch/cases/mr_cylinder_2d.py",
-                 "sphinxsys_tpu_torch/benchmarks/a7j_fvm_mr_long.py"):
+                 "sphinxsys_tpu_torch/benchmarks/a7j_fvm_mr_long.py",
+                 "sphinxsys_tpu_torch/meshes/__init__.py",
+                 "sphinxsys_tpu_torch/meshes/levelset.py",
+                 "sphinxsys_tpu_torch/core/trimesh.py",
+                 "sphinxsys_tpu_torch/core/generators.py",
+                 "sphinxsys_tpu_torch/physics/relax_shell.py",
+                 "sphinxsys_tpu_torch/physics/turbulence.py",
+                 "sphinxsys_tpu_torch/cases/static_confinement_2d.py",
+                 "sphinxsys_tpu_torch/cases/implicit_relaxation_2d.py",
+                 "sphinxsys_tpu_torch/cases/shell_relaxation_2d.py",
+                 "sphinxsys_tpu_torch/cases/turbulent_channel_2d.py",
+                 "sphinxsys_tpu_torch/benchmarks/a7k_levelset_turbulence_long.py"):
         assert must in names
 
 

@@ -268,11 +268,12 @@ def test_transport_velocity_correction_scope_mask(scene, limiter):
 
 
 def test_unported_fluid_arguments_still_raise(scene):
-    """The level sets still raise; the shell walls of the indication and
-    the transport correction are ported (physics/shell_fluid.py): a wall
-    entry without a shell state fails loudly."""
+    """The level sets and the shell walls of the indication and the
+    transport correction are ported (meshes/levelset.py,
+    physics/shell_fluid.py): a level-set entry without its probes and a
+    wall entry without a shell state fail loudly."""
     s = scene
-    with pytest.raises(NotImplementedError, match="levelset"):
+    with pytest.raises(AttributeError, match="compute_kernel_integral"):
         tfd.density_summation(s["tf"], s["tl"][0], s["tcase"].kernel, 2,
                               1.0, 1.0, levelsets=[object()])
     with pytest.raises(KeyError, match="VolumetricMeasure"):

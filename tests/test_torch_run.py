@@ -162,18 +162,20 @@ def test_cli_lists_cases(capsys):
                  "eulerian_taylor_green_2d", "fvm_cylinder_2d",
                  "supersonic_cylinder_2d", "double_mach_reflection_2d",
                  "fvm_channel_3d", "taylor_green_mr_2d",
-                 "mr_cantilever_beam_2d", "mr_cylinder_2d"):
+                 "mr_cantilever_beam_2d", "mr_cylinder_2d",
+                 "static_confinement_2d", "implicit_relaxation_2d",
+                 "shell_relaxation_2d", "turbulent_channel_2d"):
         assert case in out
 
 
 def test_cli_cases_are_jax_entries():
-    """Every entry is one of the JAX runner's, named alike; the ports of
-    its other cases are listed in ROADMAP.md."""
-    assert set(trun.CASES) <= set(jrun.CASES)
-    assert len(trun.CASES) == 78
+    """Every entry is one of the JAX runner's, named alike, and every one
+    of the JAX runner's 82 entries is the port's."""
+    assert set(trun.CASES) == set(jrun.CASES)
+    assert len(trun.CASES) == 82
 
 
-@pytest.mark.parametrize("case", ["nope", "turbulent_channel_2d"])
+@pytest.mark.parametrize("case", ["nope", "turbulent_channel_3d"])
 def test_cli_rejects_unknown_case(case, capsys):
     assert trun.main([case]) == 2
     assert f"unknown case '{case}'" in capsys.readouterr().out
