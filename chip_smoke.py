@@ -378,6 +378,26 @@ Phases:
      wall-function correction, the K and Epsilon equations, the implicit
      update, the normal prediction) alone, each timed, profiled, its host
      reads counted and its bound computed.
+ 24. the block engine on a ring of ranks and the modules with no case
+     caller (last): the 2D dambreak at dx = 0.0025 (~320k particles) on
+     a ThreadRing of RING_RANKS ranks sharing the card, through
+     parallel/block_domain.py's distribute_block_engine ->
+     make_distributed_engine_step, RING_STEPS advection steps, every
+     launch count reset just before and read just after (B1-B3 each
+     launched), against the single-device block engine from the same
+     start (equal acoustic sub-step counts, the time to rtol 1e-12, every
+     OriginalID once, positions within RING_POS_TOL of the domain length,
+     velocities within RING_VEL_TOL of their largest component); the
+     same from the start with seeded noise, where a skipped ghost
+     refresh shows (positions within RING_NOISY_DISP_TOL of the largest
+     displacement, velocities within RING_NOISY_VEL_TOL);
+     B1-B3 against their plain versions on the inputs the last ring step
+     gave the rank with the most ghost slots (times, bound); one ring
+     step and one
+     single-device step profiled; then the porous solid, the
+     optimisation's gradient, the image SDF and the PK2 lattice first
+     half in float32 on the card against float64 on the CPU, within
+     CALLER_FREE_FACTOR times the CPU's own float32 error.
 
 Every kernel and plain-version time is taken by
 sphinxsys_tpu_torch.benchmarks.median_ms, the layout drivers' timer.  Its last two lines are a JSON object of per-kernel
@@ -7743,6 +7763,426 @@ def a7k_phase(torch, results):
         results[f"_a7k_{name}"]["f32_vs_f64"] = f32
     log(f"a7k phase: {time.perf_counter() - t0:.1f} s")
 
+# ---------------------------------------------------------------------------
+# phase 24: the block engine on a ring of ranks and the modules with no
+# case caller
+# ---------------------------------------------------------------------------
+
+# the 2D dambreak at the bench's width on a ThreadRing of RING_RANKS ranks
+# sharing the card, RING_STEPS advection steps, against the single-device
+# block engine from the same start; by OriginalID, positions within
+# RING_POS_TOL of the domain length (tests/test_block_domain.py:69-71)
+# and velocities within RING_VEL_TOL of their largest component.  From
+# rest these few steps move particles ~1e-6 m at ~2e-3 m/s, with float32
+# summation-order differences ~1e-3 of that velocity, so these bounds see
+# a ring that drops its ghosts but not one that skips a refresh: the
+# ghosts' values barely change in a sub-step.  The same ring and steps
+# from the start with seeded noise (benchmarks.perturbed: 0.1 dx, 0.1
+# m/s) do see it: positions within RING_NOISY_DISP_TOL of the largest
+# displacement and velocities within RING_NOISY_VEL_TOL of their largest
+# component (float32 on the CPU at dx 0.05: 1e-5 of each; without the
+# mid-sub-step or the post-half refresh 1e-2 and 1.6-2.6e-2).
+RING_DX = 0.0025
+RING_RANKS = 4
+RING_STEPS = 3
+RING_HALO_CAP = 2048
+RING_MIGRATE_CAP = 1024
+RING_POS_TOL = 1e-3
+RING_VEL_TOL = 1e-2
+RING_NOISY_DISP_TOL = 2e-3
+RING_NOISY_VEL_TOL = 1e-3
+RING_TAG = f"ring{RING_RANKS}"
+# a module's float32 result on the card against its float64 one on the
+# CPU: within CALLER_FREE_FACTOR times the CPU's own float32 error, and at
+# least float32's epsilon of max|ref|
+CALLER_FREE_FACTOR = 10.0
+F32_EPS = 1.1920929e-07
+
+
+def ring_kernel_checks(torch, scene, probes, results):
+    """B1-B3 against their plain versions on one rank's slab plus its ghost
+    slots (the rank holding the most ghosts), as phase 3 holds them on
+    the single-device scene: times, bound, max error."""
+    import types
+
+    from sphinxsys_tpu_torch.benchmarks import median_ms, sweep_inputs
+    from sphinxsys_tpu_torch.ops import block_sweeps as bs
+
+    def ghosts(item):
+        fb = item[1][1]
+        return int((fb["SlotMask"] & (fb["IsGhost"] > 0.5)).sum())
+
+    rank, (eng_loc, fb, nbr, wc) = max(probes.items(), key=ghosts)
+    n_ghost = ghosts((rank, (eng_loc, fb, nbr, wc)))
+    n_own = int((fb["SlotMask"] & (fb["IsGhost"] < 0.5)).sum())
+    r_scene = types.SimpleNamespace(eng=eng_loc, wall_state_fn=None,
+                                    wall_b=scene.wall_b)
+    r_sim = types.SimpleNamespace(fluid_b=fb, nbr_inner=nbr,
+                                  nbr_wall=wc.nbr_wall, aux=None)
+    real = fb["SlotMask"][:nbr.shape[0]]
+    log(f"{RING_TAG} rank {rank}: {n_own} owned slots, {n_ghost} ghost "
+        f"slots, c_max {eng_loc.c_max}")
+    for name, (args, kw) in sweep_inputs(r_scene, r_sim,
+                                         DAMBREAK_KERNELS).items():
+        wrapper, plain = getattr(bs, name), getattr(bs, name + "_plain")
+        got, max_abs = compare(torch, f"{RING_TAG} rank {rank}", name, args,
+                               kw, real)
+        ms = median_ms(lambda: wrapper(*args, **kw), 20, DEVICE)
+        plain_ms = median_ms(lambda: plain(*args, **kw), 3, DEVICE)
+        bound_ms, bound_by, pairs, flops, nbytes = bound(
+            torch, name, args, got, r_scene, r_sim)
+        log(f"{RING_TAG} rank {rank} {name}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+            f"{pairs} real pairs, {flops:.4e} flop, {nbytes} B), "
+            f"max_abs_err {max_abs:.3e}")
+        results[f"{name}[{RING_TAG}]"].update(
+            max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, real_pairs=pairs, rank=rank)
+
+
+def ring_match(tag, h, sim, ref, start, n):
+    """The ring's state `h` against the single device's `sim` (`ref` its
+    particles) after the same steps from `start`: no overflow, equal
+    acoustic sub-step counts, the time to rtol 1e-12, every OriginalID
+    once, finite values; returns the largest position and velocity
+    errors by ID, displacement from the start and velocity component."""
+    from sphinxsys_tpu_torch.parallel import domain as dm
+
+    check(not bool(sim.overflow), f"{tag}: single-device overflow")
+    check(not bool(h.overflow), f"{tag}: overflow")
+    check(h.n_ac == sim.n_ac, f"{tag}: {h.n_ac} acoustic sub-steps, the "
+          f"single device {sim.n_ac}")
+    dt_rel = abs(float(h.time) - float(sim.time)) / float(sim.time)
+    check(dt_rel <= 1e-12, f"{tag}: time {float(h.time)!r} vs "
+          f"{float(sim.time)!r} (rel {dt_rel:.3e})")
+    got = dm.gather_by_id(h, n)
+    check(sorted(got["ids"].tolist()) == list(range(n)),
+          f"{tag}: OriginalIDs not each present once")
+    for k in ("Position", "Velocity"):
+        check(bool((abs(got[k]) < 1e30).all()), f"{tag}: non-finite {k}")
+    want_pos = ref["Position"][:n].cpu().numpy()
+    want_vel = ref["Velocity"][:n].cpu().numpy()
+    p0 = start["Position"][:n].cpu().numpy()
+    return dict(pos_err=float(abs(got["Position"] - want_pos).max()),
+                vel_err=float(abs(got["Velocity"] - want_vel).max()),
+                max_disp=float(abs(want_pos - p0).max()),
+                max_v=float(abs(want_vel).max()))
+
+
+def ring_path(torch, results):
+    """The 4-rank dambreak at full width through the port's distributed
+    entry points, every launch count reset just before and read just
+    after; matched against the single-device block engine; then B1-B3 on
+    one rank's inputs and a step of each profiled."""
+    from sphinxsys_tpu_torch.benchmarks import perturbed
+    from sphinxsys_tpu_torch.cases import dambreak_2d as db
+    from sphinxsys_tpu_torch.engine import scene as sc
+    from sphinxsys_tpu_torch.ops import block_sweeps as bs
+    from sphinxsys_tpu_torch.parallel import block_domain as bd
+    from sphinxsys_tpu_torch.parallel.mesh import make_particle_mesh
+
+    scene, fluid = db.build_block_case(dx=RING_DX, device=DEVICE)
+    n = int(fluid["NReal"])
+    sim = sc.init_sim(scene, fluid)
+    step_s = sc.make_advection_step(scene)
+    t0 = time.perf_counter()
+    for _ in range(RING_STEPS):
+        sim = step_s(sim)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+
+    ring = make_particle_mesh(RING_RANKS, device=DEVICE)
+    h0 = bd.distribute_block_engine(scene.eng, fluid, ring)
+    # each rank's first acoustic sub-step inputs, kept from the last step
+    # for the kernel checks (the probe only keeps references)
+    probes = {}
+    step_d = bd.make_distributed_engine_step(
+        scene.eng, ring, wall_b=scene.wall_b, bm_wall=scene.bm_wall,
+        wall_dense_map=scene.wall_dense_map, halo_cap=RING_HALO_CAP,
+        migrate_cap=RING_MIGRATE_CAP, c_max_loc=scene.eng.c_max,
+        probe=lambda r, eng_loc, fb, nbr, wc: probes.__setitem__(
+            r, (eng_loc, fb, nbr, wc)))
+    h = h0
+    torch.cuda.synchronize()
+    bs.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(RING_STEPS):
+        h = step_d(h)
+    torch.cuda.synchronize()
+    ring_s = time.perf_counter() - t0
+    counts = dict(bs.LAUNCHES)
+
+    length = scene.eng.grid.spacing[0] * scene.eng.grid.shape[0]
+    e = ring_match(RING_TAG, h, sim, sc.blocks_to_particles(scene, sim), fluid,
+                   n)
+    check(e["pos_err"] <= RING_POS_TOL * length,
+          f"{RING_TAG}: position error {e['pos_err']:.3e} > {RING_POS_TOL} x "
+          f"{length:.4f}")
+    check(e["vel_err"] <= RING_VEL_TOL * e["max_v"],
+          f"{RING_TAG}: velocity error {e['vel_err']:.3e} > {RING_VEL_TOL} x "
+          f"the largest component {e['max_v']:.3e}")
+    pos_err, vel_err = e["pos_err"], e["vel_err"]
+    for name in DAMBREAK_KERNELS:
+        key = KERNELS[name][1]
+        check(counts[key] > 0, f"{RING_TAG}: kernel {name} never launched")
+        results[f"{name}[{RING_TAG}]"] = dict(launches=counts[key])
+    occupancy = [int(p["Alive"].sum()) for p in h.fluid]
+    log(f"{RING_TAG} main path: n_fluid={n} ranks={RING_RANKS} live rows "
+        f"{occupancy} n_loc={h.fluid[0]['Alive'].shape[0]} "
+        f"n_adv={h.n_adv} n_ac={h.n_ac} t={float(h.time)!r} (single device "
+        f"{float(sim.time)!r}) position error {pos_err:.3e} (limit "
+        f"{RING_POS_TOL * length:.3e}; largest displacement "
+        f"{e['max_disp']:.3e}) velocity error {vel_err:.3e} (limit "
+        f"{RING_VEL_TOL * e['max_v']:.3e} of {e['max_v']:.3e}) "
+        f"launches {counts}")
+    log(f"{RING_TAG} main path: {ring_s / RING_STEPS * 1e3:.3f} ms per "
+        f"advection step on the ring, {single_s / RING_STEPS * 1e3:.3f} ms on "
+        f"one device (wall clock, {RING_STEPS} steps each)")
+
+    ring_kernel_checks(torch, scene, probes, results)
+    probes.clear()
+
+    # the refresh check: the same ring and steps from the noisy start
+    noisy = perturbed(fluid, RING_DX)
+    sim_n = sc.init_sim(scene, noisy)
+    h_n = bd.distribute_block_engine(scene.eng, noisy, ring)
+    for _ in range(RING_STEPS):
+        sim_n, h_n = step_s(sim_n), step_d(h_n)
+    tag = f"{RING_TAG} noisy start"
+    en = ring_match(tag, h_n, sim_n, sc.blocks_to_particles(scene, sim_n),
+                    noisy, n)
+    check(en["pos_err"] <= RING_NOISY_DISP_TOL * en["max_disp"],
+          f"{tag}: position error {en['pos_err']:.3e} > {RING_NOISY_DISP_TOL}"
+          f" x the largest displacement {en['max_disp']:.3e}")
+    check(en["vel_err"] <= RING_NOISY_VEL_TOL * en["max_v"],
+          f"{tag}: velocity error {en['vel_err']:.3e} > {RING_NOISY_VEL_TOL} "
+          f"x the largest component {en['max_v']:.3e}")
+    log(f"{tag}: n_ac={h_n.n_ac} t={float(h_n.time)!r}, position error "
+        f"{en['pos_err']:.3e} (limit "
+        f"{RING_NOISY_DISP_TOL * en['max_disp']:.3e} of the largest "
+        f"displacement {en['max_disp']:.3e}), velocity error "
+        f"{en['vel_err']:.3e} (limit {RING_NOISY_VEL_TOL * en['max_v']:.3e} "
+        f"of {en['max_v']:.3e})")
+    del sim_n, h_n, noisy
+    probes.clear()
+
+    dev_d, wall_d, plain_d, launches_d = profile_step(
+        torch, RING_TAG, lambda: step_d(h), trace=False)
+    dev_s, wall_s_, plain_s, launches_s = profile_step(
+        torch, f"{RING_TAG}_single", lambda: step_s(sim), trace=False)
+    results[f"_{RING_TAG}"] = dict(
+        n_fluid=n, ranks=RING_RANKS, n_adv=h.n_adv, n_ac=h.n_ac,
+        position_error=pos_err, velocity_error=vel_err,
+        max_displacement=e["max_disp"], max_velocity=e["max_v"],
+        noisy=en,
+        ms_per_adv=ring_s / RING_STEPS * 1e3,
+        single_ms_per_adv=single_s / RING_STEPS * 1e3,
+        step_wall_ms=plain_d / 1e3, step_device_ms=dev_d / 1e3,
+        step_launches=launches_d, step_idle=1 - dev_d / plain_d,
+        single_step_wall_ms=plain_s / 1e3, single_step_device_ms=dev_s / 1e3,
+        single_step_launches=launches_s, single_step_idle=1 - dev_s / plain_s,
+        launches=counts)
+
+
+def _to(torch, tree, device, dtype):
+    """Tensors of a state dict / named tuple to (device, dtype): floating
+    ones to dtype, the others moved."""
+    if torch.is_tensor(tree):
+        return tree.to(device=device, dtype=dtype) \
+            if tree.is_floating_point() else tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to(torch, v, device, dtype) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_to(torch, v, device, dtype) for v in tree))
+    return tree
+
+
+def card_vs_cpu(torch, what, fn):
+    """fn(device, dtype) -> {name: tensor}, run in float64 and float32 on
+    the CPU and float32 on the card: each output on the card within
+    CALLER_FREE_FACTOR x the CPU's float32 error from float64 (at least
+    F32_EPS of max|ref|).  Returns {name: (card error, CPU f32 error)}."""
+    ref = fn("cpu", torch.float64)
+    cpu32 = fn("cpu", torch.float32)
+    card = fn(DEVICE, torch.float32)
+    out = {}
+    for k, r in ref.items():
+        r = r.double()
+        scale = float(r.abs().max())
+        e32 = float((cpu32[k].double() - r).abs().max())
+        ec = float((card[k].detach().double().cpu() - r).abs().max())
+        limit = max(CALLER_FREE_FACTOR * e32, F32_EPS * scale)
+        log(f"caller-free {what} {k}: max|ref| {scale:.6e}, card f32 "
+            f"{ec:.3e}, CPU f32 {e32:.3e} (limit {limit:.3e})")
+        check(bool(torch.isfinite(card[k]).all()), f"{what} {k}: non-finite")
+        check(ec <= limit, f"caller-free {what} {k}: card error {ec:.3e} > "
+              f"{limit:.3e}")
+        out[k] = (ec, e32)
+    return out
+
+
+def _frozen_block(torch, nx, ny, dx=0.05):
+    """tests/test_porous.py's block: positions, and its frozen pairs and
+    B in float64 on the CPU."""
+    import numpy as np
+
+    from sphinxsys_tpu_torch.core.adaptation import SPHAdaptation
+    from sphinxsys_tpu_torch.neighbors.cell_list import (
+        build_cell_table, grid_from_bounds)
+    from sphinxsys_tpu_torch.neighbors.neighbor_list import build_neighbor_list
+    from sphinxsys_tpu_torch.physics import solid as sd
+
+    xs, ys = (np.arange(nx) + 0.5) * dx, (np.arange(ny) + 0.5) * dx
+    pos = np.stack(np.meshgrid(xs, ys, indexing="ij"), -1).reshape(-1, 2)
+    n = len(pos)
+    ad = SPHAdaptation(spacing=dx, dim=2)
+    grid = grid_from_bounds((-0.2, -0.2), (nx * dx + 0.2, ny * dx + 0.2),
+                            ad.cutoff)
+    p = torch.as_tensor(pos)
+    nl = build_neighbor_list(p, n, p, n, build_cell_table(p, n, grid, 24),
+                             grid, ad.cutoff, k_max=32, include_self=False)
+    rp = sd.freeze_reference_pairs(p, nl, ad.kernel, 2)
+    return pos, ad, rp, sd.linear_gradient_correction_matrix(
+        rp, torch.full((n,), dx * dx, dtype=torch.float64))
+
+
+def caller_free_checks(torch, results):
+    """The modules with no case caller, once each on the card against their
+    float64 results on the CPU (`card_vs_cpu`): the porous solid's stress
+    and saturation steps, the optimisation's gradient through the
+    relaxation, the image shape's SDF and normals, the PK2 lattice first
+    half."""
+    import numpy as np
+
+    from sphinxsys_tpu_torch.core import image as im
+    from sphinxsys_tpu_torch.core.adaptation import SPHAdaptation
+    from sphinxsys_tpu_torch.core.materials import NeoHookeanSolid
+    from sphinxsys_tpu_torch.neighbors.cell_list import (
+        build_cell_table, grid_from_bounds)
+    from sphinxsys_tpu_torch.neighbors.neighbor_list import build_neighbor_list
+    from sphinxsys_tpu_torch.physics import optimization as op
+    from sphinxsys_tpu_torch.physics import porous as pm
+    from sphinxsys_tpu_torch.physics import solid_lattice as sl
+
+    t0 = time.perf_counter()
+    mat = pm.PorousMediaSolid(rho0=2.0, youngs_modulus=8.242e6,
+                              poisson_ratio=0.26316, diffusivity_constant=1e-4,
+                              fluid_initial_density=1.0,
+                              water_pressure_constant=3.0e6)
+    blocks = {"swell": _frozen_block(torch, 12, 12),
+              "spread": _frozen_block(torch, 20, 8)}
+
+    def porous(device, dtype):
+        out = {}
+        for tag, (pos, ad, rp, B) in blocks.items():
+            st = pm.make_porous_state(pos, 0.05 ** 2, mat, torch.float64, "cpu")
+            st["LinearGradientCorrectionMatrix"] = B
+            part = (np.ones(len(pos), bool) if tag == "swell" else
+                    (pos[:, 0] > 0.3) & (pos[:, 0] < 0.7))
+            st = pm.set_initial_saturation(st, torch.as_tensor(part),
+                                           0.05 if tag == "swell" else 0.4, mat)
+            st, rpd = _to(torch, st, device, dtype), _to(torch, rp, device, dtype)
+            if tag == "swell":
+                dt = torch.tensor(0.1 * ad.h / mat.sound_speed, dtype=dtype,
+                                  device=device)
+                for _ in range(20):
+                    st = pm.porous_stress_relaxation_1st_half(
+                        st, rpd, mat, dt, ad.h, ad.kernel.w0(2))
+                    st = pm.porous_stress_relaxation_2nd_half(st, rpd, mat, dt)
+                out.update({"F": st["DeformationGradient"],
+                            "momentum": st["TotalMomentum"]})
+            else:
+                Dt = torch.tensor(pm.saturation_time_step(mat, ad.h, 2),
+                                  dtype=dtype, device=device)
+                for _ in range(20):
+                    st = pm.saturation_relaxation(st, rpd, mat, Dt)
+                out["saturation"] = st["FluidSaturation"]
+        return out
+
+    dxo = 0.0625
+    xs = (np.arange(16) + 0.5) * dxo
+    opos = np.stack(np.meshgrid(xs, xs, indexing="ij"), -1).reshape(-1, 2)
+    oad = SPHAdaptation(spacing=dxo, dim=2)
+    ogrid = grid_from_bounds((0, 0), (1, 1), oad.cutoff)
+    op64 = torch.as_tensor(opos)
+    onl = build_neighbor_list(op64, 256, op64, 256,
+                              build_cell_table(op64, 256, ogrid, 32), ogrid,
+                              oad.cutoff, k_max=48, include_self=False)
+
+    def gradient(device, dtype):
+        p = op64.to(device=device, dtype=dtype)
+        nl = _to(torch, onl, device, dtype)
+        dirichlet = (p[:, 0] < 0.08) | (p[:, 0] > 0.92)
+        values = (p[:, 0] < 0.08).to(dtype)
+        x = (0.3 * torch.sin(7.0 * p[:, 1])).requires_grad_(True)
+        T = op.solve_steady_temperature(
+            torch.exp(x), p, torch.full_like(p[:, 0], dxo * dxo), nl,
+            oad.kernel, 2, dirichlet, values, torch.zeros_like(p[:, 0]),
+            1e-4, 50)
+        loss = torch.mean((T - (1.0 - p[:, 0])) ** 2)
+        (g,) = torch.autograd.grad(loss, x)
+        return {"gradient": g, "temperature": T.detach()}
+
+    img = im.sphere_distance_image(radius=20.0)
+    pts = np.random.default_rng(0).uniform(-24.0, 24.0, (500, 3))
+
+    def image(device, dtype):
+        q = torch.as_tensor(pts).to(device=device, dtype=dtype)
+        surf = q / torch.linalg.vector_norm(q, dim=1, keepdim=True) * 20.0
+        return {"sdf": img.signed_distance(q),
+                "normal": img.find_normal_direction(surf)}
+
+    shape, dxl = (14, 6, 6), 0.1
+    lpos = np.stack(np.meshgrid(*(np.arange(k) * dxl for k in shape),
+                                indexing="ij"), -1).reshape(-1, 3)
+    lvalid = ~((lpos[:, 0] > 0.55) & (lpos[:, 0] < 0.95) & (lpos[:, 1] > 0.25))
+    lad = SPHAdaptation(spacing=dxl, dim=3)
+    lat = sl.make_lattice(lad.kernel, dxl, shape)
+    lB = sl.lattice_correction_matrix(lat, torch.as_tensor(lvalid),
+                                      torch.float64)
+    ln = len(lpos)
+    lstate = {
+        "Position": lpos, "LinearGradientCorrectionMatrix": lB.numpy(),
+        "Velocity": np.stack([0.3 * np.sin(2 * lpos[:, 1]),
+                              0.2 * np.cos(3 * lpos[:, 0]) * lpos[:, 2],
+                              0.1 * lpos[:, 0] * lpos[:, 1]], -1),
+        "DeformationGradient": np.eye(3)[None] + 0.02 * np.stack(
+            [np.sin(lpos * 1.7), np.cos(lpos * 1.1), np.sin(lpos * 0.7 + 1.0)],
+            -2),
+        "DeformationRate": 0.01 * np.sin(lpos)[..., None] * np.eye(3),
+        "Mass": np.full(ln, 1100.0 * dxl ** 3),
+        "ForcePrior": 1e-2 * np.sin(lpos)}
+    lmat = NeoHookeanSolid(rho0=1100.0, youngs_modulus=1.7e7,
+                           poisson_ratio=0.45)
+
+    def lattice(device, dtype):
+        st = _to(torch, {k: torch.as_tensor(v) for k, v in lstate.items()},
+                 device, dtype)
+        st["LatticeValid"] = torch.as_tensor(lvalid, device=device)
+        out = sl.integration_1st_half_pk2_lattice(
+            st, lat, lmat, torch.tensor(1e-5, dtype=dtype, device=device),
+            lad.h)
+        return {"force": out["Force"], "velocity": out["Velocity"],
+                "stress": out["StressPK1OnParticle"]}
+
+    errs = {}
+    for what, fn in (("porous", porous), ("optimization", gradient),
+                     ("image", image), ("pk2 lattice", lattice)):
+        errs[what] = card_vs_cpu(torch, what, fn)
+    log(f"caller-free checks: {time.perf_counter() - t0:.1f} s")
+    results["_caller_free"] = errs
+
+
+def ring_phase(torch, results):
+    """Phase 24: the block engine on a ring of ranks at full width, B1-B3
+    on a rank's slab, and the modules with no case caller on the card."""
+    t0 = time.perf_counter()
+    ring_path(torch, results)
+    torch.cuda.empty_cache()
+    caller_free_checks(torch, results)
+    log(f"ring phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (ROOT / "sphinxsys_tpu_torch").is_dir():
@@ -7817,10 +8257,11 @@ def main() -> int:
     a7i_phase(torch, results)
     a7j_phase(torch, results)
     a7k_phase(torch, results)
+    ring_phase(torch, results)
 
     kernels = []
     for tag, names in [*((t, c["kernels"]) for t, c in CONFIGS.items()),
-                       ("fsi2", tuple(KERNELS))]:
+                       ("fsi2", tuple(KERNELS)), (RING_TAG, DAMBREAK_KERNELS)]:
         for name in names:
             r = results[f"{name}[{tag}]"]
             kernels.append({"name": f"{name}[{tag}]", "route": "cuda",
@@ -7860,7 +8301,8 @@ def main() -> int:
                 *(f"a7h_{name}" for name in A7H_MAIN), "a7h_gate",
                 "a7h_cvt", *(f"a7i_{name}" for name in A7I_MAIN),
                 *(f"a7j_{name}" for name in A7J_MAIN),
-                *(f"a7k_{name}" for name in (*A7K_MAIN, *A7K_RELAX))):
+                *(f"a7k_{name}" for name in (*A7K_MAIN, *A7K_RELAX)),
+                RING_TAG):
         main_paths[tag] = results[f"_{tag}"]
     log("main paths: " + json.dumps(main_paths))
     lost = sorted({PROFILE_GUARD - p[4] for p in PROFILED})

@@ -9,9 +9,12 @@ sub-step counts, the continuum family's, whose UL sims' sub-step count
 JAX does not keep and starts at 0, and the Windkessel channel's with its
 RCR state, the shell family's), frozen pairs (ReferencePairs, the
 solid-shell CouplingPairs, the shell contacts' ShellContactPairs and
-SurfacePairs), level sets (`levelset_from_jax`) and plain arrays (a
-conductivity field, an optimiser's parameters), handed over as numpy, become the port's CPU tensors, and
-back.  The parity tests use these to feed
+SurfacePairs), level sets (`levelset_from_jax`), porous states (plain
+state dicts), voxel images (`image_from_numpy`), distributed carries
+(`halo_shard_from_numpy`: a sharded state's per-device arrays split
+into the ring's rank pieces) and plain arrays (a conductivity field, an
+optimiser's parameters), handed over as numpy, become the port's CPU
+tensors, and back.  The parity tests use these to feed
 both sides identical inputs."""
 
 from __future__ import annotations
@@ -158,6 +161,38 @@ def levelset_from_jax(ls):
                     pkg_nbr=arr("pkg_nbr", torch.int64), phi=arr("phi"),
                     kernel_w=arr("kernel_w"), kernel_gw=arr("kernel_gw"),
                     kernel_g2w=arr("kernel_g2w"))
+
+
+def image_from_numpy(image):
+    """A voxel image shape (`data`, `spacing`, `origin` as numpy / tuples)
+    -> the port's ImageShape (its data as float32 numpy, as both packages
+    keep it)."""
+    from sphinxsys_tpu_torch.core.image import ImageShape
+
+    return ImageShape(data=np.asarray(image.data, np.float32),
+                      spacing=tuple(float(x) for x in image.spacing),
+                      origin=tuple(float(x) for x in image.origin))
+
+
+def halo_shard_from_numpy(fluid: dict, n_dev: int, time=0.0, n_adv=0, n_ac=0,
+                          overflow=False, aux=()):
+    """A distributed carry: `fluid`, the (n_dev * n_loc, ...) arrays of a
+    state sharded along its particle axis over n_dev devices (the JAX
+    package's HaloShard leaves read as numpy), split into the n_dev rank
+    pieces of a ThreadRing's HaloShard (CPU tensors); the counters as the
+    port keeps them; `aux` passed on as it is."""
+    from sphinxsys_tpu_torch.parallel.domain import HaloShard
+
+    pieces = [dict() for _ in range(n_dev)]
+    for k, v in fluid.items():
+        v = np.asarray(v)
+        if v.shape[0] % n_dev:
+            raise ValueError(f"{k}: {v.shape[0]} rows over {n_dev} devices")
+        for piece, part in zip(pieces, np.split(v, n_dev)):
+            piece[k] = _tensor(part)
+    t = _tensor(time)
+    return HaloShard(fluid=pieces, time=t, n_adv=int(n_adv), n_ac=int(n_ac),
+                     overflow=torch.as_tensor(bool(overflow)), aux=aux)
 
 
 def to_numpy(x):

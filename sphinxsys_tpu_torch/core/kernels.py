@@ -1,12 +1,14 @@
 """Smoothing kernels (counterpart of sphinxsys_tpu/core/kernels.py).
 
 Wendland C2 — the reference default and the one the dambreak uses —
-the anisotropic kernel over it, and the Laguerre-Gauss kernel of the
-Eulerian Taylor-Green vortex; `W_adaptive` / `dW_adaptive` evaluate any
-of them at per-particle smoothing lengths.  ``W(r)`` has units 1/len^dim,
-``dW(r)`` = dW/dr (negative), ``d2W(r)`` its derivative (Wendland C2
-only); the support radius is 2h
-(src/shared/kernels/kernel_wendland_c2.cpp).
+the anisotropic kernel over it, the Laguerre-Gauss kernel of the
+Eulerian Taylor-Green vortex, the cubic B-spline, quadratic and
+hyperbolic kernels, and the tabulated form of any of them;
+`W_adaptive` / `dW_adaptive` (also as the module functions `_adaptive_W`
+/ `_adaptive_dW`, the JAX package's names) evaluate them at per-particle
+smoothing lengths.  ``W(r)`` has units 1/len^dim, ``dW(r)`` = dW/dr
+(negative), ``d2W(r)`` its derivative (not the Laguerre-Gauss kernel's);
+the support radius is 2h (src/shared/kernels/kernel_wendland_c2.cpp).
 """
 
 from __future__ import annotations
@@ -108,6 +110,156 @@ class WendlandC2(SmoothingKernel):
         if dim == 3:
             return 21.0 / (16.0 * math.pi * h * h * h)
         raise ValueError(f"dim must be 1/2/3, got {dim}")
+
+
+@dataclasses.dataclass(frozen=True)
+class CubicBSpline(SmoothingKernel):
+    """Cubic B-spline kernel (src/shared/kernels/kernel_cubic_B_spline.cpp)."""
+
+    @staticmethod
+    def _w(q):
+        return torch.where(q < 1.0, 1.0 - 1.5 * q * q * (1.0 - 0.5 * q),
+                           (2.0 - q) ** 3 / 4.0)
+
+    @staticmethod
+    def _dw(q):
+        return torch.where(q < 1.0, 2.25 * q * q - 3.0 * q,
+                           -0.75 * (2.0 - q) ** 2)
+
+    @staticmethod
+    def _d2w(q):
+        return torch.where(q < 1.0, 4.5 * q - 3.0, 1.5 * (2.0 - q))
+
+    def _factor_w(self, dim: int) -> float:
+        h = self.h
+        if dim == 1:
+            return 2.0 / (3.0 * h)
+        if dim == 2:
+            return 10.0 / (7.0 * math.pi * h * h)
+        if dim == 3:
+            return 1.0 / (math.pi * h * h * h)
+        raise ValueError(f"dim must be 1/2/3, got {dim}")
+
+
+@dataclasses.dataclass(frozen=True)
+class Quadratic(SmoothingKernel):
+    """Quadratic kernel (src/shared/kernels/kernel_quadratic.cpp), with the
+    JAX package's analytic derivative dw/dq = 15 (q - 2) / 32 in every
+    dimension and the reference's factors, which normalise the kernel in
+    3D only."""
+
+    @staticmethod
+    def _w(q):
+        return 5.0 * (3.0 * q * q - 12.0 * q + 12.0) / 64.0
+
+    @staticmethod
+    def _dw(q):
+        return 15.0 * (q - 2.0) / 32.0
+
+    @staticmethod
+    def _d2w(q):
+        return 15.0 / 32.0 * torch.ones_like(q)
+
+    def _factor_w(self, dim: int) -> float:
+        h = self.h
+        if dim == 1:
+            return 1.0 / (7.0 * h)
+        if dim == 2:
+            return 1.0 / (3.0 * math.pi * h * h)
+        if dim == 3:
+            return 1.0 / (math.pi * h * h * h)
+        raise ValueError(f"dim must be 1/2/3, got {dim}")
+
+
+@dataclasses.dataclass(frozen=True)
+class Hyperbolic(SmoothingKernel):
+    """Hyperbolic-shaped kernel (kernel_hyperbolic.cpp): 6 - 6q + q^3 for
+    q < 1 and (2 - q)^3 for 1 <= q < 2."""
+
+    @staticmethod
+    def _w(q):
+        return torch.where(q < 1.0, 6.0 - 6.0 * q + q ** 3, (2.0 - q) ** 3)
+
+    @staticmethod
+    def _dw(q):
+        return torch.where(q < 1.0, -6.0 + 3.0 * q * q, -3.0 * (2.0 - q) ** 2)
+
+    @staticmethod
+    def _d2w(q):
+        return torch.where(q < 1.0, 6.0 * q, 6.0 * (2.0 - q))
+
+    def _factor_w(self, dim: int) -> float:
+        inv_h = 1.0 / self.h
+        if dim == 1:
+            return inv_h / 7.0
+        if dim == 2:
+            return inv_h ** 2 / (3.0 * math.pi)
+        if dim == 3:
+            return inv_h ** 3 * 15.0 / (62.0 * math.pi)
+        raise ValueError(f"dim must be 1/2/3, got {dim}")
+
+
+@dataclasses.dataclass(frozen=True)
+class TabulatedKernel:
+    """KernelTabulated<KernelType> (kernel_tabulated.h): W, dW and d2W read
+    from a table of the base kernel by four-point Lagrange interpolation
+    (kernel_tabulated.h:49-62).  The table spans q = -dq .. (R + 2) dq,
+    dq = kernel_size / R; the pad point at q = -dq evaluates the base's
+    shape polynomial at negative q, as the reference's table does.  It is
+    formed in float64 and cast to the query's dtype."""
+
+    base: SmoothingKernel
+    resolution: int = 20
+
+    @property
+    def h(self) -> float:
+        return self.base.h
+
+    @property
+    def kernel_size(self) -> float:
+        return self.base.kernel_size
+
+    @property
+    def cutoff(self) -> float:
+        return self.base.cutoff
+
+    def w0(self, dim: int) -> float:
+        return self.base.w0(dim)
+
+    def _dq(self) -> float:
+        return self.base.kernel_size / self.resolution
+
+    def _table(self, fn, dim: int, like: torch.Tensor) -> torch.Tensor:
+        qs = torch.arange(-1.0, self.resolution + 3.0, dtype=torch.float64) \
+            * self._dq() * self.h
+        return fn(qs, dim).to(dtype=like.dtype, device=like.device)
+
+    def _interp(self, table: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+        dq = self._dq()
+        loc = torch.clamp(torch.floor(q / dq).long(), 0, self.resolution - 1)
+        f1 = q - loc.to(q.dtype) * dq
+        f0, f2, f3 = f1 + dq, f1 - dq, f1 - 2 * dq
+        d0 = (-dq) * (-2 * dq) * (-3 * dq)
+        d1 = dq * (-dq) * (-2 * dq)
+        d2 = (2 * dq) * dq * (-dq)
+        d3 = (3 * dq) * (2 * dq) * dq
+        i = loc + 1
+        return (f1 * f2 * f3 / d0 * table[i - 1] + f0 * f2 * f3 / d1 * table[i]
+                + f0 * f1 * f3 / d2 * table[i + 1]
+                + f0 * f1 * f2 / d3 * table[i + 2])
+
+    def _read(self, fn, r: torch.Tensor, dim: int) -> torch.Tensor:
+        val = self._interp(self._table(fn, dim, r), r / self.h)
+        return torch.where(r < self.cutoff, val, torch.zeros_like(val))
+
+    def W(self, r: torch.Tensor, dim: int) -> torch.Tensor:
+        return self._read(self.base.W, r, dim)
+
+    def dW(self, r: torch.Tensor, dim: int) -> torch.Tensor:
+        return self._read(self.base.dW, r, dim)
+
+    def d2W(self, r: torch.Tensor, dim: int) -> torch.Tensor:
+        return self._read(self.base.d2W, r, dim)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -214,3 +366,14 @@ def lattice_number_density(kernel: SmoothingKernel, spacing: float, dim: int) ->
     inside = dist < cutoff
     w = kernel.W(torch.as_tensor(dist[inside], dtype=torch.float64), dim)
     return float(w.sum())
+
+
+def _adaptive_W(kernel: SmoothingKernel, r, h_ratio, dim: int):
+    """W at per-particle smoothing lengths (the JAX package's helper name
+    for `SmoothingKernel.W_adaptive`)."""
+    return kernel.W_adaptive(r, h_ratio, dim)
+
+
+def _adaptive_dW(kernel: SmoothingKernel, r, h_ratio, dim: int):
+    """dW/dr at per-particle smoothing lengths (`SmoothingKernel.dW_adaptive`)."""
+    return kernel.dW_adaptive(r, h_ratio, dim)

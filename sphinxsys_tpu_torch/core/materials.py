@@ -1,16 +1,20 @@
 """Materials (counterpart of sphinxsys_tpu/core/materials.py): the
-weakly-compressible fluid, the ideal gas, the linear, Neo-Hookean and St.
-Venant-Kirchhoff elastic solids with their Cauchy stresses, and the
-Holzapfel-Ogden muscle (also with per-particle directions), and the
-J2-plastic solids with linear and saturation hardening.  Determinants,
-inverses and products of the per-particle matrices are the closed forms
-of core/linalg.py."""
+weakly-compressible fluid, the ideal gas, the linear, Neo-Hookean, FENE
+Neo-Hookean, orthotropic and St. Venant-Kirchhoff elastic solids with
+their Cauchy stresses, the Holzapfel-Ogden muscle (also with
+per-particle directions), the composite solid, and the J2-plastic solids
+with linear and saturation hardening and the viscoplastic one.
+Determinants, inverses and products of the per-particle matrices are
+the closed forms of core/linalg.py.  The JAX package's `Material` /
+`Solid` bases have no counterpart: each class here carries its own
+reference density, and every solid derives from `ElasticSolid`."""
 
 from __future__ import annotations
 
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from sphinxsys_tpu_torch.core.linalg import det, inv, mm, mv
@@ -120,6 +124,12 @@ class ElasticSolid:
 
 
 @dataclasses.dataclass(frozen=True)
+class LinearElasticSolid(ElasticSolid):
+    """The reference's name for the linear-elastic solid
+    (elastic_solid.h:46)."""
+
+
+@dataclasses.dataclass(frozen=True)
 class Muscle(ElasticSolid):
     """Holzapfel-Ogden-type anisotropic muscle (elastic_solid.cpp
     Muscle::StressPK2): an exponential isotropic term, fibre, sheet and
@@ -224,6 +234,118 @@ class NeoHookeanSolid(ElasticSolid):
         dev = B - (trB / dim)[..., None, None] * eye
         return (0.5 * K * (J - 1.0 / J))[..., None, None] * eye \
             + G * (J ** (-2.0 / dim - 1.0))[..., None, None] * dev
+
+
+@dataclasses.dataclass(frozen=True)
+class FeneNeoHookeanSolid(ElasticSolid):
+    """Neo-Hookean with finite extensibility (elastic_solid.cpp:200-207):
+        S = G / (1 - 2 tr(E)/J1m) I + (lambda (J - 1) - G) J C^-1,
+    E the Green-Lagrange strain, J1m the reference extension."""
+
+    j1_m: float = 1.0
+
+    def stress_PK2(self, F):
+        dim = F.shape[-1]
+        eye = torch.eye(dim, dtype=F.dtype, device=F.device)
+        C = mm(F.transpose(-1, -2), F)
+        strain_tr = 0.5 * (torch.diagonal(C, dim1=-2, dim2=-1).sum(-1) - dim)
+        J = det(F)
+        G, lam = self.shear_modulus, self.lambda0
+        return (G / (1.0 - 2.0 * strain_tr / self.j1_m))[..., None, None] * eye \
+            + ((lam * (J - 1.0) - G) * J)[..., None, None] * inv(C)
+
+
+@dataclasses.dataclass(frozen=True)
+class OrthotropicSolid(ElasticSolid):
+    """Orthotropic elasticity over three principal directions a_i
+    (elastic_solid.h:248-282, elastic_solid.cpp:154-198,
+    elastic_solid_3d.cpp:7-35; 3D only, as the reference).  The shear
+    combination Mu_i = 1/G_i + 1/G_k - 1/G_j is the reference's
+    (elastic_solid_3d.cpp:10-12); the base class's (E, nu) are the maxima,
+    which set the sound speed as in the reference's constructor."""
+
+    a: tuple = ((1.0, 0.0, 0.0), (0.0, 1.0, 0.0), (0.0, 0.0, 1.0))
+    E: tuple = (1.0, 1.0, 1.0)
+    G: tuple = (0.5, 0.5, 0.5)
+    poisson: tuple = (0.3, 0.3, 0.3)
+
+    def __post_init__(self):
+        object.__setattr__(self, "youngs_modulus", max(self.E))
+        object.__setattr__(self, "poisson_ratio", max(self.poisson))
+
+    def _params(self):
+        """(Mu (3,), Lambda (3, 3), A_i = a_i a_i^T (3, 3, 3)) in float64."""
+        E, nu, G = self.E, self.poisson, self.G
+        mu = np.asarray([1 / G[0] + 1 / G[2] - 1 / G[1],
+                         1 / G[1] + 1 / G[0] - 1 / G[2],
+                         1 / G[2] + 1 / G[1] - 1 / G[0]])
+        compliance = np.asarray([
+            [1 / E[0], -nu[0] / E[0], -nu[1] / E[0]],
+            [-nu[0] / E[1], 1 / E[1], -nu[2] / E[1]],
+            [-nu[1] / E[2], -nu[2] / E[1], 1 / E[2]]]).T
+        cinv = np.linalg.inv(compliance)
+        lam = cinv.copy()
+        for i in range(3):
+            lam[i, i] = cinv[i, i] - 2 * mu[i]
+        A = np.asarray([np.outer(self.a[i], self.a[i]) for i in range(3)])
+        return mu, lam, A
+
+    def stress_PK2(self, F):
+        mu, lam, A64 = self._params()
+        A = torch.as_tensor(A64, dtype=F.dtype, device=F.device)
+        eye = torch.eye(3, dtype=F.dtype, device=F.device)
+        strain = 0.5 * (mm(F.transpose(-1, -2), F) - eye)
+        stress = torch.zeros_like(strain)
+        bidot = [torch.sum(A[i] * strain, dim=(-2, -1)) for i in range(3)]
+        for i in range(3):
+            summa = torch.zeros_like(strain)
+            for j in range(3):
+                summa = summa + float(lam[i, j]) * (
+                    bidot[i][..., None, None] * A[j]
+                    + bidot[j][..., None, None] * A[i])
+            stress = stress + float(mu[i]) * (mm(A[i].expand_as(strain), strain)
+                                              + mm(strain, A[i].expand_as(strain))
+                                              + 0.5 * summa)
+        return stress
+
+
+@dataclasses.dataclass(frozen=True)
+class CompositeSolid(ElasticSolid):
+    """Per-particle material dispatch (complex_solid.h:59-96): a particle's
+    material id selects one of `materials`; every material's stress is
+    evaluated and the id's taken by mask.  The sound speed, for the time
+    step, is the largest of the materials', as in the reference's
+    constructor."""
+
+    materials: tuple = ()
+
+    def __post_init__(self):
+        if self.materials:
+            object.__setattr__(self, "youngs_modulus",
+                               self.sound_speed ** 2 * self.rho0 * 3.0
+                               * (1.0 - 2.0 * self.poisson_ratio))
+
+    @property
+    def sound_speed(self) -> float:
+        return max(m.sound_speed for m in self.materials)
+
+    def stress_PK2_composite(self, F, material_id):
+        out = None
+        for k, m in enumerate(self.materials):
+            s = m.stress_PK2(F)
+            out = s if out is None else torch.where(
+                (material_id == k)[..., None, None], s, out)
+        return out
+
+    def composite_density(self, material_id, dtype=torch.float32):
+        """CompositeDensity: each particle's rho0 of its material (JAX's
+        is float32 whatever the state's dtype; `dtype` chooses here)."""
+        rho = torch.zeros(material_id.shape, dtype=dtype,
+                          device=material_id.device)
+        for k, m in enumerate(self.materials):
+            rho = torch.where(material_id == k, torch.full_like(rho, m.rho0),
+                              rho)
+        return rho
 
 
 @dataclasses.dataclass(frozen=True)
@@ -352,3 +474,49 @@ class NonLinearHardeningPlasticSolid(HardeningPlasticSolid):
                                        relax, yielded)
         return nbe_out, inv_ps, torch.where(yielded, kappa + sqrt23 * relax,
                                             kappa)
+
+
+@dataclasses.dataclass(frozen=True)
+class ViscousPlasticSolid(HardeningPlasticSolid):
+    """Perzyna viscoplasticity with a Herschel-Bulkley overstress law
+    (inelastic_solid.h:108-136, inelastic_solid.cpp
+    ViscousPlasticSolid::ElasticLeftCauchy): past yield, the deviatoric
+    Kirchhoff norm relaxes to the root of
+        eta^(1/n) (s - s_trial) + 2 G~ dt (s - sqrt(2/3) sy)^(1/n),
+    found as the JAX package finds it, by 40 bisections of
+    [sqrt(2/3) sy, s_trial]."""
+
+    viscous_modulus: float = 1.0
+    herschel_bulkley_power: float = 1.0
+
+    def elastic_left_cauchy(self, F, inv_plastic_strain, kappa, dt=0.0):
+        """(normalised be, inverse plastic strain, kappa): kappa passes
+        through unchanged (the viscous model has no hardening)."""
+        sqrt23 = math.sqrt(2.0 / 3.0)
+        dim = F.shape[-1]
+        be = mm(mm(F, inv_plastic_strain), F.transpose(-1, -2))
+        nbe, iso, dev_k, dk_norm = self._trial(be)
+        s_yield = sqrt23 * self.yield_stress
+        trial = dk_norm - s_yield
+        Gr = iso * self.shear_modulus
+        inv_n = 1.0 / self.herschel_bulkley_power
+        eta_pow = self.viscous_modulus ** inv_n
+        lo = torch.full_like(dk_norm, s_yield)
+        hi = dk_norm
+        for _ in range(40):
+            mid = 0.5 * (lo + hi)
+            f = eta_pow * (mid - dk_norm) + 2.0 * Gr * dt * torch.clamp(
+                mid - s_yield, min=0.0) ** inv_n
+            neg = f < 0.0
+            lo, hi = torch.where(neg, mid, lo), torch.where(neg, hi, mid)
+        s_new = 0.5 * (lo + hi)
+        eye = torch.eye(dim, dtype=F.dtype, device=F.device)
+        dev_relaxed = (s_new / torch.clamp(dk_norm, min=1e-15)
+                       )[..., None, None] * dev_k
+        relaxed_be = dev_relaxed / self.shear_modulus \
+            + iso[..., None, None] * eye
+        nbe_new = relaxed_be * (det(relaxed_be)
+                                ** (-1.0 / dim))[..., None, None]
+        nbe_out = torch.where((trial > 0.0)[..., None, None], nbe_new, nbe)
+        F_inv = inv(F)
+        return nbe_out, mm(mm(F_inv, nbe_out), F_inv.transpose(-1, -2)), kappa

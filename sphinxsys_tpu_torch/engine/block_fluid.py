@@ -17,7 +17,8 @@ ops/block_sweeps.py (the CUDA kernels on the card, their plain versions on
 the CPU); False runs the `*_b` block forms, the float64 oracle.  The
 grid's periodic axes give the sweeps their minimum-image box.  The JAX
 engine's TPU workarounds (tile_c, window and wall chunking, wall
-compaction, roll_y, the packed wall tensor of `make_wall_ctx`) have no
+compaction, roll_y, the packed wall tensor of JAX's `make_wall_ctx` /
+`null_wall_ctx`) have no
 counterpart: the kernels read neighbour blocks through the window maps
 directly, so the wall context is the wall's block state and its window
 map, static or moving alike.
@@ -219,6 +220,17 @@ def acoustic_second_half(eng: BlockEngine, fb, nbr_inner, wc: WallCtx, dt):
     return fbops.acoustic_step_2nd_half_b(
         fb, nbr_inner, eng.kernel, eng.dim, eng.riemann2, dt,
         wall_b=wc.wall_b, nbr_wall=wc.nbr_wall, box=eng.box)
+
+
+def acoustic_step(eng: BlockEngine, fb, nbr_inner, wc: WallCtx, dt,
+                  between=None):
+    """Both halves of an acoustic sub-step; `between` (fb -> fb), if given,
+    runs between them (the distributed engine refreshes its ghosts there:
+    the 2nd half reads the 1st half's velocities)."""
+    fb = acoustic_first_half(eng, fb, nbr_inner, wc, dt)
+    if between is not None:
+        fb = between(fb)
+    return acoustic_second_half(eng, fb, nbr_inner, wc, dt)
 
 
 def blocks_to_particles(eng: BlockEngine, fb, n: int) -> dict:

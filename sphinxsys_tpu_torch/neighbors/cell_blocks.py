@@ -15,6 +15,7 @@ from __future__ import annotations
 import itertools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from sphinxsys_tpu_torch.neighbors.cell_list import CellGrid
@@ -31,7 +32,9 @@ class BlockMap(NamedTuple):
     sentinel N; slot_mask (C_max*cap,) bool; overflow () bool (cap or C_max
     exceeded: results invalid); order_n (M,) first M entries of the stable
     cell-id argsort; start (C_max,) sorted position where row r's run
-    begins (sentinel M).  All integer tensors are int32."""
+    begins (sentinel M); particle_slot (N,) the slot of each particle,
+    sentinel C_max*cap (None unless built `with_inverse`).  All integer
+    tensors are int32."""
 
     occ_cells: torch.Tensor
     n_occ: torch.Tensor
@@ -41,6 +44,7 @@ class BlockMap(NamedTuple):
     overflow: torch.Tensor
     order_n: torch.Tensor
     start: torch.Tensor
+    particle_slot: torch.Tensor | None = None
 
     @property
     def c_max(self) -> int:
@@ -119,7 +123,8 @@ def cross_neighbor_blocks(occ_cells_q: torch.Tensor, grid: CellGrid,
 
 
 def build_block_map(pos: torch.Tensor, valid, grid: CellGrid, cap: int,
-                    c_max: int, n_max: int | None = None, carry=None):
+                    c_max: int, n_max: int | None = None, carry=None,
+                    with_inverse: bool = False):
     """Count-sort particles into occupied-cell blocks.
 
     pos:   (N, dim) — N may itself be a slot array being re-slotted.
@@ -129,6 +134,9 @@ def build_block_map(pos: torch.Tensor, valid, grid: CellGrid, cap: int,
     carry: optional (N, CH) columns; then also returns their blocks
            (C_max, cap, CH): block row r holds the CH columns of the sorted
            rows start[r] .. start[r]+cap-1 (zeros past the end), unmasked.
+    with_inverse: also form `particle_slot`, each particle's slot (the
+           JAX package inverts the sort by a second argsort; here the
+           slots scatter through the sort permutation, the same integers).
     """
     n = pos.shape[0]
     dev = pos.device
@@ -186,12 +194,22 @@ def build_block_map(pos: torch.Tensor, valid, grid: CellGrid, cap: int,
         # n_max too small: a valid row spilled past m
         overflow = overflow | (cid[order[m].long()] < ncells)
 
+    particle_slot = None
+    if with_inverse:
+        big = c_max * cap
+        slot_ok = sort_valid & (rank < cap) & (occ_rank < c_max)
+        slot_m = torch.where(slot_ok, occ_rank * cap + rank,
+                             torch.full_like(rank, big))
+        particle_slot = torch.full((n,), big, dtype=i32, device=dev)
+        particle_slot[order_n.long()] = slot_m
+
     dense_map = dense_cell_map(occ_cells, ncells, c_max)
     nbr_block = neighbor_window_rows(occ_cells, grid, dense_map, c_max)
 
     bm = BlockMap(occ_cells=occ_cells, n_occ=n_occ, nbr_block=nbr_block,
                   slot_particle=slot_particle, slot_mask=slot_mask,
-                  overflow=overflow, order_n=order_n, start=start)
+                  overflow=overflow, order_n=order_n, start=start,
+                  particle_slot=particle_slot)
     if carry is None:
         return bm
     sc = carry[order_n.long()]
@@ -221,3 +239,98 @@ def to_blocks(bm: BlockMap, arr: torch.Tensor, fill=0.0) -> torch.Tensor:
     sentinel = torch.full((1, bm.cap) + tuple(arr.shape[1:]), fill,
                           dtype=arr.dtype, device=arr.device)
     return torch.cat([blocks, sentinel], dim=0)
+
+
+def from_blocks(bm: BlockMap, blocks: torch.Tensor, out_n: int) -> torch.Tensor:
+    """Block array (C_max+1, cap, ...) -> particle array (out_n, ...) through
+    `particle_slot` (a map built `with_inverse`); a particle with no slot
+    gets zeros."""
+    flat = blocks.reshape((-1,) + tuple(blocks.shape[2:]))
+    big = bm.c_max * bm.cap
+    slot = bm.particle_slot[:out_n]
+    out = flat[torch.clamp(slot, max=big - 1).long()]
+    valid = (slot < big).reshape((-1,) + (1,) * (blocks.dim() - 2))
+    return torch.where(valid, out, torch.zeros_like(out))
+
+
+def gather_window(blocks: torch.Tensor, nbr_block: torch.Tensor) -> torch.Tensor:
+    """The 3^dim window blocks of each cell: (C_max+1, cap, ...) and
+    (C_max, W) -> (C_max, W, cap, ...), one row gather."""
+    return blocks[nbr_block.long()]
+
+
+def _container(dtypes):
+    """(float container, int container) of a packed row: the widest float
+    dtype present (float32 when none is); an int32 field rides bit-cast in
+    an integer of the container's width, exact under gathers and selects."""
+    floats = [d for d in dtypes if d.is_floating_point]
+    fdtype = torch.float64 if torch.float64 in floats else torch.float32
+    return fdtype, (torch.int32 if fdtype == torch.float32 else torch.int64)
+
+
+def _pack(fields, fdtype, idtype):
+    """Concatenate (N, ...) fields into one (N, CH) row matrix."""
+    cols = []
+    for v in fields:
+        c = v.to(idtype).view(fdtype) if v.dtype == torch.int32 \
+            else v.to(fdtype)
+        cols.append(c.reshape(c.shape[0], -1))
+    return torch.cat(cols, dim=1)
+
+
+def _unpack(rows, v, col0, fdtype, idtype):
+    """Field `v`'s columns of packed rows, in v's dtype and trailing shape:
+    (the field, the next column)."""
+    ncol = 1 if v.dim() == 1 else int(np.prod(v.shape[1:]))
+    sub = rows[:, col0:col0 + ncol]
+    if v.dtype == torch.int32:
+        sub = sub.contiguous().view(idtype).to(torch.int32)
+    else:
+        sub = sub.to(v.dtype)
+    return sub.reshape((rows.shape[0],) + tuple(v.shape[1:])), col0 + ncol
+
+
+def to_blocks_packed(bm: BlockMap, fields: dict, fills: dict | None = None) -> dict:
+    """Slot many (N, ...) fields with one row gather: the fields are packed
+    into one (N, CH) matrix (int32 ones bit-cast, so they ride exactly),
+    the rows gathered through slot_particle, and unpacked into block
+    arrays (C_max+1, cap, ...) with each field's fill in padding slots and
+    in the sentinel row.  The same values as `to_blocks` field by field."""
+    fills = fills or {}
+    vals = list(fields.values())
+    n = vals[0].shape[0]
+    fdtype, idtype = _container([v.dtype for v in vals])
+    packed = _pack(vals, fdtype, idtype)
+    rows = packed[torch.clamp(bm.slot_particle, max=n - 1).long()]
+    out = {}
+    col0 = 0
+    for k, v in fields.items():
+        sub, col0 = _unpack(rows, v, col0, fdtype, idtype)
+        mask = bm.slot_mask.reshape((-1,) + (1,) * (v.dim() - 1))
+        fill = torch.as_tensor(fills.get(k, 0.0), dtype=v.dtype, device=v.device)
+        sub = torch.where(mask, sub, fill)
+        blocks = sub.reshape((bm.c_max, bm.cap) + tuple(v.shape[1:]))
+        sentinel = fill.expand((1, bm.cap) + tuple(v.shape[1:]))
+        out[k] = torch.cat([blocks, sentinel], dim=0)
+    return out
+
+
+def from_blocks_packed(bm: BlockMap, fb: dict, fields, n_out: int):
+    """Inverse of `to_blocks_packed`: the first n_out particles' rows of
+    many block fields with one row gather through `particle_slot` (a map
+    built `with_inverse`).  Returns (dict of (n_out, ...) fields, (n_out,)
+    bool: the particle had a slot); a particle with none gets zeros."""
+    flat = [fb[k].reshape((-1,) + tuple(fb[k].shape[2:])) for k in fields]
+    fdtype, idtype = _container([v.dtype for v in flat])
+    packed = _pack(flat, fdtype, idtype)
+    big = bm.c_max * bm.cap
+    slot = bm.particle_slot[:n_out]
+    valid = slot < big
+    rows = packed[torch.clamp(slot, max=packed.shape[0] - 1).long()]
+    out = {}
+    col0 = 0
+    for k, v in zip(fields, flat):
+        sub, col0 = _unpack(rows, v, col0, fdtype, idtype)
+        out[k] = torch.where(valid.reshape((-1,) + (1,) * (v.dim() - 1)), sub,
+                             torch.zeros_like(sub))
+    return out, valid

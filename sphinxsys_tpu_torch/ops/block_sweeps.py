@@ -4,7 +4,8 @@ Each sweep has a hand-written CUDA kernel (csrc/block_sweeps.cu, built by
 ops/_build.py) and, beside it, a plain PyTorch version that computes the
 same per-slot sums.  Dispatch: a CPU tensor runs the plain version; a CUDA
 float32 tensor launches the kernel (or raises); anything else raises.
-`LAUNCHES` counts kernel launches per sweep (plain runs do not count).
+`LAUNCHES` counts kernel launches per sweep (plain runs do not count),
+under a lock: the ranks of a ThreadRing launch from threads of their own.
 
   density_sweep  <- sphinxsys_tpu/ops/pallas_block2.py:_dens_kernel
   ac1_sweep      <- sphinxsys_tpu/ops/pallas_block2.py:_ac1_kernel
@@ -46,11 +47,14 @@ B1's mask channel.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from sphinxsys_tpu_torch.neighbors.cell_blocks import occupied_rows
 
 LAUNCHES = {"density": 0, "ac1": 0, "ac2": 0, "visc_tvc": 0}
+_COUNT_LOCK = threading.Lock()
 
 # cells per chunk of the plain versions: bounds their (cells, cap, cap, dim)
 # temporaries (3D at 1M particles would need tens of GB unchunked)
@@ -60,6 +64,11 @@ _PLAIN_CELL_CHUNK = 8192
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def _count(key: str) -> None:
+    with _COUNT_LOCK:
+        LAUNCHES[key] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -358,7 +367,7 @@ def density_sweep(pos, mask, nbr, wall_pos=None, wall_vol=None, nbr_wall=None,
         float(factor_w), *_box3(box, dim), _ptr(out),
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "density_sweep")
-    LAUNCHES["density"] += 1
+    _count("density")
     return out
 
 
@@ -399,7 +408,7 @@ def ac1_sweep(pos, p, rho, acc, vol, nbr, wall_pos=None, wall_vol=None,
         float(inv_h), float(dw_scale), float(inv_rho0c0), *_box3(box, dim),
         _ptr(out), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "ac1_sweep")
-    LAUNCHES["ac1"] += 1
+    _count("ac1")
     return out
 
 
@@ -439,7 +448,7 @@ def ac2_sweep(pos, vel, vol, nbr, wall_pos=None, wall_vol=None, wall_vel=None,
         float(rho0c0_geo), float(lim_scale), *_box3(box, dim), _ptr(out),
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "ac2_sweep")
-    LAUNCHES["ac2"] += 1
+    _count("ac2")
     return out
 
 
@@ -478,5 +487,5 @@ def visc_tvc_sweep(pos, vel, vol, nbr, wall_pos=None, wall_vol=None,
         _ptr(nbr_wall), cw, capw, float(inv_h), float(dw_scale), float(eps_r),
         *_box3(box, dim), _ptr(out), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "visc_tvc_sweep")
-    LAUNCHES["visc_tvc"] += 1
+    _count("visc_tvc")
     return out

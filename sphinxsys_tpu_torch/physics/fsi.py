@@ -102,12 +102,14 @@ def update_average_velocity_acceleration(solid: State, dt) -> State:
 
 
 def polar_rotation(F: torch.Tensor) -> torch.Tensor:
-    """The rotation R of the polar decomposition F = R U of 2 x 2 F (JAX:
-    U V^T of the SVD), in closed form: with p = F00 + F11 and
-    q = F10 - F01, R = [[p, -q], [q, p]] / sqrt(p^2 + q^2), the SVD's for
-    det F > 0, with no solver launch.  fsi2, the only caller, is 2D."""
+    """The rotation R of the polar decomposition F = R U (JAX: U V^T of the
+    SVD).  2 x 2 F in closed form: with p = F00 + F11 and q = F10 - F01,
+    R = [[p, -q], [q, p]] / sqrt(p^2 + q^2), the SVD's for det F > 0, with
+    no solver launch.  Any other F (3 x 3) as JAX takes it, U V^T of the
+    SVD."""
     if F.shape[-1] != 2:
-        raise NotImplementedError("the polar rotation is ported for 2D only")
+        U, _, Vh = torch.linalg.svd(F)
+        return U @ Vh
     p = F[..., 0, 0] + F[..., 1, 1]
     q = F[..., 1, 0] - F[..., 0, 1]
     n = torch.sqrt(p * p + q * q)

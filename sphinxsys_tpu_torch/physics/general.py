@@ -1,6 +1,7 @@
 """General dynamics (counterpart of sphinxsys_tpu/physics/general.py):
-gravity, the energy and speed reductions, the velocity gradient and wall
-normals from a shape."""
+gravity, the energy, speed and quantity reductions, the velocity bound
+check, the velocity gradient and vorticity, and wall normals from a
+shape."""
 
 from __future__ import annotations
 
@@ -67,6 +68,24 @@ def total_mechanical_energy(state: State, gravity: Gravity) -> torch.Tensor:
     return torch.sum(torch.where(valid_mask(state), e, torch.zeros_like(e)))
 
 
+def velocity_bound_check(state: State, velocity_bound: float) -> torch.Tensor:
+    """A 0-d bool: some real particle moves faster than `velocity_bound`
+    (ReduceOR VelocityBoundCheck, general_reduce.h:64)."""
+    v2 = torch.sum(state["Velocity"] ** 2, dim=-1)
+    return torch.any(valid_mask(state) & (v2 > velocity_bound ** 2))
+
+
+def quantity_summation(state: State, name: str) -> torch.Tensor:
+    """The total of a variable over the real particles
+    (ReduceDynamics<QuantitySummation<T>>): a 0-d tensor of a scalar
+    field, a (k,) one of an (N, k) field."""
+    arr = state[name]
+    mask = valid_mask(state)
+    if arr.dim() == 2:
+        mask = mask[:, None]
+    return torch.sum(torch.where(mask, arr, torch.zeros_like(arr)), dim=0)
+
+
 def velocity_gradient(state: State, nl, kernel, dim: int, box=None,
                       walls=(), distance_from_wall=None) -> torch.Tensor:
     """grad v_i = -sum_j (v_i - v_j) outer dW_ij V_j e_ij, (N, dim, dim).
@@ -102,6 +121,17 @@ def velocity_gradient(state: State, nl, kernel, dim: int, box=None,
             dvel = factor[..., None] * dvel
         g = g - outer_sum(dvel, gradw)
     return g
+
+
+def vorticity(state: State, nl, kernel, dim: int, box=None) -> torch.Tensor:
+    """The curl of the velocity from `velocity_gradient`
+    (InteractionDynamics<VorticityInner>): (N,) in 2D, (N, 3) in 3D."""
+    g = velocity_gradient(state, nl, kernel, dim, box)
+    if dim == 2:
+        return g[:, 1, 0] - g[:, 0, 1]
+    return torch.stack([g[:, 2, 1] - g[:, 1, 2],
+                        g[:, 0, 2] - g[:, 2, 0],
+                        g[:, 1, 0] - g[:, 0, 1]], dim=-1)
 
 
 def normal_direction_from_shape(state: State, shape) -> State:

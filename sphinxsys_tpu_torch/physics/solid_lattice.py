@@ -23,8 +23,10 @@ matmul, cuBLAS splits a million-site batch into ~18 launches of ~0.12 ms
 each: one H100, the plain path's profile).
 
 Ported: the decomposed first half and the second half, which the
-twisting column runs.  `integration_1st_half_pk2_lattice` waits (no caller
-on that path).  3D only, as the kernels are.
+twisting column runs, and `integration_1st_half_pk2_lattice`, the PK2
+first half, whose tap loop (no Pallas kernel in the JAX package, and no
+case caller in either package) is torch ops here.  3D only, as the
+kernels are.
 """
 
 from __future__ import annotations
@@ -90,6 +92,93 @@ def make_lattice(kernel, dx: float, shape, dim: int | None = None) -> LatticeSol
     taps = tuple(lattice_offsets(kernel, dx, dim))
     return LatticeSolid(shape=tuple(int(s) for s in shape), dx=dx, dim=dim,
                         taps=taps, w0=kernel.w0(dim))
+
+
+def _grids(lat: LatticeSolid, *arrs):
+    """Flat (N, ...) -> lattice (nx, ny[, nz], ...) views."""
+    return [a.reshape(tuple(lat.shape) + tuple(a.shape[1:])) for a in arrs]
+
+
+def integration_1st_half_pk2_lattice(solid: dict, lat: LatticeSolid,
+                                     material, dt, smoothing_length: float,
+                                     numerical_dissipation_factor: float = 0.25,
+                                     active_stress_fn=None,
+                                     pk1_fn=None) -> dict:
+    """Stencil twin of solid.integration_1st_half_pk2 (reference
+    elastic_dynamics.cpp Integration1stHalfPK2): the j side of each pair
+    is the site at the tap's offset, read from one zero-padded copy of
+    each channel (JAX's `_pad_once` / `_tap_p`); invalid sites are zeroed
+    before the taps (they may hold NaN) and their mask drops their terms."""
+    out = dict(solid)
+    dim = lat.dim
+    rho0 = material.rho0
+    c0 = material.sound_speed
+    ndf = numerical_dissipation_factor
+
+    pos_f = solid["Position"] + solid["Velocity"] * (0.5 * dt)
+    F_f = solid["DeformationGradient"] + solid["DeformationRate"] * (0.5 * dt)
+    rho = rho0 / det(F_f)
+    B = solid["LinearGradientCorrectionMatrix"]
+    if pk1_fn is not None:
+        P = pk1_fn(solid, F_f)
+    else:
+        S2 = material.stress_PK2(F_f)
+        if active_stress_fn is not None:
+            S2 = S2 + active_stress_fn(solid, F_f)
+        P = mm(F_f, S2)
+    S_f = mm(P, B.transpose(-1, -2))
+
+    valid = solid["LatticeValid"]
+    vol0 = lat.dx ** dim
+    vmask = valid.reshape(lat.shape)
+    pos, vel, S, F = (ls._sanitize(vmask, a) for a in _grids(
+        lat, pos_f, solid["Velocity"], S_f, F_f))
+    m = max(abs(c) for o, *_ in lat.taps for c in o)
+    shp = tuple(lat.shape)
+    posP = [ls._pad(pos[..., k], m) for k in range(dim)]
+    velP = [ls._pad(vel[..., k], m) for k in range(dim)]
+    SP = [[ls._pad(S[..., a, b], m) for b in range(dim)] for a in range(dim)]
+    FP = [[ls._pad(F[..., a, b], m) for b in range(dim)] for a in range(dim)]
+    mP = ls._pad(vmask.to(pos.dtype), m)
+
+    force = [torch.zeros(shp, dtype=pos.dtype, device=pos.device)
+             for _ in range(dim)]
+    damp_c = 0.5 * rho0 * c0 * smoothing_length
+    for o, r0, e0, W0, dW0 in lat.taps:
+        wj = ls._tap(mP, o, m, shp)
+        dWV = dW0 * vol0
+        e = [-float(c) for c in e0]            # e0_ij points j -> i
+        dor2 = (dim / r0) ** 2
+        sr = None
+        for k in range(dim):
+            t = (pos[..., k] - ls._tap(posP[k], o, m, shp)) \
+                * (vel[..., k] - ls._tap(velP[k], o, m, shp))
+            sr = t if sr is None else sr + t
+        pd = (ndf * (W0 / lat.w0) * damp_c * dor2) * sr
+        for a in range(dim):
+            acc = None
+            for b in range(dim):
+                if e[b] == 0.0:
+                    continue
+                term = (S[..., a, b] + ls._tap(SP[a][b], o, m, shp)
+                        + pd * (0.5 * (F[..., a, b]
+                                       + ls._tap(FP[a][b], o, m, shp))))
+                term = term * e[b]
+                acc = term if acc is None else acc + term
+            force[a] = force[a] + dWV * wj * acc
+
+    force_f = (torch.stack([f.reshape(-1) for f in force], dim=-1)
+               * (solid["Mass"] / rho0)[:, None]
+               * valid.to(pos_f.dtype)[:, None])
+    vel_new = solid["Velocity"] + torch.where(
+        valid[:, None],
+        (solid["ForcePrior"] + force_f)
+        / torch.clamp(solid["Mass"], min=TINY)[:, None] * dt,
+        0.0)
+    out.update({"Position": pos_f, "DeformationGradient": F_f, "Density": rho,
+                "StressPK1OnParticle": S_f, "Force": force_f,
+                "Velocity": vel_new})
+    return out
 
 
 def decomposed_integration_1st_half_lattice(
